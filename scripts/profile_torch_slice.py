@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's serving time goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_slice.py [--rounds 2] [--max_new_tokens 32]
-        [--out DIR]
+    python3 scripts/profile_torch_slice.py [--w4a8] [--rounds 2]
+        [--max_new_tokens 32] [--out DIR]
 
-Builds the full-width model with seeded random bf16 weights (as
-chip_smoke.py does), serves `--rounds` rounds of (caption query, referral
-query) through `get_model_output_frames` and reports, for the last round:
+Builds the full-width model with seeded random weights (as chip_smoke.py
+does) and serves `--rounds` rounds of (caption query, referral query):
+by default the bf16 tree, one query after the other through
+`get_model_output_frames`; with `--w4a8` the quantized batched path (W4A8
+LLM with fused qkv / gate-up, int8 KV cache), both queries in one
+`get_model_output_batched` call. Reports, for the last round:
 per-stage seconds; then one more round under `torch.profiler` with the
 device time by kernel name (top 30), the device-busy share of the
 profiled window, and (with `--out`) a JSON summary in DIR. (A chrome
@@ -37,15 +40,25 @@ from video_llava_seg_torch.inference import main as serve  # noqa: E402
 from video_llava_seg_torch.models import llava  # noqa: E402
 
 
-def serve_round(params, cfg, tok, frames, seg, meta, max_new_tokens):
+def serve_round(params, cfg, tok, frames, seg, meta, max_new_tokens,
+                batched=False):
     eos = [tok.convert_tokens_to_ids("<|eot_id|>")]
     stops = serve.keyword_stop_sequences(tok, "llava_llama_3")
+    queries = (("caption", serve.CAPTION_PROMPT, False),
+               ("referral", chip_smoke.REFERRAL, True))
+    if batched:
+        timings = {}
+        t0 = time.perf_counter()
+        serve.get_model_output_batched(
+            params, cfg, tok, frames, [(qs, w) for _, qs, w in queries],
+            "llava_llama_3", max_new_tokens, seg_frames_u8=seg,
+            seg_meta=meta, eos_token_ids=eos, stop_sequences=stops,
+            timings=timings)
+        torch.cuda.synchronize()
+        return [("caption+referral", time.perf_counter() - t0, timings)]
     out = []
-    for name, qs, kw in (
-            ("caption", serve.CAPTION_PROMPT, {}),
-            ("referral", "\nthe person on the left Please output the "
-             "segmentation mask.", {"seg_frames_u8": seg,
-                                    "seg_meta": meta})):
+    for name, qs, wants_seg in queries:
+        kw = {"seg_frames_u8": seg, "seg_meta": meta} if wants_seg else {}
         timings = {}
         t0 = time.perf_counter()
         serve.get_model_output_frames(
@@ -63,6 +76,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="directory for summary.json (optional)")
+    ap.add_argument("--w4a8", action="store_true",
+                    help="the quantized batched path instead of bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -76,8 +91,11 @@ def main(argv=None):
     cfg = dataclasses.replace(VideoLlavaConfig(),
                               seg_token_idx=VideoLlavaConfig().llm.vocab_size
                               - 1)
-    params = llava.init(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), dev, torch.bfloat16)
+    if args.w4a8:
+        params, cfg = chip_smoke.build_quant_params(cfg, args.seed, dev)
+    else:
+        params = llava.init(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), dev, torch.bfloat16)
     tok = chip_smoke.SmokeTokenizer(cfg.llm.vocab_size)
     frames, seg, meta = chip_smoke._smoke_inputs(
         args.seed, cfg.num_frames, (480, 854), cfg.seg.max_seg_frames)
@@ -86,7 +104,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         for name, total, timings in serve_round(params, cfg, tok, frames,
                                                 seg, meta,
-                                                args.max_new_tokens):
+                                                args.max_new_tokens,
+                                                args.w4a8):
             stages = ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
             print(f"round {r} {name}: {total:.4f} s ({stages})", flush=True)
         round_s = time.perf_counter() - t0
@@ -98,7 +117,7 @@ def main(argv=None):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         serve_round(params, cfg, tok, frames, seg, meta,
-                    args.max_new_tokens)
+                    args.max_new_tokens, args.w4a8)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -139,7 +158,8 @@ def main(argv=None):
         return
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "summary.json"), "w") as fh:
-        json.dump({"card": smi, "profiled_wall_s": wall,
+        json.dump({"card": smi, "path": "w4a8_batched" if args.w4a8
+                   else "bf16", "profiled_wall_s": wall,
                    "unprofiled_round_s": round_s,
                    "device_busy_s": dev_us / 1e6,
                    "stage_device_s": {k: v[1] / 1e6

@@ -1,0 +1,153 @@
+"""The port's own copies of the JAX package's host I/O (`paths.py`, the
+mp4 path of `data/video_io.py`, `inference/video_fetcher.py`, the RLE
+encoder of `ops/masks.py`) pinned to their originals on the same inputs,
+and a fresh interpreter in which importing JAX fails running every port
+module and the quantized, batched `run_inference` on the synthetic ViCaS
+fixture without loading JAX or the JAX package."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+from test_inference_cli import _write_fixture
+
+from video_llava_seg_torch import paths as tpaths
+from video_llava_seg_torch.data import video_io as tvio
+from video_llava_seg_torch.inference import video_fetcher as tfetch
+from video_llava_seg_torch.ops import masks as tmasks
+from video_llava_seg_tpu import paths as jpaths
+from video_llava_seg_tpu.data import video_io as jvio
+from video_llava_seg_tpu.inference import video_fetcher as jfetch
+from video_llava_seg_tpu.ops import masks as jmasks
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture()
+def vicas(tmp_path, monkeypatch):
+    monkeypatch.setenv("VIDEONET_DATASETS_DIR", str(tmp_path))
+    _write_fixture(str(tmp_path))
+    return tmp_path
+
+
+def test_paths_copy_matches(monkeypatch, tmp_path):
+    jp, tp = jpaths.Paths, tpaths.Paths
+    monkeypatch.delenv("VIDEONET_DATASETS_DIR", raising=False)
+    assert tp.datasets_dir() == jp.datasets_dir()
+    monkeypatch.setenv("VIDEONET_DATASETS_DIR", str(tmp_path))
+    monkeypatch.setenv("VIDEONET_MODELS_DIR", str(tmp_path / "zoo"))
+    for name in ("models_dir", "datasets_dir", "vicas_dir",
+                 "vicas_videos_dir", "vicas_video_frames_dir", "webvid_dir",
+                 "panda70m_dir"):
+        assert getattr(tp, name)() == getattr(jp, name)(), name
+    for version in ("v0.1", "v1.0"):
+        assert tp.vicas_annotations_dir(version) == \
+            jp.vicas_annotations_dir(version)
+        for split in ("train", "val", "test"):
+            assert tp.vicas_split_json(split, version) == \
+                jp.vicas_split_json(split, version)
+
+
+def test_video_io_copy_matches(vicas):
+    mp4 = str(vicas / "ViCaS" / "videos" / "vid7.mp4")
+    with open(mp4, "rb") as fh:
+        data = fh.read()
+    for total, n in ((0, 4), (4, 4), (9, 3), (100, 32)):
+        np.testing.assert_array_equal(tvio.sample_frame_indices(total, n),
+                                      jvio.sample_frame_indices(total, n))
+    for src in (mp4, data):
+        for n in (2, 4, 6):
+            np.testing.assert_array_equal(tvio.load_video_uniform(src, n),
+                                          jvio.load_video_uniform(src, n))
+    got = tvio.load_video_uniform(data, 3, return_timestamps=True)
+    want = jvio.load_video_uniform(data, 3, return_timestamps=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_video_fetcher_copy_matches(vicas):
+    with open(vicas / "ViCaS" / "annotations" / "v1.0" / "000007.json") as fh:
+        content = json.load(fh)
+    t, j = tfetch.VideoAndFrameFetcher(), jfetch.VideoAndFrameFetcher()
+    assert t.get_video("vid7.mp4") == j.get_video("vid7.mp4")
+    for max_seg in (-1, 2):
+        tf, tm = t.get_frames(content, max_seg_frames=max_seg)
+        jf, jm = j.get_frames(content, max_seg_frames=max_seg)
+        np.testing.assert_array_equal(tf, jf)
+        assert sorted(tm) == sorted(jm)
+        for k in jm:
+            np.testing.assert_array_equal(np.asarray(tm[k]),
+                                          np.asarray(jm[k]))
+
+
+def test_encode_rle_copy_matches():
+    r = np.random.default_rng(0)
+    masks = [np.zeros((5, 7), np.uint8), np.ones((4, 3), np.uint8),
+             (r.random((33, 47)) > 0.5).astype(np.uint8),
+             (r.random((64, 20)) > 0.97).astype(np.uint8)]
+    masks[0][0, 0] = 1  # a run of ones first
+    for m in masks:
+        got = tmasks.encode_rle(m)
+        assert got == jmasks.encode_rle(m)
+        np.testing.assert_array_equal(jmasks.decode_rle(got), m)
+
+
+_SCRIPT = r"""
+import dataclasses, importlib, json, os, pkgutil, sys, types
+for name in ("jax", "jaxlib"):
+    sys.modules[name] = None  # importing JAX fails from here on
+import torch
+import video_llava_seg_torch as pkg
+mods = [m for _, m, _ in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+from test_inference_cli import FakeTokenizer
+from video_llava_seg_torch.config import SegHeadConfig, VideoLlavaConfig
+from video_llava_seg_torch.inference import main
+from video_llava_seg_torch.models import llava
+from video_llava_seg_torch.ops.quantization import quantize_tree
+
+cfg = dataclasses.replace(
+    VideoLlavaConfig.tiny(), seg_token_idx=400,
+    seg=SegHeadConfig(seg_backbone="tiny", image_size=64, max_seg_frames=4,
+                      max_objects=2))
+params = llava.init(cfg, torch.Generator().manual_seed(0), "cpu",
+                    torch.float32)
+params["llm"] = quantize_tree(params["llm"], 4, act_quant=True, min_size=0)
+out_dir = sys.argv[1]
+args = types.SimpleNamespace(
+    model_path="unused", gt_dir=None, output_dir=out_dir, num_chunks=1,
+    chunk_idx=0, overwrite=False, print_captions=False,
+    dataset_version="v1.0", dataset_split="val", skip_seg=False,
+    skip_captions=False, max_new_tokens=3, temperature=0.0, top_p=None,
+    num_beams=1, conv_template="llava_llama_3", seg_pad_mode="topleft",
+    kv_cache_int8=True, fuse_qkv=True, batch_queries=2)
+main.run_inference(args, model=(params, cfg, FakeTokenizer()))
+with open(os.path.join(out_dir, "000007.json")) as fh:
+    pred = json.load(fh)
+assert pred["pred_caption"], pred
+assert len(pred["pred_lgvis_masks"][0]) == 4, pred
+loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
+    k in ("jax", "jaxlib") or k.startswith(("jax.", "jaxlib.",
+                                            "video_llava_seg_tpu"))))
+assert not loaded, loaded
+print(len(mods))
+"""
+
+
+def test_port_serves_without_jax(vicas):
+    """Every port module imports, and the quantized batched CLI runs end
+    to end, in an interpreter where JAX cannot be imported; afterwards no
+    jax / video_llava_seg_tpu module is loaded."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")])
+    res = subprocess.run([sys.executable, "-c", _SCRIPT,
+                          str(vicas / "out")], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert int(res.stdout.strip().splitlines()[-1]) >= 30

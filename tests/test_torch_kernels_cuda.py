@@ -5,7 +5,9 @@ interpret mode); elsewhere they skip. Inputs are bf16; the plain
 reference runs in fp32 on the same bf16 values. Bound: max |kernel -
 plain| / max |plain| <= 2e-2 (bf16 keeps ~3 significant digits and the
 kernels round intermediates to bf16 where the plain fp32 path does not).
-Run on the card: python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+The W4A8 kernel (K5) sums integers and must equal its plain version bit
+for bit. Run on the card:
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
 import math
@@ -21,6 +23,7 @@ from video_llava_seg_torch.ops.hiera_block import (
     hiera_block,
     hiera_block_plain,
 )
+from video_llava_seg_torch.ops.int4 import w4a8_dense, w4a8_matmul_plain
 from video_llava_seg_torch.ops.vit_block import vit_layer, vit_layer_plain
 
 pytestmark = pytest.mark.requires_cuda
@@ -155,3 +158,42 @@ def test_hiera_block_kernel(dev, shape, heads, ws, ps, proj):
                              q_stride=q_stride, eps=1e-6)
     assert got.shape == want.shape
     assert _rel(got, want) < BOUND
+
+
+def _w4a8_inputs(g, rows, in_dim, out, dev):
+    xq = torch.randint(-127, 128, (rows, in_dim), generator=g, device=dev,
+                       dtype=torch.int8)
+    packed = torch.randint(-128, 128, (in_dim // 2, out), generator=g,
+                           device=dev, dtype=torch.int8)
+    a_scale = torch.rand(rows, 1, generator=g, device=dev) * 0.05 + 1e-3
+    w_scale = torch.rand(out, generator=g, device=dev) * 0.02 + 1e-4
+    return xq, a_scale, packed, w_scale
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 9, 130, 300])
+@pytest.mark.parametrize("in_dim,out", [(256, 384), (4096, 6144),
+                                        (14336, 4096), (136, 100)])
+def test_w4a8_kernel_bit_exact(dev, rows, in_dim, out):
+    """K5 equals its plain version bit for bit (integer sums, a fixed
+    two-multiply epilogue), in both regimes and both output types."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    xq, a_scale, packed, w_scale = _w4a8_inputs(g, rows, in_dim, out, dev)
+    for dt in (torch.bfloat16, torch.float32):
+        got = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, dt)
+        want = w4a8_matmul_plain(xq, a_scale, packed, w_scale, dt)
+        assert got.dtype == dt
+        assert torch.equal(got, want), (dt, (got.float() - want.float())
+                                        .abs().max().item())
+
+
+def test_w4a8_dense_counts_k5(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    _, _, packed, w_scale = _w4a8_inputs(g, 1, 512, 256, dev)
+    p = {"kernel_q4a": packed, "kernel_scale": w_scale,
+         "bias": _randn(g, 256, dev=dev)}
+    x = _randn(g, 2, 5, 512, dev=dev)
+    before = kernels.LAUNCHES.snapshot()["K5"]
+    got = w4a8_dense(p, x)
+    assert kernels.LAUNCHES.snapshot()["K5"] == before + 1
+    want = w4a8_dense({k: v.cpu() for k, v in p.items()}, x.cpu())
+    assert torch.equal(got.cpu(), want)

@@ -126,9 +126,7 @@ def test_run_inference_matches_jax_cli(model, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("temperature", 0.7), ("num_beams", 3), ("batch_queries", 2),
-    ("fuse_qkv", True), ("model_parallel", 2), ("kv_cache_int8", True),
-    ("load_8bit", True)])
+    ("temperature", 0.7), ("num_beams", 3), ("model_parallel", 2)])
 def test_run_inference_refuses_out_of_slice_flags(flag, value, tmp_path):
     args = _args(str(tmp_path))
     setattr(args, flag, value)

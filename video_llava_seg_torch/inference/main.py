@@ -1,27 +1,40 @@
 """ViCaS caption + referral-mask serving (port of
-`video_llava_seg_tpu/inference/main.py`, bf16 greedy path).
+`video_llava_seg_tpu/inference/main.py`).
 
 Same flags, same resume-by-output-JSON behaviour and the same output
 schema {video_id, pred_caption, pred_lgvis_masks: [[{filename,
-mask_rles}]]} as the JAX CLI.
+mask_rles}]]} as the JAX CLI:
 
-`get_model_output_frames` is the frames-level entry: uint8 frames in,
-caption text and [N, T, H, W] mask logits out, everything on the model's
-device. `get_model_output` decodes the mp4 and calls it. mp4 / JPEG
-decoding, the dataset paths and the RLE codec are host I/O shared with
-the JAX package (`data/video_io.py`, `inference/video_fetcher.py`,
-`paths.py`, `ops/masks.py`, none of which imports JAX); they are
-imported where they are used, so the frames-level path needs none of
-them.
+    python -m video_llava_seg_torch.inference.main -i <torch checkpoint> \
+        -o <out dir> [--load_4bit | --load_8bit] [--kv_cache_int8] \
+        [--fuse_qkv] [--batch_queries N]
 
-Out of the slice, refused with NotImplementedError: checkpoint loading
-(`model=` must be given), --load_8bit/--load_4bit, sampling, beams,
---batch_queries, --fuse_qkv, --model_parallel, --kv_cache_int8.
+Entry points:
+- `get_model_output_frames`: one query over one clip, uint8 frames in,
+  caption text and [N, T, H, W] mask logits out, everything on the
+  model's device;
+- `get_model_output_batched`: several queries about one clip in one
+  ragged left-padded generate (--batch_queries; the clip is encoded
+  once);
+- `get_model_output`: decodes the mp4, then `get_model_output_frames`;
+- `load_model`: a reference torch checkpoint directory -> (params, cfg,
+  tokenizer) on the card (or the device the caller asks for), with the
+  --load_8bit / --load_4bit gates quantizing the LLM only.
+
+mp4 / JPEG decoding, the dataset paths and the RLE codec are the port's
+own copies (`data/video_io.py`, `inference/video_fetcher.py`,
+`paths.py`, `ops/masks.py`), imported where they are used, so the
+frames-level entry points need none of them.
+
+Refused with NotImplementedError naming the ROADMAP item: sampling and
+beams, --model_parallel, orbax checkpoints (the only ones that carry LoRA
+adapters), RADIO towers.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -43,6 +56,7 @@ from video_llava_seg_torch.inference.utils import (
 )
 from video_llava_seg_torch.mm_utils import tokenizer_image_token
 from video_llava_seg_torch.models import llava
+from video_llava_seg_torch.paths import Paths
 from video_llava_seg_torch.timing import stage
 
 CAPTION_PROMPT = ("\nDescribe what is happening in the video in detail. "
@@ -62,8 +76,6 @@ def get_chunk(lst, n, k):
 
 def get_video_list(gt_dir, version, split, output_dir, overwrite, chunk_idx,
                    num_chunks):
-    from video_llava_seg_tpu.paths import Paths
-
     with open(Paths.vicas_split_json(split, version)) as fh:
         split_ids = json.load(fh)
     split_ids = set(get_chunk(sorted(split_ids), num_chunks, chunk_idx))
@@ -82,6 +94,69 @@ def get_video_list(gt_dir, version, split, output_dir, overwrite, chunk_idx,
         raise FileNotFoundError(
             f"No JSON file found for videos: {sorted(split_ids)}")
     return ret
+
+
+def load_model(model_path: str, cfg=None, load_bits: Optional[int] = None,
+               device="cuda", dtype=torch.bfloat16):
+    """(params, cfg, tokenizer) from a reference torch checkpoint
+    directory (*.safetensors or pytorch_model*.bin, plus config.json).
+
+    load_bits 8 stores the LLM's dense kernels as weight-only int8, 4 as
+    W4A8 (packed int4, int8 activations, K5 on the card); the tower, the
+    projector and the seg head stay float, as in the JAX package.
+    Quantization runs on the loaded weights; then every float leaf but
+    the fp32 scales is cast to `dtype` on `device`. The tokenizer is None
+    where `transformers` is missing (the card's machine has none)."""
+    from video_llava_seg_torch.bridge import cast_tree
+    from video_llava_seg_torch.config import (
+        LlamaConfig,
+        ProjectorConfig,
+        SegHeadConfig,
+        VideoLlavaConfig,
+        VisionTowerConfig,
+    )
+    from video_llava_seg_torch.convert.llava_torch import load_llava_weights
+    from video_llava_seg_torch.ops.quantization import quantize_tree
+
+    cfg_path = osp.join(model_path, "config.json")
+    if cfg is None and osp.exists(cfg_path):
+        with open(cfg_path) as fh:
+            raw = json.load(fh)
+        if "llm" in raw:  # the packages' own config tree
+            cfg = VideoLlavaConfig(
+                llm=LlamaConfig(**raw["llm"]),
+                vision=VisionTowerConfig(**raw["vision"]),
+                projector=ProjectorConfig(**raw["projector"]),
+                seg=SegHeadConfig(**raw["seg"]) if raw.get("seg") else None,
+                **{k: v for k, v in raw.items()
+                   if k not in ("llm", "vision", "projector", "seg",
+                                "dtype")})
+    cfg = cfg or VideoLlavaConfig()
+
+    tokenizer = None
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        AutoTokenizer = None
+    if AutoTokenizer is not None and osp.isdir(model_path):
+        # local files only: a path that is no directory is never looked
+        # up as a hub repository
+        try:
+            tokenizer = AutoTokenizer.from_pretrained(model_path,
+                                                      local_files_only=True)
+        except (OSError, ValueError):
+            tokenizer = None
+
+    if osp.isdir(osp.join(model_path, "state")):
+        # orbax is the JAX package's own format, and the only one that
+        # carries LoRA adapters to merge (the training slice, item 12)
+        raise NotImplementedError("ROADMAP queue 1 item 8 (orbax)")
+    params = load_llava_weights(model_path, cfg)
+    if load_bits is not None:
+        params = dict(params)
+        params["llm"] = quantize_tree(params["llm"], load_bits,
+                                      act_quant=load_bits == 4)
+    return cast_tree(params, device, dtype), cfg, tokenizer
 
 
 def build_prompt(cfg, qs: str, conv_template_name: str,
@@ -165,7 +240,7 @@ def get_model_output(params, cfg, tokenizer, video_bytes, qs: str,
                      conv_template_name: str, max_new_tokens: int, **kwargs):
     """Decode `cfg.num_frames` frames of the mp4, then
     `get_model_output_frames`."""
-    from video_llava_seg_tpu.data import video_io
+    from video_llava_seg_torch.data import video_io
 
     frames = video_io.load_video_uniform(video_bytes, cfg.num_frames)
     return get_model_output_frames(params, cfg, tokenizer, frames, qs,
@@ -173,35 +248,129 @@ def get_model_output(params, cfg, tokenizer, video_bytes, qs: str,
                                    **kwargs)
 
 
+def batch_prompt_ids(cfg, tokenizer, qss, conv_template_name: str):
+    """Token ids of several prompts, right-padded with 0 into one
+    [B, S] array, and their lengths (`generate` left-pads the spliced
+    rows from these)."""
+    rows = [np.asarray(tokenizer_image_token(
+        build_prompt(cfg, qs, conv_template_name), tokenizer)) for qs in qss]
+    lens = np.asarray([len(r) for r in rows])
+    ids = np.zeros((len(rows), int(lens.max())), rows[0].dtype)
+    for r, row in enumerate(rows):
+        ids[r, :len(row)] = row
+    return ids, lens
+
+
+def get_model_output_batched(params, cfg, tokenizer, frames_u8, queries,
+                             conv_template_name: str, max_new_tokens: int,
+                             seg_frames_u8=None,
+                             seg_meta: Optional[Dict[str, Any]] = None,
+                             eos_token_ids=(), stop_sequences=(),
+                             seg_pad_mode: str = "topleft",
+                             timings: Optional[Dict[str, float]] = None):
+    """Several queries about ONE clip in one ragged, left-padded generate
+    (--batch_queries): the clip is preprocessed and encoded once, its
+    visual tokens serve every row, rows stop one by one.
+
+    frames_u8: uint8 [T, H, W, 3]; queries: list of (qs, wants_seg);
+    seg_frames_u8 / seg_meta as in `get_model_output_frames`.
+    Returns a list of (text, mask logits fp32 numpy [N, T', H', W'] or
+    None), one per query."""
+    device, dtype = _param_device_dtype(params)
+    with stage(timings, "preprocess", device):
+        frames = torch.as_tensor(np.asarray(frames_u8)).to(device)
+        video = clip_preprocess_frames(frames, cfg.vision.image_size)
+        video = video[None].to(dtype)
+    ids, lens = batch_prompt_ids(cfg, tokenizer, [qs for qs, _ in queries],
+                                 conv_template_name)
+    tokens, hidden, n = llava.generate(
+        params, cfg, ids, video, max_new_tokens=max_new_tokens,
+        eos_token_ids=tuple(eos_token_ids),
+        stop_sequences=tuple(stop_sequences), pad_side="left",
+        input_lens=lens, timings=timings)
+    out_ids = tokens[:, :n].cpu().numpy()
+
+    seg_frames = meta = None
+    if seg_frames_u8 is not None and any(w for _, w in queries):
+        with stage(timings, "seg_preprocess", device):
+            seg_frames, meta = preprocess_seg_inputs(
+                torch.as_tensor(np.asarray(seg_frames_u8)).to(device),
+                seg_meta, tgt_size=cfg.seg.image_size if cfg.seg else 1024,
+                pad_mode=seg_pad_mode)
+    outs = []
+    for r, (_, wants_seg) in enumerate(queries):
+        text = tokenizer.decode(out_ids[r], skip_special_tokens=True).strip()
+        logits = None
+        if wants_seg and seg_frames is not None:
+            o = llava.forward_seg_head_inference(
+                params, cfg, tokens[r:r + 1], hidden[r:r + 1], n,
+                [seg_frames.to(dtype)], [meta], timings=timings)
+            if o is not None:
+                logits = o[0].float().cpu().numpy()
+        outs.append((text, logits))
+    return outs
+
+
 def _refuse_out_of_slice(args):
     if float(getattr(args, "temperature", 0.0) or 0.0) > 0.0:
         raise NotImplementedError("ROADMAP queue 1 item 5")
     if int(getattr(args, "num_beams", 1) or 1) > 1:
         raise NotImplementedError("ROADMAP queue 1 item 5")
-    if getattr(args, "kv_cache_int8", False):
-        raise NotImplementedError("ROADMAP queue 1 item 5")
-    if getattr(args, "load_8bit", False) or getattr(args, "load_4bit", False):
-        raise NotImplementedError("ROADMAP queue 1 item 8")
-    if (int(getattr(args, "batch_queries", 1) or 1) > 1
-            or getattr(args, "fuse_qkv", False)):
-        raise NotImplementedError("ROADMAP queue 1 item 9")
     if int(getattr(args, "model_parallel", 1) or 1) > 1:
         raise NotImplementedError("ROADMAP queue 1 item 13")
 
 
+def _absorb(pred, content, seg_meta, idx, text, logits, print_captions):
+    """Write one query's answer into the video's prediction dict."""
+    from video_llava_seg_torch.ops.masks import encode_rle
+
+    if idx == -1:
+        pred["pred_caption"] = text
+        if print_captions:
+            print(f"Video {content['video_id']}\nPred Caption: {text}\n"
+                  f"GT Caption: {content['caption_parsed_en_gpt']}"
+                  "\n----------")
+    elif logits is not None:
+        masks = (logits > 0.0).astype(np.uint8)
+        for t in range(masks.shape[1]):
+            rles = []
+            for track in masks:
+                rle = encode_rle(track[t])
+                rle["counts"] = rle["counts"].decode("utf-8")
+                rles.append(rle)
+            pred["pred_lgvis_masks"][idx].append({
+                "filename": seg_meta["filenames"][t],
+                "mask_rles": rles,
+            })
+
+
 def run_inference(args, model=None):
     """ViCaS inference loop. model: (params, cfg, tokenizer) already on
-    the serving device."""
+    the serving device; without it the checkpoint at args.model_path is
+    loaded onto the card (`load_model`)."""
     _refuse_out_of_slice(args)
-    if model is None:
-        raise NotImplementedError("ROADMAP queue 1 item 8")
-    from video_llava_seg_tpu.inference.video_fetcher import (
+    from video_llava_seg_torch.data import video_io
+    from video_llava_seg_torch.inference.video_fetcher import (
         VideoAndFrameFetcher,
     )
-    from video_llava_seg_tpu.ops.masks import encode_rle
-    from video_llava_seg_tpu.paths import Paths
 
-    params, cfg, tokenizer = model
+    if model is not None:
+        params, cfg, tokenizer = model
+    else:
+        params, cfg, tokenizer = load_model(
+            args.model_path,
+            load_bits=8 if getattr(args, "load_8bit", False)
+            else 4 if getattr(args, "load_4bit", False) else None)
+    if getattr(args, "kv_cache_int8", False):
+        cfg = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, kv_cache_int8=True))
+    if getattr(args, "fuse_qkv", False):
+        from video_llava_seg_torch.models.llama import fuse_qkv_gateup
+
+        params = dict(params)
+        params["llm"] = fuse_qkv_gateup(params["llm"])
+    bq = max(1, int(getattr(args, "batch_queries", 1) or 1))
+
     fetcher = VideoAndFrameFetcher(args)
     gt_dir = args.gt_dir or str(Paths.vicas_annotations_dir(
         args.dataset_version))
@@ -250,37 +419,42 @@ def run_inference(args, model=None):
         sub_indices = ([] if args.skip_captions else [-1]) + (
             [] if args.skip_seg
             else list(range(len(content["object_referrals"]))))
-        for idx in sub_indices:
+
+        def query_of(idx):
             if idx == -1:
-                qs, kwargs = CAPTION_PROMPT, {}
-            else:
-                ref = content["object_referrals"][idx]
-                qs = (f"\n{ref['prompt']} Please output the segmentation "
-                      "mask.")
-                kwargs = {"seg_frames_u8": raw_frames, "seg_meta": seg_meta,
-                          "seg_pad_mode": args.seg_pad_mode}
-            text, logits = get_model_output(
-                params, cfg, tokenizer, video_bytes, qs, conv_template_name,
-                args.max_new_tokens, eos_token_ids=eos_ids,
-                stop_sequences=stop_seqs, **kwargs)
-            if idx == -1:
-                pred["pred_caption"] = text
-                if args.print_captions:
-                    print(f"Video {video_id}\nPred Caption: {text}\n"
-                          f"GT Caption: {content['caption_parsed_en_gpt']}"
-                          "\n----------")
-            elif logits is not None:
-                masks = (logits > 0.0).astype(np.uint8)
-                for t in range(masks.shape[1]):
-                    rles = []
-                    for track in masks:
-                        rle = encode_rle(track[t])
-                        rle["counts"] = rle["counts"].decode("utf-8")
-                        rles.append(rle)
-                    pred["pred_lgvis_masks"][idx].append({
-                        "filename": seg_meta["filenames"][t],
-                        "mask_rles": rles,
-                    })
+                return CAPTION_PROMPT, False
+            ref = content["object_referrals"][idx]
+            return (f"\n{ref['prompt']} Please output the segmentation "
+                    "mask."), True
+
+        if bq > 1:
+            # one ragged left-padded generate per bq of the video's
+            # queries; the clip decodes and encodes once per group
+            frames = video_io.load_video_uniform(video_bytes, cfg.num_frames)
+            for g in range(0, len(sub_indices), bq):
+                group = sub_indices[g:g + bq]
+                outs = get_model_output_batched(
+                    params, cfg, tokenizer, frames,
+                    [query_of(i) for i in group], conv_template_name,
+                    args.max_new_tokens, seg_frames_u8=raw_frames,
+                    seg_meta=seg_meta, eos_token_ids=eos_ids,
+                    stop_sequences=stop_seqs, seg_pad_mode=args.seg_pad_mode)
+                for idx, (text, logits) in zip(group, outs):
+                    _absorb(pred, content, seg_meta, idx, text, logits,
+                            args.print_captions)
+        else:
+            for idx in sub_indices:
+                qs, wants_seg = query_of(idx)
+                kwargs = ({"seg_frames_u8": raw_frames, "seg_meta": seg_meta,
+                           "seg_pad_mode": args.seg_pad_mode}
+                          if wants_seg else {})
+                text, logits = get_model_output(
+                    params, cfg, tokenizer, video_bytes, qs,
+                    conv_template_name, args.max_new_tokens,
+                    eos_token_ids=eos_ids, stop_sequences=stop_seqs,
+                    **kwargs)
+                _absorb(pred, content, seg_meta, idx, text, logits,
+                        args.print_captions)
         with open(output_path, "w") as fh:
             json.dump(pred, fh)
 

@@ -11,10 +11,11 @@ Each raw wrapper checks device, dtype, shape, contiguity and alignment,
 allocates its output with `torch.empty`, launches on the current stream
 and raises if the C entry reports an error (`cudaGetLastError`).
 
-`LAUNCHES` counts the TPU-kernel counterparts (K1..K4) the main path
+`LAUNCHES` counts the TPU-kernel counterparts (K1..K5) the main path
 goes through: each op-level wrapper (`ops.vit_block.vit_layer`,
-`ops.attention.attention`, `ops.hiera_block.hiera_block`) adds one where
-it launches its CUDA composition, and nowhere else.
+`ops.attention.attention`, `ops.hiera_block.hiera_block`,
+`ops.int4.w4a8_dense`) adds one where it launches its CUDA composition,
+and nowhere else.
 """
 
 from __future__ import annotations
@@ -48,16 +49,23 @@ _SIGNATURES = {
     "vls_attention_bf16": [_P, _P, _P, _P, _P] + [_L] * 13
                           + [_I] * 7 + [_F, _I, _I, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
+    "vls_w4a8": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 ATTENTION_HEAD_DIMS = (16, 32, 64, 96, 128)
+# w4a8: the int32 sums hold 16 x the true sum (see csrc/w4a8.cu), which
+# stays below 2^31 for in <= 2^17
+W4A8_MAX_IN = 1 << 17
+W4A8_GEMV_MAX_ROWS = 8
+# aim the decode GEMV at ~8 blocks per SM of an H100 (132 SMs)
+W4A8_GEMV_TARGET_BLOCKS = 132 * 8
 
 
 class LaunchCounts:
-    """Per-kernel launch counters of the K1..K4 wrappers."""
+    """Per-kernel launch counters of the K1..K5 wrappers."""
 
-    NAMES = ("K1", "K2", "K3", "K4")
+    NAMES = ("K1", "K2", "K3", "K4", "K5")
 
     def __init__(self):
         self.counts: Dict[str, int] = {n: 0 for n in self.NAMES}
@@ -279,4 +287,54 @@ def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, h // 2, w // 2, c), device=x.device, dtype=x.dtype)
     _check_code("maxpool2x2", LIBRARY.get().vls_maxpool2x2_bf16(
         _ptr(x), _ptr(y), n, h, w, c, _stream()))
+    return y
+
+
+def w4a8_splits(half: int, out: int) -> int:
+    """Blocks along K for the decode GEMV: enough blocks to fill the card
+    when out has few 128-column tiles, each still taking >= 64 groups of
+    4 packed rows (8 per warp)."""
+    col_blocks = -(-out // 128)
+    want = -(-W4A8_GEMV_TARGET_BLOCKS // col_blocks)
+    return max(1, min(want, (half // 4) // 64))
+
+
+def w4a8_matmul(xq: torch.Tensor, a_scale: torch.Tensor,
+                packed: torch.Tensor, w_scale: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """(int32(xq @ unpack(packed)) * a_scale) * w_scale -> out_dtype.
+
+    xq int8 [rows, in]; a_scale fp32 [rows, 1]; packed int8 [in/2, out]
+    (the "halves" int4 layout); w_scale fp32 [out]; out_dtype bf16 or
+    fp32."""
+    _require(xq, "w4a8 xq", dtype=torch.int8)
+    _require(a_scale, "w4a8 a_scale", dtype=torch.float32)
+    _require(packed, "w4a8 packed", dtype=torch.int8)
+    _require(w_scale, "w4a8 w_scale", dtype=torch.float32)
+    if xq.dim() != 2 or packed.dim() != 2:
+        raise ValueError("w4a8: xq and packed must be 2-D")
+    rows, in_dim = xq.shape
+    half, out = packed.shape
+    if in_dim != 2 * half:
+        raise ValueError(f"w4a8: xq has in={in_dim}, packed has in/2={half}")
+    if in_dim % 8 or out % 4 or in_dim > W4A8_MAX_IN:
+        raise ValueError(f"w4a8: needs in % 8 == 0, out % 4 == 0 and in <= "
+                         f"{W4A8_MAX_IN}, got in={in_dim}, out={out}")
+    if a_scale.numel() != rows or w_scale.numel() != out:
+        raise ValueError("w4a8: a_scale must have rows and w_scale out "
+                         "elements")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"w4a8: out_dtype must be bf16 or fp32, got "
+                         f"{out_dtype}")
+    y = torch.empty((rows, out), device=xq.device, dtype=out_dtype)
+    ksplit, work = 1, None
+    if rows <= W4A8_GEMV_MAX_ROWS:
+        ksplit = w4a8_splits(half, out)
+        if ksplit > 1:
+            work = torch.empty((ksplit, rows, out), device=xq.device,
+                               dtype=torch.int32)
+    _check_code("w4a8", LIBRARY.get().vls_w4a8(
+        _ptr(xq), _ptr(a_scale), _ptr(packed), _ptr(w_scale), _ptr(y),
+        _ptr(work), rows, in_dim, out, int(out_dtype == torch.float32),
+        ksplit, _stream()))
     return y

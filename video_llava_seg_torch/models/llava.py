@@ -180,34 +180,46 @@ def generate(params, cfg, input_ids: np.ndarray, video: torch.Tensor,
              max_new_tokens: int = 256,
              eos_token_ids: Tuple[int, ...] = (),
              stop_sequences: Tuple[Tuple[int, ...], ...] = (),
+             pad_side: str = "right",
+             input_lens: Optional[np.ndarray] = None,
              temperature: float = 0.0, num_beams: int = 1,
              timings: Optional[Dict[str, float]] = None):
-    """Greedy caption generation, batch 1.
+    """Greedy caption generation, batch-native.
 
-    input_ids: [1, S] numpy with IMAGE_TOKEN_INDEX sentinels; video:
-    [1, T, H, W, 3] normalised on the model's device.
-    Returns (tokens [1, max_new], hidden [1, max_new, D], n_generated)."""
+    input_ids: [B, S] numpy with IMAGE_TOKEN_INDEX sentinels; ragged
+    prompts give their lengths in `input_lens` and batch with
+    pad_side='left' (pad keys masked in prefill and decode, rows stop
+    one by one). video: [B, T, H, W, 3] normalised on the model's device,
+    or [1, T, H, W, 3] with B > 1 prompts: the clip is then encoded once
+    and its visual tokens serve every row (several queries about one
+    clip, --batch_queries).
+    Returns (tokens [B, max_new], hidden [B, max_new, D], n_generated)."""
     if temperature:
         raise NotImplementedError("ROADMAP queue 1 item 5")
     if num_beams > 1:
         raise NotImplementedError("ROADMAP queue 1 item 5")
-    input_ids = np.asarray(input_ids)
-    if input_ids.shape[0] != 1:
-        raise NotImplementedError("ROADMAP queue 1 item 9")
-    plan = build_splice_plan(input_ids, visual_tokens_per_sample(cfg),
-                             max_length=cfg.tokenizer_model_max_length)
+    plan = build_splice_plan(np.asarray(input_ids),
+                             visual_tokens_per_sample(cfg),
+                             max_length=cfg.tokenizer_model_max_length,
+                             pad_side=pad_side, input_lens=input_lens)
     dev = video.device
+    b = plan.text_ids.shape[0]
     with stage(timings, "vision", dev):
         slow, fast = encode_video(params, cfg, video)
         visual = flatten_visual_features(slow, fast)
+        if visual.shape[0] == 1 and b > 1:
+            visual = visual.expand(b, *visual.shape[1:])
         embeds = assemble_embeds(
             params, torch.from_numpy(plan.text_ids).long().to(dev),
             torch.from_numpy(plan.gather_idx).to(dev), visual)
+    pad_lens = None
+    if pad_side == "left":
+        pad_lens = plan.gather_idx.shape[1] - plan.seq_lens
     return llama.greedy_generate(params["llm"], cfg.llm, embeds,
                                  max_new_tokens=max_new_tokens,
                                  eos_token_ids=tuple(eos_token_ids),
                                  stop_sequences=tuple(stop_sequences),
-                                 timings=timings)
+                                 pad_lens=pad_lens, timings=timings)
 
 
 def extract_seg_hidden(tokens, hidden, seg_token_idx: int, n_generated: int,

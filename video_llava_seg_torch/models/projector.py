@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import re
 
+import torch
+
 from video_llava_seg_torch.ops import nn
 
 
@@ -34,3 +36,19 @@ def apply(params, x):
     for layer in params["layers"][1:]:
         out = nn.dense(layer, nn.gelu(out))
     return out
+
+
+def convert_torch(sd, cfg, prefix: str = "") -> dict:
+    """Torch mm_projector state dict ('0.weight', '2.weight', ...)."""
+    if cfg.projector_type == "identity":
+        return {"layers": []}
+    layers = []
+    idx = 0
+    while f"{prefix}{idx}.weight" in sd:
+        layers.append({
+            "kernel": torch.as_tensor(sd[f"{prefix}{idx}.weight"]).t()
+            .contiguous(),
+            "bias": torch.as_tensor(sd[f"{prefix}{idx}.bias"]),
+        })
+        idx += 2  # GELU between the linears
+    return {"layers": layers}

@@ -47,6 +47,47 @@ def init(cfg, llm_hidden_size: int, g, device, dtype):
     }
 
 
+def convert_torch(sd, cfg, sam2_cfg, prefix: str = "",
+                  no_mem_embed=None):
+    """Torch SegmentationHeadSAM2 state dict -> params (keys
+    image_encoder.*, prompt_encoder.*, mask_decoder.*, no_mem_embed,
+    proj_token). A saved reference checkpoint does not hold no_mem_embed
+    (the reference keeps it as a plain attribute), so real checkpoints
+    pass it from the SAM2 backbone checkpoint."""
+    from video_llava_seg_torch.convert.sam2_torch import (
+        convert_image_encoder,
+        convert_mask_decoder,
+        convert_prompt_encoder,
+    )
+
+    if f"{prefix}no_mem_embed" in sd:
+        no_mem = torch.as_tensor(sd[f"{prefix}no_mem_embed"])
+    elif no_mem_embed is not None:
+        no_mem = torch.as_tensor(no_mem_embed)
+    else:
+        raise KeyError(
+            "no_mem_embed is not in the seg-head state dict (the reference "
+            "does not save it): pass the SAM2 backbone checkpoint's "
+            "no_mem_embed through no_mem_embed= (load_llava_weights("
+            "sam2_ckpt=...))")
+    if no_mem.dim() == 4:  # [1, C, 1, 1] in the reference head
+        no_mem = no_mem.reshape(1, 1, -1)
+    return {
+        "image_encoder": convert_image_encoder(sd,
+                                               f"{prefix}image_encoder."),
+        "prompt_encoder": convert_prompt_encoder(sd,
+                                                 f"{prefix}prompt_encoder."),
+        "mask_decoder": convert_mask_decoder(sd, sam2_cfg,
+                                             f"{prefix}mask_decoder."),
+        "no_mem_embed": no_mem,
+        "proj_token": {
+            "kernel": torch.as_tensor(sd[f"{prefix}proj_token.weight"]).t()
+            .contiguous(),
+            "bias": torch.as_tensor(sd[f"{prefix}proj_token.bias"]),
+        },
+    }
+
+
 def encode_video_frames(params, sam2_cfg, frames: torch.Tensor):
     """frames [T, H, W, 3] RGB in [0, 1] -> (backbone feats [T, h, w, C],
     high-res FPN list)."""

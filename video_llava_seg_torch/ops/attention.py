@@ -30,12 +30,18 @@ SINGLE_BLOCK_MAX_KV = 1024
 def attention_reference(q, k, v, *, causal: bool = False,
                         scale: Optional[float] = None,
                         kv_valid_len: Optional[int] = None, kv_mask=None,
-                        q_positions=None):
+                        q_positions=None, k_scale=None, v_scale=None):
     """Plain softmax attention, scores and softmax in fp32.
 
     kv_mask: optional bool [B, Skv], False keys masked. Causal masking
     aligns the diagonal to the sequence ends; q_positions ([Sq] absolute
-    key-space positions) overrides the query positions."""
+    key-space positions) overrides the query positions.
+
+    k_scale / v_scale: optional fp32 [B, Hkv, Skv] for an int8 K/V
+    cache: the products read the int8 values as they are and the per-key
+    scales fold in exactly, into the scores after the QK product and into
+    the softmax weights before the PV product (which then runs with
+    weights rounded to q's dtype)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if hq % hkv:
@@ -46,6 +52,8 @@ def attention_reference(q, k, v, *, causal: bool = False,
     # GQA without repeating K/V: fold the group into the query axis
     qg = q.reshape(b, hkv, group * sq, d).float()
     s = torch.matmul(qg, k.float().transpose(-1, -2)) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :].float()
     s = s.reshape(b, hq, sq, skv)
     if q_positions is not None:
         qi = q_positions.to(q.device)[:, None]
@@ -58,8 +66,12 @@ def attention_reference(q, k, v, *, causal: bool = False,
         s = s.masked_fill((ki >= kv_valid_len)[None, None], MASK_VALUE)
     if kv_mask is not None:
         s = s.masked_fill(~kv_mask[:, None, None, :], MASK_VALUE)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
+    p = torch.softmax(s, dim=-1)
     pg = p.reshape(b, hkv, group * sq, skv)
+    if v_scale is not None:
+        pg = (pg * v_scale[:, :, None, :].float()).to(q.dtype)
+    else:
+        pg = pg.to(v.dtype)
     out = torch.matmul(pg.float(), v.float()).reshape(b, hq, sq, d)
     return out.to(q.dtype)
 

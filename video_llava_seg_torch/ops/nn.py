@@ -19,10 +19,6 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-# ROADMAP queue-1 items that own the parts of the JAX package the slice
-# leaves out (quantized trees and int8 KV: 5; LoRA: 12)
-_QUANT_KEYS = ("kernel_q", "kernel_qa", "kernel_q4a")
-
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -85,12 +81,42 @@ def mlp_init(g, dims: Sequence[int], device, dtype, bias: bool = True):
 # ---------------------------------------------------------------------------
 
 def dense(p, x):
-    """x @ kernel (+ bias), float kernels only."""
+    """x @ kernel (+ bias) over the four kernel kinds of the JAX package:
+    float `kernel`; `kernel_q4a` (W4A8, `ops/int4.py`, K5 on the card);
+    `kernel_qa` (W8A8) and `kernel_q` (weight-only int8), which the JAX
+    package leaves to XLA and the port to plain PyTorch. The LoRA side
+    branch belongs to the training slice (ROADMAP queue 1 item 12)."""
     if "lora" in p:
         raise NotImplementedError("ROADMAP queue 1 item 12")
-    if any(k in p for k in _QUANT_KEYS):
-        raise NotImplementedError("ROADMAP queue 1 item 5")
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    if "kernel_q4a" in p:
+        from video_llava_seg_torch.ops.int4 import w4a8_dense
+
+        return w4a8_dense(p, x)
+    if "kernel_qa" in p:
+        # per-row int8 activations x int8 weights, exact int32 sums, then
+        # act-row x weight-column scales
+        from video_llava_seg_torch.ops.int4 import int_matmul
+        from video_llava_seg_torch.ops.quantization import (
+            quantize_activations_rowwise,
+        )
+
+        xq, a_scale = quantize_activations_rowwise(x)
+        acc = int_matmul(xq.reshape(-1, xq.shape[-1]), p["kernel_qa"])
+        y = (acc.reshape(*x.shape[:-1], -1).float() * a_scale
+             * p["kernel_scale"]).to(x.dtype)
+    elif "kernel_q" in p:
+        # int8 values are exact in bf16; the per-output-channel scale
+        # commutes with the contraction, so it scales the output
+        scale = p["kernel_scale"]
+        if scale.dtype == torch.bfloat16:
+            # a train-mode tree (quantize_tree(train_mode=True)): all bf16
+            y = torch.matmul(x, p["kernel_q"].to(x.dtype))
+            y = y * scale.to(x.dtype)
+        else:
+            y = torch.matmul(x.float(), p["kernel_q"].float())
+            y = (y * scale).to(x.dtype)
+    else:
+        y = torch.matmul(x, p["kernel"].to(x.dtype))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
