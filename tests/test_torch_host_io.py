@@ -131,6 +131,15 @@ with open(os.path.join(out_dir, "000007.json")) as fh:
     pred = json.load(fh)
 assert pred["pred_caption"], pred
 assert len(pred["pred_lgvis_masks"][0]) == 4, pred
+from video_llava_seg_torch.train import train as train_cli
+state = train_cli.main([
+    "--stage", "stage3", "--tiny", "--synthetic", "--bits", "8",
+    "--lora_enable", "--device", "cpu", "--num_train_steps", "2",
+    "--save_steps", "2", "--gradient_accumulation_steps", "1",
+    "--output_dir", os.path.join(out_dir, "train")])
+assert state.step == 2
+assert os.path.exists(os.path.join(out_dir, "train",
+                                   "training_complete.flag"))
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
     k in ("jax", "jaxlib") or k.startswith(("jax.", "jaxlib.",
                                             "video_llava_seg_tpu"))))
@@ -140,9 +149,11 @@ print(len(mods))
 
 
 def test_port_serves_without_jax(vicas):
-    """Every port module imports, and the quantized batched CLI runs end
-    to end, in an interpreter where JAX cannot be imported; afterwards no
-    jax / video_llava_seg_tpu module is loaded."""
+    """Every port module imports (the train/ modules included), the
+    quantized batched CLI runs end to end and the training CLI takes two
+    tiny stage-3 QLoRA steps on the CPU, in an interpreter where JAX
+    cannot be imported; afterwards no jax / video_llava_seg_tpu module is
+    loaded."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")])

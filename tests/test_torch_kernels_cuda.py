@@ -6,7 +6,10 @@ reference runs in fp32 on the same bf16 values. Bound: max |kernel -
 plain| / max |plain| <= 2e-2 (bf16 keeps ~3 significant digits and the
 kernels round intermediates to bf16 where the plain fp32 path does not).
 The W4A8 kernel (K5) sums integers and must equal its plain version bit
-for bit. Run on the card:
+for bit. The flash backward (K6a / K6b) and the forward's logsumexp are
+held against `flash_backward_plain` / `flash_forward_plain` in fp32 on
+the same bf16 inputs, with the same bound; every kernel op's output must
+carry a grad_fn when an input requires grad. Run on the card:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
@@ -18,7 +21,13 @@ import torch
 from video_llava_seg_torch import kernels
 from video_llava_seg_torch.bridge import tree_map
 from video_llava_seg_torch.ops import nn
-from video_llava_seg_torch.ops.attention import attention, attention_reference
+from video_llava_seg_torch.ops.attention import (
+    MASK_VALUE,
+    attention,
+    attention_reference,
+    flash_backward_plain,
+    flash_forward_plain,
+)
 from video_llava_seg_torch.ops.hiera_block import (
     hiera_block,
     hiera_block_plain,
@@ -197,3 +206,117 @@ def test_w4a8_dense_counts_k5(dev):
     assert kernels.LAUNCHES.snapshot()["K5"] == before + 1
     want = w4a8_dense({k: v.cpu() for k, v in p.items()}, x.cpu())
     assert torch.equal(got.cpu(), want)
+
+
+FLASH_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, causal, masked)
+    "llm_causal_gqa": (1, 4, 2, 1100, 1100, 128, True, False),
+    "cross_causal": (1, 2, 1, 300, 1200, 64, True, False),
+    "bias_masked": (2, 2, 2, 200, 180, 32, False, True),
+    "mask_decoder": (4, 8, 8, 4096, 7, 16, False, False),
+    "odd_dims": (1, 3, 1, 77, 1030, 96, False, False),
+}
+
+
+def _flash_inputs(name, dev):
+    b, hq, hkv, sq, skv, d, causal, masked = FLASH_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = _randn(g, b, hq, sq, d, dev=dev)
+    k = _randn(g, b, hkv, skv, d, dev=dev)
+    v = _randn(g, b, hkv, skv, d, dev=dev)
+    do = _randn(g, b, hq, sq, d, dev=dev)
+    kv_mask = None
+    if masked:
+        kv_mask = torch.ones(b, skv, dtype=torch.bool, device=dev)
+        kv_mask[0, 3:40] = False
+        kv_mask[-1, -25:] = False
+    return q, k, v, do, kv_mask, causal
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_attention_lse(dev, name):
+    """K2 / K3 write the logsumexp of each row."""
+    q, k, v, _, kv_mask, causal = _flash_inputs(name, dev)
+    bias = (None if kv_mask is None else
+            torch.where(kv_mask, 0.0, MASK_VALUE).float().contiguous())
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    want_o, want_lse = flash_forward_plain(q.float(), k.float(), v.float(),
+                                           bias, causal=causal, scale=scale)
+    for two_pass in (False, True):
+        o, lse = kernels.attention(q, k, v, scale=scale, causal=causal,
+                                   kv_bias=bias, two_pass=two_pass,
+                                   with_lse=True)
+        assert _rel(o, want_o) < BOUND
+        assert (lse - want_lse).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_backward(dev, name):
+    """attention() under autograd: the forward saves the logsumexp, the
+    backward launches K6a and K6b; masked keys get exactly zero dK/dV."""
+    q, k, v, do, kv_mask, causal = _flash_inputs(name, dev)
+    bias = (None if kv_mask is None else
+            torch.where(kv_mask, 0.0, MASK_VALUE).float())
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = kernels.LAUNCHES.snapshot()
+    out = attention(*leaves, causal=causal, kv_mask=kv_mask)
+    assert out.grad_fn is not None
+    out.backward(do)
+    after = kernels.LAUNCHES.snapshot()
+    assert after["K6a"] == before["K6a"] + 1
+    assert after["K6b"] == before["K6b"] + 1
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o32, lse32 = flash_forward_plain(qf, kf, vf, bias, causal=causal,
+                                     scale=scale)
+    want = flash_backward_plain(qf, kf, vf, bias, o32, lse32, do.float(),
+                                causal=causal, scale=scale)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == torch.bfloat16
+        assert _rel(t.grad, w) < BOUND
+    if kv_mask is not None:
+        for t in leaves[1:]:
+            assert not t.grad.transpose(1, 2)[~kv_mask].any()
+
+
+def test_kernel_ops_have_grad_fn(dev):
+    """No CUDA op cuts the graph: K1, K2, K3 and K4 outputs carry a
+    grad_fn when an input requires grad, and the K1 / K4 recompute
+    gradients equal the plain layer's autograd."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = _randn(g, 1, 2, 1100, 64, dev=dev).requires_grad_(True)
+    kv = _randn(g, 1, 2, 1100, 64, dev=dev)
+    assert attention(q, kv, kv, causal=True).grad_fn is not None
+    assert attention(q[:, :, :300], kv[:, :, :7],
+                     kv[:, :, :7]).grad_fn is not None
+    d = 128
+    p = {"layer_norm1": _ln(g, d, dev), "layer_norm2": _ln(g, d, dev),
+         "q_proj": _dense(g, d, d, dev), "k_proj": _dense(g, d, d, dev),
+         "v_proj": _dense(g, d, d, dev), "out_proj": _dense(g, d, d, dev),
+         "fc1": _dense(g, d, 4 * d, dev), "fc2": _dense(g, 4 * d, d, dev)}
+    p = tree_map(lambda t: t.float().requires_grad_(True), p)  # masters
+    x = _randn(g, 2, 40, d, dev=dev).requires_grad_(True)
+    y = vit_layer(p, x, num_heads=2, eps=1e-5)
+    assert y.grad_fn is not None
+    gy = _randn(g, *y.shape, dev=dev)
+    got = torch.autograd.grad(y, [x, p["fc1"]["kernel"]], gy)
+    want = torch.autograd.grad(
+        vit_layer_plain(p, x, num_heads=2, eps=1e-5, kv_len=40),
+        [x, p["fc1"]["kernel"]], gy)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    blk = {"norm1": _ln(g, 64, dev), "norm2": _ln(g, 64, dev),
+           "qkv": _dense(g, 64, 192, dev), "proj_attn": _dense(g, 64, 64, dev),
+           "mlp": {"layers": [_dense(g, 64, 256, dev),
+                              _dense(g, 256, 64, dev)]}}
+    blk = tree_map(lambda t: t.float().requires_grad_(True), blk)
+    xh = _randn(g, 2, 16, 16, 64, dev=dev).requires_grad_(True)
+    yh = hiera_block(blk, xh, num_heads=2, ws=8)
+    assert yh.grad_fn is not None
+    gh = _randn(g, *yh.shape, dev=dev)
+    got = torch.autograd.grad(yh, [xh, blk["qkv"]["kernel"]], gh)
+    want = torch.autograd.grad(
+        hiera_block_plain(blk, xh, num_heads=2, ws=8, q_stride=None,
+                          eps=1e-6), [xh, blk["qkv"]["kernel"]], gh)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)

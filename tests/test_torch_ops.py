@@ -68,9 +68,14 @@ def test_dense(bias):
 
 @pytest.mark.parametrize("key", ["lora"])
 def test_dense_out_of_slice_kinds_raise(key):
-    p = {"kernel": torch.zeros(4, 4), key: torch.zeros(4, 4)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        tnn.dense(p, torch.zeros(2, 4))
+    """The LoRA side branch was out of the serving slices and came with
+    the training slice: it now computes dense(base) + ((x @ a) @ b) * s
+    (tests/test_torch_train_parts.py holds it against the JAX package)."""
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(4, 2, generator=g), torch.randn(2, 4, generator=g)
+    x, w = torch.randn(2, 4, generator=g), torch.randn(4, 4, generator=g)
+    p = {"kernel": w, key: {"a": a, "b": b, "s": torch.tensor(8.0)}}
+    torch.testing.assert_close(tnn.dense(p, x), x @ w + (x @ a @ b) * 8.0)
 
 
 @pytest.mark.parametrize("fn", ["layer_norm", "rms_norm", "layer_norm_2d"])
@@ -191,6 +196,9 @@ def test_config_copies_match():
     assert (dataclasses.asdict(tcfg.VideoLlavaConfig.tiny())
             == dataclasses.asdict(jcfg.VideoLlavaConfig.tiny()))
     assert tcfg.VideoLlavaConfig().tokens_per_slow_frame == 576
+    for name in ("TrainConfig", "OptimGroupLRs", "DataConfig"):
+        assert (dataclasses.asdict(getattr(tcfg, name)())
+                == dataclasses.asdict(getattr(jcfg, name)()))
     for name in ("tiny", "small", "base_plus", "large", "sam2-test-tiny",
                  "sam2-hiera-small"):
         for size in (1024, 64):
@@ -392,6 +400,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     counts = kernels.LaunchCounts()
     counts.add("K2")
     assert counts.snapshot() == {"K1": 0, "K2": 1, "K3": 0, "K4": 0,
-                                 "K5": 0}
+                                 "K5": 0, "K6a": 0, "K6b": 0}
     counts.reset()
     assert set(counts.snapshot().values()) == {0}

@@ -86,8 +86,18 @@ def test_quantize_tree_bit_equal(bits, act_quant):
 
 
 def test_quantize_tree_train_mode_is_training_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        tquant.quantize_tree({"kernel": torch.ones(4, 4)}, train_mode=True)
+    """train_mode came with the training slice: weight-only int8 with
+    bf16 scales, bit-equal to the JAX package's; act_quant refused."""
+    tree = {"kernel": jnp.asarray(np.random.default_rng(3).standard_normal(
+        (16, 24)), jnp.float32)}
+    want = jquant.quantize_tree(tree, train_mode=True, min_size=0)
+    got = tquant.quantize_tree(bridge.from_jax(tree), train_mode=True,
+                               min_size=0)
+    assert got["kernel_scale"].dtype == torch.bfloat16
+    assert_trees_equal(got, want)
+    with pytest.raises(ValueError, match="train_mode"):
+        tquant.quantize_tree({"kernel": torch.ones(4, 4)}, train_mode=True,
+                             act_quant=True)
 
 
 def test_quantize_activations_rowwise_bit_equal():

@@ -1,9 +1,9 @@
-"""Model config tree of the PyTorch port.
+"""Config tree of the PyTorch port.
 
-A copy of the model-shape dataclasses of `video_llava_seg_tpu/config.py`
-(field for field, same defaults), so the port runs where the JAX package
-cannot be imported. `tests/test_torch_ops.py` pins each class to its
-original.
+A copy of the model-shape and training dataclasses of
+`video_llava_seg_tpu/config.py` (field for field, same defaults), so the
+port runs where the JAX package cannot be imported.
+`tests/test_torch_ops.py` pins each class to its original.
 """
 
 from __future__ import annotations
@@ -268,3 +268,87 @@ class VideoLlavaConfig:
             fast_pool_size=2,
             tokenizer_model_max_length=512,
         )
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Mirrors reference DataArguments semantics (data_classes.py:31-60)."""
+
+    dataset: str = "vicas"
+    vicas_version: str = "v0.1"
+    num_frames: int = 32
+    num_slow_frames: int = 8
+    max_seg_frames: int = 8
+    seg_image_size: int = 1024
+    pad_mode: str = "center"  # 'center' | 'topleft'
+    crop_factor: float = 0.7
+    subsample_factor: int = 1
+    is_multimodal: bool = True
+    conv_template: str = "llava_llama_3"
+
+
+@dataclass(frozen=True)
+class OptimGroupLRs:
+    """Per-component learning rates (llava_trainer.py:201-365's 9 groups)."""
+
+    llm: float = 2e-5
+    vision_tower: float = 2e-6
+    projector: float = 2e-5
+    seg_encoder: float = 2e-6
+    seg_decoder: float = 2e-5
+    lora: float = 2e-5
+    weight_decay: float = 0.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    output_dir: str = "output"
+    seed: int = 0
+    per_device_batch_size: int = 1
+    gradient_accumulation_steps: int = 4
+    num_train_steps: int = 10000
+    warmup_ratio: float = 0.03
+    lr_schedule: str = "cosine"
+    lrs: OptimGroupLRs = field(default_factory=OptimGroupLRs)
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    max_grad_norm: float = 1.0
+    gradient_checkpointing: bool = True
+    save_steps: int = 2000
+    save_total_limit: int = 1
+    logging_steps: int = 1
+    # observability (train.py:607-620 wandb init; ETA callback 233-275).
+    # report_to: 'jsonl' | 'wandb' | 'none'; profiling via jax.profiler
+    # traces of steps [profile_start, profile_start + profile_steps).
+    report_to: str = "jsonl"
+    wandb_project: str = "videonet"
+    run_name: Optional[str] = None
+    trace_dir: Optional[str] = None
+    profile_start: int = 5
+    profile_steps: int = 3
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    # freeze policy (train.py:492-534)
+    freeze_llm: bool = False
+    freeze_vision_tower: bool = False
+    freeze_projector: bool = False
+    freeze_seg_encoder: bool = False
+    freeze_seg_decoder: bool = False
+    # stage-1: also persist the projector alone (mm_projector.bin parity,
+    # train.py:144-171)
+    save_projector_only: bool = False
+    # k-bit training (QLoRA equivalent): quantize the LLM to weight-only
+    # int8 before training (reference train.py:395-426: BitsAndBytes
+    # bits=4/8 + prepare_model_for_kbit_training). The quantized base is
+    # frozen (ints are never trainable); adapters/other components train.
+    # Weight-only (not W8A8): dynamic activation rounding has zero gradient,
+    # so the int8-MXU paths are serving-only. bits=None -> full precision.
+    bits: Optional[int] = None
+    # LoRA (data_classes.py:85-89 defaults; adapters over LLM projections,
+    # base LLM frozen; merged on-the-fly each step — see train/lora.py)
+    lora_enable: bool = False
+    lora_rank: int = 64
+    lora_alpha: float = 16.0
+    lora_qv_proj_only: bool = False
+    mask_dice_weight: float = 1.0
+    mask_ce_weight: float = 2.0

@@ -5,7 +5,11 @@
 // with GQA (kv head = q head // group), causal masking with the diagonal
 // aligned to the sequence ends (key j visible to query i iff
 // j <= i + Skv - Sq), keys at j >= kv_len masked, and an optional fp32
-// additive per-key bias [B, Skv]. Every operand is addressed through
+// additive per-key bias [B, Skv]. Optionally it also writes each row's
+// logsumexp lse[b, h, i] = log sum_j exp(s_ij) (fp32, [B, Hq, Sq]
+// contiguous), the residual the flash backward (attention_bwd.cu)
+// recomputes the probabilities from; a row with no visible key writes 0.
+// Every operand is addressed through
 // (batch, head, sequence) strides with a contiguous last dim, so window
 // batches, fused-qkv column slices and [B, S, H, D] outputs need no copy.
 //
@@ -62,6 +66,7 @@ struct Params {
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   const float* bias;
+  float* lse;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -274,6 +279,10 @@ __global__ void __launch_bounds__(NT) attention_kernel(Params p) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
     for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c)
       og[(long long)qi * p.o_ss + c] = __float2bfloat16(O[lrow * L::LDO + c] * inv);
+    // both forms hold the row max in m_sh and the sum relative to it in l_sh
+    if (p.lse && half == 0)
+      p.lse[(b * p.hq + h) * (long long)p.sq + qi] =
+          l > 0.f ? m_sh[lrow] + logf(l) : 0.f;
   }
 }
 
@@ -307,7 +316,7 @@ int dispatch_dim(const Params& p, int batch, int d, cudaStream_t stream) {
 
 extern "C" int vls_attention_bf16(
     const void* q, const void* k, const void* v, void* o, const void* bias,
-    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    void* lse, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss,
     long long bias_sb, int batch, int hq, int hkv, int sq, int skv, int d,
@@ -319,6 +328,7 @@ extern "C" int vls_attention_bf16(
   p.v = (const __nv_bfloat16*)v;
   p.o = (__nv_bfloat16*)o;
   p.bias = (const float*)bias;
+  p.lse = (float*)lse;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;

@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in `video_llava_seg_torch/csrc/*.cu` compile with `nvcc` for
-`sm_90a` into one shared library with a plain C interface, bound here with
+`sm_90a` (one nvcc process per source, all started together, then one
+link) into one shared library with a plain C interface, bound here with
 ctypes. The library builds at first use into `kernels/_build/<hash>/`,
 keyed by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one loads at once. Nothing here runs, imports `triton` or
@@ -11,9 +12,9 @@ Each raw wrapper checks device, dtype, shape, contiguity and alignment,
 allocates its output with `torch.empty`, launches on the current stream
 and raises if the C entry reports an error (`cudaGetLastError`).
 
-`LAUNCHES` counts the TPU-kernel counterparts (K1..K5) the main path
-goes through: each op-level wrapper (`ops.vit_block.vit_layer`,
-`ops.attention.attention`, `ops.hiera_block.hiera_block`,
+`LAUNCHES` counts the TPU-kernel counterparts (K1..K6b) the main paths
+go through: each op-level wrapper (`ops.vit_block.vit_layer`,
+`ops.attention.attention` and its backward, `ops.hiera_block.hiera_block`,
 `ops.int4.w4a8_dense`) adds one where it launches its CUDA composition,
 and nowhere else.
 """
@@ -36,7 +37,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libvls_kernels.so"
 
 # C entry points: name -> argtypes (every pointer and the stream as
@@ -46,8 +47,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "vls_layernorm_bf16": [_P, _P, _P, _P, _L, _I, _F, _P],
     "vls_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "vls_attention_bf16": [_P, _P, _P, _P, _P] + [_L] * 13
-                          + [_I] * 7 + [_F, _I, _I, _P],
+    "vls_attention_bf16": [_P] * 6 + [_L] * 13 + [_I] * 7
+                          + [_F, _I, _I, _P],
+    "vls_attention_bwd_dq": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
+    "vls_attention_bwd_dkv": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
     "vls_w4a8": [_P] * 6 + [_I] * 5 + [_P],
 }
@@ -63,9 +66,9 @@ W4A8_GEMV_TARGET_BLOCKS = 132 * 8
 
 
 class LaunchCounts:
-    """Per-kernel launch counters of the K1..K5 wrappers."""
+    """Per-kernel launch counters of the K1..K6b wrappers."""
 
-    NAMES = ("K1", "K2", "K3", "K4", "K5")
+    NAMES = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6b")
 
     def __init__(self):
         self.counts: Dict[str, int] = {n: 0 for n in self.NAMES}
@@ -142,19 +145,35 @@ def build():
             else ""
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources()]]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp_dir, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for name, proc in procs:
+            out = proc.communicate()[0]
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_lib = os.path.join(tmp_dir, LIB_NAME)
+        res = subprocess.run([nvcc, "-shared", "-o", tmp_lib, *objs],
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{log}")
+        os.replace(tmp_lib, lib_path)
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
     log_path.write_text(log)
-    os.replace(tmp, lib_path)
     return lib_path, seconds, log
 
 
@@ -240,15 +259,7 @@ def _strides_bhs(t: torch.Tensor, what: str):
     return sb, sh, ss
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              scale: float, causal: bool = False, kv_len: int = -1,
-              kv_bias: Optional[torch.Tensor] = None,
-              two_pass: bool = False) -> torch.Tensor:
-    """Flash attention over strided [B, H, S, D] bf16 views.
-
-    Returns [B, Hq, Sq, D] as a view of a contiguous [B, Sq, Hq, D]
-    buffer (so the caller's merge of heads into channels is free).
-    kv_bias: fp32 [B, Skv] additive per-key bias, or None."""
+def _check_qkv(q, k, v):
     bsz, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if d not in ATTENTION_HEAD_DIMS:
@@ -258,24 +269,117 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("attention: k/v shapes do not match")
     if hq % hkv:
         raise ValueError("attention: Hq must be a multiple of Hkv")
+    return bsz, hq, hkv, sq, skv, d
+
+
+def _bias_stride(kv_bias, bsz, skv):
+    if kv_bias is None:
+        return 0
+    _require(kv_bias, "kv_bias", dtype=torch.float32)
+    if tuple(kv_bias.shape) != (bsz, skv):
+        raise ValueError("attention: kv_bias must be [B, Skv]")
+    return skv
+
+
+def _bshd(bsz, s, h, d, like):
+    """A [B, H, S, D] view of a fresh contiguous [B, S, H, D] buffer."""
+    return torch.empty((bsz, s, h, d), device=like.device,
+                       dtype=like.dtype).permute(0, 2, 1, 3)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              scale: float, causal: bool = False, kv_len: int = -1,
+              kv_bias: Optional[torch.Tensor] = None,
+              two_pass: bool = False, with_lse: bool = False):
+    """Flash attention over strided [B, H, S, D] bf16 views.
+
+    Returns [B, Hq, Sq, D] as a view of a contiguous [B, Sq, Hq, D]
+    buffer (so the caller's merge of heads into channels is free), and
+    with `with_lse` also the per-row logsumexp, fp32 [B, Hq, Sq] (0 for a
+    row with no visible key). kv_bias: fp32 [B, Skv] additive per-key
+    bias, or None."""
+    bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
     qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
                   _strides_bhs(v, "v"))
-    bias_sb = 0
-    if kv_bias is not None:
-        _require(kv_bias, "kv_bias", dtype=torch.float32)
-        if tuple(kv_bias.shape) != (bsz, skv):
-            raise ValueError("attention: kv_bias must be [B, Skv]")
-        bias_sb = skv
-    out = torch.empty((bsz, sq, hq, d), device=q.device, dtype=q.dtype)
-    o = out.permute(0, 2, 1, 3)
+    bias_sb = _bias_stride(kv_bias, bsz, skv)
+    o = _bshd(bsz, sq, hq, d, q)
     os_ = (o.stride(0), o.stride(1), o.stride(2))
+    lse = (torch.empty((bsz, hq, sq), device=q.device, dtype=torch.float32)
+           if with_lse else None)
     if kv_len < 0:
         kv_len = skv
     _check_code("attention", LIBRARY.get().vls_attention_bf16(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias), _ptr(lse),
         *qs, *ks, *vs, *os_, bias_sb, bsz, hq, hkv, sq, skv, d, kv_len,
         float(scale), int(causal), int(two_pass), _stream()))
-    return o
+    return (o, lse) if with_lse else o
+
+
+def _bhs_operand(t: torch.Tensor, what: str):
+    """t as a [B, H, S, D] view the kernels can address (contiguous last
+    dim, strides in multiples of 8 elements, 16-byte aligned), copied
+    once into a contiguous tensor when it is not one."""
+    if (t.stride(3) != 1 or t.data_ptr() % 16
+            or any(s % 8 for s in t.stride()[:3])):
+        t = t.contiguous()
+    return t, _strides_bhs(t, what)
+
+
+def attention_bwd_dq(q, k, v, out, dout, lse, *, scale: float,
+                     causal: bool, kv_bias: Optional[torch.Tensor] = None):
+    """K6a: dQ of `attention` from its output and logsumexp, and the
+    per-row delta = rowsum(dO * O) fp32 [B, Hq, Sq] that
+    `attention_bwd_dkv` reads. q/k/v/out/dout: [B, H, S, D] bf16 views
+    (dout is copied once if its strides do not fit); lse fp32
+    [B, Hq, Sq] contiguous. Returns (dq as a [B, Hq, Sq, D] view of a
+    contiguous [B, Sq, Hq, D] buffer, delta)."""
+    bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
+    qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
+                  _strides_bhs(v, "v"))
+    out, os_ = _bhs_operand(out, "out")
+    dout, ds_ = _bhs_operand(dout, "dout")
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("attention_bwd: out/dout must have q's shape")
+    _require(lse, "lse", dtype=torch.float32)
+    if tuple(lse.shape) != (bsz, hq, sq):
+        raise ValueError("attention_bwd: lse must be [B, Hq, Sq]")
+    bias_sb = _bias_stride(kv_bias, bsz, skv)
+    delta = torch.empty((bsz, hq, sq), device=q.device, dtype=torch.float32)
+    dq = _bshd(bsz, sq, hq, d, q)
+    dqs = (dq.stride(0), dq.stride(1), dq.stride(2))
+    _check_code("attention_bwd_dq", LIBRARY.get().vls_attention_bwd_dq(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(kv_bias),
+        _ptr(lse), _ptr(delta), _ptr(dq), *qs, *ks, *vs, *os_, *ds_, *dqs,
+        bias_sb, bsz, hq, hkv, sq, skv, d, float(scale), int(causal),
+        _stream()))
+    return dq, delta
+
+
+def attention_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
+                      causal: bool, kv_bias: Optional[torch.Tensor] = None):
+    """K6b: dK and dV of `attention`, summed over each kv head's group of
+    q heads in the kernel. delta: from `attention_bwd_dq`. Returns (dk,
+    dv), each a [B, Hkv, Skv, D] view of a contiguous [B, Skv, Hkv, D]
+    buffer."""
+    bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
+    qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
+                  _strides_bhs(v, "v"))
+    dout, ds_ = _bhs_operand(dout, "dout")
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        _require(t, what, dtype=torch.float32)
+        if tuple(t.shape) != (bsz, hq, sq):
+            raise ValueError(f"attention_bwd: {what} must be [B, Hq, Sq]")
+    bias_sb = _bias_stride(kv_bias, bsz, skv)
+    dk = _bshd(bsz, skv, hkv, d, k)
+    dv = _bshd(bsz, skv, hkv, d, v)
+    dks = (dk.stride(0), dk.stride(1), dk.stride(2))
+    dvs = (dv.stride(0), dv.stride(1), dv.stride(2))
+    _check_code("attention_bwd_dkv", LIBRARY.get().vls_attention_bwd_dkv(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(kv_bias), _ptr(lse),
+        _ptr(delta), _ptr(dk), _ptr(dv), *qs, *ks, *vs, *ds_, *dks, *dvs,
+        bias_sb, bsz, hq, hkv, sq, skv, d, float(scale), int(causal),
+        _stream()))
+    return dk, dv
 
 
 def maxpool2x2(x: torch.Tensor) -> torch.Tensor:

@@ -14,10 +14,13 @@ a per-key bias under left padding). Decode attention stays the plain
 twin, as in the JAX package (no Pallas kernel there); with the int8
 cache it reads the int8 K/V and folds the scales in exactly.
 
+`forward` is the training forward (no cache): each block optionally
+under `torch.utils.checkpoint` (gradient checkpointing), which runs the
+block's attention kernel (K2) a second time in the backward.
+
 Out of the slice (raise NotImplementedError naming the ROADMAP item):
-sampling and beam search, the MPT / Mistral switches, `forward`
-(training). `stack_layers`, a TPU compile-time workaround, is not
-ported.
+sampling and beam search, the MPT / Mistral switches. `stack_layers`, a
+TPU compile-time workaround, is not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from video_llava_seg_torch.ops import nn
 from video_llava_seg_torch.ops.attention import attention, attention_reference
@@ -80,11 +84,12 @@ def init(cfg, g: torch.Generator, device, dtype):
 
 def init_quantized(cfg, g: torch.Generator, device, dtype=torch.bfloat16,
                    bits: int = 8, min_size: int = 1 << 16,
-                   act_quant: bool = False):
+                   act_quant: bool = False, train_mode: bool = False):
     """Initialise straight into quantized form, one layer at a time, so the
     peak is the quantized tree plus one float layer (an 8B LLM in bf16 is
     ~16 GB; as W4A8 ~4 GB of packed weights plus the bf16 embedding).
-    Same tree as `quantize_tree(init(...))` over the same draws."""
+    Same tree as `quantize_tree(init(...))` over the same draws.
+    train_mode: the QLoRA base (weight-only, bf16 scales)."""
     from video_llava_seg_torch.ops.quantization import quantize_tree
 
     _check_cfg(cfg)
@@ -92,7 +97,7 @@ def init_quantized(cfg, g: torch.Generator, device, dtype=torch.bfloat16,
 
     def q(tree):
         return quantize_tree(tree, bits=bits, min_size=min_size,
-                             act_quant=act_quant)
+                             act_quant=act_quant, train_mode=train_mode)
 
     p = {
         "embed_tokens": nn.embedding_init(g, cfg.vocab_size, d, device,
@@ -238,14 +243,16 @@ def _store_kv(cache: KVCache, li: int, pos: int, k, v):
     cache.v[li, :, :, pos:pos + s] = v
 
 
-def _attn_block(layer, cfg, x, cos, sin, *, cache: KVCache, li: int,
-                pos: int, causal: bool, kv_mask=None, kv_start=None):
+def _attn_block(layer, cfg, x, cos, sin, *, cache: Optional[KVCache],
+                li: int, pos: int, causal: bool, kv_mask=None,
+                kv_start=None):
     """Attention for s new tokens at cache slots [pos, pos + s).
 
     Prefill (pos == 0) attends over the new tokens in the compute dtype
     (flash kernel on the card) and only stores them, quantized under the
-    int8 cache. Decode reads the cache prefix [0, pos + s) through the
-    plain twin; kv_start [B] masks each row's left-pad slots."""
+    int8 cache; with cache=None (training) nothing is stored. Decode
+    reads the cache prefix [0, pos + s) through the plain twin; kv_start
+    [B] masks each row's left-pad slots."""
     b, s, _ = x.shape
     if "wqkv" in layer["attn"]:
         q_dim = cfg.num_heads * cfg.head_dim
@@ -263,7 +270,8 @@ def _attn_block(layer, cfg, x, cos, sin, *, cache: KVCache, li: int,
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     q = apply_rope_1d(q, cos, sin)
     k = apply_rope_1d(k, cos, sin)
-    _store_kv(cache, li, pos, k, v)
+    if cache is not None:
+        _store_kv(cache, li, pos, k, v)
     if pos == 0:
         o = attention(q, k.to(q.dtype), v.to(q.dtype), causal=causal,
                       kv_mask=kv_mask)
@@ -299,17 +307,51 @@ def _mlp_block(layer, x):
     return nn.dense(layer["mlp"]["w_down"], torch.nn.functional.silu(g) * u)
 
 
+def _block(layer, cfg, x, cos, sin, cache: Optional[KVCache], li: int,
+           pos: int, causal: bool, kv_mask=None, kv_start=None):
+    h = nn.rms_norm(layer["input_layernorm"], x, cfg.rms_norm_eps)
+    x = x + _attn_block(layer, cfg, h, cos, sin, cache=cache, li=li,
+                        pos=pos, causal=causal, kv_mask=kv_mask,
+                        kv_start=kv_start)
+    h = nn.rms_norm(layer["post_attention_layernorm"], x, cfg.rms_norm_eps)
+    return x + _mlp_block(layer, h)
+
+
 def _layers(params, cfg, x, cos, sin, cache: KVCache, pos: int,
             causal: bool, kv_mask=None, kv_start=None):
     for li, layer in enumerate(params["layers"]):
-        h = nn.rms_norm(layer["input_layernorm"], x, cfg.rms_norm_eps)
-        x = x + _attn_block(layer, cfg, h, cos, sin, cache=cache, li=li,
-                            pos=pos, causal=causal, kv_mask=kv_mask,
-                            kv_start=kv_start)
-        h = nn.rms_norm(layer["post_attention_layernorm"], x,
-                        cfg.rms_norm_eps)
-        x = x + _mlp_block(layer, h)
+        x = _block(layer, cfg, x, cos, sin, cache, li, pos, causal, kv_mask,
+                   kv_start)
     return nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+
+
+def forward(params, cfg, inputs_embeds, position_ids, attn_mask=None,
+            remat: bool = False, return_logits: bool = True):
+    """Full forward without a cache (training).
+
+    inputs_embeds [B, S, D]; position_ids [B, S] or [S]; attn_mask:
+    optional bool [B, S], False keys masked (right padding may omit it).
+    remat: run each block under `torch.utils.checkpoint` (gradient
+    checkpointing: only block inputs are kept, the block recomputes in the
+    backward). return_logits=False skips the unembed (the train step's
+    chunked fused lm-head + CE never builds the [S, V] logits).
+    Returns (logits fp32 [B, S, V] or None, post-norm hidden [B, S, D])."""
+    _check_cfg(cfg)
+    if position_ids.dim() == 1:
+        position_ids = position_ids[None]
+    cos, sin = rope_1d_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    x = inputs_embeds
+    kw = dict(cache=None, li=0, pos=0, causal=True, kv_mask=attn_mask)
+    for layer in params["layers"]:
+        if remat:
+            x = checkpoint(_block, layer, cfg, x, cos, sin,
+                           use_reentrant=False, **kw)
+        else:
+            x = _block(layer, cfg, x, cos, sin, **kw)
+    x = nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+    if not return_logits:
+        return None, x
+    return unembed(params, cfg, x), x
 
 
 def prefill(params, cfg, inputs_embeds, position_ids, cache: KVCache,

@@ -173,8 +173,29 @@ def assemble_embeds(params, text_ids: torch.Tensor, gather_idx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# generate (greedy) and the seg head
+# forward (training), generate (greedy) and the seg head
 # ---------------------------------------------------------------------------
+
+def forward(params, cfg, video: torch.Tensor, plan: Dict,
+            remat: bool = False, return_logits: bool = True,
+            timings: Optional[Dict[str, float]] = None):
+    """Training forward on a spliced batch. video [B, T, H, W, 3]; plan:
+    tensors of `build_splice_plan` on the video's device (text_ids,
+    gather_idx, position_ids). remat: gradient checkpointing on the LLM
+    blocks. Returns (logits fp32 | None, post-norm hidden [B, L, D])."""
+    dev = video.device
+    with stage(timings, "vision", dev):
+        slow, fast = encode_video(params, cfg, video)
+        visual = flatten_visual_features(slow, fast)
+        # the LLM computes in the video's dtype (bf16 on the card, under
+        # fp32 masters); a no-op where the embedding has that dtype
+        embeds = assemble_embeds(params, plan["text_ids"].long(),
+                                 plan["gather_idx"], visual).to(video.dtype)
+    with stage(timings, "llm_forward", dev):
+        return llama.forward(params["llm"], cfg.llm, embeds,
+                             plan["position_ids"], remat=remat,
+                             return_logits=return_logits)
+
 
 def generate(params, cfg, input_ids: np.ndarray, video: torch.Tensor,
              max_new_tokens: int = 256,

@@ -9,7 +9,23 @@ On a CUDA tensor `attention()` launches the CUDA kernel of
 `csrc/attention.cu`: the multi-tile online-softmax form (counterpart of
 `_flash_kernel`, K2) when Skv > 1024, the plain-softmax form
 (`_flash_kernel_single`, K3) otherwise, the same split as `_fa_core`. On
-a CPU tensor it runs the plain twin. There is no other fallback.
+a CPU tensor it runs the plain twin, and autograd differentiates the
+twin. There is no other fallback.
+
+When an input requires grad, the CUDA call goes through `_FlashAttention`
+(the counterpart of the JAX package's `custom_vjp` around
+`flash_attention`): its forward launches the same kernel with the
+per-row logsumexp as a second output, and its backward launches K6a
+(`_bwd_dq_kernel`: delta pre-pass + dQ) and K6b (`_bwd_dkv_kernel`: dK,
+dV summed over the GQA group) of `csrc/attention_bwd.cu`. The per-key
+bias gets no gradient (it is a mask). Under `torch.utils.checkpoint` the
+forward runs, and counts, a second time during the backward.
+
+`flash_forward_plain` / `flash_backward_plain` are the plain versions of
+the forward with its logsumexp and of the two backward kernels, with the
+formulas of the JAX backward (`attention.py:462-471`); the tests hold
+them against the Pallas kernels in interpret mode and the card against
+them.
 """
 
 from __future__ import annotations
@@ -76,11 +92,101 @@ def attention_reference(q, k, v, *, causal: bool = False,
     return out.to(q.dtype)
 
 
+def _masked_scores(q, k, kv_bias, causal: bool, scale: float):
+    """fp32 scores [B, Hq, Sq, Skv] with the flash kernels' masking: the
+    per-key bias added, causal entries (diagonal at the sequence ends) set
+    to MASK_VALUE."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, (hq // hkv) * sq, d).float()
+    s = (torch.matmul(qg, k.float().transpose(-1, -2)) * scale).reshape(
+        b, hq, sq, skv)
+    if kv_bias is not None:
+        s = s + kv_bias.float()[:, None, None, :]
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        ki = torch.arange(skv, device=q.device)[None, :]
+        s = s.masked_fill(~(ki <= qi), MASK_VALUE)
+    return s
+
+
+def flash_forward_plain(q, k, v, kv_bias=None, causal: bool = False,
+                        scale: Optional[float] = None):
+    """Plain version of the flash forward with its residual:
+    (out [B, Hq, Sq, D] in q's dtype, lse fp32 [B, Hq, Sq]). Softmax
+    weights are rounded to v's dtype before the PV product, as the
+    kernels do."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = _masked_scores(q, k, kv_bias, causal, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None]).to(v.dtype)
+    out = torch.matmul(p.float().reshape(b, hkv, -1, skv), v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype), lse
+
+
+def flash_backward_plain(q, k, v, kv_bias, out, lse, dout,
+                         causal: bool = False,
+                         scale: Optional[float] = None):
+    """Plain version of K6a + K6b: (dq, dk, dv) from the forward's output
+    and logsumexp. delta = rowsum(dO * O); p = exp(s - lse); dV = p^T dO
+    (p rounded to dO's dtype); dS = p (dO V^T - delta) scale, rounded to
+    q's dtype; dQ = dS K; dK = dS^T Q; dK and dV summed over each kv
+    head's group of q heads. fp32 sums throughout."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = _masked_scores(q, k, kv_bias, causal, scale)
+    p = torch.exp(s - lse.float()[..., None])            # [B, Hq, Sq, Skv]
+    do = dout.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    pg = p.to(dout.dtype).float().reshape(b, hkv, group * sq, skv)
+    dog = do.reshape(b, hkv, group * sq, d)
+    dv = torch.matmul(pg.transpose(-1, -2), dog)
+    dp = torch.matmul(dog, v.float().transpose(-1, -2)).reshape(
+        b, hq, sq, skv)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dsg = ds.reshape(b, hkv, group * sq, skv)
+    dq = torch.matmul(dsg, k.float()).reshape(b, hq, sq, d)
+    dk = torch.matmul(dsg.transpose(-1, -2),
+                      q.float().reshape(b, hkv, group * sq, d))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K2 / K3 forward with the logsumexp saved; K6a + K6b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_bias, causal, scale, single):
+        kernels.LAUNCHES.add("K3" if single else "K2")
+        out, lse = kernels.attention(q, k, v, scale=scale, causal=causal,
+                                     kv_bias=kv_bias, two_pass=single,
+                                     with_lse=True)
+        ctx.save_for_backward(q, k, v, kv_bias, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_bias, out, lse = ctx.saved_tensors
+        kw = dict(scale=ctx.scale, causal=ctx.causal, kv_bias=kv_bias)
+        kernels.LAUNCHES.add("K6a")
+        dq, delta = kernels.attention_bwd_dq(q, k, v, out, dout, lse, **kw)
+        kernels.LAUNCHES.add("K6b")
+        dk, dv = kernels.attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q, k, v, *, causal: bool = False,
               scale: Optional[float] = None, backend: str = "auto",
               kv_mask=None, window: Optional[int] = None,
               alibi: bool = False):
-    """Flash kernel on CUDA (K2 / K3), the plain twin on CPU.
+    """Flash kernel on CUDA (K2 / K3, backward K6a / K6b), the plain twin
+    on CPU.
 
     backend='plain' always runs the twin (the JAX package's
     backend='xla', chosen by callers for short query sets)."""
@@ -99,6 +205,10 @@ def attention(q, k, v, *, causal: bool = False,
     if kv_mask is not None:
         kv_bias = torch.where(kv_mask, 0.0, MASK_VALUE).float().contiguous()
     single = k.shape[2] <= SINGLE_BLOCK_MAX_KV
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_bias, causal, float(scale),
+                                     single)
     kernels.LAUNCHES.add("K3" if single else "K2")
     return kernels.attention(q, k, v, scale=scale, causal=causal,
                              kv_bias=kv_bias, two_pass=single)

@@ -28,6 +28,11 @@ need.
 
 `hiera_block_plain` is the plain PyTorch version (the twin of
 `hiera_block_xla` + `window_attention_xla`); the CPU path runs it.
+
+When autograd records the call (training), the kernel chain runs inside
+`ops.recompute.recompute`: weights cast to the input's dtype for the
+launches, only x and the weights saved, and the backward recomputed
+through `hiera_block_plain` (the JAX package's `_hb_bwd`).
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from video_llava_seg_torch import kernels
+from video_llava_seg_torch.bridge import tree_map
 from video_llava_seg_torch.ops import nn
+from video_llava_seg_torch.ops.recompute import needs_grad, recompute
 
 
 def max_pool_2x2(x):
@@ -163,14 +170,28 @@ def _hiera_block_cuda(blk, x, *, num_heads: int, ws: int, ps: int,
 
 def hiera_block(blk, x, *, num_heads: int, ws: int,
                 q_stride: Optional[Tuple[int, int]] = None,
-                eps: float = 1e-6):
-    """Windowed (ws > 0) or global (ws == 0) Hiera block on an NHWC map."""
+                eps: float = 1e-6, kernel=None):
+    """Windowed (ws > 0) or global (ws == 0) Hiera block on an NHWC map.
+
+    kernel: test-only stand-in for the CUDA chain, fn(blk, x), so the CPU
+    tests can drive the recompute Function."""
     ps = q_stride[0] if q_stride is not None else 1
-    if x.device.type == "cpu":
-        return hiera_block_plain(blk, x, num_heads=num_heads, ws=ws,
+
+    def plain(b_, x_):
+        return hiera_block_plain(b_, x_, num_heads=num_heads, ws=ws,
                                  q_stride=q_stride, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"hiera_block: unsupported device {x.device}")
-    kernels.LAUNCHES.add("K4")
-    return _hiera_block_cuda(blk, x.contiguous(), num_heads=num_heads,
-                             ws=ws, ps=ps, eps=eps)
+
+    if kernel is None:
+        if x.device.type == "cpu":
+            return plain(blk, x)
+        if x.device.type != "cuda":
+            raise ValueError(f"hiera_block: unsupported device {x.device}")
+
+        def kernel(b_, x_):
+            kernels.LAUNCHES.add("K4")
+            return _hiera_block_cuda(tree_map(lambda t: t.to(x_.dtype), b_),
+                                     x_.contiguous(), num_heads=num_heads,
+                                     ws=ws, ps=ps, eps=eps)
+    if needs_grad(blk, x):
+        return recompute(kernel, plain, blk, x)
+    return kernel(blk, x)

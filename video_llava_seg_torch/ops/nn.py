@@ -84,10 +84,18 @@ def dense(p, x):
     """x @ kernel (+ bias) over the four kernel kinds of the JAX package:
     float `kernel`; `kernel_q4a` (W4A8, `ops/int4.py`, K5 on the card);
     `kernel_qa` (W8A8) and `kernel_q` (weight-only int8), which the JAX
-    package leaves to XLA and the port to plain PyTorch. The LoRA side
-    branch belongs to the training slice (ROADMAP queue 1 item 12)."""
-    if "lora" in p:
-        raise NotImplementedError("ROADMAP queue 1 item 12")
+    package leaves to XLA and the port to plain PyTorch.
+
+    A LoRA adapter {"a", "b", "s"} attached to the dict (a quantized base
+    under QLoRA, `train.lora.merge`) adds the rank-r side branch
+    ((x @ a) @ b) * s in x's dtype, so no float copy of the base weights
+    is ever built."""
+    lora = p.get("lora")
+    if lora is not None:
+        base = {k: v for k, v in p.items() if k != "lora"}
+        delta = torch.matmul(torch.matmul(x, lora["a"].to(x.dtype)),
+                             lora["b"].to(x.dtype))
+        return dense(base, x) + delta * lora["s"].to(x.dtype)
     if "kernel_q4a" in p:
         from video_llava_seg_torch.ops.int4 import w4a8_dense
 

@@ -47,11 +47,16 @@ def quantize_tree(params, bits: int = 8, min_size: int = 1 << 16,
     """Quantize every 2-D dense 'kernel' leaf with at least `min_size`
     elements; embeddings (`skip`) and small kernels stay float. Under
     4-bit, kernels with an odd input dim stay float too (they cannot be
-    packed two rows per byte). Returns a new tree."""
+    packed two rows per byte). Returns a new tree.
+
+    train_mode (the frozen base of a QLoRA tree): weight-only, with
+    'kernel_scale' stored in bf16, which switches `nn.dense`'s kernel_q
+    branch to an all-bf16 product (as in the JAX package)."""
     if bits not in _QMAX:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    if train_mode:
-        raise NotImplementedError("ROADMAP queue 1 item 12")
+    if train_mode and act_quant:
+        raise ValueError("act-quant rounding has no gradient; train_mode "
+                         "is weight-only")
     key_out = ("kernel_qa" if act_quant and bits == 8
                else "kernel_q4a" if act_quant else "kernel_q")
 
@@ -68,7 +73,8 @@ def quantize_tree(params, bits: int = 8, min_size: int = 1 << 16,
                     q = pack_int4(q)
                 out = {k: v for k, v in tree.items() if k != "kernel"}
                 out[key_out] = q
-                out["kernel_scale"] = scale
+                out["kernel_scale"] = (scale.to(torch.bfloat16)
+                                       if train_mode else scale)
                 return out
             return {k: go(v, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):

@@ -22,6 +22,13 @@ heads, hd] order, ready for the out projection.
 
 `vit_layer_plain` is the plain PyTorch version (the twin of
 `vit_layer_xla`); the CPU path runs it.
+
+When autograd records the call (training: the tower's weights are
+trainable fp32 masters), the kernel chain runs inside
+`ops.recompute.recompute`: the forward casts the weights to the input's
+dtype (bf16) for the launches and saves only x and the weights, the
+backward recomputes the layer through `vit_layer_plain` (the JAX
+package's `_vl_bwd`).
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ import math
 import torch
 
 from video_llava_seg_torch import kernels
+from video_llava_seg_torch.bridge import tree_map
 from video_llava_seg_torch.ops import nn
+from video_llava_seg_torch.ops.recompute import needs_grad, recompute
 
 _MASK = -1e30
 _ACTS = {"quick_gelu": nn.quick_gelu, "gelu": nn.gelu}
@@ -89,20 +98,33 @@ def _vit_layer_cuda(p, x, *, num_heads: int, eps: float, kv_len: int,
 
 
 def vit_layer(p, x, *, num_heads: int, eps: float, kv_len: int = -1,
-              act: str = "quick_gelu"):
+              act: str = "quick_gelu", kernel=None):
     """x: [frames, tokens, D]; keys at index >= kv_len are masked (pad
-    tokens otherwise pass through token-locally)."""
+    tokens otherwise pass through token-locally).
+
+    kernel: test-only stand-in for the CUDA chain, fn(p, x), so the CPU
+    tests can drive the recompute Function."""
     if kv_len < 0:
         kv_len = x.shape[1]
     if any(k in p[name] for name in ("q_proj", "k_proj", "v_proj",
                                      "out_proj", "fc1", "fc2")
            for k in ("kernel_q", "kernel_qa")):
         raise NotImplementedError("ROADMAP queue 1 item 5")
-    if x.device.type == "cpu":
-        return vit_layer_plain(p, x, num_heads=num_heads, eps=eps,
-                               kv_len=kv_len, act=act)
-    if x.device.type != "cuda":
-        raise ValueError(f"vit_layer: unsupported device {x.device}")
-    kernels.LAUNCHES.add("K1")
-    return _vit_layer_cuda(p, x.contiguous(), num_heads=num_heads, eps=eps,
-                           kv_len=kv_len, act=act)
+    kw = dict(num_heads=num_heads, eps=eps, kv_len=kv_len, act=act)
+
+    def plain(p_, x_):
+        return vit_layer_plain(p_, x_, **kw)
+
+    if kernel is None:
+        if x.device.type == "cpu":
+            return plain(p, x)
+        if x.device.type != "cuda":
+            raise ValueError(f"vit_layer: unsupported device {x.device}")
+
+        def kernel(p_, x_):
+            kernels.LAUNCHES.add("K1")
+            return _vit_layer_cuda(tree_map(lambda t: t.to(x_.dtype), p_),
+                                   x_.contiguous(), **kw)
+    if needs_grad(p, x):
+        return recompute(kernel, plain, p, x)
+    return kernel(p, x)
