@@ -57,8 +57,34 @@ The line before the last is the card's name and power limit, the one
 before it the kernels' JSON, the last line is {"ok": true, "device":
 {...}}. There is no CPU mode: without a CUDA device the script exits
 non-zero. In the kernels JSON, `launches` is the count of the train
-step (phase 8) for the kernels it runs and of the W4A8 batched call
-(phase 4) for K5; `launches_by_path` holds every path's counts.
+step (phase 8) for the kernels it runs, of the W4A8 batched call (phase
+4) for K5, of the per-op Hiera trunk (phase 13) for K7 and of the CLIP-L
+W8A8 encode (phase 12) for K8; `launches_by_path` holds every path's
+counts.
+
+The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
+after phase 4, 14 after phase 5.
+
+ 10. K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
+     8 frames at 1024^2 against `window_attention_plain`, beside SDPA
+     over the partitioned windows (partition copy timed apart) and K4's
+     current attention stage (partition + attention.cu + unpartition);
+     K8 (the W8A8 layer: `csrc/w8a8.cu` + attention.cu) at the CLIP-L and
+     RADIO-H serving shapes against `vit_layer_plain` over the same
+     quantized tree; gemm_s8 bit-equal to the float64 int8 product and to
+     nn.dense's epilogue, timed beside `torch._int_mm`.
+ 11. RADIO serving: the bf16 path of phase 3 with the RADIO-H/16@384
+     tower (K1 32 per query, K8 0), stage seconds.
+ 12. W8A8 encode: `llava.encode_video` over `quantize_tree(bits=8,
+     act_quant=True)` of tower + projector, CLIP-L and RADIO-H (K8 23 and
+     32, K1 0), relative error of the slow features against the bf16
+     tower's (mean, p99); W8A8 and bf16 encode seconds, interleaved over
+     7 rounds (median, min, max).
+ 13. the per-op Hiera trunk (`USE_FUSED_BLOCK = False`) over 8 frames at
+     1024^2: K7 13, K2 3, K4 0; its pyramid against the K4 path's; the
+     two trunks' seconds, interleaved over 7 rounds (median, min, max).
+ 14. tiny card-vs-CPU agreement of a RADIO tower (head dim 80), S2, a
+     W8A8 tower and the per-op trunk.
 """
 
 from __future__ import annotations
@@ -87,6 +113,8 @@ REPLACES = {
     "K5": "video_llava_seg_tpu/ops/int4.py:67",
     "K6a": "video_llava_seg_tpu/ops/attention.py:475",
     "K6b": "video_llava_seg_tpu/ops/attention.py:522",
+    "K7": "video_llava_seg_tpu/ops/window_attention.py:32",
+    "K8": "video_llava_seg_tpu/ops/vit_block.py:216",
 }
 SOURCES = {
     "K1": ("video_llava_seg_torch/ops/vit_block.py",
@@ -100,6 +128,10 @@ SOURCES = {
             ["attention_bwd.cu"]),
     "K6b": ("video_llava_seg_torch/csrc/attention_bwd.cu",
             ["attention_bwd.cu"]),
+    "K7": ("video_llava_seg_torch/csrc/window_attention.cu",
+           ["window_attention.cu"]),
+    "K8": ("video_llava_seg_torch/ops/vit_block.py",
+           ["w8a8.cu", "attention.cu"]),
 }
 # H100 SXM published dense peaks (NVIDIA data sheet, 700 W): the bound of
 # a call is max(bytes / HBM rate, operations / peak of their type)
@@ -121,8 +153,16 @@ PEAK_INT8 = 1979e12
 # over up to 5.1k keys (dQ) or 4 heads x 5.1k queries (dK, dV). Measured
 # on an H100 (700 W) at the three shapes of phase 6: K6a 3.4e-3..5.6e-3,
 # K6b 2.4e-3..3.0e-3; the bound keeps ~3.5x of headroom.
+# K7 is one attention per window, as K3 (plain softmax, bf16 P): the
+# same bound as K2 / K3. K8 is held against `vit_layer_plain` over the
+# same quantized tree in bf16 (the int8 semantics depend on the
+# activations' type); the two round the attention and the activation at
+# other places, and a bf16 last-bit difference at an int8 rounding
+# boundary moves one row by one quantization step (row amax / 127).
+# Measured on an H100 (700 W): K7 3.8e-3..5.0e-3 over the seven window
+# kinds, K8 1.0e-2 (CLIP-L) and 9.2e-3 (RADIO-H); ~2-3x of headroom.
 BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
-          "K6a": 2e-2, "K6b": 2e-2}
+          "K6a": 2e-2, "K6b": 2e-2, "K7": 1e-2, "K8": 3e-2}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -572,7 +612,10 @@ def _smoke_inputs(seed, n_frames, hw, n_seg):
     return frames, seg, meta
 
 
-def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
+def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
+                tag="slice"):
+    """The bf16 batch-1 path: a caption and a referral query through
+    `get_model_output_frames`. Returns (launch counts, summary)."""
     from video_llava_seg_torch import bridge, kernels
     from video_llava_seg_torch.inference import main as serve
     from video_llava_seg_torch.models import llava
@@ -584,7 +627,7 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
     sizes = []
     bridge.tree_map(lambda t: sizes.append(t.numel()), params)
     n_params = sum(sizes)
-    log(f"[slice] init: {n_params / 1e9:.2f} B bf16 params on the card in "
+    log(f"[{tag}] init: {n_params / 1e9:.2f} B bf16 params on the card in "
         f"{time.perf_counter() - t0:.1f} s; allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     tok = SmokeTokenizer(cfg.llm.vocab_size)
@@ -617,9 +660,9 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
 
     for name, text, logits, timings, total in outs:
         stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
-        log(f"[slice] {name}: {total:.3f} s end to end ({stages} s); "
+        log(f"[{tag}] {name}: {total:.3f} s end to end ({stages} s); "
             f"caption[:60] {text[:60]!r}")
-    log(f"[slice] both queries: {e2e:.3f} s; peak allocated {peak:.1f} GiB")
+    log(f"[{tag}] both queries: {e2e:.3f} s; peak allocated {peak:.1f} GiB")
 
     cap_text, ref_text = outs[0][1], outs[1][1]
     if not cap_text or not ref_text:
@@ -632,14 +675,14 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
                              f"!= {want_shape}")
     if not np.isfinite(logits).all():
         raise AssertionError("mask logits are not finite")
-    log(f"[slice] mask logits {list(logits.shape)} finite; "
+    log(f"[{tag}] mask logits {list(logits.shape)} finite; "
         f"{(logits > 0).mean():.4f} of pixels positive")
 
     n_tower = llava.vit.num_layers_run(cfg.vision)
     sc = llava.seg_head.make_sam2_cfg(cfg.seg)
     expect = {"K1": 2 * n_tower, "K2": 2 * cfg.llm.num_layers,
               "K3": sc.twoway_depth, "K4": sc.hiera.depth, "K5": 0,
-              "K6a": 0, "K6b": 0}
+              "K6a": 0, "K6b": 0, "K7": 0, "K8": 0}
     why = {"K1": f"{n_tower} tower layers x 2 queries (each query encodes "
                  "the clip, as the JAX CLI does)",
            "K2": f"{cfg.llm.num_layers} prefill layers x 2 queries",
@@ -649,8 +692,10 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
                  "only",
            "K5": "none: a bf16 tree has no W4A8 dense",
            "K6a": "none: serving runs no backward",
-           "K6b": "none: serving runs no backward"}
-    check_launches("slice", counts, expect, why)
+           "K6b": "none: serving runs no backward",
+           "K7": "none: K4 runs every Hiera block",
+           "K8": "none: a bf16 tower has no W8A8 layer"}
+    check_launches(tag, counts, expect, why)
 
     # the generation itself: tokens in range, hidden states finite, and
     # the same greedy tokens as the main path's caption
@@ -676,12 +721,14 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
         raise AssertionError("hidden states are not finite")
     if tok.decode(toks).strip() != cap_text:
         raise AssertionError("a second greedy run gave another caption")
-    log(f"[slice] generate: {n} tokens in range, hidden {list(hidden.shape)} "
-        "finite, caption reproduced")
+    log(f"[{tag}] generate: {n} tokens in range, hidden "
+        f"{list(hidden.shape)} finite, caption reproduced")
     del params, video, tokens, hidden
     torch.cuda.empty_cache()
     sync()
-    return counts, e2e
+    return counts, {"seconds": e2e, "peak_gib": peak, "queries": {
+        name: {"seconds": total, "stages": timings}
+        for name, _, _, timings, total in outs}}
 
 
 def check_launches(tag, counts, expect, why):
@@ -818,7 +865,8 @@ def phase_quant_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
     per_step = 4 * cfg.llm.num_layers + 1
     expect = {"K1": n_tower, "K2": cfg.llm.num_layers,
               "K3": sc.twoway_depth, "K4": sc.hiera.depth,
-              "K5": per_step * (1 + n), "K6a": 0, "K6b": 0}
+              "K5": per_step * (1 + n), "K6a": 0, "K6b": 0, "K7": 0,
+              "K8": 0}
     why = {"K1": f"{n_tower} tower layers, the clip encoded once for both "
                  "rows",
            "K2": f"{cfg.llm.num_layers} layers of one batch-2 prefill",
@@ -829,7 +877,9 @@ def phase_quant_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
                  f"denses + lm_head, in the prefill and in each of {n} "
                  "decode steps",
            "K6a": "none: serving runs no backward",
-           "K6b": "none: serving runs no backward"}
+           "K6b": "none: serving runs no backward",
+           "K7": "none: K4 runs every Hiera block",
+           "K8": "none: the tower is bf16 (only the LLM is W4A8)"}
     check_launches("quant", counts, expect, why)
     del params, video, tokens, hidden
     torch.cuda.empty_cache()
@@ -924,6 +974,438 @@ def phase_small_agreement_quant(seed):
     if kernels.LAUNCHES.snapshot()["K5"] <= before:
         raise AssertionError("tiny W4A8 slice: K5 was not launched")
     _agree("tiny W4A8 batched slice", got, want, QUANT_AGREE_BOUND)
+
+
+# ---------------------------------------------------------------------------
+# the vision slice: K7, K8, RADIO, W8A8 towers, the per-op Hiera trunk
+# ---------------------------------------------------------------------------
+
+def radio_cfg(cfg):
+    """`cfg` with the published training scripts' tower, RADIO-H/16 at
+    384 (32 layers, d 1280, 16 heads of 80, 576 patches + 1 register
+    token) and a projector from its 1280 channels."""
+    from video_llava_seg_torch.config import ProjectorConfig, VisionTowerConfig
+
+    return dataclasses.replace(
+        cfg, vision=VisionTowerConfig.radio(),
+        projector=ProjectorConfig(mm_hidden_size=1280,
+                                  hidden_size=cfg.llm.hidden_size))
+
+
+def hiera_window_kinds(cfg):
+    """{(ws, pooled, map side): (first block, padded side, dout, heads)}
+    of the windowed blocks of the seg head's trunk at its image size."""
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+
+    sc = make_sam2_cfg(cfg.seg)
+    dims = hiera.block_dims(sc.hiera)
+    side = sc.image_size // sc.hiera.patch_stride
+    kinds = {}
+    for i, (_, dout, nh, ws, pool) in enumerate(dims):
+        hw = side // (2 ** sum(1 for j in range(i) if dims[j][4]))
+        if ws:
+            kinds.setdefault((ws, pool, hw),
+                             (i, -(-hw // ws) * ws, dout, nh))
+    return kinds
+
+
+def phase_k7_checks(cfg, seed, dev, results):
+    """K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
+    the 8 seg frames, against `window_attention_plain`; beside it SDPA
+    over the partitioned windows (the partition copy timed apart) and the
+    time of K4's current attention stage (partition + attention.cu +
+    unpartition) on the same map. Returns the comparison rows."""
+    import torch.nn.functional as F
+
+    from video_llava_seg_torch.ops.hiera_block import attention_stage
+    from video_llava_seg_torch.ops.window_attention import (
+        window_attention,
+        window_attention_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    bt = cfg.seg.max_seg_frames
+    rows = []
+    for (ws, pool, hw), (i, hp, dout, nh) in sorted(
+            hiera_window_kinds(cfg).items(), key=lambda kv: kv[1][0]):
+        qkv = torch.randn((bt, hp, hp, 3 * dout), generator=g,
+                          device=dev).to(torch.bfloat16)
+        ps = 2 if pool else 1
+        q_pool = (2, 2) if pool else None
+        hd = dout // nh
+        scale = hd ** -0.5
+        qs, nwr = ws // ps, hp // ws
+        n_win = bt * nwr * nwr
+
+        def partition():
+            x = qkv.view(bt, nwr, ws, nwr, ws, 3, nh, hd).permute(
+                0, 1, 3, 5, 6, 2, 4, 7).reshape(n_win, 3, nh, ws, ws, hd)
+            q = x[:, 0]
+            if pool:
+                q = q.reshape(n_win, nh, qs, 2, qs, 2, hd).amax(dim=(3, 5))
+            return (q.reshape(n_win, nh, qs * qs, hd),
+                    x[:, 1].reshape(n_win, nh, ws * ws, hd),
+                    x[:, 2].reshape(n_win, nh, ws * ws, hd))
+
+        q, k, v = partition()
+        kw = dict(num_heads=nh, ws=ws, scale=scale, ps=ps)
+        tag = (f"block {i} ws{ws}{' q-pool' if pool else ''} on {hw}^2"
+               f"{f' (padded to {hp})' if hp != hw else ''}: qkv "
+               f"{list(qkv.shape)} h{nh}")
+        out_bytes = bt * (hp // ps) ** 2 * dout * 2
+        _check("K7", tag,
+               lambda: window_attention(qkv, num_heads=nh, ws=ws,
+                                        q_pool=q_pool),
+               lambda: window_attention_plain(qkv, **kw),
+               lambda: window_attention_plain(qkv.float(), **kw), results,
+               (_nbytes(qkv) + out_bytes,
+                4 * n_win * nh * qs * qs * ws * ws * hd, PEAK_BF16),
+               run_library=lambda: F.scaled_dot_product_attention(q, k, v))
+        r = results["K7"]["shapes"][-1]
+        part_ms = cuda_ms(partition)
+        k4_ms = cuda_ms(lambda: attention_stage(qkv, num_heads=nh, ws=ws,
+                                                ps=ps).contiguous())
+        rows.append({"shape": tag, "k7_ms": r["ms"], "bound_ms":
+                     r["bound_ms"], "sdpa_ms": r["library_ms"],
+                     "partition_ms": part_ms, "k4_stage_ms": k4_ms})
+        log(f"[k7] {tag}: K7 {r['ms']:.4f} ms; K4's attention stage "
+            f"(partition + attention.cu + unpartition) {k4_ms:.4f} ms; "
+            f"SDPA {r['library_ms']:.4f} ms + its partition copy "
+            f"{part_ms:.4f} ms")
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    sync()
+    return rows
+
+
+def phase_k8_checks(cfg, seed, dev, results):
+    """K8 (one W8A8 layer) at the CLIP-L and RADIO-H serving shapes
+    against `vit_layer_plain` over the same quantized tree, and gemm_s8
+    at each tower's fc1 shape: int32 mode bit-equal to the float64 int8
+    product (`int_matmul_plain`), dense mode bit-equal to nn.dense's
+    epilogue, timed beside `torch._int_mm`. Returns the gemm rows."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.models import vit
+    from video_llava_seg_torch.ops.int4 import int_matmul_plain
+    from video_llava_seg_torch.ops.quantization import (
+        quantize_tree,
+        quantized_nbytes,
+    )
+    from video_llava_seg_torch.ops.vit_block import (
+        vit_layer,
+        vit_layer_plain,
+    )
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    gemm_rows = []
+    for name, vc in (("CLIP-L/14-336", cfg.vision),
+                     ("RADIO-H/16-384", radio_cfg(cfg).vision)):
+        layer = quantize_tree(perturb(vit.init(
+            dataclasses.replace(vc, num_layers=1), g, dev, bf)["layers"][0],
+            g), 8, act_quant=True)
+        n_tok = (vc.num_patches + int(vc.use_cls_token)
+                 + vc.num_register_tokens)
+        d, dff = vc.hidden_size, vc.intermediate_size
+        x = torch.randn((cfg.num_frames, n_tok, d), generator=g,
+                        device=dev).to(bf)
+        kw = dict(num_heads=vc.num_heads, eps=vc.layernorm_eps, kv_len=n_tok,
+                  act="gelu" if vc.is_radio else "quick_gelu")
+        rows = cfg.num_frames * n_tok
+        # int8 products at the int8 peak, attention's at the bf16 peak,
+        # counted in int8-peak time
+        ops = (2 * rows * (4 * d * d + 2 * d * dff)
+               + 4 * cfg.num_frames * n_tok * n_tok * d
+               * PEAK_INT8 / PEAK_BF16)
+        _check("K8", f"{name} layer x{list(x.shape)} h{vc.num_heads}",
+               lambda: vit_layer(layer, x, **kw),
+               lambda: vit_layer_plain(layer, x, **kw),
+               lambda: vit_layer_plain(layer, x, **kw), results,
+               (2 * _nbytes(x) + quantized_nbytes(layer), ops, PEAK_INT8))
+        del x
+
+        a = torch.randint(-127, 128, (rows, d), generator=g, device=dev,
+                          dtype=torch.int8)
+        b = layer["fc1"]["kernel_qa"]
+        want = int_matmul_plain(a, b)
+        if not torch.equal(kernels.gemm_s8(a, b), want):
+            raise AssertionError(f"gemm_s8 {name}: int32 product not "
+                                 "bit-equal to the float64 product")
+        a_s = torch.rand(rows, 1, generator=g, device=dev) * 0.05 + 1e-3
+        bias = layer["fc1"]["bias"].to(bf)
+        y = (want.float() * a_s * layer["fc1"]["kernel_scale"]).to(bf) + bias
+        if not torch.equal(kernels.gemm_s8(a, b, a_s,
+                                           layer["fc1"]["kernel_scale"],
+                                           bias=bias), y):
+            raise AssertionError(f"gemm_s8 {name}: dense epilogue not "
+                                 "bit-equal to nn.dense's")
+        del want, y
+        b_cm = b.t().contiguous().t()
+        g_ms = cuda_ms(lambda: kernels.gemm_s8(a, b))
+        lib_ms = cuda_ms(lambda: torch._int_mm(a, b_cm))
+        b_ms, b_by = bound_of(_nbytes(a, b) + 4 * rows * dff,
+                              2 * rows * d * dff, PEAK_INT8)
+        gemm_rows.append({"shape": f"{name} fc1 [{rows}, {d}] x [{d}, "
+                                   f"{dff}] -> int32",
+                          "ms": g_ms, "int_mm_ms": lib_ms, "bound_ms": b_ms,
+                          "bound_by": b_by})
+        log(f"[k8] gemm_s8 {name} fc1 [{rows}, {d}] x [{d}, {dff}]: int32 "
+            f"bit-equal to the float64 product, dense epilogue bit-equal "
+            f"to nn.dense; {g_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del layer, a, b, b_cm
+        torch.cuda.empty_cache()
+    sync()
+    return gemm_rows
+
+
+# relative error of W8A8 slow features against the bf16 tower's, |q -
+# bf| / std(bf) (bench.py's int8 leg); the JAX package's own measurement
+# of the same random-weight CLIP-L tower is mean 0.0145, p99 0.048
+# (BENCH_DETAIL.json); measured here on an H100 (700 W): mean 0.022 /
+# 0.024, p99 0.075 / 0.077 (CLIP-L / RADIO-H, perturbed norms and
+# biases); the bounds keep ~2-3x of that
+W8A8_ERR_BOUNDS = {"mean": 0.05, "p99": 0.25}
+
+
+def wall_seconds(fns, reps: int = 7):
+    """Host-clock seconds of each of `fns`, synchronised around every
+    call, the calls interleaved over `reps` rounds so that a drift of the
+    card's clock or of the host's load falls on all of them alike. Per fn:
+    median, min and max."""
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for t, fn in zip(times, fns):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            t.append(time.perf_counter() - t0)
+    return [{"median": statistics.median(t), "min": min(t), "max": max(t),
+             "reps": reps} for t in times]
+
+
+def fmt_wall(st) -> str:
+    return (f"{st['median']:.4f} s (min {st['min']:.4f}, max "
+            f"{st['max']:.4f}, {st['reps']} reps)")
+
+
+def phase_w8a8_encode(cfg, seed, dev):
+    """`llava.encode_video` on `quantize_tree(bits=8, act_quant=True)` of
+    tower + projector (bench.py config 3's int8 leg), CLIP-L and RADIO-H,
+    against the bf16 tower's features; launch counts of the W8A8 call.
+    Returns ({tower: counts}, {tower: summary})."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.inference.utils import clip_preprocess_frames
+    from video_llava_seg_torch.models import llava, projector, vit
+    from video_llava_seg_torch.ops.quantization import quantize_tree
+
+    bf = torch.bfloat16
+    counts_by, out = {}, {}
+    frames, _, _ = _smoke_inputs(seed, cfg.num_frames, (480, 854), 1)
+    for name, c in (("clip", cfg), ("radio", radio_cfg(cfg))):
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        params = {"vision_tower": perturb(vit.init(c.vision, g, dev, bf), g),
+                  "mm_projector": projector.init(c.projector, g, dev, bf)}
+        params_q = quantize_tree(params, bits=8, act_quant=True)
+        video = clip_preprocess_frames(torch.from_numpy(frames).to(dev),
+                                       c.vision.image_size)[None].to(bf)
+        llava.encode_video(params_q, c, video)        # warm-up
+        s_bf, _ = llava.encode_video(params, c, video)
+        sync()
+        kernels.LAUNCHES.reset()
+        s_q, _ = llava.encode_video(params_q, c, video)
+        sync()
+        counts = kernels.LAUNCHES.snapshot()
+        t_q, t_bf = wall_seconds(
+            [lambda: llava.encode_video(params_q, c, video),
+             lambda: llava.encode_video(params, c, video)])
+        n_tower = vit.num_layers_run(c.vision)
+        expect = {n: 0 for n in kernels.LaunchCounts.NAMES}
+        expect["K8"] = n_tower
+        why = {n: "none: the W8A8 encode runs the tower and projector only"
+               for n in kernels.LaunchCounts.NAMES}
+        why["K8"] = (f"{n_tower} W8A8 tower layers (the projector's "
+                     "kernel_qa denses run gemm_s8 through int_matmul, which "
+                     "counts nothing)")
+        check_launches(f"w8a8-{name}", counts, expect, why)
+        ref = s_bf.float()
+        rel = ((s_q.float() - ref).abs() / (ref.std() + 1e-9)).cpu().numpy()
+        err = {"mean": float(rel.mean()),
+               "p99": float(np.percentile(rel, 99.0))}
+        if not (np.isfinite(rel).all() and s_q.shape == s_bf.shape):
+            raise AssertionError(f"W8A8 {name}: bad features")
+        log(f"[w8a8-{name}] encode_video {list(video.shape)} -> slow "
+            f"{list(s_q.shape)}: W8A8 {fmt_wall(t_q)} vs bf16 "
+            f"{fmt_wall(t_bf)}; rel "
+            f"err vs bf16 mean {err['mean']:.4f} (bound "
+            f"{W8A8_ERR_BOUNDS['mean']}), p99 {err['p99']:.4f} (bound "
+            f"{W8A8_ERR_BOUNDS['p99']})")
+        if any(err[k] > W8A8_ERR_BOUNDS[k] for k in err):
+            raise AssertionError(f"W8A8 {name}: features off the bf16 tower")
+        counts_by[name] = counts
+        out[name] = {"w8a8_seconds": t_q, "bf16_seconds": t_bf,
+                     "rel_err": err}
+        del params, params_q, video, s_bf, s_q, ref
+        torch.cuda.empty_cache()
+    sync()
+    return counts_by, out
+
+
+# per-op trunk (cuBLAS denses, plain LayerNorm, K7, K2) vs the K4 chain
+# (gemm_bf16, layernorm.cu, attention.cu), both bf16 through 16 blocks:
+# max |a - b| / max |b| per pyramid level. The two round every block's
+# intermediates to bf16 at other places and the residual stream carries
+# it on. Measured on an H100 (700 W): 8.7e-3, 1.2e-2, 2.8e-2, 1.9e-2 by
+# level; the bound keeps ~3x over the worst
+HIERA_PER_OP_BOUND = 8e-2
+
+
+def phase_hiera_per_op(cfg, seed, dev):
+    """The SAM2.1-hiera-small trunk over the 8 seg frames at 1024^2 with
+    `USE_FUSED_BLOCK = False`: K7 for the 13 windowed blocks, K2 for the 3
+    global ones, no K4; the pyramid against the K4 path's."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+
+    sc = make_sam2_cfg(cfg.seg)
+    hc = sc.hiera
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    trunk = perturb(hiera.init(hc, g, dev, torch.bfloat16), g)
+    x = torch.randn((cfg.seg.max_seg_frames, sc.image_size, sc.image_size,
+                     3), generator=g, device=dev).to(torch.bfloat16)
+
+    def run(fused):
+        saved = hiera.USE_FUSED_BLOCK
+        hiera.USE_FUSED_BLOCK = fused
+        try:
+            outs = hiera.apply(trunk, hc, x)
+            sync()
+            return outs
+        finally:
+            hiera.USE_FUSED_BLOCK = saved
+
+    run(False)                                        # warm-up
+    want = run(True)
+    kernels.LAUNCHES.reset()
+    got = run(False)
+    counts = kernels.LAUNCHES.snapshot()
+    t_op, t_k4 = wall_seconds([lambda: run(False), lambda: run(True)])
+    dims = hiera.block_dims(hc)
+    n_global = sum(1 for d in dims if d[3] == 0)
+    expect = {n: 0 for n in kernels.LaunchCounts.NAMES}
+    expect.update(K7=len(dims) - n_global, K2=n_global)
+    why = {n: "none: the per-op trunk runs no other kernel"
+           for n in kernels.LaunchCounts.NAMES}
+    why.update(K7=f"{len(dims) - n_global} windowed blocks",
+               K2=f"{n_global} global blocks ({(sc.image_size // 16) ** 2} "
+                  "keys each)",
+               K4="none: USE_FUSED_BLOCK is off")
+    check_launches("hiera-per-op", counts, expect, why)
+    rels = []
+    for a, b in zip(got, want):
+        rels.append(((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()).item())
+    log(f"[hiera-per-op] {len(dims)} blocks over x{list(x.shape)}: per-op "
+        f"{fmt_wall(t_op)} vs K4 path {fmt_wall(t_k4)}; pyramid "
+        f"{[list(o.shape) for o in got]} rel err vs the K4 path "
+        f"{[f'{r:.3e}' for r in rels]} (bound {HIERA_PER_OP_BOUND:.0e})")
+    if not all(math.isfinite(r) and r <= HIERA_PER_OP_BOUND for r in rels):
+        raise AssertionError("per-op Hiera trunk disagrees with the K4 path")
+    del trunk, x, got, want
+    torch.cuda.empty_cache()
+    sync()
+    return counts, {"per_op_seconds": t_op, "k4_seconds": t_k4,
+                    "rel_err": rels}
+
+
+# tiny towers and trunk, card (kernels, bf16) vs CPU (plain, fp32) on the
+# same bf16-rounded weights: each bf16 hand-off costs ~2^-8; the W8A8
+# tower's per-row int8 levels move where bf16 and fp32 activations round
+# apart, which stays within one quantization step per element. Measured
+# on an H100 (700 W): RADIO 6.7e-3, S2 6.5e-3, W8A8 2.2e-2, per-op trunk
+# 1.1e-2; ~5x of headroom
+TINY_VISION_BOUNDS = {"radio": 5e-2, "s2": 5e-2, "w8a8": 1e-1,
+                      "hiera_per_op": 5e-2}
+
+
+def phase_tiny_vision_agreement(seed):
+    """Tiny RADIO tower (16-wide heads of 80: the D = 80 attention), S2
+    over a tiny CLIP tower, the W8A8 RADIO tower and the per-op trunk,
+    each on the card (kernels) and on the CPU (plain)."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.bridge import cast_tree
+    from video_llava_seg_torch.config import (
+        VideoLlavaConfig,
+        VisionTowerConfig,
+    )
+    from video_llava_seg_torch.models import vit
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.sam2.config import HieraConfig
+    from video_llava_seg_torch.ops.quantization import quantize_tree
+
+    radio = VisionTowerConfig(
+        name="radio-tiny", image_size=64, patch_size=16, hidden_size=160,
+        intermediate_size=320, num_layers=2, num_heads=2, select_layer=-1,
+        use_cls_token=False, is_radio=True, num_register_tokens=1,
+        final_norm=True, layernorm_eps=1e-6)
+    s2 = dataclasses.replace(VideoLlavaConfig.tiny().vision,
+                             s2_scales=(56, 112))
+    trunk_cfg = HieraConfig(embed_dim=32, num_heads=1, stages=(1, 2, 2, 1),
+                            global_att_blocks=(4,),
+                            window_pos_embed_bkg_spatial_size=(7, 7),
+                            window_spec=(8, 4, 14, 7))
+    r = np.random.default_rng(seed)
+
+    def bf16_rounded(tree):
+        return cast_tree(cast_tree(tree, "cpu", torch.bfloat16), "cpu",
+                         torch.float32)
+
+    g = torch.Generator().manual_seed(seed)
+    radio_p = bf16_rounded(perturb(vit.init(radio, g, "cpu",
+                                            torch.float32), g))
+    cases = {
+        "radio": (lambda p, t: vit.apply(p, radio, t), radio_p,
+                  r.random((2, 64, 64, 3)), "K1"),
+        "s2": (lambda p, t: vit.apply_s2(p, s2, t),
+               bf16_rounded(perturb(vit.init(s2, g, "cpu", torch.float32),
+                                    g)),
+               r.standard_normal((2, 112, 112, 3)), "K1"),
+        "w8a8": (lambda p, t: vit.apply(p, radio, t),
+                 quantize_tree(radio_p, 8, act_quant=True, min_size=0),
+                 r.random((2, 64, 64, 3)), "K8"),
+        "hiera_per_op": (lambda p, t: hiera.apply(p, trunk_cfg, t)[-1],
+                         bf16_rounded(perturb(hiera.init(
+                             trunk_cfg, g, "cpu", torch.float32), g)),
+                         r.standard_normal((1, 288, 288, 3)), "K7"),
+    }
+    rels = {}
+    saved = hiera.USE_FUSED_BLOCK
+    hiera.USE_FUSED_BLOCK = False
+    try:
+        for name, (fn, params, x, kname) in cases.items():
+            x = torch.from_numpy(x.astype(np.float32))
+            want = fn(params, x)
+            before = kernels.LAUNCHES.snapshot()[kname]
+            got = fn(cast_tree(params, "cuda", torch.bfloat16),
+                     x.cuda().to(torch.bfloat16)).float().cpu()
+            sync()
+            if kernels.LAUNCHES.snapshot()[kname] <= before:
+                raise AssertionError(f"tiny {name}: {kname} not launched")
+            rels[name] = ((got - want).abs().max()
+                          / want.abs().max()).item()
+            log(f"[agree] tiny {name} {list(got.shape)}: card bf16 kernels "
+                f"({kname}) vs CPU fp32 plain: rel err {rels[name]:.3e} "
+                f"(bound {TINY_VISION_BOUNDS[name]:.0e})")
+            if not (got.shape == want.shape
+                    and rels[name] <= TINY_VISION_BOUNDS[name]):
+                raise AssertionError(f"tiny {name}: kernels disagree with "
+                                     "plain")
+    finally:
+        hiera.USE_FUSED_BLOCK = saved
+    return rels
 
 
 # ---------------------------------------------------------------------------
@@ -1206,7 +1688,7 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
     expect = {"K1": n_tower, "K2": 2 * cfg.llm.num_layers, "K3": n_dec,
               "K4": sc.hiera.depth, "K5": 0,
               "K6a": cfg.llm.num_layers + n_dec,
-              "K6b": cfg.llm.num_layers + n_dec}
+              "K6b": cfg.llm.num_layers + n_dec, "K7": 0, "K8": 0}
     why = {"K1": f"{n_tower} tower layers forward; their backward "
                  "recomputes the plain layer",
            "K2": f"{cfg.llm.num_layers} LLM layers forward + "
@@ -1218,7 +1700,9 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
            "K6a": f"{cfg.llm.num_layers} LLM layers + {n_dec} mask-decoder "
                   "image->token attentions",
            "K6b": f"{cfg.llm.num_layers} LLM layers + {n_dec} mask-decoder "
-                  "image->token attentions"}
+                  "image->token attentions",
+           "K7": "none: K4 runs every Hiera block",
+           "K8": "none: the tower trains in bf16 over fp32 masters"}
     torch.cuda.reset_peak_memory_stats()
     seconds, rows, counts = [], [], None
     for step in range(steps):
@@ -1431,11 +1915,18 @@ def main(argv=None):
     results = phase_kernel_checks(cfg, prefill_len, batch_len, pad,
                                   args.seed, dev)
     phase_w4a8_checks(cfg, 2 * batch_len, args.seed, dev, results)
+    k7_rows = phase_k7_checks(cfg, args.seed, dev, results)
+    gemm_rows = phase_k8_checks(cfg, args.seed, dev, results)
     bf16_counts, _ = phase_slice(cfg, args.seed, args.max_new_tokens, dev)
     quant_counts, quant = phase_quant_slice(cfg, args.seed,
                                             args.max_new_tokens, dev)
+    radio_counts, radio = phase_slice(radio_cfg(cfg), args.seed,
+                                      args.max_new_tokens, dev, tag="radio")
+    w8a8_counts, w8a8 = phase_w8a8_encode(cfg, args.seed, dev)
+    hiera_counts, hiera_op = phase_hiera_per_op(cfg, args.seed, dev)
     phase_small_agreement(args.seed)
     phase_small_agreement_quant(args.seed)
+    tiny_vision = phase_tiny_vision_agreement(args.seed)
 
     seq_len = train_seq_len(cfg)
     log(f"[flash] the synthetic train batch splices to {seq_len} tokens")
@@ -1445,18 +1936,26 @@ def main(argv=None):
     train["agreement"] = phase_train_agreement(args.seed)
 
     kernels_out = []
+    main_paths = {"K5": quant_counts, "K7": hiera_counts,
+                  "K8": w8a8_counts["clip"]}
     for name in kernels.LaunchCounts.NAMES:
         r = results[name]
         source, csrc = SOURCES[name]
         by = r["bound_by_ms"]
-        main_path = quant_counts if name == "K5" else train_counts
+        main_path = main_paths.get(name, train_counts)
         kernels_out.append({
             "name": name, "route": "cuda", "source": source,
             "csrc": [f"video_llava_seg_torch/csrc/{c}" for c in csrc],
             "replaces": REPLACES[name], "launches": main_path[name],
             "launches_by_path": {"bf16": bf16_counts[name],
                                  "w4a8_batched": quant_counts[name],
-                                 "train_step": train_counts[name]},
+                                 "train_step": train_counts[name],
+                                 "radio_bf16": radio_counts[name],
+                                 "w8a8_encode_clip":
+                                     w8a8_counts["clip"][name],
+                                 "w8a8_encode_radio":
+                                     w8a8_counts["radio"][name],
+                                 "hiera_per_op": hiera_counts[name]},
             "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
             "bound": BOUNDS[name] if BOUNDS[name] is not None else "exact",
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1465,6 +1964,10 @@ def main(argv=None):
                          else "operations"),
             "library_ms": r["library_ms"], "shapes": r["shapes"]})
     log(json.dumps({"w4a8_batched_slice": quant}))
+    log(json.dumps({"vision_slice": {
+        "radio_bf16_serving": radio, "w8a8_encode": w8a8,
+        "hiera_per_op": hiera_op, "tiny_agreement": tiny_vision,
+        "k7_vs_k4_attention_stage": k7_rows, "gemm_s8": gemm_rows}}))
     log(json.dumps({"train_slice": train}))
     log(json.dumps({"kernels": kernels_out}))
     log(smi)

@@ -9,7 +9,15 @@ The W4A8 kernel (K5) sums integers and must equal its plain version bit
 for bit. The flash backward (K6a / K6b) and the forward's logsumexp are
 held against `flash_backward_plain` / `flash_forward_plain` in fp32 on
 the same bf16 inputs, with the same bound; every kernel op's output must
-carry a grad_fn when an input requires grad. Run on the card:
+carry a grad_fn when an input requires grad. K7 (window attention from
+the fused-qkv map) is held against `window_attention_plain` in fp32 with
+the same bound; K8's building blocks are exact where the TPU kernel's
+arithmetic is (gemm_s8 bit-equal to the float64 int8 product and to
+nn.dense's epilogue, quant_rows bit-equal to
+`quantize_activations_rowwise`), and the whole W8A8 layer is held
+against `vit_layer_plain` over the same quantized tree in bf16 (bound
+3e-2: an int8 rounding flip of a bf16 activation moves a row by one
+quantization step). Run on the card:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
@@ -320,3 +328,116 @@ def test_kernel_ops_have_grad_fn(dev):
                           eps=1e-6), [xh, blk["qkv"]["kernel"]], gh)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8 (the window attention and the W8A8 layer)
+# ---------------------------------------------------------------------------
+
+from video_llava_seg_torch.ops.int4 import int_matmul, int_matmul_plain  # noqa: E402
+from video_llava_seg_torch.ops.quantization import (  # noqa: E402
+    quantize_activations_rowwise,
+    quantize_tree,
+)
+from video_llava_seg_torch.ops.window_attention import (  # noqa: E402
+    window_attention,
+    window_attention_plain,
+)
+
+W8A8_BOUND = 3e-2
+
+
+@pytest.mark.parametrize("shape,heads,ws,ps", [
+    ((2, 64, 64, 3 * 96), 1, 8, 1),      # hiera-small stage 1
+    ((2, 64, 64, 3 * 96), 1, 8, 2),      # stage-1 -> 2 transition
+    ((2, 32, 32, 3 * 192), 2, 4, 1),     # stage 2
+    ((2, 32, 32, 3 * 192), 2, 4, 2),     # stage-2 -> 3 transition
+    ((1, 28, 42, 3 * 384), 4, 14, 1),    # stage 3 (padded maps: 70)
+    ((1, 28, 28, 3 * 384), 4, 14, 2),    # stage-3 -> 4 transition
+    ((2, 14, 14, 3 * 768), 8, 7, 1),     # stage 4
+    ((1, 16, 16, 3 * 64), 2, 16, 2),     # 256 keys, hd 32
+    ((1, 16, 16, 3 * 144), 2, 8, 2),     # Hiera-L's hd 72, padded to 80
+])
+def test_window_attention_kernel(dev, shape, heads, ws, ps):
+    g = torch.Generator(device=dev).manual_seed(10)
+    qkv = _randn(g, *shape, dev=dev)
+    q_pool = (ps, ps) if ps > 1 else None
+    before = kernels.LAUNCHES.snapshot()["K7"]
+    got = window_attention(qkv, num_heads=heads, ws=ws, q_pool=q_pool)
+    assert kernels.LAUNCHES.snapshot()["K7"] == before + 1
+    hd = shape[-1] // 3 // heads
+    want = window_attention_plain(qkv.float(), num_heads=heads, ws=ws,
+                                  scale=hd ** -0.5, ps=ps)
+    assert got.shape == want.shape
+    assert _rel(got, want) < BOUND
+
+
+def test_attention_head_dim_80(dev):
+    """RADIO ViT-H's 16 heads of 80 (the D = 80 instance)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (_randn(g, 2, 16, 577, 80, dev=dev) for _ in range(3))
+    for two_pass in (False, True):
+        got = kernels.attention(q, k, v, scale=80 ** -0.5, kv_len=570,
+                                two_pass=two_pass)
+        want = attention_reference(q.float(), k.float(), v.float(),
+                                   kv_valid_len=570)
+        assert _rel(got, want) < BOUND
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 4), (130, 1024, 1024),
+                                   (577, 1280, 5120), (300, 4100, 36)])
+def test_gemm_s8_bit_exact(dev, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(12)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    want = int_matmul_plain(a, b)
+    assert torch.equal(kernels.gemm_s8(a, b), want)
+    assert torch.equal(int_matmul(a, b), want)
+    # the dense epilogue: nn.dense's kernel_qa arithmetic, bit for bit
+    a_s = torch.rand(m, 1, generator=g, device=dev) * 0.05 + 1e-3
+    w_s = torch.rand(n, generator=g, device=dev) * 0.02 + 1e-4
+    bias = _randn(g, n, dev=dev)
+    res = _randn(g, m, n, dev=dev)
+    y = (want.float() * a_s * w_s).to(torch.bfloat16) + bias
+    assert torch.equal(kernels.gemm_s8(a, b, a_s, w_s, bias=bias), y)
+    assert torch.equal(kernels.gemm_s8(a, b, a_s, w_s, bias=bias,
+                                       residual=res), res + y)
+    assert torch.equal(kernels.gemm_s8(a, b, a_s, w_s, bias=bias,
+                                       scale=0.125), y * 0.125)
+
+
+def test_quant_rows_bit_exact(dev):
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = _randn(g, 333, 1280, dev=dev, scale=3.0)
+    x[7] = 0
+    q, s = kernels.quant_rows(x)
+    wq, ws = quantize_activations_rowwise(x)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    ln = {"scale": torch.rand(1280, generator=g, device=dev) + 0.5,
+          "bias": torch.randn(1280, generator=g, device=dev) * 0.1}
+    q, s = kernels.ln_quant_rows(x, ln["scale"], ln["bias"], 1e-6)
+    wq, ws = quantize_activations_rowwise(nn.layer_norm(ln, x, 1e-6))
+    # the norm sums in another order: a bf16 value may move by one ulp
+    assert (q.int() - wq.int()).abs().max().item() <= 1
+    assert (q != wq).float().mean().item() < 1e-3
+    torch.testing.assert_close(s, ws, rtol=1e-2, atol=0)
+
+
+@pytest.mark.parametrize("d,heads,act", [(1024, 16, "quick_gelu"),
+                                         (1280, 16, "gelu")])
+def test_w8a8_layer_kernel(dev, d, heads, act):
+    g = torch.Generator(device=dev).manual_seed(14)
+    p = {"layer_norm1": _ln(g, d, dev), "layer_norm2": _ln(g, d, dev),
+         "q_proj": _dense(g, d, d, dev), "k_proj": _dense(g, d, d, dev),
+         "v_proj": _dense(g, d, d, dev), "out_proj": _dense(g, d, d, dev),
+         "fc1": _dense(g, d, 4 * d, dev), "fc2": _dense(g, 4 * d, d, dev)}
+    p = quantize_tree(p, 8, act_quant=True)
+    x = _randn(g, 2, 577, d, dev=dev)
+    before = kernels.LAUNCHES.snapshot()["K8"]
+    got = vit_layer(p, x, num_heads=heads, eps=1e-6, kv_len=570, act=act)
+    assert kernels.LAUNCHES.snapshot()["K8"] == before + 1
+    want = vit_layer_plain(p, x, num_heads=heads, eps=1e-6, kv_len=570,
+                           act=act)
+    assert _rel(got, want) < W8A8_BOUND

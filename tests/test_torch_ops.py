@@ -341,12 +341,16 @@ def test_seg_preprocess_matches_host_resize(hw, mode):
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_run_plain_and_count_no_launch():
-    """On a CPU tensor each K1..K4 wrapper runs its plain version and
-    leaves the launch counters alone (they count kernel launches only)."""
+    """On a CPU tensor each K1..K4, K7 and K8 wrapper (and int_matmul)
+    runs its plain version and leaves the launch counters alone (they
+    count kernel launches only)."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.ops.attention import attention
     from video_llava_seg_torch.ops.hiera_block import hiera_block
+    from video_llava_seg_torch.ops.int4 import int_matmul
+    from video_llava_seg_torch.ops.quantization import quantize_tree
     from video_llava_seg_torch.ops.vit_block import vit_layer
+    from video_llava_seg_torch.ops.window_attention import window_attention
 
     before = kernels.LAUNCHES.snapshot()
     g = torch.Generator().manual_seed(0)
@@ -367,11 +371,19 @@ def test_cpu_tensors_run_plain_and_count_no_launch():
            "proj_attn": tnn.dense_init(g, d, d, "cpu", torch.float32),
            "mlp": tnn.mlp_init(g, [d, 2 * d, d], "cpu", torch.float32)}
     hiera_block(blk, torch.randn(1, 8, 8, d), num_heads=1, ws=4)
+    window_attention(torch.randn(1, 8, 8, 3 * d), num_heads=2, ws=4,
+                     q_pool=(2, 2))
+    vit_layer(quantize_tree(vit_p, 8, act_quant=True, min_size=0),
+              torch.randn(2, 5, d), num_heads=2, eps=1e-5)
+    int_matmul(torch.ones(3, 8, dtype=torch.int8),
+               torch.ones(8, 4, dtype=torch.int8))
     assert kernels.LAUNCHES.snapshot() == before
 
 
 @pytest.mark.parametrize("call", ["layernorm", "gemm", "attention",
-                                  "maxpool2x2"])
+                                  "maxpool2x2", "quant_rows",
+                                  "ln_quant_rows", "gemm_s8",
+                                  "window_attention"])
 def test_raw_kernel_wrappers_refuse_cpu_tensors(call):
     """The raw CUDA wrappers check their inputs before touching the
     library: a CPU tensor is refused, never silently computed."""
@@ -382,7 +394,13 @@ def test_raw_kernel_wrappers_refuse_cpu_tensors(call):
     args = {"layernorm": ((x, x[0], x[0], 1e-5), {}),
             "gemm": ((x, x.t()), {}),
             "attention": ((q, q, q), {"scale": 1.0}),
-            "maxpool2x2": ((x.view(1, 2, 2, 8),), {})}
+            "maxpool2x2": ((x.view(1, 2, 2, 8),), {}),
+            "quant_rows": ((x,), {}),
+            "ln_quant_rows": ((x, x[0].float(), x[0].float(), 1e-5), {}),
+            "gemm_s8": ((x.to(torch.int8), x.t().to(torch.int8)), {}),
+            "window_attention": ((torch.zeros(1, 4, 4, 48,
+                                              dtype=torch.bfloat16),),
+                                 {"num_heads": 2, "ws": 4, "scale": 1.0})}
     a, kw = args[call]
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, call)(*a, **kw)
@@ -400,6 +418,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     counts = kernels.LaunchCounts()
     counts.add("K2")
     assert counts.snapshot() == {"K1": 0, "K2": 1, "K3": 0, "K4": 0,
-                                 "K5": 0, "K6a": 0, "K6b": 0}
+                                 "K5": 0, "K6a": 0, "K6b": 0, "K7": 0,
+                                 "K8": 0}
     counts.reset()
     assert set(counts.snapshot().values()) == {0}

@@ -33,6 +33,7 @@ from test_inference_cli import FakeTokenizer, _write_fixture
 from test_torch_quant import assert_trees_equal
 
 from video_llava_seg_torch import bridge
+from video_llava_seg_torch import config as tconfig
 from video_llava_seg_torch.convert import llava_torch as tconv
 from video_llava_seg_torch.convert.safetensors_io import read_safetensors
 from video_llava_seg_torch.inference import main as tmain
@@ -432,10 +433,25 @@ def test_loading_refuses_other_formats(tmp_path, what):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             tmain.load_model(str(tmp_path), cfg=cfg, device="cpu")
     else:
-        sd = {"model.vision_tower.vision_tower.radio_model.x":
-              torch.zeros(1)}
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        # RADIO towers load (tests/test_torch_towers.py); one whose
+        # register-token count differs from the config's is refused
+        cfg = dataclasses.replace(cfg, vision=tconfig.VisionTowerConfig(
+            name="radio-test", image_size=32, patch_size=16, hidden_size=8,
+            intermediate_size=16, num_layers=0, num_heads=1,
+            select_layer=-1, use_cls_token=False, is_radio=True,
+            num_register_tokens=1, final_norm=True))
+        pre = "model.vision_tower.vision_tower.radio_model.model."
+        sd = {pre + "patch_generator.embedder.weight":
+              torch.zeros(8, 3 * 16 * 16),
+              pre + "patch_generator.pos_embed": torch.zeros(1, 4, 8),
+              pre + "patch_generator.cls_token.token": torch.zeros(1, 2, 8),
+              pre + "norm.weight": torch.ones(8),
+              pre + "norm.bias": torch.zeros(8)}
+        with pytest.raises(ValueError, match="register tokens"):
             tconv.convert_llava_state_dict(sd, cfg)
+        sd[pre + "patch_generator.cls_token.token"] = torch.zeros(1, 1, 8)
+        vt = tconv.convert_llava_state_dict(sd, cfg)["vision_tower"]
+        assert vt["register_tokens"].shape == (1, 8)
 
 
 def test_safetensors_reader_matches_the_package(tmp_path):

@@ -5,8 +5,9 @@ Reads every `*.safetensors` shard (the port's own reader) or else every
 `pytorch_model*.bin` shard (`torch.load(weights_only=True)`, widened to
 fp32 as the JAX package does), pads the vocabulary with the mean
 embedding, and converts the reference's HF key layout:
-model.layers.* (LLM), model.vision_tower.vision_tower.* (CLIP),
-model.mm_projector.*, model.seg_head.*. Leaves stay on the CPU in the
+model.layers.* (LLM), model.vision_tower.vision_tower.* (CLIP's
+vision_model.* or RADIO's radio_model.*), model.mm_projector.*,
+model.seg_head.*. Leaves stay on the CPU in the
 stored dtype; `inference.main.load_model` moves them to the card.
 """
 
@@ -81,7 +82,11 @@ def convert_llava_state_dict(sd: Dict[str, torch.Tensor], cfg,
         out["vision_tower"] = convert_clip_vision(vt_sd,
                                                   cfg.vision.num_layers)
     elif any(k.startswith(vt_base + "radio_model.") for k in sd):
-        raise NotImplementedError("ROADMAP queue 1 item 4")
+        from video_llava_seg_torch.convert.radio import convert_radio
+
+        vt_sd = {k[len(vt_base):]: v for k, v in sd.items()
+                 if k.startswith(vt_base + "radio_model.")}
+        out["vision_tower"] = convert_radio(vt_sd, cfg.vision)
 
     if any(k.startswith("model.mm_projector.") for k in sd):
         proj_sd = {k[len("model.mm_projector."):]: v for k, v in sd.items()

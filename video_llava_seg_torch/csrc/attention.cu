@@ -42,6 +42,9 @@
 //     exact row max, the second accumulates exp(s - max) without any
 //     rescale; when all keys fit one tile (the mask-decoder case) it is
 //     the single-tile plain softmax of _flash_kernel_single.
+// Head dims 16, 32, 64, 80 (RADIO ViT-H: five 16-deep k-steps; Layout<80>
+// keeps every WMMA tile 32-byte aligned: rows of 88 bf16 / 84 fp32), 96 and
+// 128 are instantiated.
 // mma.sync/wgmma fragments held in registers are later work.
 
 #include <cuda_bf16.h>
@@ -306,6 +309,7 @@ int dispatch_dim(const Params& p, int batch, int d, cudaStream_t stream) {
     case 16: return launch<16, TWO_PASS>(p, batch, stream);
     case 32: return launch<32, TWO_PASS>(p, batch, stream);
     case 64: return launch<64, TWO_PASS>(p, batch, stream);
+    case 80: return launch<80, TWO_PASS>(p, batch, stream);
     case 96: return launch<96, TWO_PASS>(p, batch, stream);
     case 128: return launch<128, TWO_PASS>(p, batch, stream);
     default: return (int)cudaErrorInvalidValue;

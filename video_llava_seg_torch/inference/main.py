@@ -26,9 +26,14 @@ own copies (`data/video_io.py`, `inference/video_fetcher.py`,
 `paths.py`, `ops/masks.py`), imported where they are used, so the
 frames-level entry points need none of them.
 
+A checkpoint with a RADIO tower (`radio_model.*` keys) serves like a CLIP
+one when its `config.json` holds the package's config tree with the
+RADIO vision config (`VisionTowerConfig.radio()`: is_radio, one register
+token, final norm) and a projector of `mm_hidden_size` 1280.
+
 Refused with NotImplementedError naming the ROADMAP item: sampling and
 beams, --model_parallel, orbax checkpoints (the only ones that carry LoRA
-adapters), RADIO towers.
+adapters).
 """
 
 from __future__ import annotations
@@ -125,7 +130,9 @@ def load_model(model_path: str, cfg=None, load_bits: Optional[int] = None,
         if "llm" in raw:  # the packages' own config tree
             cfg = VideoLlavaConfig(
                 llm=LlamaConfig(**raw["llm"]),
-                vision=VisionTowerConfig(**raw["vision"]),
+                vision=VisionTowerConfig(**{
+                    **raw["vision"],
+                    "s2_scales": tuple(raw["vision"].get("s2_scales", ()))}),
                 projector=ProjectorConfig(**raw["projector"]),
                 seg=SegHeadConfig(**raw["seg"]) if raw.get("seg") else None,
                 **{k: v for k, v in raw.items()

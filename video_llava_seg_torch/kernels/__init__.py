@@ -12,11 +12,14 @@ Each raw wrapper checks device, dtype, shape, contiguity and alignment,
 allocates its output with `torch.empty`, launches on the current stream
 and raises if the C entry reports an error (`cudaGetLastError`).
 
-`LAUNCHES` counts the TPU-kernel counterparts (K1..K6b) the main paths
-go through: each op-level wrapper (`ops.vit_block.vit_layer`,
-`ops.attention.attention` and its backward, `ops.hiera_block.hiera_block`,
-`ops.int4.w4a8_dense`) adds one where it launches its CUDA composition,
-and nowhere else.
+`LAUNCHES` counts the TPU-kernel counterparts (K1..K8) the main paths
+go through: each op-level wrapper (`ops.vit_block.vit_layer` for K1 and
+K8, `ops.attention.attention` and its backward, `ops.hiera_block.
+hiera_block`, `ops.int4.w4a8_dense`, `ops.window_attention.
+window_attention` for K7) adds one where it launches its CUDA
+composition, and nowhere else. `ops.int4.int_matmul` launches
+`gemm_s8` for XLA's int8 product, which is no TPU kernel: it counts
+nothing.
 """
 
 from __future__ import annotations
@@ -53,22 +56,28 @@ _SIGNATURES = {
     "vls_attention_bwd_dkv": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
     "vls_w4a8": [_P] * 6 + [_I] * 5 + [_P],
+    "vls_quant_rows": [_P] * 5 + [_L, _I, _F, _I, _P],
+    "vls_gemm_s8": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "vls_window_attention": [_P, _P] + [_I] * 7 + [_F, _P],
 }
 
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
-ATTENTION_HEAD_DIMS = (16, 32, 64, 96, 128)
+ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # w4a8: the int32 sums hold 16 x the true sum (see csrc/w4a8.cu), which
 # stays below 2^31 for in <= 2^17
 W4A8_MAX_IN = 1 << 17
 W4A8_GEMV_MAX_ROWS = 8
 # aim the decode GEMV at ~8 blocks per SM of an H100 (132 SMs)
 W4A8_GEMV_TARGET_BLOCKS = 132 * 8
+# window_attention.cu: all of a window's keys sit in shared memory
+WINDOW_MAX_KEYS = 256
+WINDOW_MAX_HEAD_DIM = 128
 
 
 class LaunchCounts:
-    """Per-kernel launch counters of the K1..K6b wrappers."""
+    """Per-kernel launch counters of the K1..K8 wrappers."""
 
-    NAMES = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6b")
+    NAMES = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7", "K8")
 
     def __init__(self):
         self.counts: Dict[str, int] = {n: 0 for n in self.NAMES}
@@ -442,3 +451,126 @@ def w4a8_matmul(xq: torch.Tensor, a_scale: torch.Tensor,
         _ptr(work), rows, in_dim, out, int(out_dtype == torch.float32),
         ksplit, _stream()))
     return y
+
+
+def _rows2d(x: torch.Tensor, what: str):
+    _require(x, what)
+    if x.dim() != 2 or x.shape[1] % 8:
+        raise ValueError(f"{what}: expected [rows, cols] with cols % 8 == 0, "
+                         f"got {tuple(x.shape)}")
+    return x.shape
+
+
+def _quant_rows(x, gamma, beta, eps: float, ln: bool):
+    rows, cols = _rows2d(x, "quant_rows x")
+    q = torch.empty((rows, cols), device=x.device, dtype=torch.int8)
+    scale = torch.empty((rows, 1), device=x.device, dtype=torch.float32)
+    _check_code("quant_rows", LIBRARY.get().vls_quant_rows(
+        _ptr(x), _ptr(gamma), _ptr(beta), _ptr(q), _ptr(scale), rows, cols,
+        float(eps), int(ln), _stream()))
+    return q, scale
+
+
+def quant_rows(x: torch.Tensor):
+    """Per-row symmetric int8 quantization of a contiguous bf16 [rows,
+    cols] tensor, bit-equal to `quantize_activations_rowwise`. Returns
+    (int8 [rows, cols], fp32 scale [rows, 1])."""
+    return _quant_rows(x, None, None, 0.0, False)
+
+
+def ln_quant_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  eps: float):
+    """LayerNorm in fp32 (gamma, beta fp32 [cols]), rounded to bf16, then
+    per-row int8 quantization. Returns (int8 [rows, cols], fp32 [rows,
+    1])."""
+    cols = x.shape[-1]
+    for t, what in ((gamma, "gamma"), (beta, "beta")):
+        _require(t, f"ln_quant_rows {what}", dtype=torch.float32)
+        if t.numel() != cols:
+            raise ValueError(f"ln_quant_rows: {what} must have {cols} "
+                             "elements")
+    return _quant_rows(x, gamma, beta, eps, True)
+
+
+def gemm_s8(a: torch.Tensor, b: torch.Tensor,
+            a_scale: Optional[torch.Tensor] = None,
+            w_scale: Optional[torch.Tensor] = None,
+            bias: Optional[torch.Tensor] = None,
+            residual: Optional[torch.Tensor] = None,
+            scale: Optional[float] = None, act: str = "none"):
+    """int8 a [M, K] @ int8 b [K, N] on the tensor cores.
+
+    Without scales: the exact int32 product [M, N]. With a_scale (fp32,
+    M elements) and w_scale (fp32 [N]): the W8A8 dense epilogue in bf16,
+    bf16((acc * a_scale) * w_scale) [+ bias] [* bf16(scale) | act]
+    [+ residual], every step rounded to bf16; bias bf16 [N], residual
+    bf16 [M, N]."""
+    _require(a, "gemm_s8 a", dtype=torch.int8)
+    _require(b, "gemm_s8 b", dtype=torch.int8)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"gemm_s8: bad shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if k % 4 or n % 4:
+        raise ValueError(f"gemm_s8: K ({k}) and N ({n}) must be multiples "
+                         "of 4")
+    dense = a_scale is not None
+    if dense != (w_scale is not None):
+        raise ValueError("gemm_s8: give both scales or neither")
+    if not dense and (bias is not None or residual is not None
+                      or scale is not None or act != "none"):
+        raise ValueError("gemm_s8: the int32 mode has no epilogue")
+    if scale is not None and act != "none":
+        raise ValueError("gemm_s8: q scale and activation are exclusive")
+    if dense:
+        _require(a_scale, "gemm_s8 a_scale", dtype=torch.float32)
+        _require(w_scale, "gemm_s8 w_scale", dtype=torch.float32)
+        if a_scale.numel() != m or w_scale.numel() != n:
+            raise ValueError("gemm_s8: a_scale must have M and w_scale N "
+                             "elements")
+    if bias is not None:
+        _require(bias, "gemm_s8 bias")
+        if bias.numel() != n:
+            raise ValueError("gemm_s8: bias must have N elements")
+    if residual is not None:
+        _require(residual, "gemm_s8 residual")
+        if tuple(residual.shape) != (m, n):
+            raise ValueError("gemm_s8: residual must be [M, N]")
+    y = torch.empty((m, n), device=a.device,
+                    dtype=torch.bfloat16 if dense else torch.int32)
+    _check_code("gemm_s8", LIBRARY.get().vls_gemm_s8(
+        _ptr(a), _ptr(a_scale), _ptr(b), _ptr(w_scale), _ptr(bias),
+        _ptr(residual), _ptr(y), m, n, k, int(dense), ACTS[act],
+        float(scale or 0.0), _stream()))
+    return y
+
+
+def window_attention(qkv: torch.Tensor, *, num_heads: int, ws: int,
+                     scale: float, ps: int = 1) -> torch.Tensor:
+    """Windowed SDPA over a contiguous fused-qkv NHWC map [B, H, W, 3C]
+    (H, W multiples of ws); ps = 2 max-pools q 2x2 per window. Returns
+    [B, H/ps, W/ps, C] bf16."""
+    _require(qkv, "window_attention qkv")
+    if qkv.dim() != 4 or qkv.shape[-1] % 3:
+        raise ValueError("window_attention: expected qkv [B, H, W, 3C]")
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    if c % num_heads or (c // num_heads) % 8 \
+            or c // num_heads > WINDOW_MAX_HEAD_DIM:
+        raise ValueError(f"window_attention: head dim {c / num_heads} must "
+                         f"be a multiple of 8 and <= {WINDOW_MAX_HEAD_DIM}")
+    if ws <= 0 or h % ws or w % ws or ws * ws > WINDOW_MAX_KEYS:
+        raise ValueError(f"window_attention: ws {ws} must divide the "
+                         f"{h}x{w} map and hold <= {WINDOW_MAX_KEYS} keys")
+    if ps not in (1, 2) or ws % ps:
+        raise ValueError(f"window_attention: pool stride {ps} must be 1 or "
+                         "2 and divide ws")
+    if (h // ws) * (w // ws) * num_heads > 65535 or b > 65535:
+        raise ValueError("window_attention: too many windows for one launch")
+    o = torch.empty((b, h // ps, w // ps, c), device=qkv.device,
+                    dtype=qkv.dtype)
+    _check_code("window_attention", LIBRARY.get().vls_window_attention(
+        _ptr(qkv), _ptr(o), b, h, w, c, num_heads, ws, ps, float(scale),
+        _stream()))
+    return o

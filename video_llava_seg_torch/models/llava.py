@@ -41,8 +41,10 @@ def init(cfg, g: torch.Generator, device, dtype):
 
 def encode_video(params, cfg, video: torch.Tensor):
     """video [B, T, H, W, 3] normalised -> (slow [B, Ts, N, D],
-    fast [B, T, p*p, D] or None)."""
-    feats = vit.apply(params["vision_tower"], cfg.vision, video)
+    fast [B, T, p*p, D] or None). An S2 tower (`cfg.vision.s2_scales`)
+    takes the video at its largest scale."""
+    tower = vit.apply_s2 if cfg.vision.s2_enabled else vit.apply
+    feats = tower(params["vision_tower"], cfg.vision, video)
     feats = projector.apply(params["mm_projector"], feats)
     t = feats.shape[1]
     if cfg.num_slow_frames == cfg.num_frames:

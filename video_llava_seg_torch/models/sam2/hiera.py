@@ -1,18 +1,40 @@
 """Hiera hierarchical ViT trunk (port of
-`video_llava_seg_tpu/models/sam2/hiera.py`). Every block, windowed or
-global, runs through `ops.hiera_block.hiera_block` (K4)."""
+`video_llava_seg_tpu/models/sam2/hiera.py`).
+
+With `USE_FUSED_BLOCK` (the default) every block, windowed or global,
+runs through `ops.hiera_block.hiera_block` (K4); the JAX package's
+Mosaic legality gate (`hiera_block_supported`) has no counterpart, so
+no block falls out of it. With `USE_FUSED_BLOCK = False` the blocks take
+the JAX package's per-op path: LN1, the dim-change shortcut, then
+
+- windowed blocks: the post-norm map zero-padded to window multiples,
+  the qkv dense on the map, `ops.window_attention.window_attention` (K7;
+  the 2x2 q pool inside it), the crop and the out projection;
+- global blocks: `_attention` over the whole map (`ops.attention`, K2 /
+  K3 on the card, for 256 queries or more; the plain twin below, as the
+  JAX package picks XLA there);
+
+then the residual and the LN2 -> GELU MLP. The switch is a module
+attribute, as in the JAX package. The JAX package's partition-based
+window path (`USE_FUSED_WINDOW_ATTN = False`) has no counterpart: the
+fused window path computes the same function."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from video_llava_seg_torch.ops import nn
-from video_llava_seg_torch.ops.hiera_block import hiera_block
+from video_llava_seg_torch.ops.attention import attention
+from video_llava_seg_torch.ops.hiera_block import hiera_block, max_pool_2x2
 from video_llava_seg_torch.ops.resize import interpolate
+from video_llava_seg_torch.ops.window_attention import window_attention
 
 _LN_EPS = 1e-6  # hieradet norm_layer = partial(LayerNorm, eps=1e-6)
+
+USE_FUSED_BLOCK = True
 
 
 def block_dims(cfg):
@@ -75,6 +97,65 @@ def get_pos_embed(params, hw):
     return bkg + win.repeat(1, h // wh, w // ww, 1)
 
 
+def _attention_fused_windows(blk, x, num_heads: int, ws: int,
+                             q_stride: Optional[Tuple[int, int]]):
+    """qkv dense on the map, K7, crop, out projection. A map the window
+    does not divide is zero-padded BEFORE the qkv dense, so pad tokens
+    carry the qkv bias as keys (the reference's window partition pads
+    the post-norm map); the output is cropped at pooled resolution."""
+    b, h, w, _ = x.shape
+    pad_h = (ws - h % ws) % ws
+    pad_w = (ws - w % ws) % ws
+    if pad_h or pad_w:
+        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    qkv = nn.dense(blk["qkv"], x)                  # [B, Hp, Wp, 3*dout]
+    o = window_attention(qkv, num_heads=num_heads, ws=ws, q_pool=q_stride)
+    ps = q_stride[0] if q_stride is not None else 1
+    oh, ow = h // ps, w // ps
+    if o.shape[1] != oh or o.shape[2] != ow:
+        o = o[:, :oh, :ow]
+    return nn.dense(blk["proj_attn"], o)
+
+
+def _attention(blk, x, num_heads: int,
+               q_stride: Optional[Tuple[int, int]]):
+    """MultiScaleAttention: qkv -> optional q max-pool -> SDPA -> proj."""
+    b, h, w, _ = x.shape
+    qkv = nn.dense(blk["qkv"], x.reshape(b, h * w, -1))
+    dout = qkv.shape[-1] // 3
+    head_dim = dout // num_heads
+    qkv = qkv.reshape(b, h * w, 3, num_heads, head_dim)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    oh, ow = h, w
+    if q_stride is not None:
+        q = max_pool_2x2(q.reshape(b, h, w, -1))
+        oh, ow = q.shape[1], q.shape[2]
+        q = q.reshape(b, oh * ow, num_heads, head_dim)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    backend = "auto" if q.shape[2] >= 256 else "plain"
+    o = attention(q, k, v, backend=backend)
+    o = o.permute(0, 2, 1, 3).reshape(b, oh, ow, dout)
+    return nn.dense(blk["proj_attn"], o)
+
+
+def _block_per_op(blk, x, *, din: int, dout: int, heads: int, ws: int,
+                  q_stride: Optional[Tuple[int, int]]):
+    shortcut = x
+    xn = nn.layer_norm(blk["norm1"], x, _LN_EPS)
+    if din != dout:
+        shortcut = nn.dense(blk["proj"], xn)
+        if q_stride is not None:
+            shortcut = max_pool_2x2(shortcut)
+    if ws > 0:
+        xw = _attention_fused_windows(blk, xn, heads, ws, q_stride)
+    else:
+        xw = _attention(blk, xn, heads, q_stride)
+    x = shortcut + xw
+    return x + nn.mlp_apply(blk["mlp"],
+                            nn.layer_norm(blk["norm2"], x, _LN_EPS),
+                            act=nn.gelu)
+
+
 def apply(params, cfg, x: torch.Tensor) -> List[torch.Tensor]:
     """x: NHWC [B, H, W, 3]. Returns the per-stage pyramid, highest
     resolution first."""
@@ -84,11 +165,15 @@ def apply(params, cfg, x: torch.Tensor) -> List[torch.Tensor]:
     x = x + get_pos_embed(params, (x.shape[1], x.shape[2])).to(x.dtype)
     outputs = []
     stage_ends = set(cfg.stage_ends)
-    for i, (blk, (_, _, heads, ws, has_pool)) in enumerate(
+    for i, (blk, (din, dout, heads, ws, has_pool)) in enumerate(
             zip(params["blocks"], block_dims(cfg))):
-        x = hiera_block(blk, x, num_heads=heads, ws=ws,
-                        q_stride=cfg.q_stride if has_pool else None,
-                        eps=_LN_EPS)
+        q_stride = cfg.q_stride if has_pool else None
+        if USE_FUSED_BLOCK:
+            x = hiera_block(blk, x, num_heads=heads, ws=ws,
+                            q_stride=q_stride, eps=_LN_EPS)
+        else:
+            x = _block_per_op(blk, x, din=din, dout=dout, heads=heads,
+                              ws=ws, q_stride=q_stride)
         if i in stage_ends:
             outputs.append(x)
     return outputs

@@ -27,7 +27,9 @@ and the gap-padded storage of odd windows, which a CUDA kernel does not
 need.
 
 `hiera_block_plain` is the plain PyTorch version (the twin of
-`hiera_block_xla` + `window_attention_xla`); the CPU path runs it.
+`hiera_block_xla` + `window_attention_xla`, the latter's twin
+`window_attention_plain` living in `ops/window_attention.py`); the CPU
+path runs it.
 
 When autograd records the call (training), the kernel chain runs inside
 `ops.recompute.recompute`: weights cast to the input's dtype for the
@@ -47,38 +49,15 @@ from video_llava_seg_torch import kernels
 from video_llava_seg_torch.bridge import tree_map
 from video_llava_seg_torch.ops import nn
 from video_llava_seg_torch.ops.recompute import needs_grad, recompute
+from video_llava_seg_torch.ops.window_attention import window_attention_plain
 
 
 def max_pool_2x2(x):
-    """NHWC max pool, kernel == stride == 2 (hieradet do_pool)."""
+    """NHWC max pool, kernel == stride == 2 (hieradet do_pool), VALID:
+    an odd edge row or column is dropped."""
     b, h, w, c = x.shape
+    x = x[:, :h // 2 * 2, :w // 2 * 2]
     return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
-
-
-def window_attention_plain(qkv, *, num_heads: int, ws: int, scale: float,
-                           ps: int = 1):
-    """Windowed SDPA over a fused-qkv NHWC map [B, H, W, 3C] (H, W
-    multiples of ws); ps > 1 max-pools q 2x2 per window."""
-    b, h, w, c3 = qkv.shape
-    c = c3 // 3
-    hd = c // num_heads
-    n_w, n_wr = w // ws, h // ws
-    q_ws = ws // ps
-    x = qkv.reshape(b, n_wr, ws, n_w, ws, 3, num_heads, hd)
-    x = x.permute(0, 1, 3, 5, 6, 2, 4, 7)
-    x = x.reshape(b * n_wr * n_w, 3, num_heads, ws, ws, hd)
-    q, k, v = x[:, 0], x[:, 1], x[:, 2]
-    if ps > 1:
-        q = q.reshape(-1, num_heads, q_ws, ps, q_ws, ps, hd).amax(dim=(3, 5))
-    q = q.reshape(-1, num_heads, q_ws * q_ws, hd)
-    k = k.reshape(-1, num_heads, ws * ws, hd)
-    v = v.reshape(-1, num_heads, ws * ws, hd)
-    s = torch.einsum("whid,whjd->whij", q.float(), k.float()) * scale
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    o = torch.einsum("whij,whjd->whid", p.float(), v.float()).to(qkv.dtype)
-    o = o.reshape(b, n_wr, n_w, num_heads, q_ws, q_ws, hd)
-    o = o.permute(0, 1, 4, 2, 5, 3, 6)
-    return o.reshape(b, h // ps, w // ps, c)
 
 
 def hiera_block_plain(blk, x, *, num_heads: int, ws: int,
@@ -109,6 +88,37 @@ def hiera_block_plain(blk, x, *, num_heads: int, ws: int,
                              act=nn.gelu)
 
 
+def attention_stage(qkv, *, num_heads: int, ws: int, ps: int):
+    """The chain's attention stage on a contiguous fused-qkv map [B, Hp,
+    Wp, 3C] (Hp, Wp multiples of ws): window partition (one copy),
+    [pool.cu on q], attention.cu with one window per batch row, and the
+    unpartition of its [window, token, head, hd] output into the (pooled)
+    map [B, Hp/ps, Wp/ps, C] (a view: the caller's crop copies it)."""
+    b, hp, wp, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // num_heads
+    n_wr, n_w = hp // ws, wp // ws
+    nwin = b * n_wr * n_w
+    if n_wr * n_w == 1:
+        win = qkv.view(b, ws, ws, c3)
+    else:
+        win = qkv.view(b, n_wr, ws, n_w, ws, c3).permute(
+            0, 1, 3, 2, 4, 5).contiguous().view(nwin, ws, ws, c3)
+    q_ws = ws // ps
+    if ps > 1:
+        q = kernels.maxpool2x2(win[..., :c].contiguous())
+        q = q.view(nwin, q_ws * q_ws, num_heads, hd)
+    else:
+        q = win[..., :c].reshape(nwin, ws * ws, num_heads, hd)
+    k = win[..., c:2 * c].reshape(nwin, ws * ws, num_heads, hd)
+    v = win[..., 2 * c:].reshape(nwin, ws * ws, num_heads, hd)
+    o = kernels.attention(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                          v.permute(0, 2, 1, 3), scale=1.0 / math.sqrt(hd))
+    # [nwin, q_ws*q_ws, heads, hd] storage -> pooled map
+    o = o.permute(0, 2, 1, 3).reshape(b, n_wr, n_w, q_ws, q_ws, c)
+    return o.permute(0, 1, 3, 2, 4, 5).reshape(b, n_wr * q_ws, n_w * q_ws, c)
+
+
 def _hiera_block_cuda(blk, x, *, num_heads: int, ws: int, ps: int,
                       eps: float):
     b, h, w, cin = x.shape
@@ -130,31 +140,11 @@ def _hiera_block_cuda(blk, x, *, num_heads: int, ws: int, ps: int,
     pad_w = (ws - w % ws) % ws
     if pad_h or pad_w:
         xn = F.pad(xn, (0, 0, 0, pad_w, 0, pad_h))
-    hp, wp = h + pad_h, w + pad_w
     qkv = kernels.gemm(xn.reshape(-1, cin), blk["qkv"]["kernel"],
                        blk["qkv"]["bias"])
     c = qkv.shape[1] // 3
-    hd = c // num_heads
-    n_wr, n_w = hp // ws, wp // ws
-    nwin = b * n_wr * n_w
-    if n_wr * n_w == 1:
-        win = qkv.view(b, ws, ws, 3 * c)
-    else:
-        win = qkv.view(b, n_wr, ws, n_w, ws, 3 * c).permute(
-            0, 1, 3, 2, 4, 5).contiguous().view(nwin, ws, ws, 3 * c)
-    q_ws = ws // ps
-    if ps > 1:
-        q = kernels.maxpool2x2(win[..., :c].contiguous())
-        q = q.view(nwin, q_ws * q_ws, num_heads, hd)
-    else:
-        q = win[..., :c].reshape(nwin, ws * ws, num_heads, hd)
-    k = win[..., c:2 * c].reshape(nwin, ws * ws, num_heads, hd)
-    v = win[..., 2 * c:].reshape(nwin, ws * ws, num_heads, hd)
-    o = kernels.attention(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
-                          v.permute(0, 2, 1, 3), scale=1.0 / math.sqrt(hd))
-    # [nwin, q_ws*q_ws, heads, hd] storage -> pooled map, cropped
-    o = o.permute(0, 2, 1, 3).reshape(b, n_wr, n_w, q_ws, q_ws, c)
-    o = o.permute(0, 1, 3, 2, 4, 5).reshape(b, n_wr * q_ws, n_w * q_ws, c)
+    o = attention_stage(qkv.view(b, h + pad_h, w + pad_w, 3 * c),
+                        num_heads=num_heads, ws=ws, ps=ps)
     oh, ow = h // ps, w // ps
     o = o[:, :oh, :ow].contiguous()
     h1 = kernels.gemm(o.view(-1, c), blk["proj_attn"]["kernel"],

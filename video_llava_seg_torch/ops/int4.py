@@ -45,11 +45,22 @@ def unpack_int4(packed: torch.Tensor):
     return lo.to(torch.int8), hi.to(torch.int8)
 
 
-def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int8 [m, k] @ int8 [k, n] -> int32 on any device: float64
-    holds every product and partial sum of int8 values exactly (|sum| <=
-    k * 127 * 128 < 2^53), so the order of the sums does not matter."""
+def int_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 [m, k] @ int8 [k, n] -> int32: float64 holds every
+    product and partial sum of int8 values exactly (|sum| <= k * 127 *
+    128 < 2^53), so the order of the sums does not matter."""
     return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 [m, k] @ int8 [k, n] -> int32: on a CUDA tensor the
+    int32 mode of `csrc/w8a8.cu`'s gemm_s8 (int8 tensor cores; the
+    product XLA computes for the JAX package, no TPU kernel, so no launch
+    count), on a CPU tensor `int_matmul_plain`. Both are exact, so they
+    agree bit for bit."""
+    if a.device.type == "cpu":
+        return int_matmul_plain(a, b)
+    return kernels.gemm_s8(a.contiguous(), b.contiguous())
 
 
 def w4a8_matmul_plain(xq, a_scale, packed, w_scale, out_dtype):
@@ -58,7 +69,8 @@ def w4a8_matmul_plain(xq, a_scale, packed, w_scale, out_dtype):
     Returns [rows, out] in out_dtype."""
     half = packed.shape[0]
     lo, hi = unpack_int4(packed)
-    acc = int_matmul(xq[:, :half], lo) + int_matmul(xq[:, half:], hi)
+    acc = (int_matmul_plain(xq[:, :half], lo)
+           + int_matmul_plain(xq[:, half:], hi))
     return (acc.float() * a_scale * w_scale).to(out_dtype)
 
 

@@ -14,7 +14,10 @@ on the key:
 
 Rounding is half to even (`torch.round`, as `jnp.round`) and every
 division runs in fp32, so the int8 leaves are bit-equal to the JAX
-package's.
+package's. The divisors are tensors, never Python scalars: on CUDA
+PyTorch divides by a scalar as a multiply by its fp32 reciprocal, which
+is not the IEEE division the CPU, the JAX package and `csrc/w8a8.cu`
+compute.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ def quantize_kernel(kernel: torch.Tensor, bits: int = 8):
     Returns (int8 [in, out], fp32 scale [out])."""
     qmax = _QMAX[bits]
     kf = kernel.float()
-    scale = kf.abs().amax(dim=0) / qmax
+    amax = kf.abs().amax(dim=0)
+    scale = amax / torch.full_like(amax, qmax)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(kf / scale), -qmax, qmax).to(torch.int8)
     return q, scale
@@ -89,7 +93,8 @@ def quantize_activations_rowwise(x: torch.Tensor):
     Returns (int8 [..., in], fp32 scale [..., 1]) with x ~ q * scale."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    scale = torch.where(amax == 0, torch.ones_like(amax),
+                        amax / torch.full_like(amax, 127.0))
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 

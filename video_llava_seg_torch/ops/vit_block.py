@@ -1,5 +1,6 @@
-"""One ViT encoder layer (CLIP tower), port of
-`video_llava_seg_tpu/ops/vit_block.py` (`_vit_kernel`, K1).
+"""One ViT encoder layer (CLIP and RADIO towers), port of
+`video_llava_seg_tpu/ops/vit_block.py` (`_vit_kernel`, K1, and its W8A8
+form `_vit_kernel_i8`, K8).
 
 LN1 -> q, k, v denses (q pre-scaled by 1/sqrt(hd)) -> per-frame SDPA with
 keys at index >= kv_len masked -> out proj + residual -> LN2 ->
@@ -22,6 +23,23 @@ heads, hd] order, ready for the out projection.
 
 `vit_layer_plain` is the plain PyTorch version (the twin of
 `vit_layer_xla`); the CPU path runs it.
+
+A layer whose six denses are all `kernel_qa` (W8A8: int8 weights [in,
+out] with fp32 per-column scales, `quantize_tree(bits=8,
+act_quant=True)`) takes the K8 chain on CUDA, the same steps with every
+dense an int8 product on the tensor cores and the activations quantized
+per row in the kernels (`csrc/w8a8.cu`):
+
+  ln_quant_rows -> gemm_s8 x3 (q with the bf16 attention scale, k, v) ->
+  attention.cu (kv_len mask, scale 1) -> quant_rows -> gemm_s8 (out proj
+  + bias + residual) -> ln_quant_rows -> gemm_s8 (fc1 + bias +
+  activation) -> quant_rows -> gemm_s8 (fc2 + bias + residual)
+
+Each step rounds to bf16 where the TPU kernel does. A mixed or
+weight-only quantized layer runs `vit_layer_plain` through `nn.dense` on
+every device, as the JAX package runs such a layer in XLA. The W8A8 form
+is forward only: the TPU kernel has no VJP (the activation rounding has
+no useful gradient), so a call that autograd records raises.
 
 When autograd records the call (training: the tower's weights are
 trainable fp32 masters), the kernel chain runs inside
@@ -70,6 +88,61 @@ def vit_layer_plain(p, x, *, num_heads: int, eps: float, kv_len: int,
     return residual + h
 
 
+_DENSE_NAMES = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
+
+
+def layer_quant_kind(p):
+    """None (all-float layer), 'w8a8' (all six denses `kernel_qa`) or
+    'w8' (any other mix of quantized denses)."""
+    kinds = set()
+    for name in _DENSE_NAMES:
+        d = p[name]
+        kinds.add("kernel_qa" if "kernel_qa" in d
+                  else "kernel_q" if "kernel_q" in d else "fp")
+    if kinds == {"kernel_qa"}:
+        return "w8a8"
+    if kinds == {"fp"}:
+        return None
+    return "w8"
+
+
+def _vit_layer_cuda_i8(p, x, *, num_heads: int, eps: float, kv_len: int,
+                       act: str):
+    bt, n, d = x.shape
+    hd = d // num_heads
+    dt = x.dtype
+    x2 = x.reshape(bt * n, d)
+
+    def ln(name):
+        return (p[name]["scale"].float().contiguous(),
+                p[name]["bias"].float().contiguous())
+
+    def dense(name, xq, a_scale, **kw):
+        w = p[name]
+        bias = w.get("bias")
+        return kernels.gemm_s8(
+            xq, w["kernel_qa"], a_scale, w["kernel_scale"].float(),
+            bias=None if bias is None else bias.to(dt).contiguous(), **kw)
+
+    hq, h_s = kernels.ln_quant_rows(x2, *ln("layer_norm1"), eps)
+    q = dense("q_proj", hq, h_s, scale=1.0 / math.sqrt(hd))
+    k = dense("k_proj", hq, h_s)
+    v = dense("v_proj", hq, h_s)
+
+    def heads(t):
+        return t.view(bt, n, num_heads, hd).permute(0, 2, 1, 3)
+
+    o = kernels.attention(heads(q), heads(k), heads(v), scale=1.0,
+                          kv_len=kv_len)
+    cq, c_s = kernels.quant_rows(o.permute(0, 2, 1, 3).reshape(bt * n, d))
+    h1 = dense("out_proj", cq, c_s, residual=x2)
+    gq, g_s = kernels.ln_quant_rows(h1, *ln("layer_norm2"), eps)
+    f = dense("fc1", gq, g_s, act=act)
+    fq, f_s = kernels.quant_rows(f)
+    y = dense("fc2", fq, f_s, residual=h1)
+    return y.view(bt, n, d)
+
+
 def _vit_layer_cuda(p, x, *, num_heads: int, eps: float, kv_len: int,
                     act: str):
     bt, n, d = x.shape
@@ -106,15 +179,25 @@ def vit_layer(p, x, *, num_heads: int, eps: float, kv_len: int = -1,
     tests can drive the recompute Function."""
     if kv_len < 0:
         kv_len = x.shape[1]
-    if any(k in p[name] for name in ("q_proj", "k_proj", "v_proj",
-                                     "out_proj", "fc1", "fc2")
-           for k in ("kernel_q", "kernel_qa")):
-        raise NotImplementedError("ROADMAP queue 1 item 5")
     kw = dict(num_heads=num_heads, eps=eps, kv_len=kv_len, act=act)
 
     def plain(p_, x_):
         return vit_layer_plain(p_, x_, **kw)
 
+    quant = layer_quant_kind(p)
+    if quant == "w8":
+        return plain(p, x)
+    if quant == "w8a8":
+        if needs_grad(p, x):
+            raise NotImplementedError(
+                "the W8A8 ViT layer is forward only (serving): its "
+                "activation rounding has no gradient")
+        if x.device.type == "cpu":
+            return plain(p, x)
+        if x.device.type != "cuda":
+            raise ValueError(f"vit_layer: unsupported device {x.device}")
+        kernels.LAUNCHES.add("K8")
+        return _vit_layer_cuda_i8(p, x.contiguous(), **kw)
     if kernel is None:
         if x.device.type == "cpu":
             return plain(p, x)
