@@ -8,7 +8,9 @@ script exits non-zero without printing a result:
 
   0. environment: the card (nvidia-smi name, power limit), torch, CUDA,
      nvcc; TF32 off for matmuls and convolutions.
-  1. build: the CUDA kernels compile from `video_llava_seg_torch/csrc`.
+  1. build: the CUDA kernels compile from `video_llava_seg_torch/csrc`;
+     attention_sm90.cu's ptxas registers and spills, and the HGMMA
+     (wgmma) and UTMALDG (TMA load) counts of its SASS (none fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
      bf16 against their plain PyTorch versions run in fp32 on the same
      bf16 inputs (K2 also with the per-key bias of a left-padded batch-2
@@ -17,7 +19,9 @@ script exits non-zero without printing a result:
      plain version. CUDA-event times of kernel, plain version and the
      one-call library equivalent where there is one; the bound (least
      time the card could take) from the bytes and operations each call
-     needs, against the H100 SXM's published peaks.
+     needs, against the H100 SXM's published peaks, with the TFLOP/s
+     and share of the bound; K2 (attention_sm90.cu at head dim 128) also
+     beside attention.cu's online form, which it replaced.
   3. the bf16 slice at full width (CLIP-L/14-336 over 32 frames,
      Llama-3-8B, SAM2.1-hiera-small at 1024^2 over 8 frames), seeded
      random bf16 weights built on the card: one caption query and one
@@ -119,7 +123,10 @@ REPLACES = {
 SOURCES = {
     "K1": ("video_llava_seg_torch/ops/vit_block.py",
            ["layernorm.cu", "gemm_bf16.cu", "attention.cu"]),
-    "K2": ("video_llava_seg_torch/csrc/attention.cu", ["attention.cu"]),
+    # head dim 128 (the LLM) on attention_sm90.cu; the per-op Hiera
+    # trunk's global blocks (head dim 96) on attention.cu
+    "K2": ("video_llava_seg_torch/csrc/attention_sm90.cu",
+           ["attention_sm90.cu", "attention.cu"]),
     "K3": ("video_llava_seg_torch/csrc/attention.cu", ["attention.cu"]),
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
            ["layernorm.cu", "gemm_bf16.cu", "attention.cu", "pool.cu"]),
@@ -299,7 +306,39 @@ def phase_build():
     for line in kernels.LIBRARY.build_log.splitlines():
         if "spill" in line and "0 bytes spill stores" not in line:
             log(f"[build] ptxas: {line.strip()}")
+    report_sm90_build(kernels)
     sync()
+
+
+def report_sm90_build(kernels):
+    """attention_sm90.cu's ptxas report (registers, spills, wgmma
+    serialization warnings) and the counts of HGMMA (wgmma) and UTMALDG
+    (TMA load) instructions in the SASS of its kernels; fails if either
+    count is 0."""
+    log_text = kernels.LIBRARY.build_log
+    start = log_text.index("== attention_sm90.cu")
+    end = log_text.find("\n== ", start + 1)
+    section = log_text[start:end if end >= 0 else None]
+    for line in section.splitlines():
+        if re.search(r"Used \d+ registers|spill stores|wgmma", line):
+            log(f"[build] attention_sm90.cu ptxas: {line.strip()}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(kernels.LIBRARY.path)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    counts, func = {"HGMMA": 0, "UTMALDG": 0}, ""
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+        elif "flash_fwd_sm90" in func:
+            for op in counts:
+                counts[op] += bool(re.search(rf"\b{op}\b", line))
+    log(f"[build] attention_sm90.cu SASS: {counts['HGMMA']} HGMMA, "
+        f"{counts['UTMALDG']} UTMALDG")
+    if not all(counts.values()):
+        raise AssertionError(f"attention_sm90.cu: no wgmma or no TMA load in "
+                             f"its SASS: {counts}")
 
 
 def bound_of(nbytes: float, ops: float, peak: float):
@@ -311,14 +350,16 @@ def bound_of(nbytes: float, ops: float, peak: float):
 
 
 def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
-           run_library=None, flush=None, time_kernel=None):
+           run_library=None, flush=None, time_kernel=None,
+           run_previous=None):
     """Hold one kernel call against its plain version and time it.
 
     run_reference: the plain version in fp32 (checked against BOUNDS) or,
     for a kernel held to exact equality (BOUNDS None), the plain version
     itself. work: (bytes, operations, peak rate) of the call.
     time_kernel: the call to time when run_kernel does more than launch
-    (joins several outputs for the comparison)."""
+    (joins several outputs for the comparison). run_previous: the kernel
+    this one replaced, timed beside it (K2: attention.cu's online form)."""
     got = run_kernel()
     want = run_reference()
     sync()
@@ -337,12 +378,17 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
     plain_ms = cuda_ms(run_plain, reps=3, flush=flush)
     lib_ms = (cuda_ms(run_library, flush=flush)
               if run_library is not None else None)
+    prev_ms = (cuda_ms(run_previous, flush=flush)
+               if run_previous is not None else None)
     b_ms, b_by = bound_of(*work)
     log(f"[check] {name} {tag}: max_abs_err {err:.4e}, rel {rel:.3e} "
         f"({'exact' if bound is None else f'bound {bound:.0e}'}); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{ms:.4f} ms ({work[1] / ms / 1e9:.1f} "
+        f"{'TFLOP/s' if work[2] == PEAK_BF16 else 'TOP/s'}, "
+        f"{b_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, library "
         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"{b_ms:.4f} ms ({b_by})"
+        f"{'' if prev_ms is None else f', attention.cu {prev_ms:.4f} ms'}")
     r = results.setdefault(name, {"max_abs_err": 0.0, "rel_err": 0.0,
                                   "ms": 0.0, "plain_ms": 0.0,
                                   "library_ms": 0.0, "bound_ms": 0.0,
@@ -360,7 +406,31 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
     r["shapes"].append({"shape": tag, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": lib_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "max_abs_err": err})
+    if prev_ms is not None:
+        r["shapes"][-1]["previous_ms"] = prev_ms
     torch.cuda.empty_cache()
+
+
+def wmma_k2(q, k, v, *, causal=False, kv_mask=None, with_lse=False):
+    """attention.cu's online form at head dim 128, which K2 ran before
+    attention_sm90.cu took the LLM's calls (kernels.attention no longer
+    routes there): timed beside the new kernel in the same run."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.ops.attention import MASK_VALUE
+
+    bsz, hq, hkv, sq, skv, d = kernels._check_qkv(q, k, v)
+    bias = (None if kv_mask is None else
+            torch.where(kv_mask, 0.0, MASK_VALUE).float().contiguous())
+    o = kernels._bshd(bsz, sq, hq, d, q)
+    lse = (torch.empty((bsz, hq, sq), device=q.device, dtype=torch.float32)
+           if with_lse else None)
+    strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
+    kernels._check_code("attention", kernels.LIBRARY.get().vls_attention_bf16(
+        kernels._ptr(q), kernels._ptr(k), kernels._ptr(v), kernels._ptr(o),
+        kernels._ptr(bias), kernels._ptr(lse), *strides,
+        skv if bias is not None else 0, bsz, hq, hkv, sq, skv, d, skv,
+        d ** -0.5, int(causal), 0, kernels._stream()))
+    return o
 
 
 def _nbytes(*tensors):
@@ -453,7 +523,8 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
            lambda: attention_reference(q.float(), k.float(), v.float(),
                                        causal=True), results, work,
            run_library=lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True))
+               q, k, v, is_causal=True, enable_gqa=True),
+           run_previous=lambda: wmma_k2(q, k, v, causal=True))
     del q, k, v
 
     # K2 under left padding: the batch-2 prefill, row 1 padded by `pad`
@@ -488,7 +559,9 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
                                        kv_mask=kv_mask)[:, :, real],
            results, work,
            run_library=lambda: F.scaled_dot_product_attention(
-               q, k, v, attn_mask=sdpa_mask, enable_gqa=True))
+               q, k, v, attn_mask=sdpa_mask, enable_gqa=True),
+           run_previous=lambda: wmma_k2(q, k, v, causal=True,
+                                        kv_mask=kv_mask))
     del q, k, v, sdpa_mask, causal
 
     # K3: mask-decoder image->token attention, 8 frames x 1 object
@@ -1519,7 +1592,9 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
                                            scale=scale)[0],
                results, (2 * qb + 2 * kb + lse_b, 2 * prod, PEAK_BF16),
                run_library=lambda: F.scaled_dot_product_attention(
-                   q, k, v, **sdpa_kw))
+                   q, k, v, **sdpa_kw),
+               run_previous=None if single else lambda: wmma_k2(
+                   q, k, v, causal=causal, kv_mask=kv_mask, with_lse=True))
 
         def sdpa_fwd():
             return F.scaled_dot_product_attention(qr, kr, vr, **sdpa_kw)
@@ -1963,6 +2038,9 @@ def main(argv=None):
             "bound_by": ("bytes" if by["bytes"] >= by["operations"]
                          else "operations"),
             "library_ms": r["library_ms"], "shapes": r["shapes"]})
+        prev = [sh["previous_ms"] for sh in r["shapes"] if "previous_ms" in sh]
+        if prev:
+            kernels_out[-1]["previous_ms"] = sum(prev)
     log(json.dumps({"w4a8_batched_slice": quant}))
     log(json.dumps({"vision_slice": {
         "radio_bf16_serving": radio, "w8a8_encode": w8a8,

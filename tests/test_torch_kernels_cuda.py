@@ -17,7 +17,10 @@ nn.dense's epilogue, quant_rows bit-equal to
 `quantize_activations_rowwise`), and the whole W8A8 layer is held
 against `vit_layer_plain` over the same quantized tree in bf16 (bound
 3e-2: an int8 rounding flip of a bf16 activation moves a row by one
-quantization step). Run on the card:
+quantization step). K2 at head dim 128 (csrc/attention_sm90.cu, TMA +
+wgmma) is held to the same bound, to its logsumexp within 1e-5 (both sum
+exp() in fp32 over the same scores), and on a left-pad row that sees only
+masked keys to the mean of its visible V rows. Run on the card:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
@@ -105,6 +108,7 @@ def test_maxpool(dev):
 @pytest.mark.parametrize("sq,skv,hq,hkv,d,causal,mask", [
     (1500, 1500, 8, 2, 128, True, False),   # K2: causal GQA prefill
     (700, 1300, 4, 4, 64, True, True),      # K2: cross lengths + kv_bias
+    (700, 1300, 4, 4, 128, True, True),     # K2 on attention_sm90.cu
     (4096, 7, 8, 8, 16, False, False),      # K3: mask-decoder shape
     (300, 1000, 2, 1, 96, False, True),     # K3: many keys, two walks
 ])
@@ -223,6 +227,7 @@ FLASH_CASES = {
     "bias_masked": (2, 2, 2, 200, 180, 32, False, True),
     "mask_decoder": (4, 8, 8, 4096, 7, 16, False, False),
     "odd_dims": (1, 3, 1, 77, 1030, 96, False, False),
+    "bias_masked_d128": (2, 4, 1, 600, 1100, 128, False, True),
 }
 
 
@@ -441,3 +446,135 @@ def test_w8a8_layer_kernel(dev, d, heads, act):
     want = vit_layer_plain(p, x, num_heads=heads, eps=1e-6, kv_len=570,
                            act=act)
     assert _rel(got, want) < W8A8_BOUND
+
+
+# --- csrc/attention_sm90.cu: the online form at head dim 128 -------------
+
+# |kernel lse - plain lse| in natural-log units (chip_smoke.py's LSE_BOUND)
+LSE_BOUND = 1e-5
+
+SM90_CASES = {
+    # name: (b, hq, hkv, sq, skv, causal, kv_len)
+    "ragged_causal": (1, 4, 4, 1000, 1000, True, None),   # no 128 multiple
+    "cross_causal_gqa4": (1, 8, 2, 300, 1200, True, None),  # Sq < Skv
+    "kv_len": (2, 2, 2, 500, 640, False, 600),
+    "causal_kv_len_gqa4": (1, 8, 2, 700, 700, True, 650),
+    "one_tile": (1, 1, 1, 57, 57, False, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SM90_CASES))
+def test_flash_sm90(dev, name):
+    """The TMA + wgmma kernel against the plain forward: output within
+    BOUND and logsumexp within LSE_BOUND, ragged lengths, Sq < Skv,
+    kv_len < Skv, GQA groups 1 and 4."""
+    b, hq, hkv, sq, skv, causal, kv_len = SM90_CASES[name]
+    assert kernels.attention_entry(128, False) == "vls_flash_fwd_sm90"
+    g = torch.Generator(device=dev).manual_seed(15)
+    q = _randn(g, b, hq, sq, 128, dev=dev)
+    k = _randn(g, b, hkv, skv, 128, dev=dev)
+    v = _randn(g, b, hkv, skv, 128, dev=dev)
+    scale = 128 ** -0.5
+    o, lse = kernels.attention(q, k, v, scale=scale, causal=causal,
+                               kv_len=-1 if kv_len is None else kv_len,
+                               with_lse=True)
+    # keys past kv_len as a mask bias: the same weights for every row that
+    # sees a key
+    bias = None
+    if kv_len is not None:
+        keep = torch.arange(skv, device=dev) < kv_len
+        bias = torch.where(keep, 0.0, MASK_VALUE).float().expand(
+            b, skv).contiguous()
+    want_o, want_lse = flash_forward_plain(q.float(), k.float(), v.float(),
+                                           bias, causal=causal, scale=scale)
+    assert torch.isfinite(o.float()).all()
+    assert _rel(o, want_o) < BOUND
+    assert (lse - want_lse).abs().max().item() < LSE_BOUND
+
+
+def _visible_mean(v, hq, sq, causal):
+    """[B, Hq, Sq, D] fp32: each query row's mean over the V rows its
+    causal diagonal lets it see, what the kernels give a row whose visible
+    keys are all masked by the bias (their scores are all equal)."""
+    b, hkv, skv, d = v.shape
+    csum = v.float().cumsum(2)                     # [B, Hkv, Skv, D]
+    last = (torch.arange(sq, device=v.device) + (skv - sq) if causal
+            else torch.full((sq,), skv - 1, device=v.device))
+    mean = csum[:, :, last] / (last + 1).float()[None, None, :, None]
+    return mean.repeat_interleave(hq // hkv, dim=1)
+
+
+def test_flash_sm90_left_pad_all_rows(dev):
+    """The batch-2 prefill with row 1 left-padded (per-key bias): every
+    row, pad rows included. Real rows match the plain forward; a pad row
+    sees only masked keys, all its scores are the same finite number, and
+    it gets the mean of its visible V rows (the plain versions give
+    another finite value there, see test_torch_flash_sm90.py) with the
+    mask value as its logsumexp."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    b, hq, hkv, s, pad = 2, 8, 2, 1100, 333
+    q = _randn(g, b, hq, s, 128, dev=dev)
+    k = _randn(g, b, hkv, s, 128, dev=dev)
+    v = _randn(g, b, hkv, s, 128, dev=dev)
+    kv_mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    kv_mask[1, :pad] = False
+    bias = torch.where(kv_mask, 0.0, MASK_VALUE).float().contiguous()
+    before = kernels.LAUNCHES.snapshot()["K2"]
+    o = attention(q, k, v, causal=True, kv_mask=kv_mask)
+    assert kernels.LAUNCHES.snapshot()["K2"] == before + 1
+    o, lse = kernels.attention(q, k, v, scale=128 ** -0.5, causal=True,
+                               kv_bias=bias, with_lse=True)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    want_o, want_lse = flash_forward_plain(q.float(), k.float(), v.float(),
+                                           bias, causal=True)
+    want_o[1, :, :pad] = _visible_mean(v, hq, s, True)[1, :, :pad]
+    assert _rel(o, want_o) < BOUND
+    assert (lse[0] - want_lse[0]).abs().max().item() < LSE_BOUND
+    assert (lse[1, :, pad:] - want_lse[1, :, pad:]).abs().max().item() \
+        < LSE_BOUND
+    assert torch.equal(lse[1, :, :pad],
+                       torch.full_like(lse[1, :, :pad], MASK_VALUE))
+
+
+def test_flash_sm90_fused_qkv_views(dev):
+    """q, k and v as the LLM builds them: column slices of one fused-qkv
+    [B, S, (Hq + 2 Hkv) D] buffer, viewed [B, S, H, D] and transposed.
+    The kernel reads them through their strides: bit-equal to the same
+    call on contiguous copies, and within BOUND of the plain forward."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    b, s, hq, hkv, d = 2, 777, 8, 2, 128
+    qkv = _randn(g, b, s, (hq + 2 * hkv) * d, dev=dev)
+    q = qkv[..., :hq * d].reshape(b, s, hq, d).transpose(1, 2)
+    k = qkv[..., hq * d:(hq + hkv) * d].reshape(b, s, hkv, d).transpose(1, 2)
+    v = qkv[..., (hq + hkv) * d:].reshape(b, s, hkv, d).transpose(1, 2)
+    assert not q.is_contiguous()
+    got = kernels.attention(q, k, v, scale=d ** -0.5, causal=True)
+    same = kernels.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             scale=d ** -0.5, causal=True)
+    assert torch.equal(got, same)
+    want, _ = flash_forward_plain(q.float(), k.float(), v.float(),
+                                  causal=True)
+    assert _rel(got, want) < BOUND
+
+
+def test_flash_sm90_autograd(dev):
+    """attention() under autograd at head dim 128: _FlashAttention's
+    forward runs the new kernel with the logsumexp, K6a / K6b read it."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    q = _randn(g, 1, 8, 1300, 128, dev=dev)
+    k = _randn(g, 1, 2, 1300, 128, dev=dev)
+    v = _randn(g, 1, 2, 1300, 128, dev=dev)
+    do = _randn(g, 1, 8, 1300, 128, dev=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = kernels.LAUNCHES.snapshot()
+    out = attention(*leaves, causal=True)
+    out.backward(do)
+    after = kernels.LAUNCHES.snapshot()
+    assert [after[n] - before[n] for n in ("K2", "K6a", "K6b")] == [1, 1, 1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o32, lse32 = flash_forward_plain(qf, kf, vf, None, causal=True)
+    want = flash_backward_plain(qf, kf, vf, None, o32, lse32, do.float(),
+                                causal=True, scale=128 ** -0.5)
+    assert _rel(out, o32) < BOUND
+    for t, w in zip(leaves, want):
+        assert _rel(t.grad, w) < BOUND

@@ -15,7 +15,11 @@
 //
 // Replaces the TPU kernels
 //   video_llava_seg_tpu/ops/attention.py::_flash_kernel         (K2, online
-//       softmax over kv blocks; LLM prefill, Skv ~5.1k causal)
+//       softmax over kv blocks) at head dims below 128: the per-op Hiera
+//       trunk's global blocks. The online form at head dim 128 (the LLM
+//       prefill, Skv ~5.1k causal, and the train step) moved to
+//       attention_sm90.cu (TMA + wgmma); its instance here is no longer
+//       routed to.
 //   video_llava_seg_tpu/ops/attention.py::_flash_kernel_single  (K3, one kv
 //       block, plain softmax; mask-decoder image->token attention)
 // and the SDPA stage inside
@@ -44,8 +48,9 @@
 //     the single-tile plain softmax of _flash_kernel_single.
 // Head dims 16, 32, 64, 80 (RADIO ViT-H: five 16-deep k-steps; Layout<80>
 // keeps every WMMA tile 32-byte aligned: rows of 88 bf16 / 84 fp32), 96 and
-// 128 are instantiated.
-// mma.sync/wgmma fragments held in registers are later work.
+// 128 are instantiated; at 128, kernels.attention sends only the two-pass
+// form here.
+// wgmma for these head dims is later work (attention_sm90.cu does it at 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "vls_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "vls_attention_bf16": [_P] * 6 + [_L] * 13 + [_I] * 7
                           + [_F, _I, _I, _P],
+    "vls_flash_fwd_sm90": [_P] * 7 + [_L] * 4 + [_I, _I, _F, _P],
     "vls_attention_bwd_dq": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_attention_bwd_dkv": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
@@ -63,6 +64,11 @@ _SIGNATURES = {
 
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+# attention_sm90.cu: the online form at this head dim; its TMA box is 64
+# bf16 columns (one 128-byte swizzle row) by 128 rows of one head of one
+# batch row, in the order of the tensor map's dims (D, S, H, B)
+FLASH_SM90_HEAD_DIM = 128
+FLASH_SM90_BOX = (64, 128, 1, 1)
 # w4a8: the int32 sums hold 16 x the true sum (see csrc/w4a8.cu), which
 # stays below 2^31 for in <= 2^17
 W4A8_MAX_IN = 1 << 17
@@ -296,6 +302,35 @@ def _bshd(bsz, s, h, d, like):
                        dtype=like.dtype).permute(0, 2, 1, 3)
 
 
+def attention_entry(d: int, two_pass: bool) -> str:
+    """The C entry that serves `attention` at head dim d: the TMA +
+    wgmma kernel of csrc/attention_sm90.cu for the online form at head
+    dim 128, csrc/attention.cu for every other call."""
+    if not two_pass and d == FLASH_SM90_HEAD_DIM:
+        return "vls_flash_fwd_sm90"
+    return "vls_attention_bf16"
+
+
+def flash_sm90_tensor_map(t: torch.Tensor, what: str):
+    """The TMA tensor-map geometry of a [B, H, S, D] bf16 view for
+    csrc/attention_sm90.cu, which only encodes it: dims (D, S, H, B)
+    innermost first, the byte strides of S, H and B, and the box. TMA
+    needs a contiguous last dim, byte strides in multiples of 16 and a
+    16-byte-aligned base."""
+    if t.dim() != 4 or t.stride(3) != 1:
+        raise ValueError(f"{what}: expected [B, H, S, D] with a contiguous "
+                         "last dim")
+    b, h, s, d = t.shape
+    es = t.element_size()
+    strides = tuple(t.stride(i) * es for i in (2, 1, 0))
+    if any(x <= 0 or x % 16 or x >= 1 << 40 for x in strides):
+        raise ValueError(f"{what}: TMA needs byte strides that are positive "
+                         f"multiples of 16 below 2^40, got {strides}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: data must be 16-byte aligned")
+    return (d, s, h, b) + strides + FLASH_SM90_BOX
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float, causal: bool = False, kv_len: int = -1,
               kv_bias: Optional[torch.Tensor] = None,
@@ -306,7 +341,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     buffer (so the caller's merge of heads into channels is free), and
     with `with_lse` also the per-row logsumexp, fp32 [B, Hq, Sq] (0 for a
     row with no visible key). kv_bias: fp32 [B, Skv] additive per-key
-    bias, or None."""
+    bias, or None. The head dim and the form choose the kernel
+    (`attention_entry`)."""
     bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
     qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
                   _strides_bhs(v, "v"))
@@ -317,6 +353,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            if with_lse else None)
     if kv_len < 0:
         kv_len = skv
+    if attention_entry(d, two_pass) == "vls_flash_fwd_sm90":
+        geom = (ctypes.c_longlong * 33)(
+            *(flash_sm90_tensor_map(q, "q") + flash_sm90_tensor_map(k, "k")
+              + flash_sm90_tensor_map(v, "v")))
+        _check_code("attention", LIBRARY.get().vls_flash_fwd_sm90(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias), _ptr(lse),
+            ctypes.cast(geom, ctypes.c_void_p), *os_, bias_sb, kv_len,
+            int(causal), float(scale), _stream()))
+        return (o, lse) if with_lse else o
     _check_code("attention", LIBRARY.get().vls_attention_bf16(
         _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias), _ptr(lse),
         *qs, *ks, *vs, *os_, bias_sb, bsz, hq, hkv, sq, skv, d, kv_len,

@@ -5,10 +5,12 @@ onto the hand-written flash kernels (port of
 Layouts as in the JAX package: q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D],
 Hq % Hkv == 0 (GQA, kv head = q head // group).
 
-On a CUDA tensor `attention()` launches the CUDA kernel of
-`csrc/attention.cu`: the multi-tile online-softmax form (counterpart of
-`_flash_kernel`, K2) when Skv > 1024, the plain-softmax form
-(`_flash_kernel_single`, K3) otherwise, the same split as `_fa_core`. On
+On a CUDA tensor `attention()` launches a hand-written CUDA kernel: the
+multi-tile online-softmax form (counterpart of `_flash_kernel`, K2) when
+Skv > 1024, the plain-softmax form (`_flash_kernel_single`, K3) of
+`csrc/attention.cu` otherwise, the same split as `_fa_core`. K2 runs
+`csrc/attention_sm90.cu` (TMA + wgmma) at head dim 128, the LLM's, and
+`csrc/attention.cu` at the other head dims (`kernels.attention_entry`). On
 a CPU tensor it runs the plain twin, and autograd differentiates the
 twin. There is no other fallback.
 
