@@ -9,8 +9,9 @@ script exits non-zero without printing a result:
   0. environment: the card (nvidia-smi name, power limit), torch, CUDA,
      nvcc; TF32 off for matmuls and convolutions.
   1. build: the CUDA kernels compile from `video_llava_seg_torch/csrc`;
-     attention_sm90.cu's ptxas registers and spills, and the HGMMA
-     (wgmma) and UTMALDG (TMA load) counts of its SASS (none fails).
+     the ptxas registers and spills of attention_sm90.cu (K2) and
+     attention_bwd_sm90.cu (K6a / K6b), and the HGMMA (wgmma) and UTMALDG
+     (TMA load) counts in the SASS of each of their kernels (none fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
      bf16 against their plain PyTorch versions run in fp32 on the same
      bf16 inputs (K2 also with the per-key bias of a left-padded batch-2
@@ -42,7 +43,9 @@ script exits non-zero without printing a result:
      Llama-3-8B causal GQA attention over the synthetic batch's spliced
      length, the mask decoder's image->token attention, and one per-key
      bias case with masked keys; times of kernel, plain version and the
-     backward of `scaled_dot_product_attention`.
+     backward of `scaled_dot_product_attention`; at head dim 128, where
+     attention_bwd_sm90.cu serves K6a / K6b, also attention_bwd.cu's time
+     at the same shape.
   7. gradients through the fused forward kernels: every kernel op's
      output carries a grad_fn when an input requires grad, and the K1 /
      K4 recompute gradients equal the plain layer's autograd.
@@ -131,10 +134,12 @@ SOURCES = {
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
            ["layernorm.cu", "gemm_bf16.cu", "attention.cu", "pool.cu"]),
     "K5": ("video_llava_seg_torch/csrc/w4a8.cu", ["w4a8.cu"]),
-    "K6a": ("video_llava_seg_torch/csrc/attention_bwd.cu",
-            ["attention_bwd.cu"]),
-    "K6b": ("video_llava_seg_torch/csrc/attention_bwd.cu",
-            ["attention_bwd.cu"]),
+    # head dim 128 (the LLM) on attention_bwd_sm90.cu; the mask decoder
+    # (head dim 16) on attention_bwd.cu
+    "K6a": ("video_llava_seg_torch/csrc/attention_bwd_sm90.cu",
+            ["attention_bwd_sm90.cu", "attention_bwd.cu"]),
+    "K6b": ("video_llava_seg_torch/csrc/attention_bwd_sm90.cu",
+            ["attention_bwd_sm90.cu", "attention_bwd.cu"]),
     "K7": ("video_llava_seg_torch/csrc/window_attention.cu",
            ["window_attention.cu"]),
     "K8": ("video_llava_seg_torch/ops/vit_block.py",
@@ -310,35 +315,47 @@ def phase_build():
     sync()
 
 
+# the TMA + wgmma sources and the kernels in each whose SASS must hold
+# wgmma (HGMMA) and TMA loads (UTMALDG)
+SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
+                "attention_bwd_sm90.cu": ("flash_bwd_dq_sm90",
+                                          "flash_bwd_dkv_sm90")}
+
+
 def report_sm90_build(kernels):
-    """attention_sm90.cu's ptxas report (registers, spills, wgmma
-    serialization warnings) and the counts of HGMMA (wgmma) and UTMALDG
-    (TMA load) instructions in the SASS of its kernels; fails if either
+    """The ptxas report (registers, spills, wgmma serialization warnings)
+    of each TMA + wgmma source and the counts of HGMMA (wgmma) and UTMALDG
+    (TMA load) instructions in the SASS of each of its kernels; fails if a
     count is 0."""
     log_text = kernels.LIBRARY.build_log
-    start = log_text.index("== attention_sm90.cu")
-    end = log_text.find("\n== ", start + 1)
-    section = log_text[start:end if end >= 0 else None]
-    for line in section.splitlines():
-        if re.search(r"Used \d+ registers|spill stores|wgmma", line):
-            log(f"[build] attention_sm90.cu ptxas: {line.strip()}")
+    for src in SM90_KERNELS:
+        start = log_text.index(f"== {src}")
+        end = log_text.find("\n== ", start + 1)
+        for line in log_text[start:end if end >= 0 else None].splitlines():
+            if re.search(r"Compiling entry|Used \d+ registers|spill stores|"
+                         r"wgmma", line):
+                log(f"[build] {src} ptxas: {line.strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(kernels.LIBRARY.path)],
                           capture_output=True, text=True,
                           check=True).stdout
-    counts, func = {"HGMMA": 0, "UTMALDG": 0}, ""
+    counts = {k: {"HGMMA": 0, "UTMALDG": 0}
+              for ks in SM90_KERNELS.values() for k in ks}
+    kern = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            func = m.group(1)
-        elif "flash_fwd_sm90" in func:
-            for op in counts:
-                counts[op] += bool(re.search(rf"\b{op}\b", line))
-    log(f"[build] attention_sm90.cu SASS: {counts['HGMMA']} HGMMA, "
-        f"{counts['UTMALDG']} UTMALDG")
-    if not all(counts.values()):
-        raise AssertionError(f"attention_sm90.cu: no wgmma or no TMA load in "
-                             f"its SASS: {counts}")
+            kern = next((k for k in counts if k in m.group(1)), None)
+        elif kern is not None:
+            for op in counts[kern]:
+                counts[kern][op] += bool(re.search(rf"\b{op}\b", line))
+    for src, ks in SM90_KERNELS.items():
+        for k in ks:
+            log(f"[build] {src} SASS {k}: {counts[k]['HGMMA']} HGMMA, "
+                f"{counts[k]['UTMALDG']} UTMALDG")
+            if not all(counts[k].values()):
+                raise AssertionError(f"{src}: no wgmma or no TMA load in the "
+                                     f"SASS of {k}: {counts[k]}")
 
 
 def bound_of(nbytes: float, ops: float, peak: float):
@@ -351,7 +368,7 @@ def bound_of(nbytes: float, ops: float, peak: float):
 
 def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
            run_library=None, flush=None, time_kernel=None,
-           run_previous=None):
+           run_previous=None, previous="attention.cu"):
     """Hold one kernel call against its plain version and time it.
 
     run_reference: the plain version in fp32 (checked against BOUNDS) or,
@@ -359,7 +376,8 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
     itself. work: (bytes, operations, peak rate) of the call.
     time_kernel: the call to time when run_kernel does more than launch
     (joins several outputs for the comparison). run_previous: the kernel
-    this one replaced, timed beside it (K2: attention.cu's online form)."""
+    this one replaced, timed beside it (`previous` names it: K2,
+    attention.cu's online form; K6a / K6b, attention_bwd.cu)."""
     got = run_kernel()
     want = run_reference()
     sync()
@@ -388,7 +406,7 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
         f"{b_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, library "
         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
         f"{b_ms:.4f} ms ({b_by})"
-        f"{'' if prev_ms is None else f', attention.cu {prev_ms:.4f} ms'}")
+        f"{'' if prev_ms is None else f', {previous} {prev_ms:.4f} ms'}")
     r = results.setdefault(name, {"max_abs_err": 0.0, "rel_err": 0.0,
                                   "ms": 0.0, "plain_ms": 0.0,
                                   "library_ms": 0.0, "bound_ms": 0.0,
@@ -1616,20 +1634,33 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
             del dk, dv
         plain_bwd = (lambda: flash_backward_plain(
             q, k, v, bias, out, lse, do, causal=causal, scale=scale))
+        # where attention_bwd_sm90.cu serves the head dim, time
+        # attention_bwd.cu, which it replaced, at the same shape
+        prev_dq = prev_dkv = None
+        if kernels.attention_bwd_entry(d)[0] != "vls_attention_bwd_dq":
+            def prev_dq():
+                return kernels._attention_bwd_dq(
+                    "vls_attention_bwd_dq", q, k, v, out, do, lse, **kw)
+
+            def prev_dkv():
+                return kernels._attention_bwd_dkv(
+                    "vls_attention_bwd_dkv", q, k, v, do, lse, delta, **kw)
         # K6a reads q, k, v, o, dO, lse and writes dQ and delta; K6b
         # reads q, k, v, dO, lse, delta and writes dK, dV
         _check("K6a", f"{shape}: dQ",
                lambda: kernels.attention_bwd_dq(q, k, v, out, do, lse,
                                                 **kw)[0],
                plain_bwd, lambda: ref[0], results,
-               (4 * qb + 2 * kb + 2 * lse_b, 3 * prod, PEAK_BF16))
+               (4 * qb + 2 * kb + 2 * lse_b, 3 * prod, PEAK_BF16),
+               run_previous=prev_dq, previous="attention_bwd.cu")
         _check("K6b", f"{shape}: dK, dV",
                lambda: torch.cat(kernels.attention_bwd_dkv(
                    q, k, v, do, lse, delta, **kw), dim=1),
                plain_bwd, lambda: torch.cat(ref[1:], dim=1), results,
                (2 * qb + 4 * kb + 2 * lse_b, 4 * prod, PEAK_BF16),
                time_kernel=lambda: kernels.attention_bwd_dkv(
-                   q, k, v, do, lse, delta, **kw))
+                   q, k, v, do, lse, delta, **kw),
+               run_previous=prev_dkv, previous="attention_bwd.cu")
         # the library's backward computes dQ, dK and dV in one call: its
         # time stands beside both kernels
         for name in ("K6a", "K6b"):

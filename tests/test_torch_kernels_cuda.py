@@ -20,7 +20,10 @@ against `vit_layer_plain` over the same quantized tree in bf16 (bound
 quantization step). K2 at head dim 128 (csrc/attention_sm90.cu, TMA +
 wgmma) is held to the same bound, to its logsumexp within 1e-5 (both sum
 exp() in fp32 over the same scores), and on a left-pad row that sees only
-masked keys to the mean of its visible V rows. Run on the card:
+masked keys to the mean of its visible V rows. K6a / K6b at head dim 128
+(csrc/attention_bwd_sm90.cu) are held to the plain backward with the same
+bound, and on the left-pad rows, which the plain backward treats
+differently, to attention_bwd.cu at the same inputs. Run on the card:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
@@ -578,3 +581,145 @@ def test_flash_sm90_autograd(dev):
     assert _rel(out, o32) < BOUND
     for t, w in zip(leaves, want):
         assert _rel(t.grad, w) < BOUND
+
+
+# --- csrc/attention_bwd_sm90.cu: K6a / K6b at head dim 128 ---------------
+
+SM90_BWD_NAMES = ("vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90")
+SM90_BWD_CASES = {
+    # name: (b, hq, hkv, sq, skv, causal, masked)
+    "ragged_causal_gqa1": (1, 4, 4, 1000, 1000, True, False),  # no 64 mult.
+    "ragged_causal_gqa4": (1, 8, 2, 777, 777, True, False),
+    "cross_causal_gqa4": (1, 8, 2, 300, 1200, True, False),    # Sq < Skv
+    "bias_2048": (2, 8, 2, 2048, 2048, False, True),  # chip_smoke's case
+    "one_tile": (1, 1, 1, 57, 57, False, False),
+}
+
+
+def _bwd_inputs(seed, b, hq, hkv, sq, skv, masked, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = _randn(g, b, hq, sq, 128, dev=dev)
+    k = _randn(g, b, hkv, skv, 128, dev=dev)
+    v = _randn(g, b, hkv, skv, 128, dev=dev)
+    do = _randn(g, b, hq, sq, 128, dev=dev)
+    kv_mask = bias = None
+    if masked:
+        kv_mask = torch.ones(b, skv, dtype=torch.bool, device=dev)
+        kv_mask[0, 100:141] = False
+        kv_mask[-1, :337] = False
+        bias = torch.where(kv_mask, 0.0, MASK_VALUE).float().contiguous()
+    return q, k, v, do, kv_mask, bias
+
+
+@pytest.mark.parametrize("name", sorted(SM90_BWD_CASES))
+def test_flash_bwd_sm90(dev, name):
+    """The TMA + wgmma backward against the plain backward on the kernel
+    forward's output and logsumexp: dQ, dK, dV within BOUND and delta =
+    rowsum(dO * O); ragged lengths, GQA 1 and 4, Sq < Skv under the causal
+    mask, the 2048-key per-key bias with its masked keys at exactly zero
+    dK and dV."""
+    b, hq, hkv, sq, skv, causal, masked = SM90_BWD_CASES[name]
+    assert kernels.attention_bwd_entry(128) == SM90_BWD_NAMES
+    q, k, v, do, kv_mask, bias = _bwd_inputs(19, b, hq, hkv, sq, skv,
+                                             masked, dev)
+    kw = dict(scale=128 ** -0.5, causal=causal, kv_bias=bias)
+    out, lse = kernels.attention(q, k, v, with_lse=True, **kw)
+    dq, delta = kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)
+    dk, dv = kernels.attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    want = flash_backward_plain(q.float(), k.float(), v.float(), bias,
+                                out.float(), lse, do.float(), causal=causal,
+                                scale=128 ** -0.5)
+    for got, w in zip((dq, dk, dv), want):
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, w) < BOUND
+    rowsum = (do.float() * out.float()).sum(-1)
+    assert (delta - rowsum).abs().max().item() < 1e-4 * max(
+        rowsum.abs().max().item(), 1.0)
+    if kv_mask is not None:
+        for g in (dk, dv):
+            assert not g.transpose(1, 2)[~kv_mask].any()
+
+
+def test_flash_bwd_sm90_left_pad_all_rows(dev):
+    """The batch-2 causal train shape with row 1 left-padded (per-key
+    bias): a pad query row sees only masked keys, its lse is the mask
+    value, and both backward kernels give its visible keys p = 1. Every
+    row of dQ and every key of dK / dV against attention_bwd.cu at the
+    same inputs; real rows also against the plain backward (whose pad rows
+    differ: it gives causally masked keys the mask value, not -inf)."""
+    b, hq, hkv, s, pad = 2, 8, 2, 1100, 333
+    g = torch.Generator(device=dev).manual_seed(20)
+    q = _randn(g, b, hq, s, 128, dev=dev)
+    k = _randn(g, b, hkv, s, 128, dev=dev)
+    v = _randn(g, b, hkv, s, 128, dev=dev)
+    do = _randn(g, b, hq, s, 128, dev=dev)
+    kv_mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    kv_mask[1, :pad] = False
+    bias = torch.where(kv_mask, 0.0, MASK_VALUE).float().contiguous()
+    kw = dict(scale=128 ** -0.5, causal=True, kv_bias=bias)
+    out, lse = kernels.attention(q, k, v, with_lse=True, **kw)
+    dq, delta = kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)
+    dk, dv = kernels.attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    odq, odelta = kernels._attention_bwd_dq(
+        "vls_attention_bwd_dq", q, k, v, out, do, lse, **kw)
+    odk, odv = kernels._attention_bwd_dkv(
+        "vls_attention_bwd_dkv", q, k, v, do, lse, odelta, **kw)
+    for got, old in ((dq, odq), (dk, odk), (dv, odv)):
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, old) < BOUND
+        assert _rel(got[1], old[1]) < BOUND
+    assert _rel(dq[1, :, :pad], odq[1, :, :pad]) < BOUND
+    assert (delta - odelta).abs().max().item() < 1e-3
+    want = flash_backward_plain(q.float(), k.float(), v.float(), bias,
+                                out.float(), lse, do.float(), causal=True,
+                                scale=128 ** -0.5)
+    assert _rel(dq[0], want[0][0]) < BOUND
+    assert _rel(dq[1, :, pad:], want[0][1, :, pad:]) < BOUND
+
+
+def test_flash_bwd_sm90_fused_qkv_views(dev):
+    """q, k, v as column slices of one fused-qkv buffer and dO as the
+    head-merge view of a [B, S, Hq * D] gradient: read in place through
+    their strides, bit-equal to the same calls on contiguous copies."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, s, hq, hkv, d = 2, 777, 8, 2, 128
+    qkv = _randn(g, b, s, (hq + 2 * hkv) * d, dev=dev)
+    q = qkv[..., :hq * d].reshape(b, s, hq, d).transpose(1, 2)
+    k = qkv[..., hq * d:(hq + hkv) * d].reshape(b, s, hkv, d).transpose(1, 2)
+    v = qkv[..., (hq + hkv) * d:].reshape(b, s, hkv, d).transpose(1, 2)
+    do = _randn(g, b, s, hq * d, dev=dev).reshape(b, s, hq, d).transpose(
+        1, 2)
+    kw = dict(scale=d ** -0.5, causal=True)
+    out, lse = kernels.attention(q, k, v, with_lse=True, **kw)
+
+    def grads(q, k, v, do):
+        dq, delta = kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)
+        return (dq, delta) + kernels.attention_bwd_dkv(q, k, v, do, lse,
+                                                       delta, **kw)
+
+    got = grads(q, k, v, do)
+    same = grads(*(t.contiguous() for t in (q, k, v, do)))
+    for a, c in zip(got, same):
+        assert torch.equal(a, c)
+
+
+def test_flash_bwd_sm90_autograd(dev):
+    """attention() under autograd at head dim 128 with a key mask: one K2,
+    K6a and K6b launch each, gradients within BOUND of the plain backward
+    and masked keys at exactly zero."""
+    b, hq, hkv, s = 2, 8, 2, 1300
+    q, k, v, do, kv_mask, bias = _bwd_inputs(22, b, hq, hkv, s, s, True, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = kernels.LAUNCHES.snapshot()
+    out = attention(*leaves, kv_mask=kv_mask)
+    out.backward(do)
+    after = kernels.LAUNCHES.snapshot()
+    assert [after[n] - before[n] for n in ("K2", "K6a", "K6b")] == [1, 1, 1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o32, lse32 = flash_forward_plain(qf, kf, vf, bias)
+    want = flash_backward_plain(qf, kf, vf, bias, o32, lse32, do.float(),
+                                scale=128 ** -0.5)
+    for t, w in zip(leaves, want):
+        assert _rel(t.grad, w) < BOUND
+    for t in leaves[1:]:
+        assert not t.grad.transpose(1, 2)[~kv_mask].any()

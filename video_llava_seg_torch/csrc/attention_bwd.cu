@@ -24,9 +24,14 @@
 // Replaces the TPU kernels
 //   video_llava_seg_tpu/ops/attention.py::_bwd_dq_kernel   (K6a)
 //   video_llava_seg_tpu/ops/attention.py::_bwd_dkv_kernel  (K6b)
-// and takes their math, not their block layout: the TPU grid walks the
-// reduction axis in order and carries the sum in VMEM scratch; here one
-// block owns its output tile and walks the reduction in a loop.
+// at every head dim but 128 (the mask decoder's 16 among them), and takes
+// their math, not their block layout: the TPU grid walks the reduction
+// axis in order and carries the sum in VMEM scratch; here one block owns
+// its output tile and walks the reduction in a loop. At head dim 128, the
+// LLM's, `kernels.attention_bwd_entry` routes to the TMA + wgmma kernels
+// of attention_bwd_sm90.cu; this file's D = 128 instance stays only as
+// the yardstick chip_smoke.py and the CUDA tests time and compare beside
+// them.
 //
 // Bound on the card: at the LLM's causal S ~ 5.1k, D = 128 both kernels
 // are bound by tensor-core operations (3 products of the QK^T size for
@@ -47,7 +52,7 @@
 //   Products run on the tensor cores through WMMA 16x16x16 bf16
 //   fragments, as in attention.cu. Nothing [Sq, Skv]-sized leaves a block;
 //   device traffic is one read of Q, K, V, O, dO per walk and one write
-//   of each gradient. wgmma, TMA and the FA-3 schedule are later work.
+//   of each gradient.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -9,7 +9,8 @@
 // with the diagonal at the sequence ends (key j visible to query i iff
 // j <= i + Skv - Sq); keys at j >= kv_len masked; an optional fp32
 // per-key bias [B, Skv]; optionally the fp32 logsumexp lse [B, Hq, Sq]
-// (natural-log units) that the flash backward (attention_bwd.cu) reads.
+// (natural-log units) that the flash backward (attention_bwd_sm90.cu)
+// reads.
 // A row with no visible key writes O = 0 and lse = 0. Q, K and V are read
 // through (batch, head, sequence) strides with a contiguous last dim, so
 // fused-qkv column slices and transposed views need no copy; O is written
@@ -61,12 +62,11 @@
 // Later work: overlapping one tile's softmax with the next tile's QK^T
 // inside a warpgroup, ping-pong between the two consumers, a persistent
 // grid, packing a GQA group into one block, head dims 64/80/96.
+//
+// The mbarrier, TMA and wgmma helpers and the tensor-map encoding live in
+// sm90.cuh, shared with the backward (attention_bwd_sm90.cu).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -87,8 +87,6 @@ constexpr int N_BARS = 1 + 4 * STAGES;
 // + 1024: the swizzled tiles start on a 1024-byte boundary
 constexpr size_t SMEM_BYTES = BAR_OFF + N_BARS * 8 + 1024;
 constexpr int CONSUMER_WARPS = 8;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   __nv_bfloat16* o;
@@ -100,182 +98,6 @@ struct Params {
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of `parity` to complete. A wait here lasts at most
-// one tile's work; one that has not completed after a second means a
-// broken pipeline, and traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t spin = 1;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if ((spin & 1023u) == 0) {
-      const uint64_t now = global_ns();
-      if (t0 == 0) t0 = now;
-      else if (now - t0 > 1000000000ull) __trap();
-    }
-  }
-}
-
-// one box of a 4-D tensor map (coordinates innermost first) -> shared,
-// completing `bytes` on the mbarrier
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 =
-// SWIZZLE_128B. K-major (Q, K): the stride offset steps 8 rows (1024
-// bytes); the leading offset is unused. MN-major (V): the leading offset
-// steps to the next 64 columns (the next box), the stride offset 8 keys.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Tie registers to this point, so that the compiler neither reads an
-// accumulator before wgmma.wait_group nor reuses an A register while the
-// product that reads it is in flight.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-#define VLS_D64                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
-  "%58, %59, %60, %61, %62, %63}"
-#define VLS_ACC64(d)                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
-  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
-  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
-  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
-  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),         \
-  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),         \
-  "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),         \
-  "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
-  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
-  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-#define VLS_OUT64(d)                                                          \
-  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),   \
-  "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),             \
-  "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),         \
-  "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),         \
-  "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),         \
-  "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),         \
-  "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),         \
-  "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]),         \
-  "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]),         \
-  "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]),         \
-  "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),         \
-  "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]),         \
-  "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-
-// d = A B (the first k-step: d is only written, so the score tile is not
-// live across the PV product) and d += A B, m64n128k16, A and B K-major
-// in shared memory
-__device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VLS_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}"
-      : VLS_OUT64(d)
-      : "l"(da), "l"(db), "r"(0));
-}
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VLS_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}"
-      : VLS_ACC64(d)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d += A B, m64n128k16, A (bf16 pairs) from registers, B MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VLS_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-      : VLS_ACC64(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <bool HAS_BIAS>
 __global__ void __launch_bounds__(NT, 1)
@@ -402,7 +224,7 @@ __global__ void __launch_bounds__(NT, 1)
           for (int e = 0; e < 2; ++e)
             bv[2 * i + e] = 8 * i + e < lim ? __ldg(bt + 8 * i + e) : 0.f;
       }
-      wg_wait_all();
+      wg_wait<0>();
       pin(sacc);
       if (lane == 0) mbar_arrive(k_empty(s));
 
@@ -487,7 +309,7 @@ __global__ void __launch_bounds__(NT, 1)
                  pa[4 * kk + 3], desc_sw128(v_s(s) + kk * 2048, BOX_BYTES,
                                             1024));
       wg_commit();
-      wg_wait_all();
+      wg_wait<0>();
       pin(o);
       pin(pa);
       if (lane == 0) mbar_arrive(v_empty(s));
@@ -526,58 +348,6 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// geometry of one operand, as kernels.flash_sm90_tensor_map computes it:
-// dims (D, S, H, B) innermost first, byte strides of S, H and B, box
-constexpr int GEOM = 11;
-
-int encode(CUtensorMap* map, const void* ptr, const long long* g) {
-  if (g[0] != D || g[7] != BOX_COLS || g[8] != BKV || g[9] != 1 || g[10] != 1)
-    return (int)cudaErrorInvalidValue;
-  EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1],
-                              (cuuint64_t)g[2], (cuuint64_t)g[3]};
-  const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5],
-                                 (cuuint64_t)g[6]};
-  const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8],
-                             (cuuint32_t)g[9], (cuuint32_t)g[10]};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  // a refused geometry: the negated driver error
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
-}
-
 }  // namespace
 
 // geom: 3 x 11 int64 (q, k, v), each dims[4], byte strides[3], box[4]
@@ -596,9 +366,9 @@ extern "C" int vls_flash_fwd_sm90(
   if (gk[3] != batch || gk[2] <= 0 || gq[2] % gk[2])
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  int e = encode(&tq, q, gq);
-  if (e == 0) e = encode(&tk, k, gk);
-  if (e == 0) e = encode(&tv, v, gv);
+  int e = encode_bf16(&tq, q, gq, D, BOX_COLS, BQ);
+  if (e == 0) e = encode_bf16(&tk, k, gk, D, BOX_COLS, BKV);
+  if (e == 0) e = encode_bf16(&tv, v, gv, D, BOX_COLS, BKV);
   if (e != 0) return e;
   Params p;
   p.o = (__nv_bfloat16*)o;

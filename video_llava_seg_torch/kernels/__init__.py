@@ -4,8 +4,9 @@ The sources in `video_llava_seg_torch/csrc/*.cu` compile with `nvcc` for
 `sm_90a` (one nvcc process per source, all started together, then one
 link) into one shared library with a plain C interface, bound here with
 ctypes. The library builds at first use into `kernels/_build/<hash>/`,
-keyed by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads at once. Nothing here runs, imports `triton` or
+keyed by a hash of the flags, the sources and the headers they share
+(`csrc/*.cuh`), so an edited source or header rebuilds and an unchanged
+tree loads at once. Nothing here runs, imports `triton` or
 looks for a compiler at import time: the CPU tests import this module.
 
 Each raw wrapper checks device, dtype, shape, contiguity and alignment,
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "vls_flash_fwd_sm90": [_P] * 7 + [_L] * 4 + [_I, _I, _F, _P],
     "vls_attention_bwd_dq": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_attention_bwd_dkv": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
+    "vls_flash_bwd_dq_sm90": [_P] * 10 + [_L] * 7 + [_F, _I, _P],
+    "vls_flash_bwd_dkv_sm90": [_P] * 10 + [_L] * 7 + [_F, _I, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
     "vls_w4a8": [_P] * 6 + [_I] * 5 + [_P],
     "vls_quant_rows": [_P] * 5 + [_L, _I, _F, _I, _P],
@@ -69,6 +72,9 @@ ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # batch row, in the order of the tensor map's dims (D, S, H, B)
 FLASH_SM90_HEAD_DIM = 128
 FLASH_SM90_BOX = (64, 128, 1, 1)
+# attention_bwd_sm90.cu (K6a / K6b at the same head dim) walks 64-row
+# tiles and loads every operand as boxes of 64 columns by 64 rows
+FLASH_SM90_BWD_BOX = (64, 64, 1, 1)
 # w4a8: the int32 sums hold 16 x the true sum (see csrc/w4a8.cu), which
 # stays below 2^31 for in <= 2^17
 W4A8_MAX_IN = 1 << 17
@@ -127,12 +133,14 @@ LIBRARY = _Library()
 
 
 def _sources():
+    """The translation units, one nvcc process each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -311,12 +319,14 @@ def attention_entry(d: int, two_pass: bool) -> str:
     return "vls_attention_bf16"
 
 
-def flash_sm90_tensor_map(t: torch.Tensor, what: str):
+def flash_sm90_tensor_map(t: torch.Tensor, what: str,
+                          box=FLASH_SM90_BOX):
     """The TMA tensor-map geometry of a [B, H, S, D] bf16 view for
-    csrc/attention_sm90.cu, which only encodes it: dims (D, S, H, B)
-    innermost first, the byte strides of S, H and B, and the box. TMA
-    needs a contiguous last dim, byte strides in multiples of 16 and a
-    16-byte-aligned base."""
+    csrc/attention_sm90.cu and attention_bwd_sm90.cu, which only encode
+    it: dims (D, S, H, B) innermost first, the byte strides of S, H and
+    B, and the box (the forward's FLASH_SM90_BOX, the backward's
+    FLASH_SM90_BWD_BOX). TMA needs a contiguous last dim, byte strides in
+    multiples of 16 and a 16-byte-aligned base."""
     if t.dim() != 4 or t.stride(3) != 1:
         raise ValueError(f"{what}: expected [B, H, S, D] with a contiguous "
                          "last dim")
@@ -328,7 +338,7 @@ def flash_sm90_tensor_map(t: torch.Tensor, what: str):
                          f"multiples of 16 below 2^40, got {strides}")
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: data must be 16-byte aligned")
-    return (d, s, h, b) + strides + FLASH_SM90_BOX
+    return (d, s, h, b) + strides + tuple(box)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -369,14 +379,58 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o, lse) if with_lse else o
 
 
-def _bhs_operand(t: torch.Tensor, what: str):
-    """t as a [B, H, S, D] view the kernels can address (contiguous last
-    dim, strides in multiples of 8 elements, 16-byte aligned), copied
-    once into a contiguous tensor when it is not one."""
+def _addressable(t: torch.Tensor) -> torch.Tensor:
+    """t as a [B, H, S, D] view the kernels (and TMA) can address:
+    contiguous last dim, positive strides in multiples of 8 elements,
+    16-byte aligned; copied once into a contiguous tensor when it is not
+    one."""
     if (t.stride(3) != 1 or t.data_ptr() % 16
-            or any(s % 8 for s in t.stride()[:3])):
+            or any(s % 8 or s <= 0 for s in t.stride()[:3])):
         t = t.contiguous()
+    return t
+
+
+def _bhs_operand(t: torch.Tensor, what: str):
+    t = _addressable(t)
     return t, _strides_bhs(t, what)
+
+
+def attention_bwd_entry(d: int):
+    """The C entries (dQ, dK/dV) that serve `attention_bwd_dq` /
+    `attention_bwd_dkv` at head dim d: the TMA + wgmma kernels of
+    csrc/attention_bwd_sm90.cu at head dim 128 (the LLM's),
+    csrc/attention_bwd.cu at every other head dim."""
+    if d == FLASH_SM90_HEAD_DIM:
+        return "vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90"
+    return "vls_attention_bwd_dq", "vls_attention_bwd_dkv"
+
+
+def flash_bwd_sm90_geometry(q, k, v, dout):
+    """The four tensor maps (q, k, v, dO) that attention_bwd_sm90.cu's
+    entries encode, each as `flash_sm90_tensor_map` gives it with the
+    backward's 64 x 64 box: 44 int64."""
+    geom = []
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout")):
+        geom += flash_sm90_tensor_map(t, what, FLASH_SM90_BWD_BOX)
+    return tuple(geom)
+
+
+def _strides3(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _bwd_common(q, k, v, dout, lse, kv_bias):
+    bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
+    qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
+                  _strides_bhs(v, "v"))
+    dout, ds_ = _bhs_operand(dout, "dout")
+    if dout.shape != q.shape:
+        raise ValueError("attention_bwd: dout must have q's shape")
+    _require(lse, "lse", dtype=torch.float32)
+    if tuple(lse.shape) != (bsz, hq, sq):
+        raise ValueError("attention_bwd: lse must be [B, Hq, Sq]")
+    bias_sb = _bias_stride(kv_bias, bsz, skv)
+    return (bsz, hq, hkv, sq, skv, d), (qs, ks, vs), dout, ds_, bias_sb
 
 
 def attention_bwd_dq(q, k, v, out, dout, lse, *, scale: float,
@@ -384,28 +438,42 @@ def attention_bwd_dq(q, k, v, out, dout, lse, *, scale: float,
     """K6a: dQ of `attention` from its output and logsumexp, and the
     per-row delta = rowsum(dO * O) fp32 [B, Hq, Sq] that
     `attention_bwd_dkv` reads. q/k/v/out/dout: [B, H, S, D] bf16 views
-    (dout is copied once if its strides do not fit); lse fp32
+    (out and dout are copied once if their strides do not fit); lse fp32
     [B, Hq, Sq] contiguous. Returns (dq as a [B, Hq, Sq, D] view of a
-    contiguous [B, Sq, Hq, D] buffer, delta)."""
-    bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
-    qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
-                  _strides_bhs(v, "v"))
+    contiguous [B, Sq, Hq, D] buffer, delta). The head dim chooses the
+    kernel (`attention_bwd_entry`)."""
+    return _attention_bwd_dq(attention_bwd_entry(q.shape[-1])[0], q, k, v,
+                             out, dout, lse, scale=scale, causal=causal,
+                             kv_bias=kv_bias)
+
+
+def _attention_bwd_dq(entry, q, k, v, out, dout, lse, *, scale, causal,
+                      kv_bias):
+    """`attention_bwd_dq` through the C entry `entry`."""
+    shape, qkv_s, dout, ds_, bias_sb = _bwd_common(q, k, v, dout, lse,
+                                                   kv_bias)
+    bsz, hq, hkv, sq, skv, d = shape
     out, os_ = _bhs_operand(out, "out")
-    dout, ds_ = _bhs_operand(dout, "dout")
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError("attention_bwd: out/dout must have q's shape")
-    _require(lse, "lse", dtype=torch.float32)
-    if tuple(lse.shape) != (bsz, hq, sq):
-        raise ValueError("attention_bwd: lse must be [B, Hq, Sq]")
-    bias_sb = _bias_stride(kv_bias, bsz, skv)
+    if out.shape != q.shape:
+        raise ValueError("attention_bwd: out must have q's shape")
     delta = torch.empty((bsz, hq, sq), device=q.device, dtype=torch.float32)
     dq = _bshd(bsz, sq, hq, d, q)
-    dqs = (dq.stride(0), dq.stride(1), dq.stride(2))
-    _check_code("attention_bwd_dq", LIBRARY.get().vls_attention_bwd_dq(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(kv_bias),
-        _ptr(lse), _ptr(delta), _ptr(dq), *qs, *ks, *vs, *os_, *ds_, *dqs,
-        bias_sb, bsz, hq, hkv, sq, skv, d, float(scale), int(causal),
-        _stream()))
+    lib = LIBRARY.get()
+    if entry == "vls_flash_bwd_dq_sm90":
+        geom = (ctypes.c_longlong * 44)(
+            *flash_bwd_sm90_geometry(q, k, v, dout))
+        code = lib.vls_flash_bwd_dq_sm90(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout),
+            _ptr(kv_bias), _ptr(lse), _ptr(delta), _ptr(dq),
+            ctypes.cast(geom, ctypes.c_void_p), *os_, *_strides3(dq),
+            bias_sb, float(scale), int(causal), _stream())
+    else:
+        code = lib.vls_attention_bwd_dq(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(kv_bias),
+            _ptr(lse), _ptr(delta), _ptr(dq), *qkv_s[0], *qkv_s[1],
+            *qkv_s[2], *os_, *ds_, *_strides3(dq), bias_sb, bsz, hq, hkv,
+            sq, skv, d, float(scale), int(causal), _stream())
+    _check_code("attention_bwd_dq", code)
     return dq, delta
 
 
@@ -414,25 +482,39 @@ def attention_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
     """K6b: dK and dV of `attention`, summed over each kv head's group of
     q heads in the kernel. delta: from `attention_bwd_dq`. Returns (dk,
     dv), each a [B, Hkv, Skv, D] view of a contiguous [B, Skv, Hkv, D]
-    buffer."""
-    bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
-    qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
-                  _strides_bhs(v, "v"))
-    dout, ds_ = _bhs_operand(dout, "dout")
-    for t, what in ((lse, "lse"), (delta, "delta")):
-        _require(t, what, dtype=torch.float32)
-        if tuple(t.shape) != (bsz, hq, sq):
-            raise ValueError(f"attention_bwd: {what} must be [B, Hq, Sq]")
-    bias_sb = _bias_stride(kv_bias, bsz, skv)
+    buffer. The head dim chooses the kernel (`attention_bwd_entry`)."""
+    return _attention_bwd_dkv(attention_bwd_entry(q.shape[-1])[1], q, k, v,
+                              dout, lse, delta, scale=scale, causal=causal,
+                              kv_bias=kv_bias)
+
+
+def _attention_bwd_dkv(entry, q, k, v, dout, lse, delta, *, scale, causal,
+                       kv_bias):
+    """`attention_bwd_dkv` through the C entry `entry`."""
+    shape, qkv_s, dout, ds_, bias_sb = _bwd_common(q, k, v, dout, lse,
+                                                   kv_bias)
+    bsz, hq, hkv, sq, skv, d = shape
+    _require(delta, "delta", dtype=torch.float32)
+    if tuple(delta.shape) != (bsz, hq, sq):
+        raise ValueError("attention_bwd: delta must be [B, Hq, Sq]")
     dk = _bshd(bsz, skv, hkv, d, k)
     dv = _bshd(bsz, skv, hkv, d, v)
-    dks = (dk.stride(0), dk.stride(1), dk.stride(2))
-    dvs = (dv.stride(0), dv.stride(1), dv.stride(2))
-    _check_code("attention_bwd_dkv", LIBRARY.get().vls_attention_bwd_dkv(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(kv_bias), _ptr(lse),
-        _ptr(delta), _ptr(dk), _ptr(dv), *qs, *ks, *vs, *ds_, *dks, *dvs,
-        bias_sb, bsz, hq, hkv, sq, skv, d, float(scale), int(causal),
-        _stream()))
+    lib = LIBRARY.get()
+    if entry == "vls_flash_bwd_dkv_sm90":
+        geom = (ctypes.c_longlong * 44)(
+            *flash_bwd_sm90_geometry(q, k, v, dout))
+        code = lib.vls_flash_bwd_dkv_sm90(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(kv_bias), _ptr(lse),
+            _ptr(delta), _ptr(dk), _ptr(dv),
+            ctypes.cast(geom, ctypes.c_void_p), *_strides3(dk),
+            *_strides3(dv), bias_sb, float(scale), int(causal), _stream())
+    else:
+        code = lib.vls_attention_bwd_dkv(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(kv_bias), _ptr(lse),
+            _ptr(delta), _ptr(dk), _ptr(dv), *qkv_s[0], *qkv_s[1],
+            *qkv_s[2], *ds_, *_strides3(dk), *_strides3(dv), bias_sb, bsz,
+            hq, hkv, sq, skv, d, float(scale), int(causal), _stream())
+    _check_code("attention_bwd_dkv", code)
     return dk, dv
 
 

@@ -19,8 +19,10 @@ When an input requires grad, the CUDA call goes through `_FlashAttention`
 `flash_attention`): its forward launches the same kernel with the
 per-row logsumexp as a second output, and its backward launches K6a
 (`_bwd_dq_kernel`: delta pre-pass + dQ) and K6b (`_bwd_dkv_kernel`: dK,
-dV summed over the GQA group) of `csrc/attention_bwd.cu`. The per-key
-bias gets no gradient (it is a mask). Under `torch.utils.checkpoint` the
+dV summed over the GQA group): `csrc/attention_bwd_sm90.cu` (TMA +
+wgmma) at head dim 128, `csrc/attention_bwd.cu` at the other head dims
+(`kernels.attention_bwd_entry`). The per-key bias gets no gradient (it
+is a mask). Under `torch.utils.checkpoint` the
 forward runs, and counts, a second time during the backward.
 
 `flash_forward_plain` / `flash_backward_plain` are the plain versions of
