@@ -9,9 +9,10 @@ script exits non-zero without printing a result:
   0. environment: the card (nvidia-smi name, power limit), torch, CUDA,
      nvcc; TF32 off for matmuls and convolutions.
   1. build: the CUDA kernels compile from `video_llava_seg_torch/csrc`;
-     the ptxas registers and spills of attention_sm90.cu (K2) and
-     attention_bwd_sm90.cu (K6a / K6b), and the HGMMA (wgmma) and UTMALDG
-     (TMA load) counts in the SASS of each of their kernels (none fails).
+     the ptxas registers and spills of attention_sm90.cu (K2),
+     attention_bwd_sm90.cu (K6a / K6b) and w4a8_sm90.cu (K5's prefill),
+     and the wgmma (HGMMA bf16, IGMMA int8) and UTMALDG (TMA load) counts
+     in the SASS of each of their kernels (a zero fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
      bf16 against their plain PyTorch versions run in fp32 on the same
      bf16 inputs (K2 also with the per-key bias of a left-padded batch-2
@@ -22,7 +23,8 @@ script exits non-zero without printing a result:
      time the card could take) from the bytes and operations each call
      needs, against the H100 SXM's published peaks, with the TFLOP/s
      and share of the bound; K2 (attention_sm90.cu at head dim 128) also
-     beside attention.cu's online form, which it replaced.
+     beside attention.cu's online form, which it replaced, and K5's
+     prefill (w4a8_sm90.cu) beside w4a8.cu's mma.sync tile.
   3. the bf16 slice at full width (CLIP-L/14-336 over 32 frames,
      Llama-3-8B, SAM2.1-hiera-small at 1024^2 over 8 frames), seeded
      random bf16 weights built on the card: one caption query and one
@@ -133,7 +135,10 @@ SOURCES = {
     "K3": ("video_llava_seg_torch/csrc/attention.cu", ["attention.cu"]),
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
            ["layernorm.cu", "gemm_bf16.cu", "attention.cu", "pool.cu"]),
-    "K5": ("video_llava_seg_torch/csrc/w4a8.cu", ["w4a8.cu"]),
+    # more than 8 rows at TMA-aligned widths (the LLM prefill) on
+    # w4a8_sm90.cu; decode and other widths on w4a8.cu
+    "K5": ("video_llava_seg_torch/csrc/w4a8_sm90.cu",
+           ["w4a8_sm90.cu", "w4a8.cu"]),
     # head dim 128 (the LLM) on attention_bwd_sm90.cu; the mask decoder
     # (head dim 16) on attention_bwd.cu
     "K6a": ("video_llava_seg_torch/csrc/attention_bwd_sm90.cu",
@@ -316,17 +321,19 @@ def phase_build():
 
 
 # the TMA + wgmma sources and the kernels in each whose SASS must hold
-# wgmma (HGMMA) and TMA loads (UTMALDG)
+# wgmma (HGMMA for bf16, IGMMA for int8) and TMA loads (UTMALDG)
 SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                 "attention_bwd_sm90.cu": ("flash_bwd_dq_sm90",
-                                          "flash_bwd_dkv_sm90")}
+                                          "flash_bwd_dkv_sm90"),
+                "w4a8_sm90.cu": ("w4a8_sm90_kernel",)}
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
 
 
 def report_sm90_build(kernels):
     """The ptxas report (registers, spills, wgmma serialization warnings)
-    of each TMA + wgmma source and the counts of HGMMA (wgmma) and UTMALDG
-    (TMA load) instructions in the SASS of each of its kernels; fails if a
-    count is 0."""
+    of each TMA + wgmma source and the counts of wgmma (HGMMA, IGMMA) and
+    TMA load (UTMALDG) instructions in the SASS of each of its kernels;
+    fails if a kernel has no wgmma or no TMA load."""
     log_text = kernels.LIBRARY.build_log
     for src in SM90_KERNELS:
         start = log_text.index(f"== {src}")
@@ -339,7 +346,7 @@ def report_sm90_build(kernels):
     sass = subprocess.run([cuobjdump, "-sass", str(kernels.LIBRARY.path)],
                           capture_output=True, text=True,
                           check=True).stdout
-    counts = {k: {"HGMMA": 0, "UTMALDG": 0}
+    counts = {k: dict.fromkeys(SASS_OPS, 0)
               for ks in SM90_KERNELS.values() for k in ks}
     kern = None
     for line in sass.splitlines():
@@ -347,15 +354,16 @@ def report_sm90_build(kernels):
         if m:
             kern = next((k for k in counts if k in m.group(1)), None)
         elif kern is not None:
-            for op in counts[kern]:
+            for op in SASS_OPS:
                 counts[kern][op] += bool(re.search(rf"\b{op}\b", line))
     for src, ks in SM90_KERNELS.items():
         for k in ks:
-            log(f"[build] {src} SASS {k}: {counts[k]['HGMMA']} HGMMA, "
-                f"{counts[k]['UTMALDG']} UTMALDG")
-            if not all(counts[k].values()):
+            c = counts[k]
+            log(f"[build] {src} SASS {k}: "
+                + ", ".join(f"{c[op]} {op}" for op in SASS_OPS if c[op]))
+            if not (c["HGMMA"] + c["IGMMA"]) or not c["UTMALDG"]:
                 raise AssertionError(f"{src}: no wgmma or no TMA load in the "
-                                     f"SASS of {k}: {counts[k]}")
+                                     f"SASS of {k}: {c}")
 
 
 def bound_of(nbytes: float, ops: float, peak: float):
@@ -377,7 +385,8 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
     time_kernel: the call to time when run_kernel does more than launch
     (joins several outputs for the comparison). run_previous: the kernel
     this one replaced, timed beside it (`previous` names it: K2,
-    attention.cu's online form; K6a / K6b, attention_bwd.cu)."""
+    attention.cu's online form; K6a / K6b, attention_bwd.cu; K5's
+    prefill, w4a8.cu's mma.sync tile)."""
     got = run_kernel()
     want = run_reference()
     sync()
@@ -639,7 +648,9 @@ def phase_w4a8_checks(cfg, prefill_rows: int, seed: int, dev, results):
     batch, 2) and the batch-2 prefill (rows = 2 x its length; the lm_head
     runs on the last position only, so rows = 2 there, fp32 out).
     Exact equality with the plain version; decode timings start from a
-    cold L2, as each layer's weights stream once per token."""
+    cold L2, as each layer's weights stream once per token. The prefill
+    shapes run csrc/w4a8_sm90.cu; w4a8.cu's mma.sync tile, which served
+    them before, is timed beside it."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.ops.int4 import (
         unpack_int4,
@@ -675,9 +686,12 @@ def phase_w4a8_checks(cfg, prefill_rows: int, seed: int, dev, results):
             out_bytes = rows * out * (4 if dt == torch.float32 else 2)
             work = (_nbytes(xq, a_scale, packed, w_scale) + out_bytes,
                     2 * rows * in_dim * out, PEAK_INT8)
+            entry = kernels.w4a8_entry(rows, in_dim // 2, out)
+            if entry != ("vls_w4a8" if decode else "vls_w4a8_sm90"):
+                raise AssertionError(f"K5 {name} [{rows}]: routed to {entry}")
             _check("K5", f"{name} [{rows}, {in_dim}] x [{in_dim}, {out}] "
                    f"{'decode' if decode else 'prefill'} -> "
-                   f"{str(dt).split('.')[-1]}",
+                   f"{str(dt).split('.')[-1]} ({entry})",
                    lambda: kernels.w4a8_matmul(xq, a_scale, packed, w_scale,
                                                dt),
                    lambda: w4a8_matmul_plain(xq, a_scale, packed, w_scale,
@@ -686,7 +700,12 @@ def phase_w4a8_checks(cfg, prefill_rows: int, seed: int, dev, results):
                                              dt),
                    results, work,
                    run_library=lambda: torch._int_mm(xq_lib, w_i8),
-                   flush=scratch.zero_ if decode else None)
+                   flush=scratch.zero_ if decode else None,
+                   run_previous=None if decode else (
+                       lambda: kernels.w4a8_matmul(xq, a_scale, packed,
+                                                   w_scale, dt,
+                                                   route="vls_w4a8")),
+                   previous="w4a8.cu")
             del xq, a_scale, xq_lib
         del packed, w_scale, w_i8
         torch.cuda.empty_cache()

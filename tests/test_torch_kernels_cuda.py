@@ -5,8 +5,9 @@ interpret mode); elsewhere they skip. Inputs are bf16; the plain
 reference runs in fp32 on the same bf16 values. Bound: max |kernel -
 plain| / max |plain| <= 2e-2 (bf16 keeps ~3 significant digits and the
 kernels round intermediates to bf16 where the plain fp32 path does not).
-The W4A8 kernel (K5) sums integers and must equal its plain version bit
-for bit. The flash backward (K6a / K6b) and the forward's logsumexp are
+The W4A8 kernels (K5: csrc/w4a8_sm90.cu above 8 rows at TMA-aligned
+widths, csrc/w4a8.cu elsewhere) sum integers and must equal their plain
+version bit for bit, on the route `kernels.w4a8_entry` names. The flash backward (K6a / K6b) and the forward's logsumexp are
 held against `flash_backward_plain` / `flash_forward_plain` in fp32 on
 the same bf16 inputs, with the same bound; every kernel op's output must
 carry a grad_fn when an input requires grad. K7 (window attention from
@@ -194,14 +195,24 @@ def _w4a8_inputs(g, rows, in_dim, out, dev):
     return xq, a_scale, packed, w_scale
 
 
-@pytest.mark.parametrize("rows", [1, 2, 3, 8, 9, 130, 300])
+# rows: the decode GEMV (<= 8), then w4a8_sm90.cu's 128-row tiles whole
+# (128, 256), one row past them (129, 257) and partial (9, 130, 200, 300);
+# widths: in/2 = 2080 leaves a 32-row K tail past the 128-row box, out =
+# 272 a partial channel tile; (136, 100) stays on w4a8.cu's mma.sync tile
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 9, 128, 129, 130, 200, 256,
+                                  257, 300])
 @pytest.mark.parametrize("in_dim,out", [(256, 384), (4096, 6144),
-                                        (14336, 4096), (136, 100)])
+                                        (14336, 4096), (136, 100),
+                                        (4160, 272)])
 def test_w4a8_kernel_bit_exact(dev, rows, in_dim, out):
     """K5 equals its plain version bit for bit (integer sums, a fixed
-    two-multiply epilogue), in both regimes and both output types."""
+    two-multiply epilogue), in every regime and both output types, on the
+    route `w4a8_entry` names."""
     g = torch.Generator(device=dev).manual_seed(6)
     xq, a_scale, packed, w_scale = _w4a8_inputs(g, rows, in_dim, out, dev)
+    entry = kernels.w4a8_entry(rows, in_dim // 2, out)
+    assert entry == ("vls_w4a8_sm90" if rows > 8 and out % 16 == 0
+                     and (in_dim // 2) % 16 == 0 else "vls_w4a8")
     for dt in (torch.bfloat16, torch.float32):
         got = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, dt)
         want = w4a8_matmul_plain(xq, a_scale, packed, w_scale, dt)
@@ -210,12 +221,61 @@ def test_w4a8_kernel_bit_exact(dev, rows, in_dim, out):
                                         .abs().max().item())
 
 
+@pytest.mark.parametrize("in_dim,out", [(4096, 6144), (4096, 4096),
+                                        (4096, 28672), (14336, 4096)])
+def test_w4a8_sm90_llama_prefill_shape(dev, in_dim, out):
+    """The Llama-3-8B denses at ~1,000 prefill rows reach w4a8_sm90.cu
+    through `w4a8_matmul` and equal the plain version bit for bit; the
+    mma.sync tile of w4a8.cu, named by `route`, gives the same bits."""
+    rows = 1000
+    assert kernels.w4a8_entry(rows, in_dim // 2, out) == "vls_w4a8_sm90"
+    g = torch.Generator(device=dev).manual_seed(8)
+    xq, a_scale, packed, w_scale = _w4a8_inputs(g, rows, in_dim, out, dev)
+    want = w4a8_matmul_plain(xq, a_scale, packed, w_scale, torch.bfloat16)
+    got = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, torch.bfloat16)
+    assert torch.equal(got, want)
+    old = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, torch.bfloat16,
+                              route="vls_w4a8")
+    assert torch.equal(old, want)
+
+
+def test_w4a8_sm90_row_slice_of_a_larger_tensor(dev):
+    """Rows 16..16+300 of a larger activation tensor (a row stride the
+    tensor maps address, no copy) give the plain product of that slice."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    xq, a_scale, packed, w_scale = _w4a8_inputs(g, 400, 512, 256, dev)
+    got = kernels.w4a8_matmul(xq[16:316], a_scale[16:316], packed, w_scale,
+                              torch.float32)
+    want = w4a8_matmul_plain(xq[16:316], a_scale[16:316], packed, w_scale,
+                             torch.float32)
+    assert torch.equal(got, want)
+
+
 def test_w4a8_dense_counts_k5(dev):
     g = torch.Generator(device=dev).manual_seed(7)
     _, _, packed, w_scale = _w4a8_inputs(g, 1, 512, 256, dev)
     p = {"kernel_q4a": packed, "kernel_scale": w_scale,
          "bias": _randn(g, 256, dev=dev)}
     x = _randn(g, 2, 5, 512, dev=dev)
+    before = kernels.LAUNCHES.snapshot()["K5"]
+    got = w4a8_dense(p, x)
+    assert kernels.LAUNCHES.snapshot()["K5"] == before + 1
+    want = w4a8_dense({k: v.cpu() for k, v in p.items()}, x.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("lead", [(1, 3), (2, 5), (2, 150)])
+def test_w4a8_dense_route_on_the_card(dev, lead):
+    """The bf16 dense on the card, one K5 launch, equals the CPU result on
+    each route: 3 rows the GEMV, 10 and 300 rows w4a8_sm90.cu."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    _, _, packed, w_scale = _w4a8_inputs(g, 1, 512, 256, dev)
+    p = {"kernel_q4a": packed, "kernel_scale": w_scale,
+         "bias": _randn(g, 256, dev=dev)}
+    x = _randn(g, *lead, 512, dev=dev)
+    rows = math.prod(lead)
+    assert kernels.w4a8_entry(rows, 256, 256) == (
+        "vls_w4a8_sm90" if rows > 8 else "vls_w4a8")
     before = kernels.LAUNCHES.snapshot()["K5"]
     got = w4a8_dense(p, x)
     assert kernels.LAUNCHES.snapshot()["K5"] == before + 1

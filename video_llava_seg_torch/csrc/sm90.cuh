@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the TMA + wgmma attention
-// kernels, attention_sm90.cu (forward) and attention_bwd_sm90.cu
-// (backward): mbarrier waits that trap instead of hanging, TMA tile loads,
-// 128-byte-swizzle wgmma descriptors, the wgmma forms both files use, and
+// Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels,
+// attention_sm90.cu (forward), attention_bwd_sm90.cu (backward) and
+// w4a8_sm90.cu (K5's prefill): mbarrier waits that trap instead of
+// hanging, TMA tile loads (4-D and 2-D),
+// 128-byte-swizzle wgmma descriptors, the wgmma forms the files use, and
 // the tensor-map encoding through the runtime's driver entry point (no
 // link against libcuda). Included by each .cu; kernels/__init__.py hashes
 // it with the sources, so an edit rebuilds the library.
@@ -75,6 +76,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 2-D tensor map (coordinates innermost first) -> shared
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -249,6 +262,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+#define VLS_IACC64(d) \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), \
+  "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), \
+  "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), \
+  "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), \
+  "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), \
+  "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), \
+  "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), \
+  "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), \
+  "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), \
+  "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), \
+  "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), \
+  "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), \
+  "+r"(d[62]), "+r"(d[63])
+
+// d += A B in int32, m64n128k32, A (4 x 4 int8 a thread, the layout of
+// mma.sync m16n8k32's A: rows lane / 4 and + 8 of the warp's 16, bytes
+// 4 (lane % 4) .. + 3 and + 16) from registers, B K-major in shared
+// memory. 8-bit wgmma has no transpose bit: both operands are K-major.
+// No .satfinite: the callers' sums stay inside int32.
+__device__ __forceinline__ void wgmma_rs_s8(uint32_t (&d)[64],
+                                            const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " VLS_D64
+      ", {%64, %65, %66, %67}, %68, p;\n}"
+      : VLS_IACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -310,6 +354,33 @@ inline int encode_bf16(CUtensorMap* map, const void* ptr, const long long* g,
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// geometry of one int8 2-D operand, as kernels.w4a8_sm90_geometry
+// computes it: byte offset of the map's base, dims (inner, outer), the
+// outer byte stride, box (inner, outer)
+constexpr int GEOM_I8 = 6;
+
+// Encode a 128-byte-swizzled 2-D int8 tensor map at ptr + g[0] after
+// checking its box against what the kernel was written for. A refused
+// geometry returns the negated CUresult.
+inline int encode_i8_2d(CUtensorMap* map, const void* ptr, const long long* g,
+                        int box_inner, int box_outer) {
+  if (g[0] < 0 || g[4] != box_inner || g[5] != box_outer)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)g[1], (cuuint64_t)g[2]};
+  const cuuint64_t strides[1] = {(cuuint64_t)g[3]};
+  const cuuint32_t box[2] = {(cuuint32_t)g[4], (cuuint32_t)g[5]};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        (void*)((const char*)ptr + g[0]), dims, strides, box,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

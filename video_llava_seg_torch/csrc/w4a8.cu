@@ -36,7 +36,10 @@
 //   byte-transposes 4 x 4 blocks in registers and stores both nibble
 //   planes to shared memory as [n][k], the layout the B fragment wants.
 //   The next K slice is loaded into registers while the current one
-//   multiplies. wgmma + TMA are later work.
+//   multiplies. Where TMA can address the operands (in/2 and out
+//   multiples of 16: every Llama-3-8B dense) the prefill runs the TMA +
+//   wgmma kernel of w4a8_sm90.cu instead; this tile keeps the other
+//   widths (kernels.w4a8_entry names the route).
 //
 // Contract (checked by the Python wrapper): all operands contiguous,
 // in % 8 == 0, out % 4 == 0, in <= 131072; a_scale fp32 [rows],

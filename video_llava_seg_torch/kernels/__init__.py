@@ -60,6 +60,7 @@ _SIGNATURES = {
     "vls_flash_bwd_dkv_sm90": [_P] * 10 + [_L] * 7 + [_F, _I, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
     "vls_w4a8": [_P] * 6 + [_I] * 5 + [_P],
+    "vls_w4a8_sm90": [_P] * 6 + [_I] * 4 + [_P],
     "vls_quant_rows": [_P] * 5 + [_L, _I, _F, _I, _P],
     "vls_gemm_s8": [_P] * 7 + [_I] * 5 + [_F, _P],
     "vls_window_attention": [_P, _P] + [_I] * 7 + [_F, _P],
@@ -79,6 +80,14 @@ FLASH_SM90_BWD_BOX = (64, 64, 1, 1)
 # stays below 2^31 for in <= 2^17
 W4A8_MAX_IN = 1 << 17
 W4A8_GEMV_MAX_ROWS = 8
+# w4a8_sm90.cu (the prefill tile): each stage is a TMA box of 128 packed
+# rows (128 columns of each activation plane) by 128 activation rows, and
+# one of 128 packed rows by 128 output channels; TMA needs 16-byte-aligned
+# bases (in/2 for the high plane) and byte strides in multiples of 16
+W4A8_SM90_BOX_K = 128
+W4A8_SM90_BOX_ROWS = 128
+W4A8_SM90_BOX_COLS = 128
+W4A8_SM90_ALIGN = 16
 # aim the decode GEMV at ~8 blocks per SM of an H100 (132 SMs)
 W4A8_GEMV_TARGET_BLOCKS = 132 * 8
 # window_attention.cu: all of a window's keys sit in shared memory
@@ -539,14 +548,65 @@ def w4a8_splits(half: int, out: int) -> int:
     return max(1, min(want, (half // 4) // 64))
 
 
+def w4a8_entry(rows: int, half: int, out: int) -> str:
+    """The C entry that serves `w4a8_matmul` at [rows, 2 half] x [2 half,
+    out]: the decode GEMV of csrc/w4a8.cu at <= 8 rows; above, the TMA +
+    wgmma kernel of csrc/w4a8_sm90.cu where TMA can address the operands
+    (half and out multiples of 16), csrc/w4a8.cu's mma.sync tile for
+    every other shape."""
+    if (rows > W4A8_GEMV_MAX_ROWS and half % W4A8_SM90_ALIGN == 0
+            and out % W4A8_SM90_ALIGN == 0):
+        return "vls_w4a8_sm90"
+    return "vls_w4a8"
+
+
+def w4a8_sm90_geometry(xq: torch.Tensor, packed: torch.Tensor):
+    """The three int8 tensor maps that csrc/w4a8_sm90.cu encodes, 18
+    int64: for xq's low plane, its high plane (base xq + in/2, so each
+    plane's K tail is zero-filled on its own) and packed, each (byte
+    offset of the map's base, dims (inner, outer), the outer byte stride,
+    box (inner, outer)). TMA needs a contiguous inner dim, a 16-byte
+    aligned base and outer byte strides in multiples of 16."""
+    for t, what in ((xq, "xq"), (packed, "packed")):
+        if t.dim() != 2 or t.stride(1) != 1 or t.element_size() != 1:
+            raise ValueError(f"w4a8_sm90 {what}: expected a 2-D int8 tensor "
+                             "with a contiguous last dim")
+        if t.data_ptr() % W4A8_SM90_ALIGN or t.stride(0) % W4A8_SM90_ALIGN:
+            raise ValueError(f"w4a8_sm90 {what}: TMA needs a 16-byte-aligned "
+                             "base and a row stride in multiples of 16 "
+                             f"bytes, got stride {t.stride(0)}")
+    rows, in_dim = xq.shape
+    half, out = packed.shape
+    if in_dim != 2 * half:
+        raise ValueError(f"w4a8_sm90: xq has in={in_dim}, packed has "
+                         f"in/2={half}")
+    if half % W4A8_SM90_ALIGN or out % W4A8_SM90_ALIGN:
+        raise ValueError(f"w4a8_sm90: TMA needs in/2 and out in multiples of "
+                         f"{W4A8_SM90_ALIGN}, got in/2={half}, out={out}")
+    x_box = (W4A8_SM90_BOX_K, W4A8_SM90_BOX_ROWS)
+    w_box = (W4A8_SM90_BOX_COLS, W4A8_SM90_BOX_K)
+    return ((0, half, rows, xq.stride(0)) + x_box
+            + (half, half, rows, xq.stride(0)) + x_box
+            + (0, out, half, packed.stride(0)) + w_box)
+
+
+W4A8_ROUTES = ("vls_w4a8", "vls_w4a8_sm90")
+
+
 def w4a8_matmul(xq: torch.Tensor, a_scale: torch.Tensor,
                 packed: torch.Tensor, w_scale: torch.Tensor,
-                out_dtype: torch.dtype) -> torch.Tensor:
+                out_dtype: torch.dtype,
+                route: Optional[str] = None) -> torch.Tensor:
     """(int32(xq @ unpack(packed)) * a_scale) * w_scale -> out_dtype.
 
     xq int8 [rows, in]; a_scale fp32 [rows, 1]; packed int8 [in/2, out]
     (the "halves" int4 layout); w_scale fp32 [out]; out_dtype bf16 or
-    fp32."""
+    fp32. The shape chooses the kernel (`w4a8_entry`); `route` names a C
+    entry of W4A8_ROUTES instead, for the tests and for timing csrc/
+    w4a8.cu beside the kernel that took its prefill shapes."""
+    if route is not None and route not in W4A8_ROUTES:
+        raise ValueError(f"w4a8: route must be one of {W4A8_ROUTES}, got "
+                         f"{route!r}")
     _require(xq, "w4a8 xq", dtype=torch.int8)
     _require(a_scale, "w4a8 a_scale", dtype=torch.float32)
     _require(packed, "w4a8 packed", dtype=torch.int8)
@@ -567,6 +627,13 @@ def w4a8_matmul(xq: torch.Tensor, a_scale: torch.Tensor,
         raise ValueError(f"w4a8: out_dtype must be bf16 or fp32, got "
                          f"{out_dtype}")
     y = torch.empty((rows, out), device=xq.device, dtype=out_dtype)
+    if (route or w4a8_entry(rows, half, out)) == "vls_w4a8_sm90":
+        geom = (ctypes.c_longlong * 18)(*w4a8_sm90_geometry(xq, packed))
+        _check_code("w4a8_sm90", LIBRARY.get().vls_w4a8_sm90(
+            _ptr(xq), _ptr(a_scale), _ptr(packed), _ptr(w_scale), _ptr(y),
+            ctypes.cast(geom, ctypes.c_void_p), rows, half, out,
+            int(out_dtype == torch.float32), _stream()))
+        return y
     ksplit, work = 1, None
     if rows <= W4A8_GEMV_MAX_ROWS:
         ksplit = w4a8_splits(half, out)
