@@ -10,7 +10,8 @@ script exits non-zero without printing a result:
      nvcc; TF32 off for matmuls and convolutions.
   1. build: the CUDA kernels compile from `video_llava_seg_torch/csrc`;
      the ptxas registers and spills of attention_sm90.cu (K2),
-     attention_bwd_sm90.cu (K6a / K6b) and w4a8_sm90.cu (K5's prefill),
+     attention_bwd_sm90.cu (K6a / K6b), w4a8_sm90.cu (K5's prefill) and
+     w8a8_sm90.cu (gemm_s8),
      and the wgmma (HGMMA bf16, IGMMA int8) and UTMALDG (TMA load) counts
      in the SASS of each of their kernels (a zero fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
@@ -68,8 +69,9 @@ before it the kernels' JSON, the last line is {"ok": true, "device":
 non-zero. In the kernels JSON, `launches` is the count of the train
 step (phase 8) for the kernels it runs, of the W4A8 batched call (phase
 4) for K5, of the per-op Hiera trunk (phase 13) for K7 and of the CLIP-L
-W8A8 encode (phase 12) for K8; `launches_by_path` holds every path's
-counts.
+W8A8 encode (phase 12) for K8 and gemm_s8 (its w8a8_sm90.cu launches);
+`launches_by_path` holds every path's counts (gemm_s8's by route, on the
+W8A8 encodes, the only paths with `kernel_qa` denses).
 
 The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
 after phase 4, 14 after phase 5.
@@ -78,15 +80,21 @@ after phase 4, 14 after phase 5.
      8 frames at 1024^2 against `window_attention_plain`, beside SDPA
      over the partitioned windows (partition copy timed apart) and K4's
      current attention stage (partition + attention.cu + unpartition);
-     K8 (the W8A8 layer: `csrc/w8a8.cu` + attention.cu) at the CLIP-L and
-     RADIO-H serving shapes against `vit_layer_plain` over the same
-     quantized tree; gemm_s8 bit-equal to the float64 int8 product and to
-     nn.dense's epilogue, timed beside `torch._int_mm`.
+     K8 (the W8A8 layer: `csrc/w8a8_sm90.cu`, `csrc/w8a8.cu`'s row
+     kernels, attention.cu) at the CLIP-L and RADIO-H serving shapes
+     against `vit_layer_plain` over the same quantized tree; gemm_s8
+     (w8a8_sm90.cu) at each tower's six dense shapes with their
+     epilogues, at fc1 in int32 mode and at the projector's second dense,
+     bit-equal to w8a8.cu and to `gemm_s8_plain` (k_proj also to
+     nn.dense's epilogue), timed (10 launches back to back per timing)
+     beside w8a8.cu and, in int32 mode, `torch._int_mm`, with its bound
+     and its launches per W8A8 encode.
  11. RADIO serving: the bf16 path of phase 3 with the RADIO-H/16@384
      tower (K1 32 per query, K8 0), stage seconds.
  12. W8A8 encode: `llava.encode_video` over `quantize_tree(bits=8,
      act_quant=True)` of tower + projector, CLIP-L and RADIO-H (K8 23 and
-     32, K1 0), relative error of the slow features against the bf16
+     32, K1 0; gemm_s8 on w8a8_sm90.cu 6 x 23 + 2 and 6 x 32 + 2, on
+     w8a8.cu 0), relative error of the slow features against the bf16
      tower's (mean, p99); W8A8 and bf16 encode seconds, interleaved over
      7 rounds (median, min, max).
  13. the per-op Hiera trunk (`USE_FUSED_BLOCK = False`) over 8 frames at
@@ -124,6 +132,9 @@ REPLACES = {
     "K6b": "video_llava_seg_tpu/ops/attention.py:522",
     "K7": "video_llava_seg_tpu/ops/window_attention.py:32",
     "K8": "video_llava_seg_tpu/ops/vit_block.py:216",
+    # K8's int8 dense (`_dense_i8`), which gemm_s8 also serves outside the
+    # layer for XLA's int8 dot of nn.dense (video_llava_seg_tpu/ops/nn.py:77)
+    "gemm_s8": "video_llava_seg_tpu/ops/vit_block.py:206",
 }
 SOURCES = {
     "K1": ("video_llava_seg_torch/ops/vit_block.py",
@@ -147,8 +158,12 @@ SOURCES = {
             ["attention_bwd_sm90.cu", "attention_bwd.cu"]),
     "K7": ("video_llava_seg_torch/csrc/window_attention.cu",
            ["window_attention.cu"]),
+    # gemm_s8 on w8a8_sm90.cu where K and N are multiples of 16 (every
+    # dense of both towers), on w8a8.cu elsewhere
     "K8": ("video_llava_seg_torch/ops/vit_block.py",
-           ["w8a8.cu", "attention.cu"]),
+           ["w8a8_sm90.cu", "w8a8.cu", "attention.cu"]),
+    "gemm_s8": ("video_llava_seg_torch/csrc/w8a8_sm90.cu",
+                ["w8a8_sm90.cu", "w8a8.cu"]),
 }
 # H100 SXM published dense peaks (NVIDIA data sheet, 700 W): the bound of
 # a call is max(bytes / HBM rate, operations / peak of their type)
@@ -179,7 +194,9 @@ PEAK_INT8 = 1979e12
 # Measured on an H100 (700 W): K7 3.8e-3..5.0e-3 over the seven window
 # kinds, K8 1.0e-2 (CLIP-L) and 9.2e-3 (RADIO-H); ~2-3x of headroom.
 BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
-          "K6a": 2e-2, "K6b": 2e-2, "K7": 1e-2, "K8": 3e-2}
+          "K6a": 2e-2, "K6b": 2e-2, "K7": 1e-2, "K8": 3e-2,
+          # integer sums, the epilogue's steps in a fixed order
+          "gemm_s8": None}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -199,10 +216,15 @@ def sync():
     torch.cuda.synchronize()
 
 
-def cuda_ms(fn, reps: int = 5, warmup: int = 1, flush=None) -> float:
+def cuda_ms(fn, reps: int = 5, warmup: int = 1, flush=None,
+            train: int = 1) -> float:
     """Median of `reps` CUDA-event timings after `warmup` calls. flush:
     run before each timed call, outside the timed region (to start from
-    a cold L2 where the real caller would)."""
+    a cold L2 where the real caller would). train: calls back to back
+    between the two events, the time divided by their number, so that
+    the host's cost of a launch (Python wrapper, tensor-map encoding)
+    hides under the previous call's device time as on the main path;
+    with train 1 (the default) the first launch's host cost is timed."""
     for _ in range(warmup):
         fn()
     sync()
@@ -213,10 +235,11 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1, flush=None) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(train):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / train)
     return statistics.median(times)
 
 
@@ -325,7 +348,8 @@ def phase_build():
 SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                 "attention_bwd_sm90.cu": ("flash_bwd_dq_sm90",
                                           "flash_bwd_dkv_sm90"),
-                "w4a8_sm90.cu": ("w4a8_sm90_kernel",)}
+                "w4a8_sm90.cu": ("w4a8_sm90_kernel",),
+                "w8a8_sm90.cu": ("gemm_s8_sm90_kernel",)}
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
 
 
@@ -376,7 +400,7 @@ def bound_of(nbytes: float, ops: float, peak: float):
 
 def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
            run_library=None, flush=None, time_kernel=None,
-           run_previous=None, previous="attention.cu"):
+           run_previous=None, previous="attention.cu", train=1):
     """Hold one kernel call against its plain version and time it.
 
     run_reference: the plain version in fp32 (checked against BOUNDS) or,
@@ -386,7 +410,8 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
     (joins several outputs for the comparison). run_previous: the kernel
     this one replaced, timed beside it (`previous` names it: K2,
     attention.cu's online form; K6a / K6b, attention_bwd.cu; K5's
-    prefill, w4a8.cu's mma.sync tile)."""
+    prefill, w4a8.cu's mma.sync tile; gemm_s8, w8a8.cu). train: launches
+    per timing of kernel, library and previous kernel (`cuda_ms`)."""
     got = run_kernel()
     want = run_reference()
     sync()
@@ -401,11 +426,11 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
         raise AssertionError(f"{name} {tag}: rel err {rel:.3e} > bound "
                              f"{bound:.0e}")
     del got, want
-    ms = cuda_ms(time_kernel or run_kernel, flush=flush)
+    ms = cuda_ms(time_kernel or run_kernel, flush=flush, train=train)
     plain_ms = cuda_ms(run_plain, reps=3, flush=flush)
-    lib_ms = (cuda_ms(run_library, flush=flush)
+    lib_ms = (cuda_ms(run_library, flush=flush, train=train)
               if run_library is not None else None)
-    prev_ms = (cuda_ms(run_previous, flush=flush)
+    prev_ms = (cuda_ms(run_previous, flush=flush, train=train)
                if run_previous is not None else None)
     b_ms, b_by = bound_of(*work)
     log(f"[check] {name} {tag}: max_abs_err {err:.4e}, rel {rel:.3e} "
@@ -1192,12 +1217,9 @@ def phase_k7_checks(cfg, seed, dev, results):
 def phase_k8_checks(cfg, seed, dev, results):
     """K8 (one W8A8 layer) at the CLIP-L and RADIO-H serving shapes
     against `vit_layer_plain` over the same quantized tree, and gemm_s8
-    at each tower's fc1 shape: int32 mode bit-equal to the float64 int8
-    product (`int_matmul_plain`), dense mode bit-equal to nn.dense's
-    epilogue, timed beside `torch._int_mm`. Returns the gemm rows."""
-    from video_llava_seg_torch import kernels
+    at each tower's dense shapes (`gemm_s8_checks`). Returns the gemm
+    rows."""
     from video_llava_seg_torch.models import vit
-    from video_llava_seg_torch.ops.int4 import int_matmul_plain
     from video_llava_seg_torch.ops.quantization import (
         quantize_tree,
         quantized_nbytes,
@@ -1235,39 +1257,107 @@ def phase_k8_checks(cfg, seed, dev, results):
                (2 * _nbytes(x) + quantized_nbytes(layer), ops, PEAK_INT8))
         del x
 
-        a = torch.randint(-127, 128, (rows, d), generator=g, device=dev,
-                          dtype=torch.int8)
-        b = layer["fc1"]["kernel_qa"]
-        want = int_matmul_plain(a, b)
-        if not torch.equal(kernels.gemm_s8(a, b), want):
-            raise AssertionError(f"gemm_s8 {name}: int32 product not "
-                                 "bit-equal to the float64 product")
-        a_s = torch.rand(rows, 1, generator=g, device=dev) * 0.05 + 1e-3
-        bias = layer["fc1"]["bias"].to(bf)
-        y = (want.float() * a_s * layer["fc1"]["kernel_scale"]).to(bf) + bias
-        if not torch.equal(kernels.gemm_s8(a, b, a_s,
-                                           layer["fc1"]["kernel_scale"],
-                                           bias=bias), y):
-            raise AssertionError(f"gemm_s8 {name}: dense epilogue not "
-                                 "bit-equal to nn.dense's")
-        del want, y
-        b_cm = b.t().contiguous().t()
-        g_ms = cuda_ms(lambda: kernels.gemm_s8(a, b))
-        lib_ms = cuda_ms(lambda: torch._int_mm(a, b_cm))
-        b_ms, b_by = bound_of(_nbytes(a, b) + 4 * rows * dff,
-                              2 * rows * d * dff, PEAK_INT8)
-        gemm_rows.append({"shape": f"{name} fc1 [{rows}, {d}] x [{d}, "
-                                   f"{dff}] -> int32",
-                          "ms": g_ms, "int_mm_ms": lib_ms, "bound_ms": b_ms,
-                          "bound_by": b_by})
-        log(f"[k8] gemm_s8 {name} fc1 [{rows}, {d}] x [{d}, {dff}]: int32 "
-            f"bit-equal to the float64 product, dense epilogue bit-equal "
-            f"to nn.dense; {g_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        del layer, a, b, b_cm
+        gemm_rows += gemm_s8_checks(
+            name, layer, vc, rows, cfg.num_frames * vc.num_patches,
+            cfg.llm.hidden_size, kw["act"], g, dev, results)
+        del layer
         torch.cuda.empty_cache()
     sync()
     return gemm_rows
+
+
+def gemm_s8_checks(name, layer, vc, rows, proj_rows, hidden, act, g, dev,
+                   results):
+    """gemm_s8 at the six denses of one tower's W8A8 layer as the layer
+    runs them (dense mode, `rows` activation rows), at fc1 in int32 mode
+    and at the projector's second dense (int32 over the tower's
+    `proj_rows` patch rows, `hidden` wide, as `int_matmul` runs it):
+    csrc/w8a8_sm90.cu (the route `gemm_s8_entry` names) bit-equal to
+    w8a8.cu (forced by `route`) and to `gemm_s8_plain`, timed beside both
+    and, in int32 mode, `torch._int_mm`. Launches per W8A8 encode: each
+    layer dense once per tower layer, the projector's two int32 denses
+    once. Returns the rows for the vision-slice JSON."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.models import vit
+    from video_llava_seg_torch.ops.int4 import gemm_s8_plain, int_matmul_plain
+
+    bf = torch.bfloat16
+    d, dff = vc.hidden_size, vc.intermediate_size
+    n_layers = vit.num_layers_run(vc)
+    cases = [  # (dense, K, N, dense-mode epilogue or None, per encode)
+        ("q_proj", d, d, dict(scale=1.0 / math.sqrt(d // vc.num_heads)),
+         n_layers),
+        ("k_proj", d, d, {}, n_layers), ("v_proj", d, d, {}, n_layers),
+        ("out_proj", d, d, dict(residual=True), n_layers),
+        ("fc1", d, dff, dict(act=act), n_layers),
+        ("fc2", dff, d, dict(residual=True), n_layers),
+        ("fc1", d, dff, None, 0),
+        ("projector.layers[1]", hidden, hidden, None, 1)]
+    out = []
+    for dense, k, n, ep, per_encode in cases:
+        m = rows if dense in layer else proj_rows
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        if dense in layer:
+            b = layer[dense]["kernel_qa"]
+        else:
+            b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                              dtype=torch.int8)
+        args, kw = (), {}
+        nbytes = _nbytes(a, b) + m * n * (4 if ep is None else 2)
+        if ep is not None:
+            a_s = torch.rand(m, 1, generator=g, device=dev) * 2e-3 + 1e-4
+            w_s = layer[dense]["kernel_scale"].float().contiguous()
+            bias = layer[dense]["bias"].to(bf).contiguous()
+            res = (torch.randn((m, n), generator=g, device=dev).to(bf)
+                   if ep.get("residual") else None)
+            args = (a_s, w_s)
+            kw = dict(bias=bias, residual=res, scale=ep.get("scale"),
+                      act=ep.get("act", "none"))
+            nbytes += _nbytes(a_s, w_s, bias) + (
+                0 if res is None else _nbytes(res))
+        entry = kernels.gemm_s8_entry(m, k, n)
+        if entry != "vls_gemm_s8_sm90":
+            raise AssertionError(f"gemm_s8 {name} {dense}: routed to {entry}")
+        got = kernels.gemm_s8(a, b, *args, **kw)
+        old = kernels.gemm_s8(a, b, *args, route="vls_gemm_s8", **kw)
+        if got.dtype != old.dtype or not torch.equal(got, old):
+            raise AssertionError(f"gemm_s8 {name} {dense}: w8a8_sm90.cu and "
+                                 "w8a8.cu differ")
+        if ep == {} and not torch.equal(got, (int_matmul_plain(a, b).float()
+                                              * a_s * w_s).to(bf) + bias):
+            raise AssertionError(f"gemm_s8 {name} {dense}: dense epilogue "
+                                 "not bit-equal to nn.dense's")
+        del got, old
+        if ep is None:
+            mode = "int32"
+        else:
+            mode = ("dense: bias" + (", q scale" if "scale" in ep else "")
+                    + (f", {ep['act']}" if "act" in ep else "")
+                    + (", residual" if "residual" in ep else ""))
+        tag = f"{name} {dense} [{m}, {k}] x [{k}, {n}] {mode} ({entry})"
+        b_cm = b.t().contiguous().t() if ep is None else None
+        _check("gemm_s8", tag,
+               lambda: kernels.gemm_s8(a, b, *args, **kw),
+               lambda: gemm_s8_plain(a, b, *args, **kw),
+               lambda: gemm_s8_plain(a, b, *args, **kw), results,
+               (nbytes, 2 * m * k * n, PEAK_INT8),
+               run_library=(None if b_cm is None
+                            else lambda: torch._int_mm(a, b_cm)),
+               run_previous=lambda: kernels.gemm_s8(a, b, *args,
+                                                    route="vls_gemm_s8",
+                                                    **kw),
+               previous="w8a8.cu", train=10)
+        r = results["gemm_s8"]["shapes"][-1]
+        r["launches_per_encode"] = per_encode
+        out.append({"shape": tag, "ms": r["ms"],
+                    "w8a8_cu_ms": r["previous_ms"],
+                    "int_mm_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "launches_per_encode": per_encode})
+        del a, b, b_cm, args, kw
+        torch.cuda.empty_cache()
+    return out
 
 
 # relative error of W8A8 slow features against the bf16 tower's, |q -
@@ -1305,7 +1395,8 @@ def phase_w8a8_encode(cfg, seed, dev):
     """`llava.encode_video` on `quantize_tree(bits=8, act_quant=True)` of
     tower + projector (bench.py config 3's int8 leg), CLIP-L and RADIO-H,
     against the bf16 tower's features; launch counts of the W8A8 call.
-    Returns ({tower: counts}, {tower: summary})."""
+    Returns ({tower: counts, tower_gemm_s8: gemm_s8 launches by route},
+    {tower: summary})."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.inference.utils import clip_preprocess_frames
     from video_llava_seg_torch.models import llava, projector, vit
@@ -1325,9 +1416,11 @@ def phase_w8a8_encode(cfg, seed, dev):
         s_bf, _ = llava.encode_video(params, c, video)
         sync()
         kernels.LAUNCHES.reset()
+        kernels.GEMM_S8_LAUNCHES.reset()
         s_q, _ = llava.encode_video(params_q, c, video)
         sync()
         counts = kernels.LAUNCHES.snapshot()
+        gemm_counts = kernels.GEMM_S8_LAUNCHES.snapshot()
         t_q, t_bf = wall_seconds(
             [lambda: llava.encode_video(params_q, c, video),
              lambda: llava.encode_video(params, c, video)])
@@ -1340,6 +1433,17 @@ def phase_w8a8_encode(cfg, seed, dev):
                      "kernel_qa denses run gemm_s8 through int_matmul, which "
                      "counts nothing)")
         check_launches(f"w8a8-{name}", counts, expect, why)
+        # gemm_s8: the six denses of every tower layer and the projector's
+        # two kernel_qa denses (int_matmul), all on w8a8_sm90.cu
+        n_proj = len(params_q["mm_projector"]["layers"])
+        want = {"vls_gemm_s8_sm90": 6 * n_tower + n_proj, "vls_gemm_s8": 0}
+        log(f"[w8a8-{name}] gemm_s8 launches by route: {gemm_counts} "
+            f"(expected {want}: 6 x {n_tower} layer denses + {n_proj} "
+            "projector denses)")
+        if gemm_counts != want:
+            raise AssertionError(f"W8A8 {name}: gemm_s8 routes {gemm_counts}, "
+                                 f"expected {want}")
+        counts_by[f"{name}_gemm_s8"] = gemm_counts
         ref = s_bf.float()
         rel = ((s_q.float() - ref).abs() / (ref.std() + 1e-9)).cpu().numpy()
         err = {"mean": float(rel.mean()),
@@ -2091,6 +2195,26 @@ def main(argv=None):
         prev = [sh["previous_ms"] for sh in r["shapes"] if "previous_ms" in sh]
         if prev:
             kernels_out[-1]["previous_ms"] = sum(prev)
+    # gemm_s8 (K8's int8 dense and int_matmul), counted by route on the
+    # W8A8 encodes, the only paths with kernel_qa denses
+    r = results["gemm_s8"]
+    source, csrc = SOURCES["gemm_s8"]
+    kernels_out.append({
+        "name": "gemm_s8", "route": "cuda", "source": source,
+        "csrc": [f"video_llava_seg_torch/csrc/{c}" for c in csrc],
+        "replaces": REPLACES["gemm_s8"],
+        "launches": w8a8_counts["clip_gemm_s8"]["vls_gemm_s8_sm90"],
+        "launches_by_path": {"w8a8_encode_clip": w8a8_counts["clip_gemm_s8"],
+                             "w8a8_encode_radio":
+                                 w8a8_counts["radio_gemm_s8"]},
+        "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+        "bound": "exact", "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": ("bytes" if r["bound_by_ms"]["bytes"]
+                     >= r["bound_by_ms"]["operations"] else "operations"),
+        "library_ms": r["library_ms"],
+        "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
+        "shapes": r["shapes"]})
     log(json.dumps({"w4a8_batched_slice": quant}))
     log(json.dumps({"vision_slice": {
         "radio_bf16_serving": radio, "w8a8_encode": w8a8,

@@ -13,9 +13,10 @@ the same bf16 inputs, with the same bound; every kernel op's output must
 carry a grad_fn when an input requires grad. K7 (window attention from
 the fused-qkv map) is held against `window_attention_plain` in fp32 with
 the same bound; K8's building blocks are exact where the TPU kernel's
-arithmetic is (gemm_s8 bit-equal to the float64 int8 product and to
-nn.dense's epilogue, quant_rows bit-equal to
-`quantize_activations_rowwise`), and the whole W8A8 layer is held
+arithmetic is (gemm_s8, csrc/w8a8_sm90.cu where K and N are multiples of
+16 and csrc/w8a8.cu elsewhere, bit-equal to the float64 int8 product, to
+nn.dense's epilogue, to `gemm_s8_plain` in every epilogue and to each
+other; quant_rows bit-equal to `quantize_activations_rowwise`), and the whole W8A8 layer is held
 against `vit_layer_plain` over the same quantized tree in bf16 (bound
 3e-2: an int8 rounding flip of a bf16 activation moves a row by one
 quantization step). K2 at head dim 128 (csrc/attention_sm90.cu, TMA +
@@ -402,7 +403,11 @@ def test_kernel_ops_have_grad_fn(dev):
 # K7 and K8 (the window attention and the W8A8 layer)
 # ---------------------------------------------------------------------------
 
-from video_llava_seg_torch.ops.int4 import int_matmul, int_matmul_plain  # noqa: E402
+from video_llava_seg_torch.ops.int4 import (  # noqa: E402
+    gemm_s8_plain,
+    int_matmul,
+    int_matmul_plain,
+)
 from video_llava_seg_torch.ops.quantization import (  # noqa: E402
     quantize_activations_rowwise,
     quantize_tree,
@@ -452,8 +457,11 @@ def test_attention_head_dim_80(dev):
         assert _rel(got, want) < BOUND
 
 
+# (1, 64, 4), (300, 4100, 36) and (64, 1036, 256) stay on w8a8.cu (K or
+# N % 16), the others take w8a8_sm90.cu
 @pytest.mark.parametrize("m,k,n", [(1, 64, 4), (130, 1024, 1024),
-                                   (577, 1280, 5120), (300, 4100, 36)])
+                                   (577, 1280, 5120), (300, 4100, 36),
+                                   (64, 1036, 256)])
 def test_gemm_s8_bit_exact(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(12)
     a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
@@ -474,6 +482,10 @@ def test_gemm_s8_bit_exact(dev, m, k, n):
                                        residual=res), res + y)
     assert torch.equal(kernels.gemm_s8(a, b, a_s, w_s, bias=bias,
                                        scale=0.125), y * 0.125)
+    for act in ("quick_gelu", "gelu"):
+        assert torch.equal(
+            kernels.gemm_s8(a, b, a_s, w_s, bias=bias, act=act),
+            gemm_s8_plain(a, b, a_s, w_s, bias=bias, act=act)), act
 
 
 def test_quant_rows_bit_exact(dev):
@@ -783,3 +795,74 @@ def test_flash_bwd_sm90_autograd(dev):
         assert _rel(t.grad, w) < BOUND
     for t in leaves[1:]:
         assert not t.grad.transpose(1, 2)[~kv_mask].any()
+
+
+# --- csrc/w8a8_sm90.cu: gemm_s8 on TMA + wgmma ----------------------------
+
+# every epilogue of the dense mode: K8's q (CLIP-L's bf16 1/8, RADIO-H's
+# 1/sqrt(80)), k / v (bias), out proj and fc2 (bias + residual), fc1
+# (bias + quick_gelu or erf-GELU), and a dense without bias
+GEMM_S8_EPILOGUES = {
+    "bias": dict(bias=True),
+    "bias_residual": dict(bias=True, residual=True),
+    "qscale": dict(bias=True, scale=0.125),
+    "qscale_hd80": dict(bias=True, scale=80 ** -0.5),
+    "quick_gelu": dict(bias=True, act="quick_gelu"),
+    "gelu": dict(bias=True, act="gelu"),
+    "residual_no_bias": dict(residual=True),
+}
+
+
+def _gemm_s8_inputs(g, m, k, n, dev):
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    a_s = torch.rand(m, 1, generator=g, device=dev) * 2e-3 + 1e-4
+    w_s = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+    return a, b, a_s, w_s
+
+
+# (rows, K, N): the six dense widths of CLIP-L (1024 -> 1024 / 4096, 4096
+# -> 1024) and RADIO-H (1280 / 5120) at a few hundred rows with an M
+# tail; a K tail past the 128-deep stage (K = 1040, 4128), N not a
+# multiple of 128 (272, 400), one row and one tile row and a bit
+@pytest.mark.parametrize("m,k,n", [(300, 1024, 1024), (300, 1024, 4096),
+                                   (300, 4096, 1024), (300, 1280, 1280),
+                                   (300, 1280, 5120), (300, 5120, 1280),
+                                   (129, 1040, 272), (1, 64, 48),
+                                   (257, 4128, 400)])
+def test_gemm_s8_sm90_bit_exact(dev, m, k, n):
+    """w8a8_sm90.cu equals w8a8.cu (forced by `route`) and the plain
+    product bit for bit: the int32 mode and every dense epilogue."""
+    assert kernels.gemm_s8_entry(m, k, n) == "vls_gemm_s8_sm90"
+    g = torch.Generator(device=dev).manual_seed(23)
+    a, b, a_s, w_s = _gemm_s8_inputs(g, m, k, n, dev)
+    want = int_matmul_plain(a, b)
+    assert torch.equal(kernels.gemm_s8(a, b), want)
+    assert torch.equal(kernels.gemm_s8(a, b, route="vls_gemm_s8"), want)
+    bias = _randn(g, n, dev=dev)
+    res = _randn(g, m, n, dev=dev, scale=4.0)
+    for name, ep in GEMM_S8_EPILOGUES.items():
+        kw = dict(bias=bias if ep.get("bias") else None,
+                  residual=res if ep.get("residual") else None,
+                  scale=ep.get("scale"), act=ep.get("act", "none"))
+        got = kernels.gemm_s8(a, b, a_s, w_s, **kw)
+        old = kernels.gemm_s8(a, b, a_s, w_s, route="vls_gemm_s8", **kw)
+        plain = gemm_s8_plain(a, b, a_s, w_s, **kw)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, old), name
+        assert torch.equal(got, plain), name
+
+
+def test_gemm_s8_counts_its_route(dev):
+    """Each launch adds one to the count of the C entry it took."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    a, b, _, _ = _gemm_s8_inputs(g, 40, 256, 128, dev)
+    before = kernels.GEMM_S8_LAUNCHES.snapshot()
+    kernels.gemm_s8(a, b)
+    int_matmul(a, b)
+    kernels.gemm_s8(a, b, route="vls_gemm_s8")
+    after = kernels.GEMM_S8_LAUNCHES.snapshot()
+    assert after["vls_gemm_s8_sm90"] - before["vls_gemm_s8_sm90"] == 2
+    assert after["vls_gemm_s8"] - before["vls_gemm_s8"] == 1

@@ -20,7 +20,8 @@ hiera_block`, `ops.int4.w4a8_dense`, `ops.window_attention.
 window_attention` for K7) adds one where it launches its CUDA
 composition, and nowhere else. `ops.int4.int_matmul` launches
 `gemm_s8` for XLA's int8 product, which is no TPU kernel: it counts
-nothing.
+nothing there. `GEMM_S8_LAUNCHES` counts every `gemm_s8` launch by the
+C entry it took (`gemm_s8_entry`), inside K8 and out.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "vls_w4a8_sm90": [_P] * 6 + [_I] * 4 + [_P],
     "vls_quant_rows": [_P] * 5 + [_L, _I, _F, _I, _P],
     "vls_gemm_s8": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "vls_gemm_s8_sm90": [_P] * 8 + [_I] * 5 + [_F, _P],
     "vls_window_attention": [_P, _P] + [_I] * 7 + [_F, _P],
 }
 
@@ -88,6 +90,14 @@ W4A8_SM90_BOX_K = 128
 W4A8_SM90_BOX_ROWS = 128
 W4A8_SM90_BOX_COLS = 128
 W4A8_SM90_ALIGN = 16
+# w8a8_sm90.cu (gemm_s8 on TMA + wgmma): each stage is a TMA box of 128
+# activation rows by 128 columns of K, and one of 128 rows of K by 128
+# output channels; TMA needs 16-byte-aligned bases and byte strides in
+# multiples of 16 (K and N multiples of 16)
+GEMM_S8_SM90_BOX_K = 128
+GEMM_S8_SM90_BOX_ROWS = 128
+GEMM_S8_SM90_BOX_COLS = 128
+GEMM_S8_SM90_ALIGN = 16
 # aim the decode GEMV at ~8 blocks per SM of an H100 (132 SMs)
 W4A8_GEMV_TARGET_BLOCKS = 132 * 8
 # window_attention.cu: all of a window's keys sit in shared memory
@@ -96,18 +106,19 @@ WINDOW_MAX_HEAD_DIM = 128
 
 
 class LaunchCounts:
-    """Per-kernel launch counters of the K1..K8 wrappers."""
+    """Per-kernel launch counters of the K1..K8 wrappers (or of the names
+    given)."""
 
     NAMES = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7", "K8")
 
-    def __init__(self):
-        self.counts: Dict[str, int] = {n: 0 for n in self.NAMES}
+    def __init__(self, names=NAMES):
+        self.counts: Dict[str, int] = {n: 0 for n in names}
 
     def add(self, name: str):
         self.counts[name] += 1
 
     def reset(self):
-        for n in self.NAMES:
+        for n in self.counts:
             self.counts[n] = 0
 
     def snapshot(self) -> Dict[str, int]:
@@ -115,6 +126,10 @@ class LaunchCounts:
 
 
 LAUNCHES = LaunchCounts()
+# gemm_s8's launches by C entry: K8 counts its layers, and the int32
+# mode (int_matmul) is no TPU kernel, so neither tells the routes apart
+GEMM_S8_ROUTES = ("vls_gemm_s8", "vls_gemm_s8_sm90")
+GEMM_S8_LAUNCHES = LaunchCounts(GEMM_S8_ROUTES)
 
 
 class _Library:
@@ -686,19 +701,64 @@ def ln_quant_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return _quant_rows(x, gamma, beta, eps, True)
 
 
+def gemm_s8_entry(m: int, k: int, n: int) -> str:
+    """The C entry that serves `gemm_s8` at [m, k] x [k, n]: the TMA +
+    wgmma kernel of csrc/w8a8_sm90.cu where TMA can address the operands
+    (k and n multiples of 16: 16-byte row strides; the wrapper requires
+    16-byte-aligned bases), csrc/w8a8.cu's mma.sync tile for every other
+    shape."""
+    if (m > 0 and k > 0 and k % GEMM_S8_SM90_ALIGN == 0
+            and n % GEMM_S8_SM90_ALIGN == 0):
+        return "vls_gemm_s8_sm90"
+    return "vls_gemm_s8"
+
+
+def gemm_s8_sm90_geometry(a: torch.Tensor, b: torch.Tensor):
+    """The two int8 tensor maps that csrc/w8a8_sm90.cu encodes, 12 int64:
+    for a [M, K] and b [K, N], each (byte offset of the map's base, dims
+    (inner, outer), the outer byte stride, box (inner, outer)). TMA needs
+    a contiguous inner dim, a 16-byte-aligned base and outer byte strides
+    in multiples of 16."""
+    for t, what in ((a, "a"), (b, "b")):
+        if t.dim() != 2 or t.stride(1) != 1 or t.element_size() != 1:
+            raise ValueError(f"gemm_s8_sm90 {what}: expected a 2-D int8 "
+                             "tensor with a contiguous last dim")
+        if (t.data_ptr() % GEMM_S8_SM90_ALIGN
+                or t.stride(0) % GEMM_S8_SM90_ALIGN):
+            raise ValueError(f"gemm_s8_sm90 {what}: TMA needs a 16-byte-"
+                             "aligned base and a row stride in multiples of "
+                             f"16 bytes, got stride {t.stride(0)}")
+    m, k = a.shape
+    if b.shape[0] != k:
+        raise ValueError(f"gemm_s8_sm90: a has K={k}, b has K={b.shape[0]}")
+    n = b.shape[1]
+    if k % GEMM_S8_SM90_ALIGN or n % GEMM_S8_SM90_ALIGN:
+        raise ValueError(f"gemm_s8_sm90: TMA needs K and N in multiples of "
+                         f"{GEMM_S8_SM90_ALIGN}, got K={k}, N={n}")
+    return ((0, k, m, a.stride(0), GEMM_S8_SM90_BOX_K, GEMM_S8_SM90_BOX_ROWS)
+            + (0, n, k, b.stride(0), GEMM_S8_SM90_BOX_COLS,
+               GEMM_S8_SM90_BOX_K))
+
+
 def gemm_s8(a: torch.Tensor, b: torch.Tensor,
             a_scale: Optional[torch.Tensor] = None,
             w_scale: Optional[torch.Tensor] = None,
             bias: Optional[torch.Tensor] = None,
             residual: Optional[torch.Tensor] = None,
-            scale: Optional[float] = None, act: str = "none"):
+            scale: Optional[float] = None, act: str = "none",
+            route: Optional[str] = None):
     """int8 a [M, K] @ int8 b [K, N] on the tensor cores.
 
     Without scales: the exact int32 product [M, N]. With a_scale (fp32,
     M elements) and w_scale (fp32 [N]): the W8A8 dense epilogue in bf16,
     bf16((acc * a_scale) * w_scale) [+ bias] [* bf16(scale) | act]
     [+ residual], every step rounded to bf16; bias bf16 [N], residual
-    bf16 [M, N]."""
+    bf16 [M, N]. The shape chooses the kernel (`gemm_s8_entry`); `route`
+    names a C entry of GEMM_S8_ROUTES instead, for the tests and for
+    timing csrc/w8a8.cu beside the kernel that took its shapes."""
+    if route is not None and route not in GEMM_S8_ROUTES:
+        raise ValueError(f"gemm_s8: route must be one of {GEMM_S8_ROUTES}, "
+                         f"got {route!r}")
     _require(a, "gemm_s8 a", dtype=torch.int8)
     _require(b, "gemm_s8 b", dtype=torch.int8)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -733,10 +793,20 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor,
             raise ValueError("gemm_s8: residual must be [M, N]")
     y = torch.empty((m, n), device=a.device,
                     dtype=torch.bfloat16 if dense else torch.int32)
-    _check_code("gemm_s8", LIBRARY.get().vls_gemm_s8(
-        _ptr(a), _ptr(a_scale), _ptr(b), _ptr(w_scale), _ptr(bias),
-        _ptr(residual), _ptr(y), m, n, k, int(dense), ACTS[act],
-        float(scale or 0.0), _stream()))
+    entry = route or gemm_s8_entry(m, k, n)
+    epilogue = (int(dense), ACTS[act], float(scale or 0.0), _stream())
+    if entry == "vls_gemm_s8_sm90":
+        geom = (ctypes.c_longlong * 12)(*gemm_s8_sm90_geometry(a, b))
+        code = LIBRARY.get().vls_gemm_s8_sm90(
+            _ptr(a), _ptr(a_scale), _ptr(b), _ptr(w_scale), _ptr(bias),
+            _ptr(residual), _ptr(y), ctypes.cast(geom, ctypes.c_void_p), m,
+            n, k, *epilogue)
+    else:
+        code = LIBRARY.get().vls_gemm_s8(
+            _ptr(a), _ptr(a_scale), _ptr(b), _ptr(w_scale), _ptr(bias),
+            _ptr(residual), _ptr(y), m, n, k, *epilogue)
+    _check_code("gemm_s8", code)
+    GEMM_S8_LAUNCHES.add(entry)
     return y
 
 

@@ -18,6 +18,8 @@ fp32 multiplies in a fixed order, so the two agree bit for bit.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from video_llava_seg_torch import kernels
@@ -55,13 +57,50 @@ def int_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 [m, k] @ int8 [k, n] -> int32: on a CUDA tensor the
-    int32 mode of `csrc/w8a8.cu`'s gemm_s8 (int8 tensor cores; the
-    product XLA computes for the JAX package, no TPU kernel, so no launch
-    count), on a CPU tensor `int_matmul_plain`. Both are exact, so they
-    agree bit for bit."""
+    int32 mode of `kernels.gemm_s8` (int8 tensor cores: `csrc/
+    w8a8_sm90.cu` where k and n are multiples of 16, `csrc/w8a8.cu`
+    elsewhere; the product XLA computes for the JAX package, no TPU
+    kernel, so no K1..K8 launch count), on a CPU tensor
+    `int_matmul_plain`. Both are exact, so they agree bit for bit."""
     if a.device.type == "cpu":
         return int_matmul_plain(a, b)
     return kernels.gemm_s8(a.contiguous(), b.contiguous())
+
+
+def gemm_s8_plain(a: torch.Tensor, b: torch.Tensor,
+                  a_scale: Optional[torch.Tensor] = None,
+                  w_scale: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  residual: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None,
+                  act: str = "none") -> torch.Tensor:
+    """Plain PyTorch version of `kernels.gemm_s8` (csrc/w8a8.cu and
+    w8a8_sm90.cu), with its arguments. Without scales the exact int32
+    product; with them the W8A8 dense epilogue step by step in fp32, each
+    step rounded to bf16 as the kernels round it: bf16((acc * a_scale) *
+    w_scale) [+ bias] [* bf16(scale) | act] [+ residual]. The activations
+    are the kernels' forms, v / (1 + exp(-1.702 v)) (as v * (1 / ..)) and
+    (0.5 v) (1 + erf(v / sqrt 2)), in fp32 on the bf16 value."""
+    acc = int_matmul_plain(a, b)
+    if a_scale is None:
+        return acc
+
+    def rbf(v):
+        return v.to(torch.bfloat16).float()
+
+    v = rbf(acc.float() * a_scale.reshape(-1, 1) * w_scale)
+    if bias is not None:
+        v = rbf(v + bias.float())
+    if scale:
+        qs = rbf(torch.tensor(float(scale), device=v.device))
+        v = rbf(v * qs)
+    if act == "quick_gelu":
+        v = rbf(v * torch.reciprocal(1.0 + torch.exp(v * -1.702)))
+    elif act == "gelu":
+        v = rbf((v * 0.5) * (1.0 + torch.erf(v * 0.70710678118654752)))
+    if residual is not None:
+        v = v + residual.float()
+    return v.to(torch.bfloat16)
 
 
 def w4a8_matmul_plain(xq, a_scale, packed, w_scale, out_dtype):
