@@ -10,8 +10,8 @@ script exits non-zero without printing a result:
      nvcc; TF32 off for matmuls and convolutions.
   1. build: the CUDA kernels compile from `video_llava_seg_torch/csrc`;
      the ptxas registers and spills of attention_sm90.cu (K2),
-     attention_bwd_sm90.cu (K6a / K6b), w4a8_sm90.cu (K5's prefill) and
-     w8a8_sm90.cu (gemm_s8),
+     attention_short_sm90.cu (K3), attention_bwd_sm90.cu (K6a / K6b),
+     w4a8_sm90.cu (K5's prefill) and w8a8_sm90.cu (gemm_s8),
      and the wgmma (HGMMA bf16, IGMMA int8) and UTMALDG (TMA load) counts
      in the SASS of each of their kernels (a zero fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
@@ -25,12 +25,19 @@ script exits non-zero without printing a result:
      needs, against the H100 SXM's published peaks, with the TFLOP/s
      and share of the bound; K2 (attention_sm90.cu at head dim 128) also
      beside attention.cu's online form, which it replaced, and K5's
-     prefill (w4a8_sm90.cu) beside w4a8.cu's mma.sync tile.
+     prefill (w4a8_sm90.cu) beside w4a8.cu's mma.sync tile. K3 runs on
+     the mask decoder's [B, S, H, 16] views through
+     attention_short_sm90.cu (the route asserted), timed over 10 launches
+     back to back beside attention.cu's two-pass form, which it replaced,
+     and SDPA, and also by device time alone (a CUDA graph of the 10
+     launches: at these shapes the host's cost of a call exceeds it).
   3. the bf16 slice at full width (CLIP-L/14-336 over 32 frames,
      Llama-3-8B, SAM2.1-hiera-small at 1024^2 over 8 frames), seeded
      random bf16 weights built on the card: one caption query and one
      referral query through `inference.main.get_model_output_frames`,
-     with the launch counts of K1..K5 taken over exactly that run.
+     with the launch counts of K1..K5 taken over exactly that run; every
+     path's check also asserts that each K3 launch took
+     attention_short_sm90.cu.
   4. the quantized batched slice at full width: the same tower,
      projector and seg head in bf16, the LLM built by
      `llama.init_quantized(bits=4, act_quant=True)` and fused
@@ -44,7 +51,8 @@ script exits non-zero without printing a result:
      logsumexp output and K6a (dQ) / K6b (dK, dV) against the plain
      versions (`flash_forward_plain`, `flash_backward_plain`) at the
      Llama-3-8B causal GQA attention over the synthetic batch's spliced
-     length, the mask decoder's image->token attention, and one per-key
+     length, the mask decoder's image->token attention (its [B, S, H, 16]
+     views; K3 timed as in phase 2), and one per-key
      bias case with masked keys; times of kernel, plain version and the
      backward of `scaled_dot_product_attention`; at head dim 128, where
      attention_bwd_sm90.cu serves K6a / K6b, also attention_bwd.cu's time
@@ -88,7 +96,10 @@ after phase 4, 14 after phase 5.
      bit-equal to w8a8.cu and to `gemm_s8_plain` (k_proj also to
      nn.dense's epilogue), timed (10 launches back to back per timing)
      beside w8a8.cu and, in int32 mode, `torch._int_mm`, with its bound
-     and its launches per W8A8 encode.
+     and its launches per W8A8 encode. Then the attention link of K1's /
+     K8's chain (attention.cu's online form at head dims 64 and 80) and
+     of the per-op trunk's global blocks (head dim 96), timed apart
+     beside SDPA, with their bounds and their share of the layer.
  11. RADIO serving: the bf16 path of phase 3 with the RADIO-H/16@384
      tower (K1 32 per query, K8 0), stage seconds.
  12. W8A8 encode: `llava.encode_video` over `quantize_tree(bits=8,
@@ -143,7 +154,10 @@ SOURCES = {
     # trunk's global blocks (head dim 96) on attention.cu
     "K2": ("video_llava_seg_torch/csrc/attention_sm90.cu",
            ["attention_sm90.cu", "attention.cu"]),
-    "K3": ("video_llava_seg_torch/csrc/attention.cu", ["attention.cu"]),
+    # head dim 16 over <= 64 keys (the mask decoder) on
+    # attention_short_sm90.cu; the two-pass form elsewhere on attention.cu
+    "K3": ("video_llava_seg_torch/csrc/attention_short_sm90.cu",
+           ["attention_short_sm90.cu", "attention.cu"]),
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
            ["layernorm.cu", "gemm_bf16.cu", "attention.cu", "pool.cu"]),
     # more than 8 rows at TMA-aligned widths (the LLM prefill) on
@@ -240,6 +254,36 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1, flush=None,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / train)
+    return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 10, reps: int = 5) -> float:
+    """Device time of one call: n calls captured back to back in a CUDA
+    graph, its replay timed by CUDA events (median of `reps`), over n.
+    The replay launches without the host's per-call cost (Python, the
+    wrappers' checks, tensor-map encoding), which `cuda_ms` includes where
+    it exceeds the device time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    sync()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
     return statistics.median(times)
 
 
@@ -346,6 +390,7 @@ def phase_build():
 # the TMA + wgmma sources and the kernels in each whose SASS must hold
 # wgmma (HGMMA for bf16, IGMMA for int8) and TMA loads (UTMALDG)
 SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
+                "attention_short_sm90.cu": ("attention_short_sm90_kernel",),
                 "attention_bwd_sm90.cu": ("flash_bwd_dq_sm90",
                                           "flash_bwd_dkv_sm90"),
                 "w4a8_sm90.cu": ("w4a8_sm90_kernel",),
@@ -400,7 +445,8 @@ def bound_of(nbytes: float, ops: float, peak: float):
 
 def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
            run_library=None, flush=None, time_kernel=None,
-           run_previous=None, previous="attention.cu", train=1):
+           run_previous=None, previous="attention.cu", train=1,
+           device_time=False):
     """Hold one kernel call against its plain version and time it.
 
     run_reference: the plain version in fp32 (checked against BOUNDS) or,
@@ -409,9 +455,11 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
     time_kernel: the call to time when run_kernel does more than launch
     (joins several outputs for the comparison). run_previous: the kernel
     this one replaced, timed beside it (`previous` names it: K2,
-    attention.cu's online form; K6a / K6b, attention_bwd.cu; K5's
-    prefill, w4a8.cu's mma.sync tile; gemm_s8, w8a8.cu). train: launches
-    per timing of kernel, library and previous kernel (`cuda_ms`)."""
+    attention.cu's online form; K3, its two-pass form; K6a / K6b,
+    attention_bwd.cu; K5's prefill, w4a8.cu's mma.sync tile; gemm_s8,
+    w8a8.cu). train: launches per timing of kernel, library and previous
+    kernel (`cuda_ms`). device_time: also their device times without the
+    host's cost (`graph_ms`), for kernels whose device time is below it."""
     got = run_kernel()
     want = run_reference()
     sync()
@@ -433,6 +481,17 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
     prev_ms = (cuda_ms(run_previous, flush=flush, train=train)
                if run_previous is not None else None)
     b_ms, b_by = bound_of(*work)
+    dev_ms = {}
+    if device_time:
+        for key, fn in (("device_ms", time_kernel or run_kernel),
+                        ("library_device_ms", run_library),
+                        ("previous_device_ms", run_previous)):
+            if fn is not None:
+                dev_ms[key] = graph_ms(fn)
+        log(f"[check] {name} {tag}: device time (CUDA graph, 10 launches) "
+            + ", ".join(f"{k[:-3].replace('_', ' ')} {v:.4f} ms"
+                        for k, v in dev_ms.items())
+            + f" ({b_ms / dev_ms['device_ms']:.3f} of the bound)")
     log(f"[check] {name} {tag}: max_abs_err {err:.4e}, rel {rel:.3e} "
         f"({'exact' if bound is None else f'bound {bound:.0e}'}); kernel "
         f"{ms:.4f} ms ({work[1] / ms / 1e9:.1f} "
@@ -460,29 +519,35 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
                         "bound_by": b_by, "max_abs_err": err})
     if prev_ms is not None:
         r["shapes"][-1]["previous_ms"] = prev_ms
+    r["shapes"][-1].update(dev_ms)
     torch.cuda.empty_cache()
 
 
-def wmma_k2(q, k, v, *, causal=False, kv_mask=None, with_lse=False):
-    """attention.cu's online form at head dim 128, which K2 ran before
-    attention_sm90.cu took the LLM's calls (kernels.attention no longer
-    routes there): timed beside the new kernel in the same run."""
+def attention_cu(q, k, v, *, two_pass=False, causal=False, kv_mask=None,
+                 with_lse=False):
+    """attention.cu, forced by `route`: its online form ran K2 at head dim
+    128 before attention_sm90.cu took the LLM's calls, its two-pass form
+    K3 before attention_short_sm90.cu took the mask decoder's; timed
+    beside the new kernels in the same run."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.ops.attention import MASK_VALUE
 
-    bsz, hq, hkv, sq, skv, d = kernels._check_qkv(q, k, v)
     bias = (None if kv_mask is None else
             torch.where(kv_mask, 0.0, MASK_VALUE).float().contiguous())
-    o = kernels._bshd(bsz, sq, hq, d, q)
-    lse = (torch.empty((bsz, hq, sq), device=q.device, dtype=torch.float32)
-           if with_lse else None)
-    strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
-    kernels._check_code("attention", kernels.LIBRARY.get().vls_attention_bf16(
-        kernels._ptr(q), kernels._ptr(k), kernels._ptr(v), kernels._ptr(o),
-        kernels._ptr(bias), kernels._ptr(lse), *strides,
-        skv if bias is not None else 0, bsz, hq, hkv, sq, skv, d, skv,
-        d ** -0.5, int(causal), 0, kernels._stream()))
-    return o
+    return kernels.attention(q, k, v, scale=q.shape[-1] ** -0.5,
+                             causal=causal, kv_bias=bias, two_pass=two_pass,
+                             with_lse=with_lse, route="vls_attention_bf16")
+
+
+def check_k3_route(hd, n_tok, heads):
+    """The mask decoder's K3 calls (two-pass, head dim hd over n_tok keys
+    and `heads` kv heads) take attention_short_sm90.cu."""
+    from video_llava_seg_torch import kernels
+
+    entry = kernels.attention_entry(hd, True, n_tok, heads)
+    if entry != K3_ENTRY:
+        raise AssertionError(f"K3 at head dim {hd} over {n_tok} keys routes "
+                             f"to {entry}, not {K3_ENTRY}")
 
 
 def _nbytes(*tensors):
@@ -518,6 +583,7 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
     shorter row (K2 with a per-key bias)."""
     import torch.nn.functional as F
 
+    from video_llava_seg_torch import kernels
     from video_llava_seg_torch.models import vit
     from video_llava_seg_torch.models.sam2 import hiera
     from video_llava_seg_torch.models.seg_head import make_sam2_cfg
@@ -576,7 +642,7 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
                                        causal=True), results, work,
            run_library=lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True),
-           run_previous=lambda: wmma_k2(q, k, v, causal=True))
+           run_previous=lambda: attention_cu(q, k, v, causal=True))
     del q, k, v
 
     # K2 under left padding: the batch-2 prefill, row 1 padded by `pad`
@@ -612,11 +678,13 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
            results, work,
            run_library=lambda: F.scaled_dot_product_attention(
                q, k, v, attn_mask=sdpa_mask, enable_gqa=True),
-           run_previous=lambda: wmma_k2(q, k, v, causal=True,
-                                        kv_mask=kv_mask))
+           run_previous=lambda: attention_cu(q, k, v, causal=True,
+                                             kv_mask=kv_mask))
     del q, k, v, sdpa_mask, causal
 
-    # K3: mask-decoder image->token attention, 8 frames x 1 object
+    # K3: mask-decoder image->token attention, 8 frames x 1 object; q / k
+    # / v as the decoder builds them, [B, S, H, 16] dense outputs viewed
+    # [B, H, S, 16]
     sc = make_sam2_cfg(cfg.seg)
     heads = sc.twoway_heads
     hd = sc.hidden_dim // sc.attention_downsample_rate // heads
@@ -624,9 +692,10 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
     n_tok = int(sc.pred_obj_scores) + 1 + (sc.num_multimask_outputs + 1) + 1
     nq = sc.image_embedding_size ** 2
     bt = cfg.seg.max_seg_frames
-    q = randn(bt, heads, nq, hd)
-    k = randn(bt, heads, n_tok, hd)
-    v = randn(bt, heads, n_tok, hd)
+    check_k3_route(hd, n_tok, heads)
+    q = randn(bt, nq, heads, hd).transpose(1, 2)
+    k = randn(bt, n_tok, heads, hd).transpose(1, 2)
+    v = randn(bt, n_tok, heads, hd).transpose(1, 2)
     work = (_nbytes(q, k, v, q), 4 * bt * heads * nq * n_tok * hd,
             PEAK_BF16)
     _check("K3", f"q{list(q.shape)} kv{list(k.shape)}",
@@ -634,7 +703,11 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
            lambda: attention_reference(q, k, v),
            lambda: attention_reference(q.float(), k.float(), v.float()),
            results, work,
-           run_library=lambda: F.scaled_dot_product_attention(q, k, v))
+           run_library=lambda: F.scaled_dot_product_attention(q, k, v),
+           time_kernel=lambda: kernels.attention(q, k, v, scale=hd ** -0.5,
+                                                 two_pass=True),
+           run_previous=lambda: attention_cu(q, k, v, two_pass=True),
+           previous="attention.cu two-pass", train=10, device_time=True)
     del q, k, v
 
     # K4: one Hiera-small block of each kind over the 8 seg frames
@@ -776,7 +849,7 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
                 {"seg_frames_u8": seg, "seg_meta": meta})]
 
     torch.cuda.reset_peak_memory_stats()
-    kernels.LAUNCHES.reset()
+    reset_launches()
     sync()
     t_all = time.perf_counter()
     outs = []
@@ -790,7 +863,7 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
         total = time.perf_counter() - t1
         outs.append((name, text, logits, timings, total))
     e2e = time.perf_counter() - t_all
-    counts = kernels.LAUNCHES.snapshot()
+    counts = snapshot_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     for name, text, logits, timings, total in outs:
@@ -866,8 +939,33 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
         for name, _, _, timings, total in outs}}
 
 
+# the C entry that must serve every K3 launch of the main paths (the mask
+# decoder's image->token attention), counted apart by kernels.attention
+K3_ENTRY = "vls_attention_short_sm90"
+
+
+def reset_launches():
+    """Zero the K1..K8 counts and kernels.attention's counts by C entry,
+    just before a main path runs."""
+    from video_llava_seg_torch import kernels
+
+    kernels.LAUNCHES.reset()
+    kernels.ATTENTION_LAUNCHES.reset()
+
+
+def snapshot_launches():
+    """The K1..K8 counts just after a main path ran, and under "K3 entry"
+    the launches of attention_short_sm90.cu among them."""
+    from video_llava_seg_torch import kernels
+
+    counts = kernels.LAUNCHES.snapshot()
+    counts["K3 entry"] = kernels.ATTENTION_LAUNCHES.snapshot()[K3_ENTRY]
+    return counts
+
+
 def check_launches(tag, counts, expect, why):
-    """Every kernel the path runs launched, exactly as often as expected."""
+    """Every kernel the path runs launched, exactly as often as expected,
+    and every K3 launch took attention_short_sm90.cu."""
     from video_llava_seg_torch import kernels
 
     for name in kernels.LaunchCounts.NAMES:
@@ -878,6 +976,11 @@ def check_launches(tag, counts, expect, why):
         if counts[name] != expect[name]:
             raise AssertionError(f"{name}: {counts[name]} launches, expected "
                                  f"{expect[name]}")
+    log(f"[{tag}] K3 launches on attention_short_sm90.cu: "
+        f"{counts['K3 entry']} of {counts['K3']}")
+    if counts["K3 entry"] != counts["K3"]:
+        raise AssertionError(f"{tag}: {counts['K3'] - counts['K3 entry']} K3 "
+                             f"launches did not take {K3_ENTRY}")
 
 
 def llm_bf16_nbytes(lc) -> int:
@@ -947,7 +1050,7 @@ def phase_quant_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
     queries = [(serve.CAPTION_PROMPT, False), (REFERRAL, True)]
 
     torch.cuda.reset_peak_memory_stats()
-    kernels.LAUNCHES.reset()
+    reset_launches()
     sync()
     timings = {}
     t1 = time.perf_counter()
@@ -957,7 +1060,7 @@ def phase_quant_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
         stop_sequences=stops, timings=timings)
     sync()
     e2e = time.perf_counter() - t1
-    counts = kernels.LAUNCHES.snapshot()
+    counts = snapshot_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
     log(f"[quant] caption + referral in one batched call: {e2e:.3f} s "
@@ -1266,6 +1369,94 @@ def phase_k8_checks(cfg, seed, dev, results):
     return gemm_rows
 
 
+def phase_attention_links(cfg, seed, dev, results):
+    """The attention link of K1's / K8's chain (attention.cu's online form
+    at head dim 64, CLIP-L, and 80, RADIO-H, over the 577 tokens of 32
+    frames, kv_len and scale as the chain gives them) and of the per-op
+    trunk's global blocks (head dim 96, K2 through `ops.attention`), timed
+    apart (10 launches back to back) beside SDPA on the same views and
+    each call's bound; held against attention_reference in fp32 within
+    BOUNDS["K2"]. Returns the rows, each with the link's share of its
+    layer's time in this run (K1, K8 from phases 2 and 10)."""
+    import torch.nn.functional as F
+
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+    from video_llava_seg_torch.ops.attention import attention_reference
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    # the layers' times in this run: K1 at CLIP-L (phase 2), K8 at both
+    # towers (phase 10), keyed by the tower's name
+    k8_ms = {sh["shape"].split(" ")[0]: sh["ms"]
+             for sh in results["K8"]["shapes"]}
+    layer_ms = {"CLIP-L/14-336": {"K1": results["K1"]["shapes"][0]["ms"]},
+                "RADIO-H/16-384": {}}
+    cases = []
+    for name, vc in (("CLIP-L/14-336", cfg.vision),
+                     ("RADIO-H/16-384", radio_cfg(cfg).vision)):
+        n = vc.num_patches + int(vc.use_cls_token) + vc.num_register_tokens
+        cases.append((f"K1 / K8 link, {name}", cfg.num_frames, n, n,
+                      vc.num_heads, vc.hidden_size // vc.num_heads, n,
+                      dict(layer_ms[name], K8=k8_ms[name])))
+    sc = make_sam2_cfg(cfg.seg)
+    side = sc.image_size // sc.hiera.patch_stride
+    pools = 0
+    for din, dout, nh, ws, pool in hiera.block_dims(sc.hiera):
+        hw = side // (2 ** pools)
+        pools += bool(pool)
+        if ws == 0:
+            sq = (hw // 2) ** 2 if pool else hw * hw
+            cases.append(("per-op trunk global block",
+                          cfg.seg.max_seg_frames, sq, hw * hw, nh,
+                          dout // nh, -1, {}))
+            break
+    rows = []
+    for tag, bt, sq, skv, h, hd, kv_len, layers in cases:
+        # q / k / v as the chains build them: [B, S, H, D] views of the
+        # denses' outputs (q pre-scaled, scale 1); the online form, as
+        # K1 / K8 call it and as ops.attention takes > 1024 keys
+        q = (torch.randn((bt, sq, h, hd), generator=g, device=dev)
+             * hd ** -0.5).to(bf).transpose(1, 2)
+        k, v = (torch.randn((bt, skv, h, hd), generator=g,
+                            device=dev).to(bf).transpose(1, 2)
+                for _ in range(2))
+
+        def run():
+            return kernels.attention(q, k, v, scale=1.0, kv_len=kv_len)
+
+        got = run()
+        want = attention_reference(q.float(), k.float(), v.float(),
+                                   scale=1.0)
+        sync()
+        rel = ((got.float() - want).abs().max()
+               / want.abs().max()).item()
+        if not math.isfinite(rel) or rel > BOUNDS["K2"]:
+            raise AssertionError(f"{tag}: rel err {rel:.3e}")
+        del got, want
+        ms = cuda_ms(run, train=10)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=1.0), train=10)
+        b_ms, b_by = bound_of(_nbytes(q, k, v, q),
+                              4 * bt * h * sq * skv * hd, PEAK_BF16)
+        row = {"link": tag, "shape": f"q{list(q.shape)} kv{list(k.shape)}",
+               "entry": kernels.attention_entry(hd, False, skv, h),
+               "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "rel_err": rel,
+               "share_of_layer": {n: ms / t for n, t in layers.items()}}
+        rows.append(row)
+        log(f"[link] {tag} {row['shape']} on {row['entry']}: {ms:.4f} ms "
+            f"({b_ms / ms:.3f} of the bound), SDPA {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), rel err {rel:.3e}"
+            + "".join(f", {x:.3f} of the {n} layer ({layers[n]:.4f} ms)"
+                      for n, x in row["share_of_layer"].items()))
+        del q, k, v
+        torch.cuda.empty_cache()
+    sync()
+    return rows
+
+
 def gemm_s8_checks(name, layer, vc, rows, proj_rows, hidden, act, g, dev,
                    results):
     """gemm_s8 at the six denses of one tower's W8A8 layer as the layer
@@ -1415,11 +1606,11 @@ def phase_w8a8_encode(cfg, seed, dev):
         llava.encode_video(params_q, c, video)        # warm-up
         s_bf, _ = llava.encode_video(params, c, video)
         sync()
-        kernels.LAUNCHES.reset()
+        reset_launches()
         kernels.GEMM_S8_LAUNCHES.reset()
         s_q, _ = llava.encode_video(params_q, c, video)
         sync()
-        counts = kernels.LAUNCHES.snapshot()
+        counts = snapshot_launches()
         gemm_counts = kernels.GEMM_S8_LAUNCHES.snapshot()
         t_q, t_bf = wall_seconds(
             [lambda: llava.encode_video(params_q, c, video),
@@ -1503,9 +1694,9 @@ def phase_hiera_per_op(cfg, seed, dev):
 
     run(False)                                        # warm-up
     want = run(True)
-    kernels.LAUNCHES.reset()
+    reset_launches()
     got = run(False)
-    counts = kernels.LAUNCHES.snapshot()
+    counts = snapshot_launches()
     t_op, t_k4 = wall_seconds([lambda: run(False), lambda: run(True)])
     dims = hiera.block_dims(hc)
     n_global = sum(1 for d in dims if d[3] == 0)
@@ -1675,6 +1866,7 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
     heads = sc.twoway_heads
     hd = sc.hidden_dim // sc.attention_downsample_rate // heads
     bt = cfg.seg.max_seg_frames * cfg.seg.max_objects
+    check_k3_route(hd, n_tok, heads)
     cases = [
         ("llm", 1, lc.num_heads, lc.num_kv_heads, seq_len, seq_len,
          lc.head_dim, True, None),
@@ -1684,15 +1876,23 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
          2048, 2048, lc.head_dim, False, (41, 337)),
     ]
     for tag, b, hq, hkv, sq, skv, d, causal, masked in cases:
-        q, do = randn(b, hq, sq, d), randn(b, hq, sq, d)
-        k, v = randn(b, hkv, skv, d), randn(b, hkv, skv, d)
+        single = skv <= 1024
+        if single:
+            # the mask decoder's q / k / v: [B, S, H, 16] dense outputs
+            # viewed [B, H, S, 16]
+            q = randn(b, sq, hq, d).transpose(1, 2)
+            k = randn(b, skv, hkv, d).transpose(1, 2)
+            v = randn(b, skv, hkv, d).transpose(1, 2)
+        else:
+            q = randn(b, hq, sq, d)
+            k, v = randn(b, hkv, skv, d), randn(b, hkv, skv, d)
+        do = randn(b, hq, sq, d)
         bias, kv_mask = None, None
         if masked is not None:
             kv_mask = torch.ones(b, skv, dtype=torch.bool, device=dev)
             kv_mask[0, 100:100 + masked[0]] = False
             kv_mask[1, :masked[1]] = False
             bias = torch.where(kv_mask, 0.0, MASK_VALUE).float().contiguous()
-        single = skv <= 1024
         fwd = "K3" if single else "K2"
         scale = 1.0 / math.sqrt(d)
         kw = dict(scale=scale, causal=causal, kv_bias=bias)
@@ -1734,8 +1934,11 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
                results, (2 * qb + 2 * kb + lse_b, 2 * prod, PEAK_BF16),
                run_library=lambda: F.scaled_dot_product_attention(
                    q, k, v, **sdpa_kw),
-               run_previous=None if single else lambda: wmma_k2(
-                   q, k, v, causal=causal, kv_mask=kv_mask, with_lse=True))
+               run_previous=lambda: attention_cu(
+                   q, k, v, two_pass=single, causal=causal, kv_mask=kv_mask,
+                   with_lse=True),
+               previous="attention.cu two-pass" if single else "attention.cu",
+               train=10 if single else 1, device_time=single)
 
         def sdpa_fwd():
             return F.scaled_dot_product_attention(qr, kr, vr, **sdpa_kw)
@@ -1938,13 +2141,13 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
         batch = batch_to_device(next(data), dev, torch.bfloat16)
         b_before = lora_b.detach().clone()
         timings.clear()
-        kernels.LAUNCHES.reset()
+        reset_launches()
         sync()
         t1 = time.perf_counter()
         state, metrics = step_fn(state, batch, step_generator(seed, step))
         sync()
         seconds.append(time.perf_counter() - t1)
-        counts = kernels.LAUNCHES.snapshot()
+        counts = snapshot_launches()
         m = {k: float(v) for k, v in metrics.items()}
         rows.append({"seconds": seconds[-1], "stages": dict(timings), **m})
         stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
@@ -2146,6 +2349,7 @@ def main(argv=None):
     phase_w4a8_checks(cfg, 2 * batch_len, args.seed, dev, results)
     k7_rows = phase_k7_checks(cfg, args.seed, dev, results)
     gemm_rows = phase_k8_checks(cfg, args.seed, dev, results)
+    link_rows = phase_attention_links(cfg, args.seed, dev, results)
     bf16_counts, _ = phase_slice(cfg, args.seed, args.max_new_tokens, dev)
     quant_counts, quant = phase_quant_slice(cfg, args.seed,
                                             args.max_new_tokens, dev)
@@ -2219,7 +2423,8 @@ def main(argv=None):
     log(json.dumps({"vision_slice": {
         "radio_bf16_serving": radio, "w8a8_encode": w8a8,
         "hiera_per_op": hiera_op, "tiny_agreement": tiny_vision,
-        "k7_vs_k4_attention_stage": k7_rows, "gemm_s8": gemm_rows}}))
+        "k7_vs_k4_attention_stage": k7_rows, "gemm_s8": gemm_rows,
+        "attention_links": link_rows}}))
     log(json.dumps({"train_slice": train}))
     log(json.dumps({"kernels": kernels_out}))
     log(smi)

@@ -92,5 +92,5 @@ def test_reference_twin_decode_options():
 @pytest.mark.parametrize("kw", [{"window": 8}, {"alibi": True}])
 def test_out_of_slice_variants_raise(kw):
     q, k, v = (torch.zeros(1, 1, 4, 16) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: sliding-window and ALiBi"):
         tatt.attention(q, k, v, **kw)

@@ -22,7 +22,10 @@ against `vit_layer_plain` over the same quantized tree in bf16 (bound
 quantization step). K2 at head dim 128 (csrc/attention_sm90.cu, TMA +
 wgmma) is held to the same bound, to its logsumexp within 1e-5 (both sum
 exp() in fp32 over the same scores), and on a left-pad row that sees only
-masked keys to the mean of its visible V rows. K6a / K6b at head dim 128
+masked keys to the mean of its visible V rows. K3 at head dim 16 over
+at most 64 keys (csrc/attention_short_sm90.cu) is held to the same
+bounds on the mask decoder's [B, S, H, 16] views, and a row no key is
+visible to at O = 0, lse = 0. K6a / K6b at head dim 128
 (csrc/attention_bwd_sm90.cu) are held to the plain backward with the same
 bound, and on the left-pad rows, which the plain backward treats
 differently, to attention_bwd.cu at the same inputs. Run on the card:
@@ -544,7 +547,8 @@ def test_flash_sm90(dev, name):
     BOUND and logsumexp within LSE_BOUND, ragged lengths, Sq < Skv,
     kv_len < Skv, GQA groups 1 and 4."""
     b, hq, hkv, sq, skv, causal, kv_len = SM90_CASES[name]
-    assert kernels.attention_entry(128, False) == "vls_flash_fwd_sm90"
+    assert (kernels.attention_entry(128, False, skv, hkv)
+            == "vls_flash_fwd_sm90")
     g = torch.Generator(device=dev).manual_seed(15)
     q = _randn(g, b, hq, sq, 128, dev=dev)
     k = _randn(g, b, hkv, skv, 128, dev=dev)
@@ -866,3 +870,124 @@ def test_gemm_s8_counts_its_route(dev):
     after = kernels.GEMM_S8_LAUNCHES.snapshot()
     assert after["vls_gemm_s8_sm90"] - before["vls_gemm_s8_sm90"] == 2
     assert after["vls_gemm_s8"] - before["vls_gemm_s8"] == 1
+
+
+# --- csrc/attention_short_sm90.cu: K3 at head dim 16, <= 64 keys ---------
+
+SHORT = "vls_attention_short_sm90"
+SHORT_CASES = {
+    # name: (b, hq, hkv, sq, skv, kv_len, bias)
+    "serving": (8, 8, 8, 4096, 7, None, False),   # chip_smoke's shapes
+    "train": (64, 8, 8, 4096, 7, None, False),
+    "partial_tile_gqa4": (3, 8, 2, 1000, 7, None, False),  # no 64 multiple
+    "bias": (2, 8, 8, 777, 7, None, True),
+    "kv_len": (2, 4, 4, 300, 7, 5, False),
+    "keys_13": (2, 8, 8, 500, 13, None, True),     # 16-key tile
+    "keys_29_gqa2": (2, 8, 4, 333, 29, None, False),  # 32-key tile
+    "keys_64": (1, 8, 8, 640, 64, 50, True),       # 64-key tile
+}
+
+
+def _short_inputs(name, dev):
+    """The mask decoder's layout: q, k, v as [B, H, S, 16] views of
+    [B, S, H, 16] buffers."""
+    b, hq, hkv, sq, skv, kv_len, with_bias = SHORT_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(31)
+    q = _randn(g, b, sq, hq, 16, dev=dev).transpose(1, 2)
+    k = _randn(g, b, skv, hkv, 16, dev=dev).transpose(1, 2)
+    v = _randn(g, b, skv, hkv, 16, dev=dev).transpose(1, 2)
+    bias = None
+    if with_bias:
+        bias = (2 * torch.randn(b, skv, generator=g, device=dev)).float()
+        bias[-1, 1] = MASK_VALUE
+    return q, k, v, kv_len, bias
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_CASES))
+def test_attention_short_sm90(dev, name):
+    """The persistent TMA + wgmma K3 against the plain forward: output
+    within BOUND and logsumexp within LSE_BOUND, with and without the
+    logsumexp (the same output bit for bit), against attention_reference
+    where there is no bias, and within BOUND of attention.cu's two-pass
+    form on the same inputs; partial last q tile, GQA, kv_len < Skv as
+    the plain version's mask bias, a per-key bias, 8 / 16 / 32 / 64-key
+    tiles."""
+    q, k, v, kv_len, bias = _short_inputs(name, dev)
+    b, hq, sq, _ = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    assert kernels.attention_entry(16, True, skv, hkv) == SHORT
+    before = kernels.ATTENTION_LAUNCHES.snapshot()[SHORT]
+    kw = dict(scale=0.25, kv_len=-1 if kv_len is None else kv_len,
+              kv_bias=bias, two_pass=True)
+    o, lse = kernels.attention(q, k, v, with_lse=True, **kw)
+    o2 = kernels.attention(q, k, v, **kw)
+    assert kernels.ATTENTION_LAUNCHES.snapshot()[SHORT] == before + 2
+    plain_bias = bias
+    if kv_len is not None:
+        keep = torch.where(torch.arange(skv, device=dev) < kv_len, 0.0,
+                           MASK_VALUE).float()
+        plain_bias = keep if bias is None else bias + keep
+        plain_bias = plain_bias.expand(b, skv).contiguous()
+    want_o, want_lse = flash_forward_plain(q.float(), k.float(), v.float(),
+                                           plain_bias, scale=0.25)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert torch.equal(o, o2)
+    assert _rel(o, want_o) < BOUND
+    assert (lse - want_lse).abs().max().item() < LSE_BOUND
+    if bias is None:
+        ref = attention_reference(q.float(), k.float(), v.float(),
+                                  scale=0.25, kv_valid_len=kv_len)
+        assert _rel(o, ref) < BOUND
+    old = kernels.attention(q, k, v, route="vls_attention_bf16", **kw)
+    assert _rel(o, old.float()) < BOUND
+
+
+def test_attention_short_sm90_no_visible_key(dev):
+    """A row that sees no key writes O = 0 and lse = 0: causal with Sq >
+    Skv (rows i < Sq - Skv see nothing; the rest match the plain forward)
+    and kv_len = 0 (no row sees a key)."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    b, hq, sq, skv = 2, 8, 300, 7
+    q = _randn(g, b, sq, hq, 16, dev=dev).transpose(1, 2)
+    k = _randn(g, b, skv, hq, 16, dev=dev).transpose(1, 2)
+    v = _randn(g, b, skv, hq, 16, dev=dev).transpose(1, 2)
+    o, lse = kernels.attention(q, k, v, scale=0.25, causal=True,
+                               two_pass=True, with_lse=True)
+    dead = sq - skv
+    assert not o[:, :, :dead].any() and not lse[:, :, :dead].any()
+    want_o, want_lse = flash_forward_plain(q.float(), k.float(), v.float(),
+                                           causal=True, scale=0.25)
+    assert _rel(o[:, :, dead:], want_o[:, :, dead:]) < BOUND
+    assert (lse[:, :, dead:] - want_lse[:, :, dead:]).abs().max().item() \
+        < LSE_BOUND
+    o, lse = kernels.attention(q, k, v, scale=0.25, kv_len=0, two_pass=True,
+                               with_lse=True)
+    assert not o.any() and not lse.any()
+
+
+def test_attention_short_sm90_main_path_and_autograd(dev):
+    """ops.attention at the mask decoder's serving shape counts K3 and
+    takes the new entry; under autograd (the train step) its forward
+    does too, with the logsumexp K6a / K6b read."""
+    q, k, v, _, _ = _short_inputs("serving", dev)
+    before = kernels.LAUNCHES.snapshot()["K3"]
+    routes = kernels.ATTENTION_LAUNCHES.snapshot()
+    out = attention(q, k, v)
+    assert kernels.LAUNCHES.snapshot()["K3"] == before + 1
+    after = kernels.ATTENTION_LAUNCHES.snapshot()
+    assert after[SHORT] == routes[SHORT] + 1
+    assert _rel(out, attention_reference(q.float(), k.float(),
+                                         v.float())) < BOUND
+    g = torch.Generator(device=dev).manual_seed(33)
+    do = _randn(g, *q.shape, dev=dev)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = attention(*leaves)
+    out.backward(do)
+    assert kernels.ATTENTION_LAUNCHES.snapshot()[SHORT] == after[SHORT] + 1
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o32, lse32 = flash_forward_plain(qf, kf, vf)
+    want = flash_backward_plain(qf, kf, vf, None, o32, lse32, do.float(),
+                                scale=0.25)
+    assert _rel(out, o32) < BOUND
+    for t, w in zip(leaves, want):
+        assert _rel(t.grad, w) < BOUND

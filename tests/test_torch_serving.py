@@ -430,7 +430,7 @@ def test_loading_refuses_other_formats(tmp_path, what):
     cfg = _cfg()
     if what == "orbax":
         os.makedirs(tmp_path / "state")
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="orbax checkpoints"):
             tmain.load_model(str(tmp_path), cfg=cfg, device="cpu")
     else:
         # RADIO towers load (tests/test_torch_towers.py); one whose

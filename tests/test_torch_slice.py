@@ -130,5 +130,9 @@ def test_run_inference_matches_jax_cli(model, tmp_path, monkeypatch):
 def test_run_inference_refuses_out_of_slice_flags(flag, value, tmp_path):
     args = _args(str(tmp_path))
     setattr(args, flag, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    want = {"temperature": "sampling and beams",
+            "num_beams": "sampling and beams",
+            "model_parallel": "parallelism"}[flag]
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 1: {want}"):
         tmain.run_inference(args, model=None)

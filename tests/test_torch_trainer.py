@@ -197,9 +197,9 @@ def test_cli_refusals(tmp_path):
                               output_dir=str(tmp_path)),
                   synthetic=True, device="cpu")
     for extra in (["--model_parallel", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallelism"):
             cli.main(_argv(tmp_path, *extra))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: the training data path"):
         cli.main(["--tiny", "--device", "cpu"])
 
 

@@ -2,8 +2,8 @@
 seg head runs at inference: the Hiera trunk + FPN neck, the prompt
 encoder and the mask decoder (port of those parts of
 `video_llava_seg_tpu/convert/sam2_torch.py`; the memory encoder and
-memory attention belong to the standalone SAM2 slice, ROADMAP queue 1
-item 11).
+memory attention belong to the standalone SAM2 slice, ROADMAP queue 1:
+the SAM2 image predictor and the memory and video predictor).
 
 Layout changes (to the JAX package's layout, which the port shares):
   Linear weight [out, in]        -> kernel [in, out]

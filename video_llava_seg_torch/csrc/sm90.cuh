@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels,
-// attention_sm90.cu (forward), attention_bwd_sm90.cu (backward) and
-// w4a8_sm90.cu (K5's prefill): mbarrier waits that trap instead of
-// hanging, TMA tile loads (4-D and 2-D),
-// 128-byte-swizzle wgmma descriptors, the wgmma forms the files use, and
+// attention_sm90.cu (forward), attention_bwd_sm90.cu (backward),
+// attention_short_sm90.cu (K3), w4a8_sm90.cu (K5's prefill) and
+// w8a8_sm90.cu (gemm_s8): mbarrier waits that trap instead of
+// hanging, TMA tile loads (4-D and 2-D), 128- and 32-byte-swizzle wgmma
+// descriptors, the wgmma forms the files use, and
 // the tensor-map encoding through the runtime's driver entry point (no
 // link against libcuda). Included by each .cu; kernels/__init__.py hashes
 // it with the sources, so an edit rebuilds the library.
@@ -102,6 +103,17 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// the same for a 32-byte-swizzled operand (layout 3 = SWIZZLE_32B), whose
+// rows are 32 bytes (16 bf16, one k16 step): K-major, the stride offset
+// steps 8 rows (256 bytes); MN-major (16 bf16 of M or N a row, rows along
+// the reduction), the stride offset steps 8 reduction rows and the
+// leading offset the next 16 columns of M or N
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -237,6 +249,61 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d = A B at m64n8k16, m64n16k16 and m64n32k16 (a score tile of 8, 16 or
+// 32 keys over one k16 step), A and B K-major in shared memory; the
+// accumulator's size picks the form
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[4], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "l"(da), "l"(db), "r"(0));
+}
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[8], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+      : "l"(da), "l"(db), "r"(0));
+}
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[16], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15])
+      : "l"(da), "l"(db), "r"(0));
+}
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  wgmma_ss64_first(d, da, db);
+}
+
+// d += A B, m64n16k16, A (bf16 pairs) from registers, B MN-major in
+// shared memory (the transpose bit): a 16-wide output tile
+__device__ __forceinline__ void wgmma_rs16(float (&d)[8], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // d += A B, m64n64k16, A K-major and B MN-major (the transpose bit) in
 // shared memory
 __device__ __forceinline__ void wgmma_ss64_tb(float (&d)[32], uint64_t da,
@@ -334,30 +401,38 @@ inline EncodeTiledFn encode_fn() {
 // it: dims (D, S, H, B) innermost first, byte strides of S, H and B, box
 constexpr int GEOM = 11;
 
-// Encode one operand's 128-byte-swizzled tensor map after checking its
-// head dim and box against what the kernel was written for. A refused
-// geometry returns the negated driver error.
-inline int encode_bf16(CUtensorMap* map, const void* ptr, const long long* g,
-                       int d, int box_cols, int box_rows) {
-  if (g[0] != d || g[7] != box_cols || g[8] != box_rows || g[9] != 1 ||
-      g[10] != 1)
-    return (int)cudaErrorInvalidValue;
+// Encode one operand's tensor map with the given swizzle after checking
+// its head dim and box (innermost first) against what the kernel was
+// written for. A refused geometry returns the negated CUresult.
+inline int encode_bf16_box(CUtensorMap* map, const void* ptr,
+                           const long long* g, int d, const int (&box)[4],
+                           CUtensorMapSwizzle swizzle) {
+  if (g[0] != d) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (g[7 + i] != box[i]) return (int)cudaErrorInvalidValue;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1],
                               (cuuint64_t)g[2], (cuuint64_t)g[3]};
   const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5],
                                  (cuuint64_t)g[6]};
-  const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8],
-                             (cuuint32_t)g[9], (cuuint32_t)g[10]};
+  const cuuint32_t bx[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8],
+                            (cuuint32_t)g[9], (cuuint32_t)g[10]};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        const_cast<void*>(ptr), dims, strides, bx, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// the 128-byte-swizzled map of one head and batch row: a box of box_cols
+// columns by box_rows rows
+inline int encode_bf16(CUtensorMap* map, const void* ptr, const long long* g,
+                       int d, int box_cols, int box_rows) {
+  const int box[4] = {box_cols, box_rows, 1, 1};
+  return encode_bf16_box(map, ptr, g, d, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // geometry of one int8 2-D operand, as kernels.w4a8_sm90_geometry

@@ -31,9 +31,10 @@ one when its `config.json` holds the package's config tree with the
 RADIO vision config (`VisionTowerConfig.radio()`: is_radio, one register
 token, final norm) and a projector of `mm_hidden_size` 1280.
 
-Refused with NotImplementedError naming the ROADMAP item: sampling and
-beams, --model_parallel, orbax checkpoints (the only ones that carry LoRA
-adapters).
+Refused with NotImplementedError naming the ROADMAP queue 1 feature:
+sampling and beams, --model_parallel (parallelism), orbax checkpoints
+(the JAX package's format, the only ones that carry LoRA adapters; the
+port's own training checkpoints are the feature to serve instead).
 """
 
 from __future__ import annotations
@@ -156,8 +157,10 @@ def load_model(model_path: str, cfg=None, load_bits: Optional[int] = None,
 
     if osp.isdir(osp.join(model_path, "state")):
         # orbax is the JAX package's own format, and the only one that
-        # carries LoRA adapters to merge (the training slice, item 12)
-        raise NotImplementedError("ROADMAP queue 1 item 8 (orbax)")
+        # carries LoRA adapters to merge
+        raise NotImplementedError(
+            "orbax checkpoints (the JAX package's format); ROADMAP queue 1: "
+            "serve the port's own training checkpoints")
     params = load_llava_weights(model_path, cfg)
     if load_bits is not None:
         params = dict(params)
@@ -320,11 +323,12 @@ def get_model_output_batched(params, cfg, tokenizer, frames_u8, queries,
 
 def _refuse_out_of_slice(args):
     if float(getattr(args, "temperature", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError("ROADMAP queue 1 item 5")
+        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
     if int(getattr(args, "num_beams", 1) or 1) > 1:
-        raise NotImplementedError("ROADMAP queue 1 item 5")
+        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
     if int(getattr(args, "model_parallel", 1) or 1) > 1:
-        raise NotImplementedError("ROADMAP queue 1 item 13")
+        raise NotImplementedError("ROADMAP queue 1: parallelism "
+                                  "(--model_parallel)")
 
 
 def _absorb(pred, content, seg_meta, idx, text, logits, print_captions):

@@ -21,12 +21,16 @@ window_attention` for K7) adds one where it launches its CUDA
 composition, and nowhere else. `ops.int4.int_matmul` launches
 `gemm_s8` for XLA's int8 product, which is no TPU kernel: it counts
 nothing there. `GEMM_S8_LAUNCHES` counts every `gemm_s8` launch by the
-C entry it took (`gemm_s8_entry`), inside K8 and out.
+C entry it took (`gemm_s8_entry`), inside K8 and out;
+`ATTENTION_LAUNCHES` every `attention` launch by its C entry
+(`attention_entry`).
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -55,6 +59,7 @@ _SIGNATURES = {
     "vls_attention_bf16": [_P] * 6 + [_L] * 13 + [_I] * 7
                           + [_F, _I, _I, _P],
     "vls_flash_fwd_sm90": [_P] * 7 + [_L] * 4 + [_I, _I, _F, _P],
+    "vls_attention_short_sm90": [_P] * 7 + [_L] * 4 + [_I, _I, _F, _P],
     "vls_attention_bwd_dq": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_attention_bwd_dkv": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_flash_bwd_dq_sm90": [_P] * 10 + [_L] * 7 + [_F, _I, _P],
@@ -75,6 +80,16 @@ ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # batch row, in the order of the tensor map's dims (D, S, H, B)
 FLASH_SM90_HEAD_DIM = 128
 FLASH_SM90_BOX = (64, 128, 1, 1)
+# attention_short_sm90.cu: the two-pass form (K3) at head dim 16 with all
+# keys in one wgmma N tile (Skv <= 64, rounded up to 8, 16, 32 or 64). Q
+# streams as boxes of the 16 columns (32 bytes, the 32-byte swizzle) by
+# 64 rows of one head; K and V of all kv heads of a batch row stay
+# resident in one of two slots (K N rows, V max(N, 16) rows a head), which
+# must fit SHORT_SM90_KV_SLOT_MAX bytes
+SHORT_SM90_HEAD_DIM = 16
+SHORT_SM90_MAX_KEYS = 64
+SHORT_SM90_BQ = 64
+SHORT_SM90_KV_SLOT_MAX = 64 * 1024
 # attention_bwd_sm90.cu (K6a / K6b at the same head dim) walks 64-row
 # tiles and loads every operand as boxes of 64 columns by 64 rows
 FLASH_SM90_BWD_BOX = (64, 64, 1, 1)
@@ -126,6 +141,11 @@ class LaunchCounts:
 
 
 LAUNCHES = LaunchCounts()
+# kernels.attention's launches by C entry: K1, K2, K3, K4 and K8 all
+# reach it, so the TPU-kernel counts do not tell the routes apart
+ATTENTION_ROUTES = ("vls_attention_bf16", "vls_flash_fwd_sm90",
+                    "vls_attention_short_sm90")
+ATTENTION_LAUNCHES = LaunchCounts(ATTENTION_ROUTES)
 # gemm_s8's launches by C entry: K8 counts its layers, and the int32
 # mode (int_matmul) is no TPU kernel, so neither tells the routes apart
 GEMM_S8_ROUTES = ("vls_gemm_s8", "vls_gemm_s8_sm90")
@@ -230,11 +250,15 @@ def _check_code(name: str, code: int):
 
 
 def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    """The current CUDA stream's handle (what `torch.cuda.current_stream()
+    .cuda_stream` gives, without building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    """t's address, or None (NULL) for no tensor, as a c_void_p argument
+    takes it."""
+    return None if t is None else t.data_ptr()
 
 
 def _require(t: torch.Tensor, what: str, dtype=torch.bfloat16,
@@ -330,56 +354,124 @@ def _bias_stride(kv_bias, bsz, skv):
 
 def _bshd(bsz, s, h, d, like):
     """A [B, H, S, D] view of a fresh contiguous [B, S, H, D] buffer."""
-    return torch.empty((bsz, s, h, d), device=like.device,
-                       dtype=like.dtype).permute(0, 2, 1, 3)
+    return torch.empty_strided((bsz, h, s, d), (s * h * d, d, h * d, 1),
+                               device=like.device, dtype=like.dtype)
 
 
-def attention_entry(d: int, two_pass: bool) -> str:
-    """The C entry that serves `attention` at head dim d: the TMA +
-    wgmma kernel of csrc/attention_sm90.cu for the online form at head
-    dim 128, csrc/attention.cu for every other call."""
+def short_sm90_key_tile(skv: int) -> int:
+    """The score tile's width in attention_short_sm90.cu: Skv rounded up
+    to 8, 16, 32 or 64 keys."""
+    n = 8
+    while n < skv:
+        n *= 2
+    return n
+
+
+def attention_entry(d: int, two_pass: bool, skv: int, hkv: int) -> str:
+    """The C entry that serves `attention` at head dim d over skv keys and
+    hkv kv heads: the TMA + wgmma kernel of csrc/attention_sm90.cu for the
+    online form at head dim 128; csrc/attention_short_sm90.cu for the
+    two-pass form (K3) at head dim 16 where all keys fit one wgmma N tile
+    (skv <= 64) and a batch row's K/V fit a resident slot (the SAM2 mask
+    decoder's image->token attention); csrc/attention.cu for every other
+    call."""
     if not two_pass and d == FLASH_SM90_HEAD_DIM:
         return "vls_flash_fwd_sm90"
+    if (two_pass and d == SHORT_SM90_HEAD_DIM
+            and 0 < skv <= SHORT_SM90_MAX_KEYS and hkv > 0):
+        n = short_sm90_key_tile(skv)
+        if hkv * (n + max(n, 16)) * 2 * d <= SHORT_SM90_KV_SLOT_MAX:
+            return "vls_attention_short_sm90"
     return "vls_attention_bf16"
 
 
 def flash_sm90_tensor_map(t: torch.Tensor, what: str,
                           box=FLASH_SM90_BOX):
     """The TMA tensor-map geometry of a [B, H, S, D] bf16 view for
-    csrc/attention_sm90.cu and attention_bwd_sm90.cu, which only encode
-    it: dims (D, S, H, B) innermost first, the byte strides of S, H and
-    B, and the box (the forward's FLASH_SM90_BOX, the backward's
-    FLASH_SM90_BWD_BOX). TMA needs a contiguous last dim, byte strides in
-    multiples of 16 and a 16-byte-aligned base."""
-    if t.dim() != 4 or t.stride(3) != 1:
-        raise ValueError(f"{what}: expected [B, H, S, D] with a contiguous "
-                         "last dim")
-    b, h, s, d = t.shape
-    es = t.element_size()
-    strides = tuple(t.stride(i) * es for i in (2, 1, 0))
-    if any(x <= 0 or x % 16 or x >= 1 << 40 for x in strides):
-        raise ValueError(f"{what}: TMA needs byte strides that are positive "
-                         f"multiples of 16 below 2^40, got {strides}")
+    csrc/attention_sm90.cu, attention_bwd_sm90.cu and
+    attention_short_sm90.cu, which only encode it: dims (D, S, H, B)
+    innermost first, the byte strides of S, H and B, and the box (the
+    forward's FLASH_SM90_BOX, the backward's FLASH_SM90_BWD_BOX,
+    attention_short_sm90.cu's own). TMA needs a contiguous last dim, byte
+    strides in multiples of 16 and a 16-byte-aligned base."""
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: data must be 16-byte aligned")
-    return (d, s, h, b) + strides + tuple(box)
+    return _tensor_map_dims(t.shape, t.stride(), t.element_size(), what,
+                            box)
+
+
+def _tensor_map_dims(shape, stride, es: int, what: str, box):
+    """`flash_sm90_tensor_map` from a view's shape, element strides and
+    element size."""
+    if len(stride) != 4 or stride[3] != 1:
+        raise ValueError(f"{what}: expected [B, H, S, D] with a contiguous "
+                         "last dim")
+    s0, s1, s2 = stride[2] * es, stride[1] * es, stride[0] * es
+    if (min(s0, s1, s2) <= 0 or (s0 | s1 | s2) % 16
+            or max(s0, s1, s2) >= 1 << 40):
+        raise ValueError(f"{what}: TMA needs byte strides that are positive "
+                         f"multiples of 16 below 2^40, got {(s0, s1, s2)}")
+    b, h, s, d = shape
+    return (d, s, h, b, s0, s1, s2) + tuple(box)
+
+
+@functools.lru_cache(maxsize=256)
+def _forward_geometry(entry, q_shape, q_stride, k_shape, k_stride, v_stride,
+                      es):
+    """The int64 geometry array of the sm90 forward entry `entry`: the q,
+    k and v tensor maps, each as `flash_sm90_tensor_map` gives it, for
+    [B, H, S, D] views of these shapes and element strides (element size
+    es). attention_sm90.cu's boxes are FLASH_SM90_BOX;
+    attention_short_sm90.cu's are 16 columns by SHORT_SM90_BQ rows of one
+    head for q, the N keys of every kv head of one batch row for k (N =
+    `short_sm90_key_tile(Skv)`), max(N, 16) keys for v (TMA zero-fills
+    rows past Skv). Built once per shape: at the mask decoder's sizes the
+    host's cost of a call is more than the kernel's device time. The C
+    entries only read it."""
+    if entry == "vls_flash_fwd_sm90":
+        boxes = (FLASH_SM90_BOX,) * 3
+    else:
+        d, hkv, skv = q_shape[3], k_shape[1], k_shape[2]
+        n = short_sm90_key_tile(skv)
+        boxes = ((d, SHORT_SM90_BQ, 1, 1), (d, n, hkv, 1),
+                 (d, max(n, 16), hkv, 1))
+    return array.array("q", _tensor_map_dims(q_shape, q_stride, es, "q",
+                                             boxes[0])
+                       + _tensor_map_dims(k_shape, k_stride, es, "k",
+                                          boxes[1])
+                       + _tensor_map_dims(k_shape, v_stride, es, "v",
+                                          boxes[2]))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float, causal: bool = False, kv_len: int = -1,
               kv_bias: Optional[torch.Tensor] = None,
-              two_pass: bool = False, with_lse: bool = False):
+              two_pass: bool = False, with_lse: bool = False,
+              route: Optional[str] = None):
     """Flash attention over strided [B, H, S, D] bf16 views.
 
     Returns [B, Hq, Sq, D] as a view of a contiguous [B, Sq, Hq, D]
     buffer (so the caller's merge of heads into channels is free), and
     with `with_lse` also the per-row logsumexp, fp32 [B, Hq, Sq] (0 for a
     row with no visible key). kv_bias: fp32 [B, Skv] additive per-key
-    bias, or None. The head dim and the form choose the kernel
-    (`attention_entry`)."""
+    bias, or None. The head dim, the form and the shapes choose the
+    kernel (`attention_entry`); `route` names a C entry of
+    ATTENTION_ROUTES instead, for the tests and for timing attention.cu
+    beside the kernels that took its calls."""
+    if route is not None and route not in ATTENTION_ROUTES:
+        raise ValueError(f"attention: route must be one of "
+                         f"{ATTENTION_ROUTES}, got {route!r}")
     bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
-    qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
-                  _strides_bhs(v, "v"))
+    entry = route or attention_entry(d, two_pass, skv, hkv)
+    if entry == "vls_flash_fwd_sm90" and (d != FLASH_SM90_HEAD_DIM
+                                          or two_pass):
+        raise ValueError("attention: vls_flash_fwd_sm90 serves the online "
+                         f"form at head dim {FLASH_SM90_HEAD_DIM}")
+    if entry == "vls_attention_short_sm90" and (
+            not two_pass or entry != attention_entry(d, True, skv, hkv)):
+        raise ValueError(f"attention: {entry} serves the two-pass form at "
+                         f"head dim {SHORT_SM90_HEAD_DIM} over up to "
+                         f"{SHORT_SM90_MAX_KEYS} keys")
     bias_sb = _bias_stride(kv_bias, bsz, skv)
     o = _bshd(bsz, sq, hq, d, q)
     os_ = (o.stride(0), o.stride(1), o.stride(2))
@@ -387,19 +479,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            if with_lse else None)
     if kv_len < 0:
         kv_len = skv
-    if attention_entry(d, two_pass) == "vls_flash_fwd_sm90":
-        geom = (ctypes.c_longlong * 33)(
-            *(flash_sm90_tensor_map(q, "q") + flash_sm90_tensor_map(k, "k")
-              + flash_sm90_tensor_map(v, "v")))
-        _check_code("attention", LIBRARY.get().vls_flash_fwd_sm90(
+    if entry == "vls_attention_bf16":
+        qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
+                      _strides_bhs(v, "v"))
+        code = LIBRARY.get().vls_attention_bf16(
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias), _ptr(lse),
-            ctypes.cast(geom, ctypes.c_void_p), *os_, bias_sb, kv_len,
-            int(causal), float(scale), _stream()))
-        return (o, lse) if with_lse else o
-    _check_code("attention", LIBRARY.get().vls_attention_bf16(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias), _ptr(lse),
-        *qs, *ks, *vs, *os_, bias_sb, bsz, hq, hkv, sq, skv, d, kv_len,
-        float(scale), int(causal), int(two_pass), _stream()))
+            *qs, *ks, *vs, *os_, bias_sb, bsz, hq, hkv, sq, skv, d, kv_len,
+            float(scale), int(causal), int(two_pass), _stream())
+    else:
+        for t, what in ((q, "q"), (k, "k"), (v, "v")):
+            _require(t, what, contiguous=False)
+        # the tensor maps check the strides TMA needs
+        geom = _forward_geometry(entry, q.shape, q.stride(), k.shape,
+                                 k.stride(), v.stride(), q.element_size())
+        code = getattr(LIBRARY.get(), entry)(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias), _ptr(lse),
+            geom.buffer_info()[0], *os_, bias_sb, kv_len, int(causal),
+            float(scale), _stream())
+    _check_code("attention", code)
+    ATTENTION_LAUNCHES.add(entry)
     return (o, lse) if with_lse else o
 
 

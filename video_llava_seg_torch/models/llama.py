@@ -18,7 +18,7 @@ cache it reads the int8 K/V and folds the scales in exactly.
 under `torch.utils.checkpoint` (gradient checkpointing), which runs the
 block's attention kernel (K2) a second time in the backward.
 
-Out of the slice (raise NotImplementedError naming the ROADMAP item):
+Out of the slice (raise NotImplementedError naming the ROADMAP feature):
 sampling and beam search, the MPT / Mistral switches. `stack_layers`, a
 TPU compile-time workaround, is not ported.
 """
@@ -39,7 +39,8 @@ from video_llava_seg_torch.timing import stage
 def _check_cfg(cfg):
     if (cfg.use_alibi or cfg.sliding_window is not None or not cfg.use_rope
             or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu"):
-        raise NotImplementedError("ROADMAP queue 1 item 5")
+        raise NotImplementedError("ROADMAP queue 1: the Mistral and MPT "
+                                  "families")
 
 
 def init_layer(cfg, g, device, dtype):
@@ -398,7 +399,7 @@ def greedy_generate(params, cfg, inputs_embeds, max_new_tokens: int,
     hidden [B, max_new, D] (hidden[:, j] produced token j),
     n_generated int)."""
     if temperature:
-        raise NotImplementedError("ROADMAP queue 1 item 5")
+        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
     b, s, d = inputs_embeds.shape
     dev = inputs_embeds.device
     cache = init_kv_cache(cfg, b, s + max_new_tokens, dev,

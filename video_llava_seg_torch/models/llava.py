@@ -218,9 +218,9 @@ def generate(params, cfg, input_ids: np.ndarray, video: torch.Tensor,
     clip, --batch_queries).
     Returns (tokens [B, max_new], hidden [B, max_new, D], n_generated)."""
     if temperature:
-        raise NotImplementedError("ROADMAP queue 1 item 5")
+        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
     if num_beams > 1:
-        raise NotImplementedError("ROADMAP queue 1 item 5")
+        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
     plan = build_splice_plan(np.asarray(input_ids),
                              visual_tokens_per_sample(cfg),
                              max_length=cfg.tokenizer_model_max_length,

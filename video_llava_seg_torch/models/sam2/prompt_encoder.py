@@ -1,8 +1,8 @@
 """SAM2 prompt encoder, the part the [SEG] head uses (port of
 `video_llava_seg_tpu/models/sam2/prompt_encoder.py`): the dense PE grid
 and `no_mask_embed`. Point, box and mask prompts belong to the standalone
-SAM2 predictors (ROADMAP queue 1 item 11); their parameters are built so
-the tree keeps the JAX package's layout."""
+SAM2 predictors (ROADMAP queue 1: the SAM2 image predictor); their
+parameters are built so the tree keeps the JAX package's layout."""
 
 from __future__ import annotations
 

@@ -7,10 +7,13 @@ Hq % Hkv == 0 (GQA, kv head = q head // group).
 
 On a CUDA tensor `attention()` launches a hand-written CUDA kernel: the
 multi-tile online-softmax form (counterpart of `_flash_kernel`, K2) when
-Skv > 1024, the plain-softmax form (`_flash_kernel_single`, K3) of
-`csrc/attention.cu` otherwise, the same split as `_fa_core`. K2 runs
-`csrc/attention_sm90.cu` (TMA + wgmma) at head dim 128, the LLM's, and
-`csrc/attention.cu` at the other head dims (`kernels.attention_entry`). On
+Skv > 1024, the plain-softmax form (`_flash_kernel_single`, K3)
+otherwise, the same split as `_fa_core`. K2 runs `csrc/attention_sm90.cu`
+(TMA + wgmma) at head dim 128, the LLM's, and `csrc/attention.cu` at the
+other head dims. K3 runs `csrc/attention_short_sm90.cu` (persistent, K/V
+resident, Q streamed by TMA, wgmma) at head dim 16 with Skv <= 64, the
+mask decoder's image->token attention, and `csrc/attention.cu`'s
+two-pass form elsewhere (`kernels.attention_entry` names the route). On
 a CPU tensor it runs the plain twin, and autograd differentiates the
 twin. There is no other fallback.
 
@@ -195,7 +198,9 @@ def attention(q, k, v, *, causal: bool = False,
     backend='plain' always runs the twin (the JAX package's
     backend='xla', chosen by callers for short query sets)."""
     if window is not None or alibi:
-        raise NotImplementedError("ROADMAP queue 1 item 3")
+        raise NotImplementedError("ROADMAP queue 1: sliding-window and "
+                                  "ALiBi attention (the Mistral and MPT "
+                                  "families)")
     if backend == "plain" or q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, scale=scale,
                                    kv_mask=kv_mask)

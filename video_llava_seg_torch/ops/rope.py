@@ -1,7 +1,7 @@
 """1-D Llama RoPE, half-split rotate (port of the 1-D half of
 `video_llava_seg_tpu/ops/rope.py`). The 2-D axial RoPE belongs to SAM2
-memory attention, which is off the serving slice (ROADMAP queue 1
-item 11)."""
+memory attention, which is off the serving slice (ROADMAP queue 1: the
+SAM2 memory and video predictor)."""
 
 from __future__ import annotations
 

@@ -5,9 +5,9 @@
 
 Same flags, stage presets and LLM-family presets as the JAX CLI, plus
 `--device` (default `cuda`; the tests pass `cpu`). Out of this port for
-now, and raising NotImplementedError with their ROADMAP items:
-`--model_parallel > 1` and `--fsdp` (queue 1 item 13), and the
-non-synthetic dataset path with its tokenizer (queue 1 item 14).
+now, and raising NotImplementedError with their ROADMAP queue 1
+features: `--model_parallel > 1` and `--fsdp` (parallelism), and the
+non-synthetic dataset path with its tokenizer (the training data path).
 """
 
 from __future__ import annotations
@@ -240,9 +240,11 @@ def train(cfg, tcfg, data_args: Optional[DataConfig] = None,
     trainable leaf and feeds bf16 frames, so the kernels see bf16 (see
     `init_params`). On the CPU both run fp32 and agree closely."""
     if tcfg.mesh.model_parallel > 1 or tcfg.mesh.fsdp:
-        raise NotImplementedError("ROADMAP queue 1 item 13")
+        raise NotImplementedError("ROADMAP queue 1: parallelism "
+                                  "(--model_parallel, --fsdp)")
     if not synthetic:
-        raise NotImplementedError("ROADMAP queue 1 item 14")
+        raise NotImplementedError("ROADMAP queue 1: the training data "
+                                  "path and tokenizer")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: --device cuda but no CUDA device")
@@ -376,7 +378,8 @@ def main(argv=None):
     if not args.synthetic:
         # the dataset path needs a tokenizer (transformers), which the
         # port does not carry yet
-        raise NotImplementedError("ROADMAP queue 1 item 14")
+        raise NotImplementedError("ROADMAP queue 1: the training data "
+                                  "path and tokenizer")
     return train(cfg, tcfg, data_args, restore_weights=args.restore_weights,
                  synthetic=True, device=args.device)
 
