@@ -9,11 +9,12 @@ script exits non-zero without printing a result:
   0. environment: the card (nvidia-smi name, power limit), torch, CUDA,
      nvcc; TF32 off for matmuls and convolutions.
   1. build: the CUDA kernels compile from `video_llava_seg_torch/csrc`;
-     the ptxas registers and spills of attention_sm90.cu (K2),
-     attention_short_sm90.cu (K3), attention_bwd_sm90.cu (K6a / K6b),
-     w4a8_sm90.cu (K5's prefill) and w8a8_sm90.cu (gemm_s8),
-     and the wgmma (HGMMA bf16, IGMMA int8) and UTMALDG (TMA load) counts
-     in the SASS of each of their kernels (a zero fails).
+     the ptxas registers and spills of attention_sm90.cu (K2 and the
+     online form at head dims 64 / 80 / 96), attention_short_sm90.cu
+     (K3), attention_bwd_sm90.cu (K6a / K6b), w4a8_sm90.cu (K5's
+     prefill) and w8a8_sm90.cu (gemm_s8), and the wgmma (HGMMA bf16,
+     IGMMA int8) and UTMALDG (TMA load) counts in the SASS of each
+     instance of their kernels (a zero, or a missing instance, fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
      bf16 against their plain PyTorch versions run in fp32 on the same
      bf16 inputs (K2 also with the per-key bias of a left-padded batch-2
@@ -37,7 +38,9 @@ script exits non-zero without printing a result:
      referral query through `inference.main.get_model_output_frames`,
      with the launch counts of K1..K5 taken over exactly that run; every
      path's check also asserts that each K3 launch took
-     attention_short_sm90.cu.
+     attention_short_sm90.cu, and that attention_sm90.cu served every
+     K2 launch, the attention link of every K1 / K8 layer and every
+     trunk block K4 sends it (`trunk_sm90_blocks`).
   4. the quantized batched slice at full width: the same tower,
      projector and seg head in bf16, the LLM built by
      `llama.init_quantized(bits=4, act_quant=True)` and fused
@@ -87,9 +90,11 @@ after phase 4, 14 after phase 5.
  10. K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
      8 frames at 1024^2 against `window_attention_plain`, beside SDPA
      over the partitioned windows (partition copy timed apart) and K4's
-     current attention stage (partition + attention.cu + unpartition);
+     attention stage (partition + attention + unpartition), and K4's
+     attention call on both C entries, attention.cu and
+     attention_sm90.cu (where the route's key threshold comes from);
      K8 (the W8A8 layer: `csrc/w8a8_sm90.cu`, `csrc/w8a8.cu`'s row
-     kernels, attention.cu) at the CLIP-L and RADIO-H serving shapes
+     kernels, attention_sm90.cu) at the CLIP-L and RADIO-H serving shapes
      against `vit_layer_plain` over the same quantized tree; gemm_s8
      (w8a8_sm90.cu) at each tower's six dense shapes with their
      epilogues, at fc1 in int32 mode and at the projector's second dense,
@@ -97,9 +102,10 @@ after phase 4, 14 after phase 5.
      nn.dense's epilogue), timed (10 launches back to back per timing)
      beside w8a8.cu and, in int32 mode, `torch._int_mm`, with its bound
      and its launches per W8A8 encode. Then the attention link of K1's /
-     K8's chain (attention.cu's online form at head dims 64 and 80) and
-     of the per-op trunk's global blocks (head dim 96), timed apart
-     beside SDPA, with their bounds and their share of the layer.
+     K8's chain (head dims 64 and 80) and the trunk's global block (head
+     dim 96) on attention_sm90.cu (the route asserted), timed apart
+     beside attention.cu's online form and SDPA, with their bounds and
+     their share of the layer.
  11. RADIO serving: the bf16 path of phase 3 with the RADIO-H/16@384
      tower (K1 32 per query, K8 0), stage seconds.
  12. W8A8 encode: `llava.encode_video` over `quantize_tree(bits=8,
@@ -148,18 +154,22 @@ REPLACES = {
     "gemm_s8": "video_llava_seg_tpu/ops/vit_block.py:206",
 }
 SOURCES = {
+    # the attention link (head dims 64 / 80) on attention_sm90.cu
     "K1": ("video_llava_seg_torch/ops/vit_block.py",
-           ["layernorm.cu", "gemm_bf16.cu", "attention.cu"]),
-    # head dim 128 (the LLM) on attention_sm90.cu; the per-op Hiera
-    # trunk's global blocks (head dim 96) on attention.cu
+           ["layernorm.cu", "gemm_bf16.cu", "attention_sm90.cu"]),
+    # head dim 128 (the LLM) and the per-op Hiera trunk's global blocks
+    # (head dim 96) on attention_sm90.cu; attention.cu keeps head dims 16
+    # / 32, a bias below 128 and fewer than FLASH_SM90_MIN_KEYS keys
     "K2": ("video_llava_seg_torch/csrc/attention_sm90.cu",
            ["attention_sm90.cu", "attention.cu"]),
     # head dim 16 over <= 64 keys (the mask decoder) on
     # attention_short_sm90.cu; the two-pass form elsewhere on attention.cu
     "K3": ("video_llava_seg_torch/csrc/attention_short_sm90.cu",
            ["attention_short_sm90.cu", "attention.cu"]),
+    # every block's attention (head dim 96, 16-4096 keys) on
+    # attention_sm90.cu
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
-           ["layernorm.cu", "gemm_bf16.cu", "attention.cu", "pool.cu"]),
+           ["layernorm.cu", "gemm_bf16.cu", "attention_sm90.cu", "pool.cu"]),
     # more than 8 rows at TMA-aligned widths (the LLM prefill) on
     # w4a8_sm90.cu; decode and other widths on w4a8.cu
     "K5": ("video_llava_seg_torch/csrc/w4a8_sm90.cu",
@@ -175,7 +185,7 @@ SOURCES = {
     # gemm_s8 on w8a8_sm90.cu where K and N are multiples of 16 (every
     # dense of both towers), on w8a8.cu elsewhere
     "K8": ("video_llava_seg_torch/ops/vit_block.py",
-           ["w8a8_sm90.cu", "w8a8.cu", "attention.cu"]),
+           ["w8a8_sm90.cu", "w8a8.cu", "attention_sm90.cu"]),
     "gemm_s8": ("video_llava_seg_torch/csrc/w8a8_sm90.cu",
                 ["w8a8_sm90.cu", "w8a8.cu"]),
 }
@@ -395,7 +405,18 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                                           "flash_bwd_dkv_sm90"),
                 "w4a8_sm90.cu": ("w4a8_sm90_kernel",),
                 "w8a8_sm90.cu": ("gemm_s8_sm90_kernel",)}
+# the instances of a templated kernel: attention_sm90.cu's <head dim,
+# bias>: D 64 / 80 / 96 / 128, the bias at 128
+SM90_INSTANCES = {"attention_sm90.cu": 5}
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+
+
+def _instance(base, mangled):
+    """`base<args>` from a mangled kernel name: its integer and bool
+    template arguments (`Li96E`, `Lb0E`), or `base` for a plain kernel."""
+    args = [v if t == "i" else ("false", "true")[int(v)]
+            for t, v in re.findall(r"L([ib])(\d+)E", mangled)]
+    return f"{base}<{', '.join(args)}>" if args else base
 
 
 def report_sm90_build(kernels):
@@ -415,18 +436,28 @@ def report_sm90_build(kernels):
     sass = subprocess.run([cuobjdump, "-sass", str(kernels.LIBRARY.path)],
                           capture_output=True, text=True,
                           check=True).stdout
-    counts = {k: dict.fromkeys(SASS_OPS, 0)
-              for ks in SM90_KERNELS.values() for k in ks}
+    # one count per kernel instance: a template's instances are told apart
+    # by their integer and bool arguments (attention_sm90.cu's <D, bias>)
+    counts = {}
     kern = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            kern = next((k for k in counts if k in m.group(1)), None)
+            base = next((k for ks in SM90_KERNELS.values() for k in ks
+                         if k in m.group(1)), None)
+            kern = None if base is None else _instance(base, m.group(1))
+            if kern is not None:
+                counts.setdefault(kern, dict.fromkeys(SASS_OPS, 0))
         elif kern is not None:
             for op in SASS_OPS:
                 counts[kern][op] += bool(re.search(rf"\b{op}\b", line))
     for src, ks in SM90_KERNELS.items():
-        for k in ks:
+        found = [k for k in counts if k.split("<")[0] in ks]
+        if len(found) < SM90_INSTANCES.get(src, len(ks)):
+            raise AssertionError(f"{src}: {len(found)} kernel instances in "
+                                 f"the SASS, expected "
+                                 f"{SM90_INSTANCES.get(src, len(ks))}")
+        for k in sorted(found):
             c = counts[k]
             log(f"[build] {src} SASS {k}: "
                 + ", ".join(f"{c[op]} {op}" for op in SASS_OPS if c[op]))
@@ -942,6 +973,34 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
 # the C entry that must serve every K3 launch of the main paths (the mask
 # decoder's image->token attention), counted apart by kernels.attention
 K3_ENTRY = "vls_attention_short_sm90"
+# the C entry of every K2 launch (head dim 128 for the LLM, 96 for the
+# per-op trunk's global blocks) and of the attention link of every K1 /
+# K8 layer (head dims 64 / 80 over 577 keys) and of K4's blocks over at
+# least kernels.FLASH_SM90_MIN_KEYS keys (every block of the trunk)
+SM90_ENTRY = "vls_flash_fwd_sm90"
+CUDA_C_ENTRY = "vls_attention_bf16"
+
+
+def trunk_sm90_blocks():
+    """(blocks per trunk, of them those whose attention K4 sends to
+    attention_sm90.cu) for the seg head's SAM2.1-hiera-small trunk: one
+    kernels.attention call a block, over ws^2 keys a window or the whole
+    map's for a global block."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.config import VideoLlavaConfig
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+
+    sc = make_sam2_cfg(VideoLlavaConfig().seg)
+    dims = hiera.block_dims(sc.hiera)
+    side = sc.image_size // sc.hiera.patch_stride
+    n = 0
+    for i, (_, dout, nh, ws, _) in enumerate(dims):
+        hw = side // (2 ** sum(1 for j in range(i) if dims[j][4]))
+        keys = ws * ws if ws else hw * hw
+        n += kernels.attention_entry(dout // nh, False, keys,
+                                     nh) == SM90_ENTRY
+    return len(dims), n
 
 
 def reset_launches():
@@ -954,18 +1013,23 @@ def reset_launches():
 
 
 def snapshot_launches():
-    """The K1..K8 counts just after a main path ran, and under "K3 entry"
-    the launches of attention_short_sm90.cu among them."""
+    """The K1..K8 counts just after a main path ran, under "K3 entry" the
+    launches of attention_short_sm90.cu among them, under "sm90 entry"
+    those of attention_sm90.cu."""
     from video_llava_seg_torch import kernels
 
     counts = kernels.LAUNCHES.snapshot()
-    counts["K3 entry"] = kernels.ATTENTION_LAUNCHES.snapshot()[K3_ENTRY]
+    by_entry = kernels.ATTENTION_LAUNCHES.snapshot()
+    counts["K3 entry"] = by_entry[K3_ENTRY]
+    counts["sm90 entry"] = by_entry[SM90_ENTRY]
     return counts
 
 
 def check_launches(tag, counts, expect, why):
     """Every kernel the path runs launched, exactly as often as expected,
-    and every K3 launch took attention_short_sm90.cu."""
+    every K3 launch took attention_short_sm90.cu, and attention_sm90.cu
+    served every K2 launch, the attention link of every K1 / K8 layer and
+    the trunk's blocks `trunk_sm90_blocks` names."""
     from video_llava_seg_torch import kernels
 
     for name in kernels.LaunchCounts.NAMES:
@@ -981,6 +1045,16 @@ def check_launches(tag, counts, expect, why):
     if counts["K3 entry"] != counts["K3"]:
         raise AssertionError(f"{tag}: {counts['K3'] - counts['K3 entry']} K3 "
                              f"launches did not take {K3_ENTRY}")
+    n_blocks, per_trunk = trunk_sm90_blocks()
+    trunk = counts["K4"] // n_blocks * per_trunk
+    links = counts["K1"] + counts["K8"]
+    want = counts["K2"] + links + trunk
+    log(f"[{tag}] attention_sm90.cu launches: {counts['sm90 entry']} "
+        f"(expected {want}: K2 {counts['K2']}, ViT links {links}, trunk "
+        f"blocks {trunk}, {per_trunk} of each trunk's {n_blocks})")
+    if counts["sm90 entry"] != want:
+        raise AssertionError(f"{tag}: {counts['sm90 entry']} launches of "
+                             f"{SM90_ENTRY}, expected {want}")
 
 
 def llm_bf16_nbytes(lc) -> int:
@@ -1253,9 +1327,13 @@ def phase_k7_checks(cfg, seed, dev, results):
     the 8 seg frames, against `window_attention_plain`; beside it SDPA
     over the partitioned windows (the partition copy timed apart) and the
     time of K4's current attention stage (partition + attention.cu +
-    unpartition) on the same map. Returns the comparison rows."""
+    unpartition) on the same map, and K4's attention call on these
+    windows through both C entries, attention.cu (its route) and
+    attention_sm90.cu (forced): kernels.FLASH_SM90_MIN_KEYS comes from
+    these times. Returns the comparison rows."""
     import torch.nn.functional as F
 
+    from video_llava_seg_torch import kernels
     from video_llava_seg_torch.ops.hiera_block import attention_stage
     from video_llava_seg_torch.ops.window_attention import (
         window_attention,
@@ -1304,15 +1382,41 @@ def phase_k7_checks(cfg, seed, dev, results):
         part_ms = cuda_ms(partition)
         k4_ms = cuda_ms(lambda: attention_stage(qkv, num_heads=nh, ws=ws,
                                                 ps=ps).contiguous())
+
+        def k4_call(route):
+            return kernels.attention(q, k, v, scale=scale, route=route)
+
+        old, new = k4_call(CUDA_C_ENTRY), k4_call(SM90_ENTRY)
+        sync()
+        rel = ((new.float() - old.float()).abs().max()
+               / old.float().abs().max()).item()
+        if not math.isfinite(rel) or rel > BOUNDS["K2"]:
+            raise AssertionError(f"K4 window call {tag}: the two entries "
+                                 f"differ by {rel:.3e}")
+        del old, new
+        entry_ms = {e: cuda_ms(lambda: k4_call(e), train=10)
+                    for e in (CUDA_C_ENTRY, SM90_ENTRY)}
+        route = kernels.attention_entry(hd, False, ws * ws, nh)
         rows.append({"shape": tag, "k7_ms": r["ms"], "bound_ms":
                      r["bound_ms"], "sdpa_ms": r["library_ms"],
-                     "partition_ms": part_ms, "k4_stage_ms": k4_ms})
+                     "partition_ms": part_ms, "k4_stage_ms": k4_ms,
+                     "keys": ws * ws, "queries": qs * qs,
+                     "k4_call_ms": entry_ms, "k4_route": route})
         log(f"[k7] {tag}: K7 {r['ms']:.4f} ms; K4's attention stage "
             f"(partition + attention.cu + unpartition) {k4_ms:.4f} ms; "
             f"SDPA {r['library_ms']:.4f} ms + its partition copy "
-            f"{part_ms:.4f} ms")
+            f"{part_ms:.4f} ms; K4's attention call over {ws * ws} keys "
+            f"on attention.cu {entry_ms[CUDA_C_ENTRY]:.4f} ms, on "
+            f"attention_sm90.cu {entry_ms[SM90_ENTRY]:.4f} ms (routed to "
+            f"{route}; entries differ by {rel:.2e})")
         del qkv, q, k, v
         torch.cuda.empty_cache()
+    faster = sorted({row["keys"] for row in rows
+                     if row["k4_call_ms"][SM90_ENTRY]
+                     < row["k4_call_ms"][CUDA_C_ENTRY]})
+    log(f"[k7] K4's window calls faster on attention_sm90.cu at "
+        f"{faster or 'no'} keys; the route sends >= "
+        f"{kernels.FLASH_SM90_MIN_KEYS} keys there")
     sync()
     return rows
 
@@ -1370,14 +1474,17 @@ def phase_k8_checks(cfg, seed, dev, results):
 
 
 def phase_attention_links(cfg, seed, dev, results):
-    """The attention link of K1's / K8's chain (attention.cu's online form
-    at head dim 64, CLIP-L, and 80, RADIO-H, over the 577 tokens of 32
-    frames, kv_len and scale as the chain gives them) and of the per-op
-    trunk's global blocks (head dim 96, K2 through `ops.attention`), timed
-    apart (10 launches back to back) beside SDPA on the same views and
-    each call's bound; held against attention_reference in fp32 within
-    BOUNDS["K2"]. Returns the rows, each with the link's share of its
-    layer's time in this run (K1, K8 from phases 2 and 10)."""
+    """The attention link of K1's / K8's chain (head dim 64, CLIP-L, and
+    80, RADIO-H, over the 577 tokens of 32 frames, kv_len and scale as
+    the chain gives them) and of the trunk's global blocks (head dim 96
+    over 4,096 keys: K4's attention stage and the per-op trunk's K2),
+    through `kernels.attention` as the chains call it: the route asserted
+    (attention_sm90.cu), held against attention_reference in fp32 within
+    BOUNDS["K2"], timed (10 launches back to back) beside attention.cu's
+    online form (forced by `route`, which served these calls before) and
+    SDPA on the same views, with each call's bound. Returns the rows, each
+    with the link's share of its layer's time in this run (K1, K8 from
+    phases 2 and 10)."""
     import torch.nn.functional as F
 
     from video_llava_seg_torch import kernels
@@ -1408,7 +1515,7 @@ def phase_attention_links(cfg, seed, dev, results):
         pools += bool(pool)
         if ws == 0:
             sq = (hw // 2) ** 2 if pool else hw * hw
-            cases.append(("per-op trunk global block",
+            cases.append(("trunk global block (K4, per-op K2)",
                           cfg.seg.max_seg_frames, sq, hw * hw, nh,
                           dout // nh, -1, {}))
             break
@@ -1416,39 +1523,55 @@ def phase_attention_links(cfg, seed, dev, results):
     for tag, bt, sq, skv, h, hd, kv_len, layers in cases:
         # q / k / v as the chains build them: [B, S, H, D] views of the
         # denses' outputs (q pre-scaled, scale 1); the online form, as
-        # K1 / K8 call it and as ops.attention takes > 1024 keys
+        # K1 / K8 / K4 call it and as ops.attention takes > 1024 keys
         q = (torch.randn((bt, sq, h, hd), generator=g, device=dev)
              * hd ** -0.5).to(bf).transpose(1, 2)
         k, v = (torch.randn((bt, skv, h, hd), generator=g,
                             device=dev).to(bf).transpose(1, 2)
                 for _ in range(2))
+        entry = kernels.attention_entry(hd, False, skv, h)
+        if entry != SM90_ENTRY:
+            raise AssertionError(f"{tag}: routes to {entry}, not "
+                                 f"{SM90_ENTRY}")
 
-        def run():
-            return kernels.attention(q, k, v, scale=1.0, kv_len=kv_len)
+        def run(route=None):
+            return kernels.attention(q, k, v, scale=1.0, kv_len=kv_len,
+                                     route=route)
 
-        got = run()
         want = attention_reference(q.float(), k.float(), v.float(),
                                    scale=1.0)
-        sync()
-        rel = ((got.float() - want).abs().max()
-               / want.abs().max()).item()
-        if not math.isfinite(rel) or rel > BOUNDS["K2"]:
-            raise AssertionError(f"{tag}: rel err {rel:.3e}")
-        del got, want
+        rels = {}
+        for name, fn in (("kernel", run),
+                         ("attention.cu", lambda: run(CUDA_C_ENTRY))):
+            got = fn()
+            sync()
+            rels[name] = ((got.float() - want).abs().max()
+                          / want.abs().max()).item()
+            if not math.isfinite(rels[name]) or rels[name] > BOUNDS["K2"]:
+                raise AssertionError(f"{tag} ({name}): rel err "
+                                     f"{rels[name]:.3e}")
+            del got
+        del want
         ms = cuda_ms(run, train=10)
+        prev_ms = cuda_ms(lambda: run(CUDA_C_ENTRY), train=10)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=1.0), train=10)
+        ms2 = cuda_ms(run, train=10)
         b_ms, b_by = bound_of(_nbytes(q, k, v, q),
                               4 * bt * h * sq * skv * hd, PEAK_BF16)
         row = {"link": tag, "shape": f"q{list(q.shape)} kv{list(k.shape)}",
-               "entry": kernels.attention_entry(hd, False, skv, h),
-               "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "rel_err": rel,
+               "entry": entry, "ms": ms, "ms_again": ms2,
+               "previous_ms": prev_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "rel_err": rels,
                "share_of_layer": {n: ms / t for n, t in layers.items()}}
         rows.append(row)
-        log(f"[link] {tag} {row['shape']} on {row['entry']}: {ms:.4f} ms "
-            f"({b_ms / ms:.3f} of the bound), SDPA {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), rel err {rel:.3e}"
+        log(f"[link] {tag} {row['shape']} on {entry}: {ms:.4f} ms, again "
+            f"{ms2:.4f} ({b_ms / ms:.3f} of the bound), attention.cu "
+            f"{prev_ms:.4f} ms ({prev_ms / ms:.1f}x), SDPA {lib_ms:.4f} ms "
+            f"({ms / lib_ms:.2f}x of it), bound {b_ms:.4f} ms ({b_by}), "
+            "rel err "
+            + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
             + "".join(f", {x:.3f} of the {n} layer ({layers[n]:.4f} ms)"
                       for n, x in row["share_of_layer"].items()))
         del q, k, v
@@ -1659,7 +1782,7 @@ def phase_w8a8_encode(cfg, seed, dev):
 
 
 # per-op trunk (cuBLAS denses, plain LayerNorm, K7, K2) vs the K4 chain
-# (gemm_bf16, layernorm.cu, attention.cu), both bf16 through 16 blocks:
+# (gemm_bf16, layernorm.cu, attention_sm90.cu), both bf16 through 16 blocks:
 # max |a - b| / max |b| per pyramid level. The two round every block's
 # intermediates to bf16 at other places and the residual stream carries
 # it on. Measured on an H100 (700 W): 8.7e-3, 1.2e-2, 2.8e-2, 1.9e-2 by

@@ -54,7 +54,7 @@ def _main_path_calls():
                       type(cfg.vision).radio())):
         # ops/vit_block.py calls kernels.attention in its online form
         calls.append((name, vc.hidden_size // vc.num_heads, False,
-                      vc.num_patches + 1, vc.num_heads, CUDA_C))
+                      vc.num_patches + 1, vc.num_heads, SM90))
     lc = cfg.llm
     calls.append(("K2, LLM prefill and train forward", lc.head_dim, False,
                   5196, lc.num_kv_heads, SM90))
@@ -67,7 +67,7 @@ def _main_path_calls():
         if ws == 0:
             skv = hw * hw
             calls.append(("per-op trunk global block", dout // nh,
-                          skv <= tatt.SINGLE_BLOCK_MAX_KV, skv, nh, CUDA_C))
+                          skv <= tatt.SINGLE_BLOCK_MAX_KV, skv, nh, SM90))
     return calls
 
 
@@ -75,9 +75,9 @@ def _main_path_calls():
 def test_route_at_every_main_path_shape(call):
     """The mask decoder's image->token attention (head dim 16, 7 keys, 8
     heads; serving batch 8 frames, train 64 frame-objects) takes the new
-    entry; K1's / K8's link (head dims 64 and 80 over 577 keys) and the
-    per-op trunk's global blocks (head dim 96 over 4096 keys) stay on
-    attention.cu; K2 at head dim 128 stays on attention_sm90.cu."""
+    entry; K1's / K8's link (head dims 64 and 80 over 577 keys), the
+    per-op trunk's global blocks (head dim 96 over 4096 keys) and K2 at
+    head dim 128 take attention_sm90.cu."""
     _, d, two_pass, skv, hkv, want = call
     assert kernels.attention_entry(d, two_pass, skv, hkv) == want
     assert want in kernels._SIGNATURES and want in kernels.ATTENTION_ROUTES

@@ -26,14 +26,16 @@ from video_llava_seg_tpu.ops.attention import (
 @pytest.mark.parametrize("two_pass", [False, True])
 @pytest.mark.parametrize("d", kernels.ATTENTION_HEAD_DIMS)
 def test_attention_entry_route(d, two_pass):
-    """Only the online form at head dim 128 goes to attention_sm90.cu;
-    the two-pass form (K3) at head dim 16 over at most 64 keys (the mask
-    decoder's 7) goes to attention_short_sm90.cu; every other call (K1,
-    K4, K8, the per-op Hiera blocks, K3 at other head dims or lengths)
-    stays on attention.cu. Skv / Hkv: the mask decoder's, the towers',
-    the LLM's prefill."""
+    """The online form goes to attention_sm90.cu at head dim 128, and at
+    head dims 64 / 80 / 96 over at least FLASH_SM90_MIN_KEYS keys (K1,
+    K4, K8, the per-op Hiera blocks); the two-pass form (K3) at head dim
+    16 over at most 64 keys (the mask decoder's 7) goes to
+    attention_short_sm90.cu; every other call (head dims 16 / 32, fewer
+    keys, K3 at other head dims or lengths) stays on attention.cu. Skv /
+    Hkv: the mask decoder's, the towers', the LLM's prefill."""
     for skv, hkv in ((7, 8), (64, 8), (65, 8), (577, 16), (5196, 8)):
-        if d == 128 and not two_pass:
+        if not two_pass and (d == 128 or (
+                d in (64, 80, 96) and skv >= kernels.FLASH_SM90_MIN_KEYS)):
             want = "vls_flash_fwd_sm90"
         elif d == 16 and two_pass and skv <= 64:
             want = "vls_attention_short_sm90"

@@ -25,7 +25,14 @@ exp() in fp32 over the same scores), and on a left-pad row that sees only
 masked keys to the mean of its visible V rows. K3 at head dim 16 over
 at most 64 keys (csrc/attention_short_sm90.cu) is held to the same
 bounds on the mask decoder's [B, S, H, 16] views, and a row no key is
-visible to at O = 0, lse = 0. K6a / K6b at head dim 128
+visible to at O = 0, lse = 0. The online form at head dims 64 / 80 / 96
+(csrc/attention_sm90.cu, persistent) is held to the plain forward
+within 1e-2 relative (chip_smoke.py's BOUNDS["K2"]), to its logsumexp
+within 1e-5, to attention_reference and to attention.cu (forced by
+`route`) at the towers' links, the trunk's global block, 577 rows with
+kv_len, Sq < 64, GQA and causal cases, and a
+row no key is visible to at O = 0, lse = 0; K1 and K4 take it on the
+card. K6a / K6b at head dim 128
 (csrc/attention_bwd_sm90.cu) are held to the plain backward with the same
 bound, and on the left-pad rows, which the plain backward treats
 differently, to attention_bwd.cu at the same inputs. Run on the card:
@@ -991,3 +998,162 @@ def test_attention_short_sm90_main_path_and_autograd(dev):
     assert _rel(out, o32) < BOUND
     for t, w in zip(leaves, want):
         assert _rel(t.grad, w) < BOUND
+
+
+# --- csrc/attention_sm90.cu at head dims 64 / 80 / 96 --------------------
+
+SM90 = "vls_flash_fwd_sm90"
+CUDA_C = "vls_attention_bf16"
+# relative bound of the head-dim instances (chip_smoke.py's BOUNDS["K2"])
+HD_BOUND = 1e-2
+
+HD_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, causal, kv_len), the main-path
+    # shapes first: the towers' links at their [B, S, H, D] views, the
+    # trunk's global block
+    "clip_l_link": (32, 16, 16, 577, 577, 64, False, 577),
+    "radio_h_link": (32, 16, 16, 577, 577, 80, False, 577),
+    "trunk_global": (8, 4, 4, 4096, 4096, 96, False, None),
+    "kv_len_577_d64": (2, 4, 4, 577, 577, 64, False, 530),
+    "kv_len_577_d80": (2, 4, 4, 577, 577, 80, False, 450),
+    "kv_len_577_d96": (2, 4, 4, 577, 577, 96, False, 500),
+    "short_q_d64": (2, 4, 2, 37, 700, 64, False, None),
+    "short_q_d80": (1, 2, 2, 50, 300, 80, True, None),
+    "short_q_d96": (2, 2, 1, 17, 1030, 96, False, 900),
+    "gqa4_causal_d64": (1, 8, 2, 700, 1300, 64, True, None),
+    "gqa4_causal_d80": (1, 8, 2, 1000, 1000, 80, True, 950),
+    "gqa2_d96": (2, 4, 2, 300, 2048, 96, False, None),
+}
+
+
+def _hd_inputs(name, dev, seed=40):
+    """q, k, v of an HD_CASES case as the ViT chain builds them ([B, S, H,
+    D] buffers viewed [B, H, S, D])."""
+    b, hq, hkv, sq, skv, d, causal, kv_len = HD_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = _randn(g, b, sq, hq, d, dev=dev).transpose(1, 2)
+    k = _randn(g, b, skv, hkv, d, dev=dev).transpose(1, 2)
+    v = _randn(g, b, skv, hkv, d, dev=dev).transpose(1, 2)
+    return q, k, v, causal, kv_len
+
+
+@pytest.mark.parametrize("name", sorted(HD_CASES))
+def test_flash_sm90_head_dims(dev, name):
+    """The head-dim instances against the plain forward (output within
+    HD_BOUND, logsumexp within LSE_BOUND), against attention_reference
+    and within HD_BOUND of attention.cu (forced by `route`) on the same
+    inputs: the main-path shapes, 577 rows and keys with kv_len, Sq < 64,
+    GQA, causal with Sq < Skv."""
+    q, k, v, causal, kv_len = _hd_inputs(name, dev)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    assert kernels.attention_entry(d, False, skv, hkv) == (
+        SM90 if skv >= kernels.FLASH_SM90_MIN_KEYS else CUDA_C)
+    scale = d ** -0.5
+    kw = dict(scale=scale, causal=causal,
+              kv_len=-1 if kv_len is None else kv_len)
+    before = kernels.ATTENTION_LAUNCHES.snapshot()[SM90]
+    o, lse = kernels.attention(q, k, v, with_lse=True, route=SM90, **kw)
+    o2 = kernels.attention(q, k, v, route=SM90, **kw)
+    assert kernels.ATTENTION_LAUNCHES.snapshot()[SM90] == before + 2
+    bias = None
+    if kv_len is not None:
+        bias = torch.where(torch.arange(skv, device=dev) < kv_len, 0.0,
+                           MASK_VALUE).float().expand(b, skv).contiguous()
+    want_o, want_lse = flash_forward_plain(q.float(), k.float(), v.float(),
+                                           bias, causal=causal, scale=scale)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert torch.equal(o, o2)
+    assert _rel(o, want_o) < HD_BOUND
+    assert (lse - want_lse).abs().max().item() < LSE_BOUND
+    del want_o, want_lse
+    ref = attention_reference(q.float(), k.float(), v.float(), scale=scale,
+                              causal=causal, kv_valid_len=kv_len)
+    assert _rel(o, ref) < HD_BOUND
+    old = kernels.attention(q, k, v, route=CUDA_C, **kw)
+    assert kernels.ATTENTION_LAUNCHES.snapshot()[SM90] == before + 2
+    assert _rel(o, old.float()) < HD_BOUND
+
+
+@pytest.mark.parametrize("d", [64, 80, 96])
+def test_flash_sm90_head_dims_no_visible_key(dev, d):
+    """A row that sees no key writes O = 0 and lse = 0: causal with Sq >
+    Skv (rows i < Sq - Skv see nothing; the rest match the plain forward)
+    and kv_len = 0 (no row sees a key)."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    b, hq, sq, skv = 2, 4, 400, 300
+    q = _randn(g, b, sq, hq, d, dev=dev).transpose(1, 2)
+    k = _randn(g, b, skv, hq, d, dev=dev).transpose(1, 2)
+    v = _randn(g, b, skv, hq, d, dev=dev).transpose(1, 2)
+    scale = d ** -0.5
+    o, lse = kernels.attention(q, k, v, scale=scale, causal=True,
+                               with_lse=True, route=SM90)
+    dead = sq - skv
+    assert not o[:, :, :dead].any() and not lse[:, :, :dead].any()
+    want_o, want_lse = flash_forward_plain(q.float(), k.float(), v.float(),
+                                           causal=True, scale=scale)
+    assert _rel(o[:, :, dead:], want_o[:, :, dead:]) < HD_BOUND
+    assert (lse[:, :, dead:] - want_lse[:, :, dead:]).abs().max().item() \
+        < LSE_BOUND
+    o, lse = kernels.attention(q, k, v, scale=scale, kv_len=0,
+                               with_lse=True, route=SM90)
+    assert not o.any() and not lse.any()
+
+
+def test_flash_sm90_head_dims_route_refusals(dev):
+    """Below head dim 128 the per-key bias, and fewer keys than
+    FLASH_SM90_MIN_KEYS, stay on attention.cu; forcing the sm90 entry with
+    a bias there, or at head dim 32, raises before any launch."""
+    g = torch.Generator(device=dev).manual_seed(42)
+    q, k, v = (_randn(g, 1, 2, 300, 64, dev=dev) for _ in range(3))
+    bias = torch.zeros(1, 300, device=dev)
+    few = kernels.FLASH_SM90_MIN_KEYS - 1
+    before = kernels.ATTENTION_LAUNCHES.snapshot()
+    kernels.attention(q, k, v, scale=0.125, kv_bias=bias)
+    kernels.attention(q, k[:, :, :few], v[:, :, :few], scale=0.125)
+    after = kernels.ATTENTION_LAUNCHES.snapshot()
+    assert after[CUDA_C] == before[CUDA_C] + 2 and after[SM90] == before[SM90]
+    with pytest.raises(ValueError, match="per-key bias at 128"):
+        kernels.attention(q, k, v, scale=0.125, kv_bias=bias, route=SM90)
+    q32 = q[..., :32].contiguous()
+    with pytest.raises(ValueError, match="head dims"):
+        kernels.attention(q32, q32, q32, scale=0.125, route=SM90)
+
+
+@pytest.mark.parametrize("d,heads,act", [(256, 4, "quick_gelu"),
+                                         (320, 4, "gelu")])
+def test_vit_layer_head_dims_on_sm90(dev, d, heads, act):
+    """K1 at head dims 64 / 80 over 577 tokens (kv_len 570): its
+    attention link takes attention_sm90.cu, and the layer stays within
+    BOUND of its fp32 twin."""
+    g = torch.Generator(device=dev).manual_seed(43)
+    p = {"layer_norm1": _ln(g, d, dev), "layer_norm2": _ln(g, d, dev),
+         "q_proj": _dense(g, d, d, dev), "k_proj": _dense(g, d, d, dev),
+         "v_proj": _dense(g, d, d, dev), "out_proj": _dense(g, d, d, dev),
+         "fc1": _dense(g, d, 4 * d, dev), "fc2": _dense(g, 4 * d, d, dev)}
+    x = _randn(g, 2, 577, d, dev=dev)
+    before = kernels.ATTENTION_LAUNCHES.snapshot()[SM90]
+    got = vit_layer(p, x, num_heads=heads, eps=1e-5, kv_len=570, act=act)
+    assert kernels.ATTENTION_LAUNCHES.snapshot()[SM90] == before + 1
+    want = vit_layer_plain(_f32(p), x.float(), num_heads=heads, eps=1e-5,
+                           kv_len=570, act=act)
+    assert _rel(got, want) < BOUND
+
+
+def test_hiera_block_global_on_sm90(dev):
+    """A K4 global block at head dim 96 over a 24 x 24 map (576 keys)
+    takes attention_sm90.cu and stays within BOUND of its fp32 twin."""
+    g = torch.Generator(device=dev).manual_seed(44)
+    b, hw, c, heads = 2, 24, 192, 2
+    blk = {"norm1": _ln(g, c, dev), "norm2": _ln(g, c, dev),
+           "qkv": _dense(g, c, 3 * c, dev),
+           "proj_attn": _dense(g, c, c, dev),
+           "mlp": {"layers": [_dense(g, c, 4 * c, dev),
+                              _dense(g, 4 * c, c, dev)]}}
+    x = _randn(g, b, hw, hw, c, dev=dev)
+    before = kernels.ATTENTION_LAUNCHES.snapshot()[SM90]
+    got = hiera_block(blk, x, num_heads=heads, ws=0, q_stride=None)
+    assert kernels.ATTENTION_LAUNCHES.snapshot()[SM90] == before + 1
+    want = hiera_block_plain(_f32(blk), x.float(), num_heads=heads, ws=0,
+                             q_stride=None, eps=1e-6)
+    assert _rel(got, want) < BOUND

@@ -304,10 +304,10 @@ __global__ void __launch_bounds__(NT, min_blocks(N))
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < VB / 16; ++kk)
-        wgmma_rs16(oacc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                   pa[4 * kk + 3],
-                   desc_sw32(v_s(slot) + hk * VB * ROW_BYTES + kk * 512, 512,
-                             256));
+        wgmma_rs(oacc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                 pa[4 * kk + 3],
+                 desc_sw32(v_s(slot) + hk * VB * ROW_BYTES + kk * 512, 512,
+                           256));
       wg_commit();
       wg_wait<0>();
       pin(oacc);

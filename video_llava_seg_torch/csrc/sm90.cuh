@@ -2,8 +2,8 @@
 // attention_sm90.cu (forward), attention_bwd_sm90.cu (backward),
 // attention_short_sm90.cu (K3), w4a8_sm90.cu (K5's prefill) and
 // w8a8_sm90.cu (gemm_s8): mbarrier waits that trap instead of
-// hanging, TMA tile loads (4-D and 2-D), 128- and 32-byte-swizzle wgmma
-// descriptors, the wgmma forms the files use, and
+// hanging, TMA tile loads (4-D and 2-D), 128-, 64- and 32-byte-swizzle
+// wgmma descriptors, the wgmma forms the files use, and
 // the tensor-map encoding through the runtime's driver entry point (no
 // link against libcuda). Included by each .cu; kernels/__init__.py hashes
 // it with the sources, so an edit rebuilds the library.
@@ -40,9 +40,12 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                :: "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+// the low 32 bits of the global nanosecond timer: a difference of two
+// readings is exact below 2^32 ns (4.3 s) across a wrap, and costs half
+// the registers of the 64-bit timer (the producers run at 24)
+__device__ __forceinline__ uint32_t global_ns_lo() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%globaltimer_lo;" : "=r"(t));
   return t;
 }
 
@@ -50,7 +53,7 @@ __device__ __forceinline__ uint64_t global_ns() {
 // one tile's work; one that has not completed after a second means a
 // broken pipeline, and traps instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
+  uint32_t t0 = 0;
   for (uint32_t spin = 1;; ++spin) {
     uint32_t done;
     asm volatile(
@@ -60,9 +63,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (done) return;
     if ((spin & 1023u) == 0) {
-      const uint64_t now = global_ns();
+      const uint32_t now = global_ns_lo();
       if (t0 == 0) t0 = now;
-      else if (now - t0 > 1000000000ull) __trap();
+      else if (now - t0 > 1000000000u) __trap();
     }
   }
 }
@@ -114,6 +117,28 @@ __device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
+}
+
+// the same for a 64-byte-swizzled operand (layout 2 = SWIZZLE_64B), whose
+// rows are 64 bytes (32 bf16, two k16 steps): K-major, the stride offset
+// steps 8 rows (512 bytes); MN-major (32 bf16 of M or N a row), the
+// stride offset steps 8 reduction rows and the leading offset the next
+// 32 columns of M or N
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
+}
+
+// the descriptor of an operand whose rows are `cols` bf16 wide under the
+// swizzle of that width (64 -> 128 bytes, 32 -> 64, 16 -> 32)
+template <int COLS>
+__device__ __forceinline__ uint64_t desc_cols(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  static_assert(COLS == 64 || COLS == 32 || COLS == 16, "box width");
+  if constexpr (COLS == 64) return desc_sw128(addr, lbo, sbo);
+  else if constexpr (COLS == 32) return desc_sw64(addr, lbo, sbo);
+  else return desc_sw32(addr, lbo, sbo);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -199,6 +224,25 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
   "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), \
   "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), \
   "=f"(d[62]), "=f"(d[63])
+
+#define VLS_ACC8(d, o) \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), \
+  "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+
+#define VLS_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15}"
+
+#define VLS_D40 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
+
+#define VLS_D48 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47}"
 
 // Accumulator layout of a wgmma m64nN tile in a warpgroup: the thread of
 // warp w, lane l holds rows r0 = 16 w + l / 4 and r0 + 8; d[4i + e] is
@@ -289,21 +333,6 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
   wgmma_ss64_first(d, da, db);
 }
 
-// d += A B, m64n16k16, A (bf16 pairs) from registers, B MN-major in
-// shared memory (the transpose bit): a 16-wide output tile
-__device__ __forceinline__ void wgmma_rs16(float (&d)[8], uint32_t a0,
-                                           uint32_t a1, uint32_t a2,
-                                           uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "1;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
 // d += A B, m64n64k16, A K-major and B MN-major (the transpose bit) in
 // shared memory
 __device__ __forceinline__ void wgmma_ss64_tb(float (&d)[32], uint64_t da,
@@ -326,6 +355,60 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VLS_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
       : VLS_ACC64(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// the same at N = 16, 32, 64, 80 and 96 (N = 2 x the accumulator's size
+// picks the form): the O += P V step of a head dim, or of one box of it
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}"
+      : VLS_ACC8(d, 0)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " VLS_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}"
+      : VLS_ACC8(d, 0), VLS_ACC8(d, 8)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VLS_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : VLS_ACC32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " VLS_D40
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}"
+      : VLS_ACC32(d), VLS_ACC8(d, 32)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " VLS_D48
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}"
+      : VLS_ACC32(d), VLS_ACC8(d, 32), VLS_ACC8(d, 40)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
@@ -397,6 +480,20 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled on a thread with no current context returns
+// CUDA_ERROR_INVALID_CONTEXT; autograd's backward thread has none until
+// its first runtime call. cudaFree(nullptr) binds the device's primary
+// context to the thread, and the encoding is tried once more.
+template <typename Encode>
+inline CUresult encode_bound(Encode encode) {
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    cudaFree(nullptr);
+    r = encode();
+  }
+  return r;
+}
+
 // geometry of one bf16 operand, as kernels.flash_sm90_tensor_map computes
 // it: dims (D, S, H, B) innermost first, byte strides of S, H and B, box
 constexpr int GEOM = 11;
@@ -419,11 +516,13 @@ inline int encode_bf16_box(CUtensorMap* map, const void* ptr,
   const cuuint32_t bx[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8],
                             (cuuint32_t)g[9], (cuuint32_t)g[10]};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, bx, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode_bound([&] {
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+              const_cast<void*>(ptr), dims, strides, bx, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  });
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
@@ -453,12 +552,13 @@ inline int encode_i8_2d(CUtensorMap* map, const void* ptr, const long long* g,
   const cuuint64_t strides[1] = {(cuuint64_t)g[3]};
   const cuuint32_t box[2] = {(cuuint32_t)g[4], (cuuint32_t)g[5]};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                        (void*)((const char*)ptr + g[0]), dims, strides, box,
-                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode_bound([&] {
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+              (void*)((const char*)ptr + g[0]), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  });
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 

@@ -75,10 +75,19 @@ _SIGNATURES = {
 
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-# attention_sm90.cu: the online form at this head dim; its TMA box is 64
-# bf16 columns (one 128-byte swizzle row) by 128 rows of one head of one
-# batch row, in the order of the tensor map's dims (D, S, H, B)
+# attention_sm90.cu: the online form at these head dims, over at least
+# FLASH_SM90_MIN_KEYS keys below head dim 128 (K4's smallest windows, 4 x
+# 4: on an H100 it beat attention.cu at every window kind of the trunk,
+# 16-196 keys; fewer keys were not measured and stay on attention.cu);
+# the per-key bias only at FLASH_SM90_HEAD_DIM (the LLM's, also the head
+# dim of attention_bwd_sm90.cu). Its leading TMA box is 64 bf16 columns
+# (one 128-byte swizzle row) by 128 rows of one head of one batch row, in
+# the order of the tensor map's dims (D, S, H, B); at head dims 80 / 96 a
+# second map's box holds the 16 / 32 columns left (32- / 64-byte
+# swizzle).
+FLASH_SM90_HEAD_DIMS = (64, 80, 96, 128)
 FLASH_SM90_HEAD_DIM = 128
+FLASH_SM90_MIN_KEYS = 16
 FLASH_SM90_BOX = (64, 128, 1, 1)
 # attention_short_sm90.cu: the two-pass form (K3) at head dim 16 with all
 # keys in one wgmma N tile (Skv <= 64, rounded up to 8, 16, 32 or 64). Q
@@ -367,15 +376,23 @@ def short_sm90_key_tile(skv: int) -> int:
     return n
 
 
-def attention_entry(d: int, two_pass: bool, skv: int, hkv: int) -> str:
+def attention_entry(d: int, two_pass: bool, skv: int, hkv: int,
+                    bias: bool = False) -> str:
     """The C entry that serves `attention` at head dim d over skv keys and
-    hkv kv heads: the TMA + wgmma kernel of csrc/attention_sm90.cu for the
-    online form at head dim 128; csrc/attention_short_sm90.cu for the
-    two-pass form (K3) at head dim 16 where all keys fit one wgmma N tile
-    (skv <= 64) and a batch row's K/V fit a resident slot (the SAM2 mask
-    decoder's image->token attention); csrc/attention.cu for every other
-    call."""
+    hkv kv heads (`bias`: with a per-key bias): the TMA + wgmma kernel of
+    csrc/attention_sm90.cu for the online form at head dim 128 (the LLM),
+    and at head dims 64 / 80 / 96 without a bias over at least
+    FLASH_SM90_MIN_KEYS keys (the towers' attention link, every block of
+    the Hiera trunk); csrc/attention_short_sm90.cu for the two-pass
+    form (K3) at head dim 16 where all keys fit one wgmma N tile (skv <=
+    64) and a batch row's K/V fit a resident slot (the SAM2 mask decoder's
+    image->token attention); csrc/attention.cu for every other call (head
+    dims 16 and 32, a bias below head dim 128, fewer keys, the two-pass
+    form elsewhere)."""
     if not two_pass and d == FLASH_SM90_HEAD_DIM:
+        return "vls_flash_fwd_sm90"
+    if (not two_pass and not bias and d in FLASH_SM90_HEAD_DIMS
+            and skv >= FLASH_SM90_MIN_KEYS):
         return "vls_flash_fwd_sm90"
     if (two_pass and d == SHORT_SM90_HEAD_DIM
             and 0 < skv <= SHORT_SM90_MAX_KEYS and hkv > 0):
@@ -415,13 +432,23 @@ def _tensor_map_dims(shape, stride, es: int, what: str, box):
     return (d, s, h, b, s0, s1, s2) + tuple(box)
 
 
+def flash_sm90_boxes(d: int):
+    """attention_sm90.cu's TMA boxes at head dim d: the leading box
+    FLASH_SM90_BOX and, where d is no multiple of its width, the remainder
+    box of the columns left; None where there is none."""
+    rem = d % FLASH_SM90_BOX[0]
+    return FLASH_SM90_BOX, ((rem,) + FLASH_SM90_BOX[1:] if rem else None)
+
+
 @functools.lru_cache(maxsize=256)
 def _forward_geometry(entry, q_shape, q_stride, k_shape, k_stride, v_stride,
                       es):
     """The int64 geometry array of the sm90 forward entry `entry`: the q,
     k and v tensor maps, each as `flash_sm90_tensor_map` gives it, for
     [B, H, S, D] views of these shapes and element strides (element size
-    es). attention_sm90.cu's boxes are FLASH_SM90_BOX;
+    es). attention_sm90.cu's boxes are `flash_sm90_boxes(D)`'s leading
+    box, then, where there is one, the q, k and v maps of its remainder
+    box (3 x 11 int64 more);
     attention_short_sm90.cu's are 16 columns by SHORT_SM90_BQ rows of one
     head for q, the N keys of every kv head of one batch row for k (N =
     `short_sm90_key_tile(Skv)`), max(N, 16) keys for v (TMA zero-fills
@@ -429,18 +456,20 @@ def _forward_geometry(entry, q_shape, q_stride, k_shape, k_stride, v_stride,
     host's cost of a call is more than the kernel's device time. The C
     entries only read it."""
     if entry == "vls_flash_fwd_sm90":
-        boxes = (FLASH_SM90_BOX,) * 3
+        lead, rem = flash_sm90_boxes(q_shape[3])
+        boxes = (lead,) * 3 + ((rem,) * 3 if rem else ())
     else:
         d, hkv, skv = q_shape[3], k_shape[1], k_shape[2]
         n = short_sm90_key_tile(skv)
         boxes = ((d, SHORT_SM90_BQ, 1, 1), (d, n, hkv, 1),
                  (d, max(n, 16), hkv, 1))
-    return array.array("q", _tensor_map_dims(q_shape, q_stride, es, "q",
-                                             boxes[0])
-                       + _tensor_map_dims(k_shape, k_stride, es, "k",
-                                          boxes[1])
-                       + _tensor_map_dims(k_shape, v_stride, es, "v",
-                                          boxes[2]))
+    geom = ()
+    for i, box in enumerate(boxes):
+        shape, stride, what = ((q_shape, q_stride, "q"),
+                               (k_shape, k_stride, "k"),
+                               (k_shape, v_stride, "v"))[i % 3]
+        geom += _tensor_map_dims(shape, stride, es, what, box)
+    return array.array("q", geom)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -462,11 +491,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attention: route must be one of "
                          f"{ATTENTION_ROUTES}, got {route!r}")
     bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
-    entry = route or attention_entry(d, two_pass, skv, hkv)
-    if entry == "vls_flash_fwd_sm90" and (d != FLASH_SM90_HEAD_DIM
-                                          or two_pass):
+    entry = route or attention_entry(d, two_pass, skv, hkv,
+                                     bias=kv_bias is not None)
+    if entry == "vls_flash_fwd_sm90" and (
+            two_pass or d not in FLASH_SM90_HEAD_DIMS
+            or (kv_bias is not None and d != FLASH_SM90_HEAD_DIM)):
         raise ValueError("attention: vls_flash_fwd_sm90 serves the online "
-                         f"form at head dim {FLASH_SM90_HEAD_DIM}")
+                         f"form at head dims {FLASH_SM90_HEAD_DIMS}, with a "
+                         f"per-key bias at {FLASH_SM90_HEAD_DIM}")
     if entry == "vls_attention_short_sm90" and (
             not two_pass or entry != attention_entry(d, True, skv, hkv)):
         raise ValueError(f"attention: {entry} serves the two-pass form at "

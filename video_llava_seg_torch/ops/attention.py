@@ -9,8 +9,9 @@ On a CUDA tensor `attention()` launches a hand-written CUDA kernel: the
 multi-tile online-softmax form (counterpart of `_flash_kernel`, K2) when
 Skv > 1024, the plain-softmax form (`_flash_kernel_single`, K3)
 otherwise, the same split as `_fa_core`. K2 runs `csrc/attention_sm90.cu`
-(TMA + wgmma) at head dim 128, the LLM's, and `csrc/attention.cu` at the
-other head dims. K3 runs `csrc/attention_short_sm90.cu` (persistent, K/V
+(TMA + wgmma) at head dims 64 / 80 / 96 / 128 (the LLM's, the per-op
+Hiera trunk's global blocks; a per-key bias only at 128) and
+`csrc/attention.cu` at the other head dims. K3 runs `csrc/attention_short_sm90.cu` (persistent, K/V
 resident, Q streamed by TMA, wgmma) at head dim 16 with Skv <= 64, the
 mask decoder's image->token attention, and `csrc/attention.cu`'s
 two-pass form elsewhere (`kernels.attention_entry` names the route). On
