@@ -12,7 +12,8 @@ script exits non-zero without printing a result:
      the ptxas registers and spills of attention_sm90.cu (K2 and the
      online form at head dims 64 / 80 / 96), attention_short_sm90.cu
      (K3), attention_bwd_sm90.cu (K6a / K6b), w4a8_sm90.cu (K5's
-     prefill) and w8a8_sm90.cu (gemm_s8), and the wgmma (HGMMA bf16,
+     prefill), w8a8_sm90.cu (gemm_s8) and gemm_bf16_sm90.cu (the bf16
+     denses of K1 and K4, three instances), and the wgmma (HGMMA bf16,
      IGMMA int8) and UTMALDG (TMA load) counts in the SASS of each
      instance of their kernels (a zero, or a missing instance, fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
@@ -40,7 +41,10 @@ script exits non-zero without printing a result:
      path's check also asserts that each K3 launch took
      attention_short_sm90.cu, and that attention_sm90.cu served every
      K2 launch, the attention link of every K1 / K8 layer and every
-     trunk block K4 sends it (`trunk_sm90_blocks`).
+     trunk block K4 sends it (`trunk_sm90_blocks`), and that
+     gemm_bf16_sm90.cu served every dense of K1 (6 a layer) and K4 (67
+     a trunk: 4 a block and 3 shortcut projections) and gemm_bf16.cu
+     none.
   4. the quantized batched slice at full width: the same tower,
      projector and seg head in bf16, the LLM built by
      `llama.init_quantized(bits=4, act_quant=True)` and fused
@@ -79,10 +83,12 @@ before it the kernels' JSON, the last line is {"ok": true, "device":
 {...}}. There is no CPU mode: without a CUDA device the script exits
 non-zero. In the kernels JSON, `launches` is the count of the train
 step (phase 8) for the kernels it runs, of the W4A8 batched call (phase
-4) for K5, of the per-op Hiera trunk (phase 13) for K7 and of the CLIP-L
-W8A8 encode (phase 12) for K8 and gemm_s8 (its w8a8_sm90.cu launches);
-`launches_by_path` holds every path's counts (gemm_s8's by route, on the
-W8A8 encodes, the only paths with `kernel_qa` denses).
+4) for K5, of the per-op Hiera trunk (phase 13) for K7, of the CLIP-L
+W8A8 encode (phase 12) for K8 and gemm_s8 (its w8a8_sm90.cu launches)
+and of the bf16 slice (phase 3) for gemm_bf16 (its gemm_bf16_sm90.cu
+launches); `launches_by_path` holds every path's counts (gemm_s8's by
+route, on the W8A8 encodes, the only paths with `kernel_qa` denses;
+gemm_bf16's by route).
 
 The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
 after phase 4, 14 after phase 5.
@@ -105,7 +111,13 @@ after phase 4, 14 after phase 5.
      K8's chain (head dims 64 and 80) and the trunk's global block (head
      dim 96) on attention_sm90.cu (the route asserted), timed apart
      beside attention.cu's online form and SDPA, with their bounds and
-     their share of the layer.
+     their share of the layer. Then gemm_bf16 (`kernels.gemm`, every
+     dense of K1 and K4) at each distinct main-path shape and epilogue
+     (`dense_cases`: CLIP-L and RADIO-H over 32 frames, each block kind
+     of the Hiera trunk over 8 frames at 1024^2) on gemm_bf16_sm90.cu
+     (the route asserted), it and gemm_bf16.cu (forced by `route`) held
+     against `gemm_plain`, timed (10 launches back to back) beside
+     gemm_bf16.cu and `torch.addmm(bias, a, b)`, with each call's bound.
  11. RADIO serving: the bf16 path of phase 3 with the RADIO-H/16@384
      tower (K1 32 per query, K8 0), stage seconds.
  12. W8A8 encode: `llava.encode_video` over `quantize_tree(bits=8,
@@ -152,11 +164,17 @@ REPLACES = {
     # K8's int8 dense (`_dense_i8`), which gemm_s8 also serves outside the
     # layer for XLA's int8 dot of nn.dense (video_llava_seg_tpu/ops/nn.py:77)
     "gemm_s8": "video_llava_seg_tpu/ops/vit_block.py:206",
+    # the dense products inside K1 (`_vit_kernel`, vit_block.py:90-182)
+    # and K4 (`_block_kernel` / `_mlp_tail`, hiera_block.py:111 / :87)
+    "gemm_bf16": "video_llava_seg_tpu/ops/vit_block.py:90",
 }
 SOURCES = {
     # the attention link (head dims 64 / 80) on attention_sm90.cu
+    # the six denses on gemm_bf16_sm90.cu (gemm_bf16.cu kept for the calls
+    # gemm_bf16_entry refuses)
     "K1": ("video_llava_seg_torch/ops/vit_block.py",
-           ["layernorm.cu", "gemm_bf16.cu", "attention_sm90.cu"]),
+           ["layernorm.cu", "gemm_bf16_sm90.cu", "gemm_bf16.cu",
+            "attention_sm90.cu"]),
     # head dim 128 (the LLM) and the per-op Hiera trunk's global blocks
     # (head dim 96) on attention_sm90.cu; attention.cu keeps head dims 16
     # / 32, a bias below 128 and fewer than FLASH_SM90_MIN_KEYS keys
@@ -169,7 +187,8 @@ SOURCES = {
     # every block's attention (head dim 96, 16-4096 keys) on
     # attention_sm90.cu
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
-           ["layernorm.cu", "gemm_bf16.cu", "attention_sm90.cu", "pool.cu"]),
+           ["layernorm.cu", "gemm_bf16_sm90.cu", "gemm_bf16.cu",
+            "attention_sm90.cu", "pool.cu"]),
     # more than 8 rows at TMA-aligned widths (the LLM prefill) on
     # w4a8_sm90.cu; decode and other widths on w4a8.cu
     "K5": ("video_llava_seg_torch/csrc/w4a8_sm90.cu",
@@ -188,6 +207,8 @@ SOURCES = {
            ["w8a8_sm90.cu", "w8a8.cu", "attention_sm90.cu"]),
     "gemm_s8": ("video_llava_seg_torch/csrc/w8a8_sm90.cu",
                 ["w8a8_sm90.cu", "w8a8.cu"]),
+    "gemm_bf16": ("video_llava_seg_torch/csrc/gemm_bf16_sm90.cu",
+                  ["gemm_bf16_sm90.cu", "gemm_bf16.cu"]),
 }
 # H100 SXM published dense peaks (NVIDIA data sheet, 700 W): the bound of
 # a call is max(bytes / HBM rate, operations / peak of their type)
@@ -217,10 +238,14 @@ PEAK_INT8 = 1979e12
 # boundary moves one row by one quantization step (row amax / 127).
 # Measured on an H100 (700 W): K7 3.8e-3..5.0e-3 over the seven window
 # kinds, K8 1.0e-2 (CLIP-L) and 9.2e-3 (RADIO-H); ~2-3x of headroom.
+# gemm_bf16 (one dense) against `gemm_plain`, which rounds the same fp32
+# result to bf16 once: the two differ by the sums' order (K up to 5,120
+# fp32 terms) and so by at most about one bf16 step (2^-8 = 3.9e-3 of an
+# element) where they round apart; the bound keeps ~2.5x over one step.
 BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
           "K6a": 2e-2, "K6b": 2e-2, "K7": 1e-2, "K8": 3e-2,
           # integer sums, the epilogue's steps in a fixed order
-          "gemm_s8": None}
+          "gemm_s8": None, "gemm_bf16": 1e-2}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -404,10 +429,12 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                 "attention_bwd_sm90.cu": ("flash_bwd_dq_sm90",
                                           "flash_bwd_dkv_sm90"),
                 "w4a8_sm90.cu": ("w4a8_sm90_kernel",),
-                "w8a8_sm90.cu": ("gemm_s8_sm90_kernel",)}
+                "w8a8_sm90.cu": ("gemm_s8_sm90_kernel",),
+                "gemm_bf16_sm90.cu": ("gemm_bf16_sm90_kernel",)}
 # the instances of a templated kernel: attention_sm90.cu's <head dim,
-# bias>: D 64 / 80 / 96 / 128, the bias at 128
-SM90_INSTANCES = {"attention_sm90.cu": 5}
+# bias>: D 64 / 80 / 96 / 128, the bias at 128; gemm_bf16_sm90.cu's
+# <activation>: none, quick_gelu, erf-GELU
+SM90_INSTANCES = {"attention_sm90.cu": 5, "gemm_bf16_sm90.cu": 3}
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
 
 
@@ -970,6 +997,23 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
         for name, _, _, timings, total in outs}}
 
 
+# the C entry that must serve every dense of K1 and K4 (kernels.gemm)
+GEMM_SM90_ENTRY = "vls_gemm_bf16_sm90"
+
+
+def trunk_dense_calls():
+    """kernels.gemm calls per pass of the seg head's SAM2.1-hiera-small
+    trunk through K4: qkv, proj, fc1 and fc2 of every block and the
+    shortcut projection of every block that changes the width
+    (`ops/hiera_block.py::_hiera_block_cuda`)."""
+    from video_llava_seg_torch.config import VideoLlavaConfig
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+
+    dims = hiera.block_dims(make_sam2_cfg(VideoLlavaConfig().seg).hiera)
+    return sum(4 + (din != dout) for din, dout, _, _, _ in dims)
+
+
 # the C entry that must serve every K3 launch of the main paths (the mask
 # decoder's image->token attention), counted apart by kernels.attention
 K3_ENTRY = "vls_attention_short_sm90"
@@ -1004,32 +1048,36 @@ def trunk_sm90_blocks():
 
 
 def reset_launches():
-    """Zero the K1..K8 counts and kernels.attention's counts by C entry,
-    just before a main path runs."""
+    """Zero the K1..K8 counts and kernels.attention's and kernels.gemm's
+    counts by C entry, just before a main path runs."""
     from video_llava_seg_torch import kernels
 
     kernels.LAUNCHES.reset()
     kernels.ATTENTION_LAUNCHES.reset()
+    kernels.GEMM_BF16_LAUNCHES.reset()
 
 
 def snapshot_launches():
     """The K1..K8 counts just after a main path ran, under "K3 entry" the
     launches of attention_short_sm90.cu among them, under "sm90 entry"
-    those of attention_sm90.cu."""
+    those of attention_sm90.cu, and kernels.gemm's launches (the denses of
+    K1 and K4) by C entry."""
     from video_llava_seg_torch import kernels
 
     counts = kernels.LAUNCHES.snapshot()
     by_entry = kernels.ATTENTION_LAUNCHES.snapshot()
     counts["K3 entry"] = by_entry[K3_ENTRY]
     counts["sm90 entry"] = by_entry[SM90_ENTRY]
+    counts.update(kernels.GEMM_BF16_LAUNCHES.snapshot())
     return counts
 
 
 def check_launches(tag, counts, expect, why):
     """Every kernel the path runs launched, exactly as often as expected,
-    every K3 launch took attention_short_sm90.cu, and attention_sm90.cu
+    every K3 launch took attention_short_sm90.cu, attention_sm90.cu
     served every K2 launch, the attention link of every K1 / K8 layer and
-    the trunk's blocks `trunk_sm90_blocks` names."""
+    the trunk's blocks `trunk_sm90_blocks` names, and gemm_bf16_sm90.cu
+    every dense of K1 and K4 (`trunk_dense_calls`)."""
     from video_llava_seg_torch import kernels
 
     for name in kernels.LaunchCounts.NAMES:
@@ -1055,6 +1103,17 @@ def check_launches(tag, counts, expect, why):
     if counts["sm90 entry"] != want:
         raise AssertionError(f"{tag}: {counts['sm90 entry']} launches of "
                              f"{SM90_ENTRY}, expected {want}")
+    denses = trunk_dense_calls()
+    want = {GEMM_SM90_ENTRY: 6 * counts["K1"]
+            + counts["K4"] // n_blocks * denses,
+            "vls_gemm_bf16": 0}
+    got = {e: counts[e] for e in want}
+    log(f"[{tag}] kernels.gemm launches by C entry: {got} (expected "
+        f"{want}: 6 denses x {counts['K1']} K1 layers, {denses} denses "
+        f"per {n_blocks}-block trunk x {counts['K4'] // n_blocks} trunks)")
+    if got != want:
+        raise AssertionError(f"{tag}: kernels.gemm routes {got}, expected "
+                             f"{want}")
 
 
 def llm_bf16_nbytes(lc) -> int:
@@ -1302,6 +1361,70 @@ def radio_cfg(cfg):
         cfg, vision=VisionTowerConfig.radio(),
         projector=ProjectorConfig(mm_hidden_size=1280,
                                   hidden_size=cfg.llm.hidden_size))
+
+
+def vit_dense_calls(rows, d, dff, heads, act):
+    """kernels.gemm's calls in one K1 layer over `rows` tokens
+    (`ops/vit_block.py::_vit_layer_cuda`): [(dense, m, k, n, epilogue)],
+    epilogue the keyword arguments of `kernels.gemm` besides the bias
+    (which every call has; "residual" True for a residual)."""
+    return [("q_proj", rows, d, d, {"scale": 1.0 / math.sqrt(d // heads)}),
+            ("k_proj", rows, d, d, {}), ("v_proj", rows, d, d, {}),
+            ("out_proj", rows, d, d, {"residual": True}),
+            ("fc1", rows, d, dff, {"act": act}),
+            ("fc2", rows, dff, d, {"residual": True})]
+
+
+def hiera_dense_calls(bt, hw, din, dout, ws, pool, hidden):
+    """kernels.gemm's calls in one K4 block on [bt, hw, hw, din]
+    (`ops/hiera_block.py::_hiera_block_cuda`): the shortcut projection
+    where the width changes, qkv over the window-padded map, proj with the
+    (pooled) shortcut, the erf-GELU MLP (`hidden` wide); as
+    `vit_dense_calls`."""
+    ho = hw // 2 if pool else hw
+    wp = -(-hw // ws) * ws if ws else hw
+    calls = [("proj", bt * hw * hw, din, dout, {})] if din != dout else []
+    return calls + [
+        ("qkv", bt * wp * wp, din, 3 * dout, {}),
+        ("proj_attn", bt * ho * ho, dout, dout, {"residual": True}),
+        ("mlp fc1", bt * ho * ho, dout, hidden, {"act": "gelu"}),
+        ("mlp fc2", bt * ho * ho, hidden, dout, {"residual": True})]
+
+
+def dense_cases(cfg):
+    """Every distinct dense call `kernels.gemm` gets on the main paths:
+    K1's six denses at CLIP-L/14-336 and RADIO-H/16-384 over the clip's
+    frames, K4's at each block kind of the seg head's Hiera trunk over its
+    frames at its image size. Returns [(path, dense, m, k, n, epilogue,
+    launches)], launches the count per bf16 query (towers) or per trunk
+    pass."""
+    from video_llava_seg_torch.models import vit
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+
+    cases = []
+    for name, vc in (("CLIP-L/14-336", cfg.vision),
+                     ("RADIO-H/16-384", radio_cfg(cfg).vision)):
+        n_tok = (vc.num_patches + int(vc.use_cls_token)
+                 + vc.num_register_tokens)
+        for call in vit_dense_calls(
+                cfg.num_frames * n_tok, vc.hidden_size, vc.intermediate_size,
+                vc.num_heads, "gelu" if vc.is_radio else "quick_gelu"):
+            cases.append((name, *call, vit.num_layers_run(vc)))
+    sc = make_sam2_cfg(cfg.seg)
+    hc = sc.hiera
+    side = sc.image_size // hc.patch_stride
+    trunk, pools = {}, 0
+    for din, dout, _, ws, pool in hiera.block_dims(hc):
+        for dense, m, k, n, ep in hiera_dense_calls(
+                cfg.seg.max_seg_frames, side >> pools, din, dout, ws, pool,
+                int(dout * hc.mlp_ratio)):
+            key = (dense, m, k, n)
+            trunk[key] = (ep, trunk.get(key, (ep, 0))[1] + 1)
+        pools += bool(pool)
+    for (dense, m, k, n), (ep, count) in trunk.items():
+        cases.append((sc.name, dense, m, k, n, ep, count))
+    return cases
 
 
 def hiera_window_kinds(cfg):
@@ -1575,6 +1698,71 @@ def phase_attention_links(cfg, seed, dev, results):
             + "".join(f", {x:.3f} of the {n} layer ({layers[n]:.4f} ms)"
                       for n, x in row["share_of_layer"].items()))
         del q, k, v
+        torch.cuda.empty_cache()
+    sync()
+    return rows
+
+
+def phase_dense_checks(cfg, seed, dev, results):
+    """gemm_bf16 (every dense of K1 and K4) at each distinct main-path
+    shape with its epilogue (`dense_cases`): the route `gemm_bf16_entry`
+    names asserted (gemm_bf16_sm90.cu), the kernel and gemm_bf16.cu
+    (forced by `route`) held against `gemm_plain` within
+    BOUNDS["gemm_bf16"], timed (10 launches back to back) beside
+    gemm_bf16.cu and `torch.addmm(bias, a, b)` (the product and the bias
+    alone: the library yardstick), with the call's bound. Returns the rows
+    for the vision-slice JSON."""
+    from video_llava_seg_torch import kernels
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    rows = []
+    for path, dense, m, k, n, ep, launches in dense_cases(cfg):
+        a = torch.randn((m, k), generator=g, device=dev).to(bf)
+        b = (torch.randn((k, n), generator=g, device=dev) * k ** -0.5).to(bf)
+        bias = (torch.randn(n, generator=g, device=dev) * 0.1).to(bf)
+        res = (torch.randn((m, n), generator=g, device=dev).to(bf)
+               if ep.get("residual") else None)
+        kw = dict(residual=res, scale=ep.get("scale", 1.0),
+                  act=ep.get("act", "none"))
+        entry = kernels.gemm_bf16_entry(m, k, n)
+        if entry != GEMM_SM90_ENTRY:
+            raise AssertionError(f"gemm_bf16 {path} {dense}: routed to "
+                                 f"{entry}")
+        want = kernels.gemm_plain(a, b, bias, **kw)
+        old = kernels.gemm(a, b, bias, route="vls_gemm_bf16", **kw)
+        sync()
+        rel_old = ((old.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+        if not math.isfinite(rel_old) or rel_old > BOUNDS["gemm_bf16"]:
+            raise AssertionError(f"gemm_bf16 {path} {dense}: gemm_bf16.cu "
+                                 f"rel err {rel_old:.3e}")
+        del want, old
+        mode = ", ".join(["bias"] + [f"{key} {v:.4g}" if key == "scale"
+                                     else v if key == "act" else key
+                                     for key, v in ep.items()])
+        tag = f"{path} {dense} [{m}, {k}] x [{k}, {n}] {mode}"
+        nbytes = _nbytes(a, b, bias) + m * n * 2 * (1 + (res is not None))
+        _check("gemm_bf16", tag,
+               lambda: kernels.gemm(a, b, bias, **kw),
+               lambda: kernels.gemm_plain(a, b, bias, **kw),
+               lambda: kernels.gemm_plain(a, b, bias, **kw), results,
+               (nbytes, 2 * m * k * n, PEAK_BF16),
+               run_library=lambda: torch.addmm(bias, a, b),
+               run_previous=lambda: kernels.gemm(a, b, bias,
+                                                 route="vls_gemm_bf16",
+                                                 **kw),
+               previous="gemm_bf16.cu", train=10)
+        r = results["gemm_bf16"]["shapes"][-1]
+        r.update(launches=launches, previous_rel_err=rel_old)
+        rows.append({"path": path, "dense": dense, "m": m, "k": k, "n": n,
+                     "epilogue": mode, "launches": launches,
+                     "ms": r["ms"], "gemm_bf16_cu_ms": r["previous_ms"],
+                     "addmm_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "max_abs_err": r["max_abs_err"],
+                     "previous_rel_err": rel_old})
+        del a, b, bias, res
         torch.cuda.empty_cache()
     sync()
     return rows
@@ -2473,6 +2661,7 @@ def main(argv=None):
     k7_rows = phase_k7_checks(cfg, args.seed, dev, results)
     gemm_rows = phase_k8_checks(cfg, args.seed, dev, results)
     link_rows = phase_attention_links(cfg, args.seed, dev, results)
+    dense_rows = phase_dense_checks(cfg, args.seed, dev, results)
     bf16_counts, _ = phase_slice(cfg, args.seed, args.max_new_tokens, dev)
     quant_counts, quant = phase_quant_slice(cfg, args.seed,
                                             args.max_new_tokens, dev)
@@ -2542,12 +2731,36 @@ def main(argv=None):
         "library_ms": r["library_ms"],
         "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
         "shapes": r["shapes"]})
+    # gemm_bf16 (the denses of K1 and K4), counted by C entry on every path
+    r = results["gemm_bf16"]
+    source, csrc = SOURCES["gemm_bf16"]
+    paths = {"bf16": bf16_counts, "w4a8_batched": quant_counts,
+             "train_step": train_counts, "radio_bf16": radio_counts,
+             "w8a8_encode_clip": w8a8_counts["clip"],
+             "w8a8_encode_radio": w8a8_counts["radio"],
+             "hiera_per_op": hiera_counts}
+    kernels_out.append({
+        "name": "gemm_bf16", "route": "cuda", "source": source,
+        "csrc": [f"video_llava_seg_torch/csrc/{c}" for c in csrc],
+        "replaces": REPLACES["gemm_bf16"],
+        "launches": bf16_counts[GEMM_SM90_ENTRY],
+        "launches_by_path": {
+            p: {e: c[e] for e in kernels.GEMM_BF16_ROUTES}
+            for p, c in paths.items()},
+        "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+        "bound": BOUNDS["gemm_bf16"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": ("bytes" if r["bound_by_ms"]["bytes"]
+                     >= r["bound_by_ms"]["operations"] else "operations"),
+        "library_ms": r["library_ms"],
+        "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
+        "shapes": r["shapes"]})
     log(json.dumps({"w4a8_batched_slice": quant}))
     log(json.dumps({"vision_slice": {
         "radio_bf16_serving": radio, "w8a8_encode": w8a8,
         "hiera_per_op": hiera_op, "tiny_agreement": tiny_vision,
         "k7_vs_k4_attention_stage": k7_rows, "gemm_s8": gemm_rows,
-        "attention_links": link_rows}}))
+        "attention_links": link_rows, "gemm_bf16": dense_rows}}))
     log(json.dumps({"train_slice": train}))
     log(json.dumps({"kernels": kernels_out}))
     log(smi)

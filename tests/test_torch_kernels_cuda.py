@@ -1157,3 +1157,103 @@ def test_hiera_block_global_on_sm90(dev):
     want = hiera_block_plain(_f32(blk), x.float(), num_heads=heads, ws=0,
                              q_stride=None, eps=1e-6)
     assert _rel(got, want) < BOUND
+
+
+# ---- gemm_bf16_sm90.cu: the bf16 denses of K1 and K4 ----
+
+GEMM_SM90 = "vls_gemm_bf16_sm90"
+GEMM_OLD = "vls_gemm_bf16"
+# one bf16 rounding of the output (2^-8 of an element) where the kernel
+# and `gemm_plain` round apart; chip_smoke.py's BOUNDS["gemm_bf16"]
+GEMM_BOUND = 1e-2
+
+
+# (m, k, n): ragged rows, K 96 / 192 (a zero-filled tail past the 64-deep
+# stage), N 96 / 288 (a partial 64-column box), a K tail past 1,024, and
+# a CLIP-L-wide fc1 over a slice of its rows
+@pytest.mark.parametrize("m,k,n", [(1000, 264, 392), (300, 96, 96),
+                                   (4100, 192, 288), (129, 1032, 1152),
+                                   (2309, 1024, 4096)])
+@pytest.mark.parametrize("bias,res,scale", [(True, True, 0.5),
+                                            (False, False, 1.0),
+                                            (True, False, 0.125),
+                                            (False, True, 1.0)])
+@pytest.mark.parametrize("act", ["none", "quick_gelu", "gelu"])
+def test_gemm_bf16_sm90(dev, m, k, n, bias, res, scale, act):
+    """The routed entry (gemm_bf16_sm90.cu, one launch counted on it)
+    against `gemm_plain` and against gemm_bf16.cu forced by `route`."""
+    g = torch.Generator(device=dev).manual_seed(50)
+    a = _randn(g, m, k, dev=dev)
+    b = _randn(g, k, n, dev=dev, scale=1 / math.sqrt(k))
+    kw = dict(residual=_randn(g, m, n, dev=dev) if res else None,
+              scale=scale, act=act)
+    bv = _randn(g, n, dev=dev, scale=0.1) if bias else None
+    assert kernels.gemm_bf16_entry(m, k, n) == GEMM_SM90
+    before = kernels.GEMM_BF16_LAUNCHES.snapshot()
+    got = kernels.gemm(a, b, bv, **kw)
+    after = kernels.GEMM_BF16_LAUNCHES.snapshot()
+    assert after[GEMM_SM90] == before[GEMM_SM90] + 1
+    assert after[GEMM_OLD] == before[GEMM_OLD]
+    want = kernels.gemm_plain(a, b, bv, **kw)
+    old = kernels.gemm(a, b, bv, route=GEMM_OLD, **kw)
+    assert kernels.GEMM_BF16_LAUNCHES.snapshot()[GEMM_OLD] == \
+        after[GEMM_OLD] + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert _rel(got, want) < GEMM_BOUND
+    assert _rel(old, want) < GEMM_BOUND
+
+
+@pytest.mark.parametrize("chain", ["vit", "hiera_proj", "hiera"])
+def test_chains_take_gemm_bf16_sm90(dev, chain):
+    """K1's six denses and K4's four (+ the shortcut projection) launch
+    gemm_bf16_sm90.cu, and the chains stay within BOUND of their fp32
+    twins."""
+    g = torch.Generator(device=dev).manual_seed(51)
+    before = kernels.GEMM_BF16_LAUNCHES.snapshot()
+    if chain == "vit":
+        d = 256
+        p = {"layer_norm1": _ln(g, d, dev), "layer_norm2": _ln(g, d, dev),
+             "q_proj": _dense(g, d, d, dev), "k_proj": _dense(g, d, d, dev),
+             "v_proj": _dense(g, d, d, dev),
+             "out_proj": _dense(g, d, d, dev),
+             "fc1": _dense(g, d, 4 * d, dev), "fc2": _dense(g, 4 * d, d, dev)}
+        x = _randn(g, 3, 577, d, dev=dev)
+        got = vit_layer(p, x, num_heads=4, eps=1e-5, kv_len=577)
+        want = vit_layer_plain(_f32(p), x.float(), num_heads=4, eps=1e-5,
+                               kv_len=577)
+        n_dense = 6
+    else:
+        din = 96
+        dout = 2 * din if chain == "hiera_proj" else din
+        heads = dout // 96
+        blk = {"norm1": _ln(g, din, dev), "norm2": _ln(g, dout, dev),
+               "qkv": _dense(g, din, 3 * dout, dev),
+               "proj_attn": _dense(g, dout, dout, dev),
+               "mlp": {"layers": [_dense(g, dout, 4 * dout, dev),
+                                  _dense(g, 4 * dout, dout, dev)]}}
+        q_stride = None
+        if chain == "hiera_proj":
+            blk["proj"] = _dense(g, din, dout, dev)
+            q_stride = (2, 2)
+        x = _randn(g, 2, 32, 32, din, dev=dev)
+        got = hiera_block(blk, x, num_heads=heads, ws=8, q_stride=q_stride)
+        want = hiera_block_plain(_f32(blk), x.float(), num_heads=heads, ws=8,
+                                 q_stride=q_stride, eps=1e-6)
+        n_dense = 4 + (chain == "hiera_proj")
+    after = kernels.GEMM_BF16_LAUNCHES.snapshot()
+    assert after[GEMM_SM90] == before[GEMM_SM90] + n_dense
+    assert after[GEMM_OLD] == before[GEMM_OLD]
+    assert _rel(got, want) < BOUND
+
+
+def test_gemm_bf16_sm90_refusals_on_the_card(dev):
+    """A bad `route`, or K / N off a multiple of 8, raises before any
+    launch."""
+    a = torch.zeros(64, 128, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(128, 64, device=dev, dtype=torch.bfloat16)
+    before = kernels.GEMM_BF16_LAUNCHES.snapshot()
+    with pytest.raises(ValueError, match="route"):
+        kernels.gemm(a, b, route="cublas")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.gemm(a[:, :124].contiguous(), b[:124])
+    assert kernels.GEMM_BF16_LAUNCHES.snapshot() == before

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels,
 // attention_sm90.cu (forward), attention_bwd_sm90.cu (backward),
-// attention_short_sm90.cu (K3), w4a8_sm90.cu (K5's prefill) and
-// w8a8_sm90.cu (gemm_s8): mbarrier waits that trap instead of
+// attention_short_sm90.cu (K3), w4a8_sm90.cu (K5's prefill),
+// w8a8_sm90.cu (gemm_s8) and gemm_bf16_sm90.cu (the bf16 denses of K1 and
+// K4): mbarrier waits that trap instead of
 // hanging, TMA tile loads (4-D and 2-D), 128-, 64- and 32-byte-swizzle
 // wgmma descriptors, the wgmma forms the files use, and
 // the tensor-map encoding through the runtime's driver entry point (no
@@ -345,6 +346,19 @@ __device__ __forceinline__ void wgmma_ss64_tb(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d = A B (scale_d 0) or d += A B (scale_d 1), m64n128k16, A K-major and
+// B MN-major (the transpose bit) in shared memory: a dense's [in, out]
+// weights as they sit in the tree
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VLS_D64
+      ", %64, %65, p, 1, 1, 0, 1;\n}"
+      : VLS_ACC64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A B, m64n128k16, A (bf16 pairs) from registers, B MN-major in
 // shared memory (the transpose bit)
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
@@ -534,16 +548,17 @@ inline int encode_bf16(CUtensorMap* map, const void* ptr, const long long* g,
   return encode_bf16_box(map, ptr, g, d, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// geometry of one int8 2-D operand, as kernels.w4a8_sm90_geometry
-// computes it: byte offset of the map's base, dims (inner, outer), the
-// outer byte stride, box (inner, outer)
-constexpr int GEOM_I8 = 6;
+// geometry of one 2-D operand, as kernels.w4a8_sm90_geometry,
+// gemm_s8_sm90_geometry and gemm_bf16_sm90_geometry compute it: byte
+// offset of the map's base, dims (inner, outer) in elements, the outer
+// byte stride, box (inner, outer)
+constexpr int GEOM_2D = 6;
 
-// Encode a 128-byte-swizzled 2-D int8 tensor map at ptr + g[0] after
+// Encode a 128-byte-swizzled 2-D tensor map of `type` at ptr + g[0] after
 // checking its box against what the kernel was written for. A refused
 // geometry returns the negated CUresult.
-inline int encode_i8_2d(CUtensorMap* map, const void* ptr, const long long* g,
-                        int box_inner, int box_outer) {
+inline int encode_2d(CUtensorMap* map, const void* ptr, const long long* g,
+                     int box_inner, int box_outer, CUtensorMapDataType type) {
   if (g[0] < 0 || g[4] != box_inner || g[5] != box_outer)
     return (int)cudaErrorInvalidValue;
   EncodeTiledFn fn = encode_fn();
@@ -553,10 +568,9 @@ inline int encode_i8_2d(CUtensorMap* map, const void* ptr, const long long* g,
   const cuuint32_t box[2] = {(cuuint32_t)g[4], (cuuint32_t)g[5]};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode_bound([&] {
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-              (void*)((const char*)ptr + g[0]), dims, strides, box, elem,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+    return fn(map, type, 2, (void*)((const char*)ptr + g[0]), dims, strides,
+              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   });
   return r == CUDA_SUCCESS ? 0 : -(int)r;

@@ -331,7 +331,7 @@ __global__ void __launch_bounds__(NT, 1)
 
 }  // namespace
 
-// geom: 3 x GEOM_I8 int64 (xq's low plane, its high plane, packed), each
+// geom: 3 x GEOM_2D int64 (xq's low plane, its high plane, packed), each
 // the byte offset of the map's base, dims (inner, outer), the outer byte
 // stride and the box, as kernels.w4a8_sm90_geometry computes them
 extern "C" int vls_w4a8_sm90(const void* xq, const void* a_scale,
@@ -340,16 +340,17 @@ extern "C" int vls_w4a8_sm90(const void* xq, const void* a_scale,
                              int half, int out, int out_f32, void* stream) {
   if (rows <= 0 || out <= 0) return 0;
   const long long* glo = geom;
-  const long long* ghi = geom + GEOM_I8;
-  const long long* gw = geom + 2 * GEOM_I8;
+  const long long* ghi = geom + GEOM_2D;
+  const long long* gw = geom + 2 * GEOM_2D;
   if (half <= 0 || half % 16 || out % 16 || glo[0] != 0 || ghi[0] != half ||
       glo[1] != half || ghi[1] != half || glo[2] != rows ||
       ghi[2] != rows || gw[0] != 0 || gw[1] != out || gw[2] != half)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tlo, thi, tw;
-  int e = encode_i8_2d(&tlo, xq, glo, BK, BM);
-  if (e == 0) e = encode_i8_2d(&thi, xq, ghi, BK, BM);
-  if (e == 0) e = encode_i8_2d(&tw, packed, gw, BN, BK);
+  constexpr CUtensorMapDataType I8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  int e = encode_2d(&tlo, xq, glo, BK, BM, I8);
+  if (e == 0) e = encode_2d(&thi, xq, ghi, BK, BM, I8);
+  if (e == 0) e = encode_2d(&tw, packed, gw, BN, BK, I8);
   if (e != 0) return e;
   const float* as = (const float*)a_scale;
   const float* ws = (const float*)w_scale;

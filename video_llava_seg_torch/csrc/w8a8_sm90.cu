@@ -512,7 +512,7 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tw, const Epilogue& ep,
 
 }  // namespace
 
-// geom: 2 x GEOM_I8 int64 (xq, W), each the byte offset of the map's
+// geom: 2 x GEOM_2D int64 (xq, W), each the byte offset of the map's
 // base, dims (inner, outer), the outer byte stride and the box, as
 // kernels.gemm_s8_sm90_geometry computes them
 extern "C" int vls_gemm_s8_sm90(const void* a, const void* a_scale,
@@ -523,14 +523,15 @@ extern "C" int vls_gemm_s8_sm90(const void* a, const void* a_scale,
                                 void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const long long* gx = geom;
-  const long long* gw = geom + GEOM_I8;
+  const long long* gw = geom + GEOM_2D;
   if (K <= 0 || K % 16 || N % 16 || gx[0] != 0 || gx[1] != K ||
       gx[2] != M || gw[0] != 0 || gw[1] != N || gw[2] != K || act < 0 ||
       act > 2)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tx, tw;
-  int e = encode_i8_2d(&tx, a, gx, BK, BM);
-  if (e == 0) e = encode_i8_2d(&tw, b, gw, BN, BK);
+  constexpr CUtensorMapDataType I8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  int e = encode_2d(&tx, a, gx, BK, BM, I8);
+  if (e == 0) e = encode_2d(&tw, b, gw, BN, BK, I8);
   if (e != 0) return e;
   Epilogue ep;
   ep.a_scale = (const float*)a_scale;

@@ -23,7 +23,8 @@ composition, and nowhere else. `ops.int4.int_matmul` launches
 nothing there. `GEMM_S8_LAUNCHES` counts every `gemm_s8` launch by the
 C entry it took (`gemm_s8_entry`), inside K8 and out;
 `ATTENTION_LAUNCHES` every `attention` launch by its C entry
-(`attention_entry`).
+(`attention_entry`); `GEMM_BF16_LAUNCHES` every `gemm` launch (the bf16
+denses of K1 and K4) by its C entry (`gemm_bf16_entry`).
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "vls_layernorm_bf16": [_P, _P, _P, _P, _L, _I, _F, _P],
     "vls_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "vls_gemm_bf16_sm90": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
     "vls_attention_bf16": [_P] * 6 + [_L] * 13 + [_I] * 7
                           + [_F, _I, _I, _P],
     "vls_flash_fwd_sm90": [_P] * 7 + [_L] * 4 + [_I, _I, _F, _P],
@@ -122,6 +124,17 @@ GEMM_S8_SM90_BOX_K = 128
 GEMM_S8_SM90_BOX_ROWS = 128
 GEMM_S8_SM90_BOX_COLS = 128
 GEMM_S8_SM90_ALIGN = 16
+# gemm_bf16_sm90.cu (the bf16 denses on TMA + wgmma): 128 x 128 output
+# tiles; each stage is a TMA box of 128 rows of A by 64 columns of K and
+# two boxes of 64 rows of K by 64 columns of B (one 128-byte swizzle row
+# each); the residual arrives and the output leaves as boxes of 64 rows
+# by 64 columns. TMA needs 16-byte-aligned bases and row strides (K and N
+# multiples of 8)
+GEMM_BF16_SM90_BOX_K = 64
+GEMM_BF16_SM90_BOX_ROWS = 128
+GEMM_BF16_SM90_BOX_COLS = 64
+GEMM_BF16_SM90_OUT_ROWS = 64
+GEMM_BF16_SM90_ALIGN = 8
 # aim the decode GEMV at ~8 blocks per SM of an H100 (132 SMs)
 W4A8_GEMV_TARGET_BLOCKS = 132 * 8
 # window_attention.cu: all of a window's keys sit in shared memory
@@ -159,6 +172,10 @@ ATTENTION_LAUNCHES = LaunchCounts(ATTENTION_ROUTES)
 # mode (int_matmul) is no TPU kernel, so neither tells the routes apart
 GEMM_S8_ROUTES = ("vls_gemm_s8", "vls_gemm_s8_sm90")
 GEMM_S8_LAUNCHES = LaunchCounts(GEMM_S8_ROUTES)
+# kernels.gemm's launches by C entry: K1 and K4 both reach it and count
+# their layers, not their denses
+GEMM_BF16_ROUTES = ("vls_gemm_bf16", "vls_gemm_bf16_sm90")
+GEMM_BF16_LAUNCHES = LaunchCounts(GEMM_BF16_ROUTES)
 
 
 class _Library:
@@ -298,10 +315,90 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y
 
 
+_GEMM_ACTS = {"none": lambda y: y,
+              "quick_gelu": lambda y: y * torch.sigmoid(1.702 * y),
+              "gelu": torch.nn.functional.gelu}
+
+
+def gemm_plain(a: torch.Tensor, b: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               residual: Optional[torch.Tensor] = None, scale: float = 1.0,
+               act: str = "none") -> torch.Tensor:
+    """`gemm`'s plain version: act((a @ b + bias) * scale) + residual in
+    fp32 sums (quick_gelu x sigmoid(1.702 x), gelu the exact erf form),
+    rounded once to a's dtype. The CPU tests, and on the card chip_smoke
+    and the CUDA tests, hold the kernels to it."""
+    y = a.float() @ b.float()
+    if bias is not None:
+        y = y + bias.float()
+    y = _GEMM_ACTS[act](y * scale)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(a.dtype)
+
+
+def gemm_bf16_entry(m: int, k: int, n: int) -> str:
+    """The C entry that serves `gemm` at [m, k] x [k, n]: the TMA + wgmma
+    kernel of csrc/gemm_bf16_sm90.cu wherever TMA can address the
+    operands (k and n multiples of 8, which `gemm` requires of every
+    call), csrc/gemm_bf16.cu for a call with no rows (nothing to
+    launch)."""
+    if (m > 0 and k > 0 and k % GEMM_BF16_SM90_ALIGN == 0
+            and n % GEMM_BF16_SM90_ALIGN == 0):
+        return "vls_gemm_bf16_sm90"
+    return "vls_gemm_bf16"
+
+
+def gemm_bf16_sm90_geometry(a: torch.Tensor, b: torch.Tensor,
+                            c: torch.Tensor,
+                            residual: Optional[torch.Tensor] = None):
+    """The four bf16 tensor maps that csrc/gemm_bf16_sm90.cu encodes, 24
+    int64: for a [M, K], b [K, N], the output c [M, N] and the residual
+    [M, N] (c's map again where there is none, which the kernel never
+    reads), each (byte offset of the map's base, dims (inner, outer) in
+    elements, the outer byte stride, box (inner, outer)). TMA needs a
+    contiguous inner dim, a 16-byte-aligned base and outer byte strides in
+    multiples of 16."""
+    ops = ((a, "a"), (b, "b"), (c, "c"),
+           (c if residual is None else residual, "residual"))
+    for t, what in ops:
+        if t.dim() != 2 or t.stride(1) != 1 or t.dtype != torch.bfloat16:
+            raise ValueError(f"gemm_bf16_sm90 {what}: expected a 2-D bf16 "
+                             "tensor with a contiguous last dim")
+        if t.data_ptr() % 16 or t.stride(0) % GEMM_BF16_SM90_ALIGN:
+            raise ValueError(f"gemm_bf16_sm90 {what}: TMA needs a 16-byte-"
+                             "aligned base and a row stride in multiples of "
+                             f"16 bytes, got stride {t.stride(0)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if (b.shape[0] != k or tuple(c.shape) != (m, n)
+            or tuple(ops[3][0].shape) != (m, n)):
+        raise ValueError(f"gemm_bf16_sm90: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, c {tuple(c.shape)} and the "
+                         f"residual {tuple(ops[3][0].shape)} do not match")
+    if k % GEMM_BF16_SM90_ALIGN or n % GEMM_BF16_SM90_ALIGN:
+        raise ValueError(f"gemm_bf16_sm90: TMA needs K and N in multiples of "
+                         f"{GEMM_BF16_SM90_ALIGN}, got K={k}, N={n}")
+    out_box = (GEMM_BF16_SM90_BOX_COLS, GEMM_BF16_SM90_OUT_ROWS)
+    return ((0, k, m, 2 * a.stride(0), GEMM_BF16_SM90_BOX_K,
+             GEMM_BF16_SM90_BOX_ROWS)
+            + (0, n, k, 2 * b.stride(0), GEMM_BF16_SM90_BOX_COLS,
+               GEMM_BF16_SM90_BOX_K)
+            + (0, n, m, 2 * c.stride(0)) + out_box
+            + (0, n, m, 2 * ops[3][0].stride(0)) + out_box)
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
          residual: Optional[torch.Tensor] = None, scale: float = 1.0,
-         act: str = "none") -> torch.Tensor:
-    """act((a @ b + bias) * scale) + residual, a [M, K], b [K, N], bf16."""
+         act: str = "none", route: Optional[str] = None) -> torch.Tensor:
+    """act((a @ b + bias) * scale) + residual, a [M, K], b [K, N], bf16.
+
+    The shape chooses the kernel (`gemm_bf16_entry`); `route` names a C
+    entry of GEMM_BF16_ROUTES instead, for the tests and for timing
+    gemm_bf16.cu beside the kernel that took its calls."""
+    if route is not None and route not in GEMM_BF16_ROUTES:
+        raise ValueError(f"gemm: route must be one of {GEMM_BF16_ROUTES}, "
+                         f"got {route!r}")
     _require(a, "gemm a")
     _require(b, "gemm b")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -320,9 +417,20 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
         if tuple(residual.shape) != (m, n):
             raise ValueError("gemm: residual must be [M, N]")
     c = torch.empty((m, n), device=a.device, dtype=a.dtype)
-    _check_code("gemm", LIBRARY.get().vls_gemm_bf16(
-        _ptr(a), _ptr(b), _ptr(bias), _ptr(residual), _ptr(c), m, n, k,
-        float(scale), ACTS[act], _stream()))
+    entry = route or gemm_bf16_entry(m, k, n)
+    if entry == "vls_gemm_bf16_sm90":
+        geom = (ctypes.c_longlong * 24)(
+            *gemm_bf16_sm90_geometry(a, b, c, residual))
+        code = LIBRARY.get().vls_gemm_bf16_sm90(
+            _ptr(a), _ptr(b), _ptr(bias), _ptr(residual), _ptr(c),
+            ctypes.cast(geom, ctypes.c_void_p), m, n, k, float(scale),
+            ACTS[act], _stream())
+    else:
+        code = LIBRARY.get().vls_gemm_bf16(
+            _ptr(a), _ptr(b), _ptr(bias), _ptr(residual), _ptr(c), m, n, k,
+            float(scale), ACTS[act], _stream())
+    _check_code("gemm", code)
+    GEMM_BF16_LAUNCHES.add(entry)
     return c
 
 

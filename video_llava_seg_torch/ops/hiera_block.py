@@ -10,11 +10,11 @@ The TPU kernel runs the whole block in one launch with its weights in
 VMEM. On CUDA the block is a chain of the port's hand-written kernels
 with the same math:
 
-  layernorm.cu -> [gemm_bf16.cu shortcut proj] -> [pool.cu] ->
-  gemm_bf16.cu (qkv) -> [pool.cu on q] -> attention.cu (one window per
-  batch row) -> gemm_bf16.cu (proj + bias + residual) -> layernorm.cu ->
-  gemm_bf16.cu (fc1 + bias + erf-GELU) -> gemm_bf16.cu (fc2 + bias +
-  residual)
+  layernorm.cu -> [gemm_bf16_sm90.cu shortcut proj] -> [pool.cu] ->
+  gemm_bf16_sm90.cu (qkv) -> [pool.cu on q] -> attention_sm90.cu (one
+  window per batch row) -> gemm_bf16_sm90.cu (proj + bias + residual) ->
+  layernorm.cu -> gemm_bf16_sm90.cu (fc1 + bias + erf-GELU) ->
+  gemm_bf16_sm90.cu (fc2 + bias + residual)
 
 Between launches only layout work in torch: the zero pad of the
 post-norm map, window partition / unpartition (reshape + permute), the
