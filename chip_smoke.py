@@ -11,7 +11,8 @@ script exits non-zero without printing a result:
   1. build: the CUDA kernels compile from `video_llava_seg_torch/csrc`;
      the ptxas registers and spills of attention_sm90.cu (K2 and the
      online form at head dims 64 / 80 / 96), attention_short_sm90.cu
-     (K3), attention_bwd_sm90.cu (K6a / K6b), w4a8_sm90.cu (K5's
+     (K3), attention_bwd_sm90.cu (K6a / K6b), attention_short_bwd_sm90.cu
+     (K6a + K6b in one pass, eight instances), w4a8_sm90.cu (K5's
      prefill), w8a8_sm90.cu (gemm_s8) and gemm_bf16_sm90.cu (the bf16
      denses of K1 and K4, three instances), and the wgmma (HGMMA bf16,
      IGMMA int8) and UTMALDG (TMA load) counts in the SASS of each
@@ -63,7 +64,14 @@ script exits non-zero without printing a result:
      bias case with masked keys; times of kernel, plain version and the
      backward of `scaled_dot_product_attention`; at head dim 128, where
      attention_bwd_sm90.cu serves K6a / K6b, also attention_bwd.cu's time
-     at the same shape.
+     at the same shape. The mask decoder's backward takes
+     attention_short_bwd_sm90.cu (the route asserted): dQ, dK and dV in
+     one call, held to the plain backward within BOUNDS["K6a"] /
+     ["K6b"] and bit-identical over two calls, timed as K3 (10 launches
+     back to back and by device time) beside attention_bwd.cu's pair,
+     which it replaced, under both the K6a and the K6b name (the same
+     call), with the one pass's byte bound; then a small GQA 2, causal,
+     per-key-bias case on it (masked keys' dK / dV exactly zero).
   7. gradients through the fused forward kernels: every kernel op's
      output carries a grad_fn when an input requires grad, and the K1 /
      K4 recompute gradients equal the plain layer's autograd.
@@ -71,7 +79,9 @@ script exits non-zero without printing a result:
      frames, Llama-3-8B int8 base + fp32 LoRA r=64, SAM2.1-hiera-small at
      1024^2 x 8 seg frames, 8 objects): three `make_train_step` steps
      over `synthetic_batches`, with the launch counts of K1..K6b taken
-     over each step, stage times, peak memory, a bit-identical frozen
+     over each step (the flash backward's by C entry: 2 on
+     attention_short_bwd_sm90.cu, 32 + 32 on attention_bwd_sm90.cu, 0 on
+     attention_bwd.cu), stage times, peak memory, a bit-identical frozen
      base and LoRA moving from step 2.
   9. train agreement on a small input: one tiny stage-3 QLoRA step on
      the card (kernels, bf16 activations) against the CPU (plain, fp32);
@@ -194,11 +204,14 @@ SOURCES = {
     "K5": ("video_llava_seg_torch/csrc/w4a8_sm90.cu",
            ["w4a8_sm90.cu", "w4a8.cu"]),
     # head dim 128 (the LLM) on attention_bwd_sm90.cu; the mask decoder
-    # (head dim 16) on attention_bwd.cu
+    # (head dim 16 over <= 64 keys) on attention_short_bwd_sm90.cu, K6a and
+    # K6b in one pass; attention_bwd.cu keeps the other head dims
     "K6a": ("video_llava_seg_torch/csrc/attention_bwd_sm90.cu",
-            ["attention_bwd_sm90.cu", "attention_bwd.cu"]),
+            ["attention_bwd_sm90.cu", "attention_short_bwd_sm90.cu",
+             "attention_bwd.cu"]),
     "K6b": ("video_llava_seg_torch/csrc/attention_bwd_sm90.cu",
-            ["attention_bwd_sm90.cu", "attention_bwd.cu"]),
+            ["attention_bwd_sm90.cu", "attention_short_bwd_sm90.cu",
+             "attention_bwd.cu"]),
     "K7": ("video_llava_seg_torch/csrc/window_attention.cu",
            ["window_attention.cu"]),
     # gemm_s8 on w8a8_sm90.cu where K and N are multiples of 16 (every
@@ -428,13 +441,17 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                 "attention_short_sm90.cu": ("attention_short_sm90_kernel",),
                 "attention_bwd_sm90.cu": ("flash_bwd_dq_sm90",
                                           "flash_bwd_dkv_sm90"),
+                "attention_short_bwd_sm90.cu": (
+                    "attention_short_bwd_sm90_kernel",),
                 "w4a8_sm90.cu": ("w4a8_sm90_kernel",),
                 "w8a8_sm90.cu": ("gemm_s8_sm90_kernel",),
                 "gemm_bf16_sm90.cu": ("gemm_bf16_sm90_kernel",)}
 # the instances of a templated kernel: attention_sm90.cu's <head dim,
 # bias>: D 64 / 80 / 96 / 128, the bias at 128; gemm_bf16_sm90.cu's
-# <activation>: none, quick_gelu, erf-GELU
-SM90_INSTANCES = {"attention_sm90.cu": 5, "gemm_bf16_sm90.cu": 3}
+# <activation>: none, quick_gelu, erf-GELU; attention_short_bwd_sm90.cu's
+# <key tile, bias>: 8 / 16 / 32 / 64 keys, with and without a bias
+SM90_INSTANCES = {"attention_sm90.cu": 5, "gemm_bf16_sm90.cu": 3,
+                  "attention_short_bwd_sm90.cu": 8}
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
 
 
@@ -1023,6 +1040,12 @@ K3_ENTRY = "vls_attention_short_sm90"
 # least kernels.FLASH_SM90_MIN_KEYS keys (every block of the trunk)
 SM90_ENTRY = "vls_flash_fwd_sm90"
 CUDA_C_ENTRY = "vls_attention_bf16"
+# the C entry of the mask decoder's flash backward (K6a + K6b in one
+# pass), counted apart by kernels.ATTENTION_BWD_LAUNCHES with the pairs'
+# entries: attention_bwd_sm90.cu's for the LLM layers, attention_bwd.cu's
+K6_SHORT_ENTRY = "vls_attention_short_bwd_sm90"
+K6_SM90_PAIR = ("vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90")
+K6_CUDA_C_PAIR = ("vls_attention_bwd_dq", "vls_attention_bwd_dkv")
 
 
 def trunk_sm90_blocks():
@@ -1048,36 +1071,40 @@ def trunk_sm90_blocks():
 
 
 def reset_launches():
-    """Zero the K1..K8 counts and kernels.attention's and kernels.gemm's
-    counts by C entry, just before a main path runs."""
+    """Zero the K1..K8 counts and kernels.attention's, the flash
+    backward's and kernels.gemm's counts by C entry, just before a main
+    path runs."""
     from video_llava_seg_torch import kernels
 
     kernels.LAUNCHES.reset()
     kernels.ATTENTION_LAUNCHES.reset()
+    kernels.ATTENTION_BWD_LAUNCHES.reset()
     kernels.GEMM_BF16_LAUNCHES.reset()
 
 
 def snapshot_launches():
     """The K1..K8 counts just after a main path ran, under "K3 entry" the
     launches of attention_short_sm90.cu among them, under "sm90 entry"
-    those of attention_sm90.cu, and kernels.gemm's launches (the denses of
-    K1 and K4) by C entry."""
+    those of attention_sm90.cu, the flash backward's launches (K6a / K6b)
+    and kernels.gemm's (the denses of K1 and K4) by C entry."""
     from video_llava_seg_torch import kernels
 
     counts = kernels.LAUNCHES.snapshot()
     by_entry = kernels.ATTENTION_LAUNCHES.snapshot()
     counts["K3 entry"] = by_entry[K3_ENTRY]
     counts["sm90 entry"] = by_entry[SM90_ENTRY]
+    counts.update(kernels.ATTENTION_BWD_LAUNCHES.snapshot())
     counts.update(kernels.GEMM_BF16_LAUNCHES.snapshot())
     return counts
 
 
-def check_launches(tag, counts, expect, why):
+def check_launches(tag, counts, expect, why, bwd=None):
     """Every kernel the path runs launched, exactly as often as expected,
     every K3 launch took attention_short_sm90.cu, attention_sm90.cu
     served every K2 launch, the attention link of every K1 / K8 layer and
     the trunk's blocks `trunk_sm90_blocks` names, and gemm_bf16_sm90.cu
-    every dense of K1 and K4 (`trunk_dense_calls`)."""
+    every dense of K1 and K4 (`trunk_dense_calls`). bwd: the flash
+    backward's launches expected by C entry (a path with a backward)."""
     from video_llava_seg_torch import kernels
 
     for name in kernels.LaunchCounts.NAMES:
@@ -1114,6 +1141,13 @@ def check_launches(tag, counts, expect, why):
     if got != want:
         raise AssertionError(f"{tag}: kernels.gemm routes {got}, expected "
                              f"{want}")
+    if bwd is not None:
+        got = {e: counts[e] for e in bwd}
+        log(f"[{tag}] flash backward launches by C entry: {got} (expected "
+            f"{bwd})")
+        if got != bwd:
+            raise AssertionError(f"{tag}: flash backward routes {got}, "
+                                 f"expected {bwd}")
 
 
 def llm_bf16_nbytes(lc) -> int:
@@ -2197,7 +2231,10 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
         else:
             q = randn(b, hq, sq, d)
             k, v = randn(b, hkv, skv, d), randn(b, hkv, skv, d)
-        do = randn(b, hq, sq, d)
+        # dO as autograd hands it back through the head merge: the mask
+        # decoder's a [B, H, S, 16] view of a [B, S, H * 16] gradient
+        do = (randn(b, sq, hq, d).transpose(1, 2) if single
+              else randn(b, hq, sq, d))
         bias, kv_mask = None, None
         if masked is not None:
             kv_mask = torch.ones(b, skv, dtype=torch.bool, device=dev)
@@ -2261,43 +2298,19 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
         ref = flash_backward_plain(q.float(), k.float(), v.float(), bias,
                                    out.float(), lse, do.float(),
                                    causal=causal, scale=scale)
-        _, delta = kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)
-        if kv_mask is not None:
-            dk, dv = kernels.attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-            dead = ~kv_mask
-            if (dk.transpose(1, 2)[dead].any()
-                    or dv.transpose(1, 2)[dead].any()):
-                raise AssertionError("K6b: masked keys got a gradient")
-            del dk, dv
         plain_bwd = (lambda: flash_backward_plain(
             q, k, v, bias, out, lse, do, causal=causal, scale=scale))
-        # where attention_bwd_sm90.cu serves the head dim, time
-        # attention_bwd.cu, which it replaced, at the same shape
-        prev_dq = prev_dkv = None
-        if kernels.attention_bwd_entry(d)[0] != "vls_attention_bwd_dq":
-            def prev_dq():
-                return kernels._attention_bwd_dq(
-                    "vls_attention_bwd_dq", q, k, v, out, do, lse, **kw)
-
-            def prev_dkv():
-                return kernels._attention_bwd_dkv(
-                    "vls_attention_bwd_dkv", q, k, v, do, lse, delta, **kw)
-        # K6a reads q, k, v, o, dO, lse and writes dQ and delta; K6b
-        # reads q, k, v, dO, lse, delta and writes dK, dV
-        _check("K6a", f"{shape}: dQ",
-               lambda: kernels.attention_bwd_dq(q, k, v, out, do, lse,
-                                                **kw)[0],
-               plain_bwd, lambda: ref[0], results,
-               (4 * qb + 2 * kb + 2 * lse_b, 3 * prod, PEAK_BF16),
-               run_previous=prev_dq, previous="attention_bwd.cu")
-        _check("K6b", f"{shape}: dK, dV",
-               lambda: torch.cat(kernels.attention_bwd_dkv(
-                   q, k, v, do, lse, delta, **kw), dim=1),
-               plain_bwd, lambda: torch.cat(ref[1:], dim=1), results,
-               (2 * qb + 4 * kb + 2 * lse_b, 4 * prod, PEAK_BF16),
-               time_kernel=lambda: kernels.attention_bwd_dkv(
-                   q, k, v, do, lse, delta, **kw),
-               run_previous=prev_dkv, previous="attention_bwd.cu")
+        route = kernels.attention_bwd_entry(d, skv, hkv)
+        if single:
+            if route != (K6_SHORT_ENTRY,):
+                raise AssertionError(f"the mask decoder's backward routes "
+                                     f"to {route}, not {K6_SHORT_ENTRY}")
+            one_pass_checks(shape, q, k, v, out, do, lse, kw, ref,
+                            plain_bwd, results,
+                            (4 * qb + 4 * kb + lse_b, 5 * prod, PEAK_BF16))
+        else:
+            pair_checks(shape, d, q, k, v, out, do, lse, kw, kv_mask, ref,
+                        plain_bwd, results, qb, kb, lse_b, prod)
         # the library's backward computes dQ, dK and dV in one call: its
         # time stands beside both kernels
         for name in ("K6a", "K6b"):
@@ -2306,9 +2319,153 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
             r["library_ms"] = sum(sh["library_ms"] for sh in r["shapes"])
         log(f"[flash] SDPA backward (fwd+bwd - fwd) {shape}: "
             f"{lib_bwd:.4f} ms")
-        del q, k, v, do, out, lse, ref, delta, qr, kr, vr
+        del q, k, v, do, out, lse, ref, qr, kr, vr
         torch.cuda.empty_cache()
+    one_pass_small_case(g, hd, dev)
     sync()
+
+
+def pair_checks(shape, d, q, k, v, out, do, lse, kw, kv_mask, ref,
+                plain_bwd, results, qb, kb, lse_b, prod):
+    """K6a (dQ) and K6b (dK, dV) of a two-kernel pair against the plain
+    backward, timed; where attention_bwd_sm90.cu serves the head dim,
+    attention_bwd.cu, which it replaced, timed beside it."""
+    from video_llava_seg_torch import kernels
+
+    _, delta = kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)
+    if kv_mask is not None:
+            dk, dv = kernels.attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            dead = ~kv_mask
+            if (dk.transpose(1, 2)[dead].any()
+                    or dv.transpose(1, 2)[dead].any()):
+                raise AssertionError("K6b: masked keys got a gradient")
+            del dk, dv
+    # where attention_bwd_sm90.cu serves the head dim, time
+    # attention_bwd.cu, which it replaced, at the same shape
+    prev_dq = prev_dkv = None
+    if kernels.attention_bwd_entry(d, k.shape[2], k.shape[1]) \
+            != K6_CUDA_C_PAIR:
+        def prev_dq():
+            return kernels._attention_bwd_dq(
+                "vls_attention_bwd_dq", q, k, v, out, do, lse, **kw)
+
+        def prev_dkv():
+            return kernels._attention_bwd_dkv(
+                "vls_attention_bwd_dkv", q, k, v, do, lse, delta, **kw)
+    # K6a reads q, k, v, o, dO, lse and writes dQ and delta; K6b
+    # reads q, k, v, dO, lse, delta and writes dK, dV
+    _check("K6a", f"{shape}: dQ",
+           lambda: kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)[0],
+           plain_bwd, lambda: ref[0], results,
+           (4 * qb + 2 * kb + 2 * lse_b, 3 * prod, PEAK_BF16),
+           run_previous=prev_dq, previous="attention_bwd.cu")
+    _check("K6b", f"{shape}: dK, dV",
+           lambda: torch.cat(kernels.attention_bwd_dkv(
+               q, k, v, do, lse, delta, **kw), dim=1),
+           plain_bwd, lambda: torch.cat(ref[1:], dim=1), results,
+           (2 * qb + 4 * kb + 2 * lse_b, 4 * prod, PEAK_BF16),
+           time_kernel=lambda: kernels.attention_bwd_dkv(
+               q, k, v, do, lse, delta, **kw),
+           run_previous=prev_dkv, previous="attention_bwd.cu")
+
+
+def _rel_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-6)).item()
+
+
+def one_pass_checks(shape, q, k, v, out, do, lse, kw, ref, plain_bwd,
+                    results, work):
+    """attention_short_bwd_sm90.cu (K6a + K6b in one call) against the
+    plain backward: dQ within BOUNDS["K6a"], dK / dV within BOUNDS["K6b"],
+    two calls bit-identical; the call timed over 10 launches back to back
+    and by device time (as K3), beside attention_bwd.cu's pair (its dQ
+    kernel with the delta pre-pass, then its dK / dV kernel), which it
+    replaced. Its K6a and K6b lines time the same call. work: the one
+    pass's bytes (Q, O, dO, lse and K, V read once, dQ, dK, dV written
+    once) and operations (S, dP, dQ, dK, dV)."""
+    from video_llava_seg_torch import kernels
+
+    def one_pass():
+        return kernels.attention_bwd(q, k, v, out, do, lse, **kw)
+
+    def pair():
+        dq, delta = kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)
+        return (dq,) + kernels.attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 **kw)
+
+    got = one_pass()
+    again = one_pass()
+    sync()
+    errs = {"K6a": _rel_err(got[0], ref[0]),
+            "K6b": max(_rel_err(got[1], ref[1]), _rel_err(got[2], ref[2]))}
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[flash] one pass {shape}: dQ rel {errs['K6a']:.3e}, dK / dV rel "
+        f"{errs['K6b']:.3e} (bounds {BOUNDS['K6a']:.0e} / "
+        f"{BOUNDS['K6b']:.0e}); two calls bit-identical: {same}")
+    for name, err in errs.items():
+        if not math.isfinite(err) or err > BOUNDS[name]:
+            raise AssertionError(f"{name} one pass: rel err {err:.3e}")
+    if not same:
+        raise AssertionError("one pass: two calls on the same inputs differ")
+    del got, again
+    prev = "attention_bwd.cu pair"
+    _check("K6a", f"{shape}: dQ, dK, dV in one pass (dQ compared)",
+           lambda: one_pass()[0], plain_bwd, lambda: ref[0], results, work,
+           time_kernel=one_pass, run_previous=pair, previous=prev,
+           train=10, device_time=True)
+    _check("K6b", f"{shape}: the same call (dK, dV compared)",
+           lambda: torch.cat(one_pass()[1:], dim=1), plain_bwd,
+           lambda: torch.cat(ref[1:], dim=1), results, work,
+           time_kernel=one_pass, run_previous=pair, previous=prev,
+           train=10, device_time=True)
+
+
+def one_pass_small_case(g, hd, dev):
+    """attention_short_bwd_sm90.cu at GQA 2, causal with Sq > Skv (rows
+    i < Sq - Skv see no key), a per-key bias with two masked keys and a
+    13-key (16-wide) tile, on the decoder's [B, S, H, D] views: within the
+    bounds of the plain backward, masked keys at exactly zero dK / dV,
+    two calls bit-identical."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.ops.attention import (
+        MASK_VALUE,
+        flash_backward_plain,
+    )
+
+    b, hq, hkv, sq, skv, dead = 2, 8, 4, 333, 13, [4, 9]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, do = (randn(b, sq, hq, hd).transpose(1, 2) for _ in range(2))
+    k, v = (randn(b, skv, hkv, hd).transpose(1, 2) for _ in range(2))
+    bias = (2 * torch.randn(b, skv, generator=g, device=dev)).float()
+    bias[:, dead] = MASK_VALUE
+    kw = dict(scale=hd ** -0.5, causal=True, kv_bias=bias)
+    if kernels.attention_bwd_entry(hd, skv, hkv) != (K6_SHORT_ENTRY,):
+        raise AssertionError("the small case does not take the one pass")
+    out, lse = kernels.attention(q, k, v, two_pass=True, with_lse=True,
+                                 **kw)
+    got = kernels.attention_bwd(q, k, v, out, do, lse, **kw)
+    again = kernels.attention_bwd(q, k, v, out, do, lse, **kw)
+    ref = flash_backward_plain(q.float(), k.float(), v.float(), bias,
+                               out.float(), lse, do.float(), causal=True,
+                               scale=hd ** -0.5)
+    sync()
+    errs = [_rel_err(a, w) for a, w in zip(got, ref)]
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    zero = not any(t[:, :, dead].any() for t in got[1:])
+    log(f"[flash] one pass q{list(q.shape)} kv{list(k.shape)} causal, bias "
+        f"with keys {dead} masked: rel dQ {errs[0]:.3e}, dK {errs[1]:.3e}, "
+        f"dV {errs[2]:.3e}; masked keys' dK / dV zero: {zero}; two calls "
+        f"bit-identical: {same}")
+    if not (errs[0] <= BOUNDS["K6a"] and max(errs[1:]) <= BOUNDS["K6b"]):
+        raise AssertionError(f"one pass small case: rel errs {errs}")
+    if not (zero and same):
+        raise AssertionError("one pass small case: masked keys got a "
+                             "gradient or two calls differ")
 
 
 def phase_grad_checks(seed, dev):
@@ -2446,6 +2603,11 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
                   "image->token attentions",
            "K7": "none: K4 runs every Hiera block",
            "K8": "none: the tower trains in bf16 over fp32 masters"}
+    # the LLM layers' backward on attention_bwd_sm90.cu's pair, the mask
+    # decoder's in one pass, none on attention_bwd.cu
+    bwd = {K6_SHORT_ENTRY: n_dec, K6_SM90_PAIR[0]: cfg.llm.num_layers,
+           K6_SM90_PAIR[1]: cfg.llm.num_layers, K6_CUDA_C_PAIR[0]: 0,
+           K6_CUDA_C_PAIR[1]: 0}
     torch.cuda.reset_peak_memory_stats()
     seconds, rows, counts = [], [], None
     for step in range(steps):
@@ -2467,7 +2629,8 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
             f"{m['loss_mask']:.4f}), grad_norm {m['grad_norm']:.4f}, "
             f"{int(m['num_text_tokens'])} text tokens over "
             f"{batch['gather_idx'].shape[1]}")
-        check_launches(f"train step {step + 1}", counts, expect, why)
+        check_launches(f"train step {step + 1}", counts, expect, why,
+                       bwd=bwd)
         for k in ("loss", "loss_mask"):
             if not math.isfinite(m[k]):
                 raise AssertionError(f"train step {step + 1}: {k} not finite")

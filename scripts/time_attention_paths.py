@@ -5,7 +5,7 @@ two trees in turns (parent, change, change, parent) to compare them in
 one call on one card.
 
     python3 scripts/time_attention_paths.py [--root DIR] [--seed N]
-        [--attention_only] [--out FILE]
+        [--attention_only | --train] [--out FILE]
 
 --root: a checkout of the repository (default: the one holding this
 script) whose `chip_smoke.py` and `video_llava_seg_torch` are imported,
@@ -23,8 +23,16 @@ object (also written to --out):
 - "trunk": phase 13, the per-op and the K4 Hiera trunk over 8 frames;
 - "serving": phase 3, the bf16 caption and referral queries' seconds by
   stage.
---attention_only stops after "attention". Each phase asserts its own
-launch counts, as chip_smoke.py does.
+--attention_only stops after "attention". --train replaces the
+end-to-end stages with the train step's:
+- "flash_bwd": the mask decoder's flash backward at the train shape (q
+  [64, 8, 4096, 16] as [B, S, H, D] views, 7 keys) through the tree's
+  own `_FlashAttention.backward`, on the kernel forward's output and
+  logsumexp, in ms over 10 launches back to back and by device time (a
+  CUDA graph of the 10, chip_smoke's `graph_ms`);
+- "train": phase 8, three stage-3 QLoRA train steps at full width
+  (steady seconds of steps 2-3, stage seconds, peak memory).
+Each phase asserts its own launch counts, as chip_smoke.py does.
 """
 
 from __future__ import annotations
@@ -70,6 +78,34 @@ def attention_times(cs, dev):
     return out
 
 
+def flash_bwd_times(cs, dev):
+    """The mask decoder's flash backward at the train shape through the
+    tree's `_FlashAttention.backward` (whatever kernels it launches)."""
+    import types
+
+    import torch
+
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.ops import attention as tatt
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, s, skv, h, d = 64, 4096, 7, 8, 16
+    q, do = (torch.randn((b, s, h, d), generator=g, device=dev)
+             .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((b, skv, h, d), generator=g, device=dev)
+            .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    out, lse = kernels.attention(q, k, v, scale=d ** -0.5, two_pass=True,
+                                 with_lse=True)
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, None, out, lse),
+                                causal=False, scale=d ** -0.5)
+
+    def run():
+        return tatt._FlashAttention.backward(ctx, do)
+
+    return {"shape": [b, h, s, d], "kv": [b, h, skv, d],
+            "ms": cs.cuda_ms(run, train=10), "device_ms": cs.graph_ms(run)}
+
+
 def _end_to_end(cs, cfg, seed, dev):
     """chip_smoke's phases 12, 13 and 3 on the tree's code."""
     return {"w8a8_encode": cs.phase_w8a8_encode(cfg, seed, dev)[1],
@@ -82,6 +118,7 @@ def main(argv=None):
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--attention_only", action="store_true")
+    ap.add_argument("--train", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -104,7 +141,10 @@ def main(argv=None):
         - 1)
     result = {"root": str(root), "card": smi,
               "attention": attention_times(cs, dev)}
-    if not args.attention_only:
+    if args.train:
+        result["flash_bwd"] = flash_bwd_times(cs, dev)
+        result["train"] = cs.phase_train_slice(cfg, args.seed, dev)[1]
+    elif not args.attention_only:
         result.update(_end_to_end(cs, cfg, args.seed, dev))
     line = json.dumps(result)
     print(line, flush=True)

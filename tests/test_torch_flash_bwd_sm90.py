@@ -1,6 +1,6 @@
 """The CPU side of csrc/attention_bwd_sm90.cu (K6a / K6b at head dim 128
-on TMA and wgmma): the route `attention_bwd_dq` / `attention_bwd_dkv`
-take by head dim, the tensor-map geometry the wrappers hand the C entries
+on TMA and wgmma): the route `kernels.attention_bwd` takes by head dim
+and key count, the tensor-map geometry the wrappers hand the C entries
 for the operands as autograd gives them to `_FlashAttention.backward`,
 the strides of the gradient buffers, the refusal of what TMA cannot read,
 the build hash over the shared header, and the plain backward against the
@@ -20,12 +20,18 @@ from video_llava_seg_tpu.ops import attention as jatt
 
 @pytest.mark.parametrize("d", kernels.ATTENTION_HEAD_DIMS)
 def test_attention_bwd_entry_route(d):
-    """Head dim 128 (the LLM) goes to attention_bwd_sm90.cu; every other
-    head dim (the mask decoder's 16 among them) stays on attention_bwd.cu."""
+    """Head dim 128 (the LLM, 5,132 keys) goes to attention_bwd_sm90.cu's
+    pair; head dim 16 over the mask decoder's 7 keys to the one-pass
+    attention_short_bwd_sm90.cu; every other head dim, and head dim 16
+    over more than 64 keys, stays on attention_bwd.cu's pair."""
+    pair = ("vls_attention_bwd_dq", "vls_attention_bwd_dkv")
     want = (("vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90") if d == 128
-            else ("vls_attention_bwd_dq", "vls_attention_bwd_dkv"))
-    assert kernels.attention_bwd_entry(d) == want
+            else ("vls_attention_short_bwd_sm90",) if d == 16 else pair)
+    skv = 5132 if d == 128 else 7
+    assert kernels.attention_bwd_entry(d, skv, 8) == want
     assert all(name in kernels._SIGNATURES for name in want)
+    if d != 128:
+        assert kernels.attention_bwd_entry(d, 65, 8) == pair
 
 
 class _Capture(torch.autograd.Function):

@@ -35,7 +35,12 @@ row no key is visible to at O = 0, lse = 0; K1 and K4 take it on the
 card. K6a / K6b at head dim 128
 (csrc/attention_bwd_sm90.cu) are held to the plain backward with the same
 bound, and on the left-pad rows, which the plain backward treats
-differently, to attention_bwd.cu at the same inputs. Run on the card:
+differently, to attention_bwd.cu at the same inputs. K6a + K6b in one
+pass at head dim 16 over at most 64 keys (csrc/attention_short_bwd_sm90.cu)
+are held to the plain backward with the same bound on the mask decoder's
+views, GQA, causal and bias cases, with masked keys at exactly zero dK /
+dV, a row no key is visible to at dQ = 0, and two calls bit-identical.
+Run on the card:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
@@ -702,7 +707,7 @@ def test_flash_bwd_sm90(dev, name):
     mask, the 2048-key per-key bias with its masked keys at exactly zero
     dK and dV."""
     b, hq, hkv, sq, skv, causal, masked = SM90_BWD_CASES[name]
-    assert kernels.attention_bwd_entry(128) == SM90_BWD_NAMES
+    assert kernels.attention_bwd_entry(128, skv, hkv) == SM90_BWD_NAMES
     q, k, v, do, kv_mask, bias = _bwd_inputs(19, b, hq, hkv, sq, skv,
                                              masked, dev)
     kw = dict(scale=128 ** -0.5, causal=causal, kv_bias=bias)
@@ -1257,3 +1262,115 @@ def test_gemm_bf16_sm90_refusals_on_the_card(dev):
     with pytest.raises(ValueError, match="multiples of 8"):
         kernels.gemm(a[:, :124].contiguous(), b[:124])
     assert kernels.GEMM_BF16_LAUNCHES.snapshot() == before
+
+
+# --- csrc/attention_short_bwd_sm90.cu: K6a + K6b in one pass at head dim 16
+
+SHORT_BWD = "vls_attention_short_bwd_sm90"
+SHORT_BWD_CASES = {
+    # name: (b, hq, hkv, sq, skv, causal, masked keys)
+    "train": (64, 8, 8, 4096, 7, False, None),     # chip_smoke's shape
+    "gqa2_causal_bias": (2, 8, 4, 333, 13, True, (4, 9)),
+    "partial_tile_gqa4": (3, 8, 2, 1000, 7, False, None),
+    "keys_29_gqa2": (2, 8, 4, 333, 29, False, None),
+    "keys_64_bias": (1, 8, 8, 640, 64, False, (0, 63)),
+}
+
+
+def _short_bwd_inputs(name, dev, seed=34):
+    """The mask decoder's layout: q, k, v and dO as [B, H, S, 16] views of
+    [B, S, H, 16] buffers; the kernel forward's output and logsumexp."""
+    b, hq, hkv, sq, skv, causal, masked = SHORT_BWD_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (_randn(g, b, sq, hq, 16, dev=dev).transpose(1, 2)
+             for _ in range(2))
+    k, v = (_randn(g, b, skv, hkv, 16, dev=dev).transpose(1, 2)
+            for _ in range(2))
+    bias = None
+    if masked is not None:
+        bias = (2 * torch.randn(b, skv, generator=g, device=dev)).float()
+        bias[:, list(masked)] = MASK_VALUE
+    kw = dict(scale=0.25, causal=causal, kv_bias=bias)
+    out, lse = kernels.attention(q, k, v, two_pass=True, with_lse=True, **kw)
+    return q, k, v, out, do, lse, kw, masked
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_BWD_CASES))
+def test_attention_short_bwd_sm90(dev, name):
+    """The one-pass backward against the plain backward on the kernel
+    forward's output and logsumexp: dQ, dK, dV within BOUND, also against
+    attention_bwd.cu's pair on the same inputs; two calls bit-identical
+    (no float atomics); masked keys at exactly zero dK / dV; one launch
+    counted on the new entry and none on a pair; 8 / 16 / 32 / 64-key
+    tiles, GQA 2 and 4, a partial last q tile, causal with Sq > Skv."""
+    q, k, v, out, do, lse, kw, masked = _short_bwd_inputs(name, dev)
+    assert kernels.attention_bwd_entry(16, k.shape[2], k.shape[1]) == (
+        SHORT_BWD,)
+    before = kernels.ATTENTION_BWD_LAUNCHES.snapshot()
+    got = kernels.attention_bwd(q, k, v, out, do, lse, **kw)
+    after = kernels.ATTENTION_BWD_LAUNCHES.snapshot()
+    assert {e: after[e] - before[e] for e in after} == {
+        e: int(e == SHORT_BWD) for e in after}
+    again = kernels.attention_bwd(q, k, v, out, do, lse, **kw)
+    want = flash_backward_plain(q.float(), k.float(), v.float(),
+                                kw["kv_bias"], out.float(), lse, do.float(),
+                                causal=kw["causal"], scale=0.25)
+    dq, delta = kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)
+    old = (dq,) + kernels.attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    for t, t2, w, o in zip(got, again, want, old):
+        assert t.dtype == torch.bfloat16 and torch.isfinite(t.float()).all()
+        assert torch.equal(t, t2)
+        assert _rel(t, w) < BOUND
+        assert _rel(t, o.float()) < BOUND
+    assert got[0].shape == q.shape and got[1].shape == k.shape
+    if masked is not None:
+        for t in got[1:]:
+            assert not t[:, :, list(masked)].any()
+
+
+def test_attention_short_bwd_sm90_no_visible_key(dev):
+    """Causal with Sq > Skv: rows i < Sq - Skv see no key (the forward
+    wrote O = 0, lse = 0), get dQ = 0 and add nothing to dK / dV; the
+    rest match the plain backward."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    b, hq, sq, skv = 2, 8, 300, 7
+    q, do = (_randn(g, b, sq, hq, 16, dev=dev).transpose(1, 2)
+             for _ in range(2))
+    k, v = (_randn(g, b, skv, hq, 16, dev=dev).transpose(1, 2)
+            for _ in range(2))
+    kw = dict(scale=0.25, causal=True)
+    out, lse = kernels.attention(q, k, v, two_pass=True, with_lse=True, **kw)
+    dq, dk, dv = kernels.attention_bwd(q, k, v, out, do, lse, **kw)
+    dead = sq - skv
+    assert not dq[:, :, :dead].any()
+    live = [t[:, :, dead:] for t in (q, out, do)]
+    want = flash_backward_plain(live[0].float(), k.float(), v.float(), None,
+                                live[1].float(), lse[:, :, dead:],
+                                live[2].float(), causal=True, scale=0.25)
+    for t, w in zip((dq[:, :, dead:], dk, dv), want):
+        assert _rel(t, w) < BOUND
+
+
+def test_attention_short_bwd_sm90_autograd(dev):
+    """attention() under autograd on the mask decoder's views (the train
+    step's image->token attention): one K3 launch forward, one K6a and one
+    K6b counted, the backward on the one-pass entry and on no pair, and
+    the gradients within BOUND of the plain backward."""
+    q, k, v, _, do, _, _, _ = _short_bwd_inputs("partial_tile_gqa4", dev)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = kernels.LAUNCHES.snapshot()
+    routes = kernels.ATTENTION_BWD_LAUNCHES.snapshot()
+    out = attention(*leaves)
+    out.backward(do)
+    after = kernels.LAUNCHES.snapshot()
+    assert [after[n] - before[n] for n in ("K3", "K6a", "K6b")] == [1, 1, 1]
+    now = kernels.ATTENTION_BWD_LAUNCHES.snapshot()
+    assert {e: now[e] - routes[e] for e in now} == {
+        e: int(e == SHORT_BWD) for e in now}
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o32, lse32 = flash_forward_plain(qf, kf, vf, scale=0.25)
+    want = flash_backward_plain(qf, kf, vf, None, o32, lse32, do.float(),
+                                scale=0.25)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == torch.bfloat16
+        assert _rel(t.grad, w) < BOUND

@@ -23,8 +23,10 @@ composition, and nowhere else. `ops.int4.int_matmul` launches
 nothing there. `GEMM_S8_LAUNCHES` counts every `gemm_s8` launch by the
 C entry it took (`gemm_s8_entry`), inside K8 and out;
 `ATTENTION_LAUNCHES` every `attention` launch by its C entry
-(`attention_entry`); `GEMM_BF16_LAUNCHES` every `gemm` launch (the bf16
-denses of K1 and K4) by its C entry (`gemm_bf16_entry`).
+(`attention_entry`); `ATTENTION_BWD_LAUNCHES` every flash-backward
+launch by its C entry (`attention_bwd_entry`); `GEMM_BF16_LAUNCHES` every
+`gemm` launch (the bf16 denses of K1 and K4) by its C entry
+(`gemm_bf16_entry`).
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ _SIGNATURES = {
     "vls_attention_bwd_dkv": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_flash_bwd_dq_sm90": [_P] * 10 + [_L] * 7 + [_F, _I, _P],
     "vls_flash_bwd_dkv_sm90": [_P] * 10 + [_L] * 7 + [_F, _I, _P],
+    "vls_attention_short_bwd_sm90": [_P] * 12 + [_L] * 10
+                                    + [_I, _I, _F, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
     "vls_w4a8": [_P] * 6 + [_I] * 5 + [_P],
     "vls_w4a8_sm90": [_P] * 6 + [_I] * 4 + [_P],
@@ -104,6 +108,18 @@ SHORT_SM90_KV_SLOT_MAX = 64 * 1024
 # attention_bwd_sm90.cu (K6a / K6b at the same head dim) walks 64-row
 # tiles and loads every operand as boxes of 64 columns by 64 rows
 FLASH_SM90_BWD_BOX = (64, 64, 1, 1)
+# attention_short_bwd_sm90.cu (K6a + K6b in one pass where the forward
+# took attention_short_sm90.cu): Q, O and dO stream as the forward's q
+# boxes (16 columns by SHORT_SM90_BQ rows of one head), STAGES items a
+# ring; K and V of all kv heads of a batch row stay resident as boxes of
+# max(N, 16) keys a head, in one of two slots. Work units (batch row,
+# chunk of its q tiles, q head) each leave a [2, N, 16] fp32 partial of
+# dK / dV in a workspace, which a second launch adds per (batch row, kv
+# head). Blocks an SM: SHORT_BWD_SM90_BLOCKS by the key tile N (the
+# instances' launch bounds), fewer where shared memory runs out.
+SHORT_BWD_SM90_ENTRY = "vls_attention_short_bwd_sm90"
+SHORT_BWD_SM90_STAGES = 2
+SHORT_BWD_SM90_BLOCKS = {8: 3, 16: 3, 32: 2, 64: 1}
 # w4a8: the int32 sums hold 16 x the true sum (see csrc/w4a8.cu), which
 # stays below 2^31 for in <= 2^17
 W4A8_MAX_IN = 1 << 17
@@ -176,6 +192,12 @@ GEMM_S8_LAUNCHES = LaunchCounts(GEMM_S8_ROUTES)
 # their layers, not their denses
 GEMM_BF16_ROUTES = ("vls_gemm_bf16", "vls_gemm_bf16_sm90")
 GEMM_BF16_LAUNCHES = LaunchCounts(GEMM_BF16_ROUTES)
+# the flash backward's launches by C entry: K6a / K6b count calls, and
+# at head dim 16 over few keys one entry serves both
+ATTENTION_BWD_ROUTES = ("vls_attention_bwd_dq", "vls_attention_bwd_dkv",
+                        "vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90",
+                        SHORT_BWD_SM90_ENTRY)
+ATTENTION_BWD_LAUNCHES = LaunchCounts(ATTENTION_BWD_ROUTES)
 
 
 class _Library:
@@ -657,14 +679,161 @@ def _bhs_operand(t: torch.Tensor, what: str):
     return t, _strides_bhs(t, what)
 
 
-def attention_bwd_entry(d: int):
-    """The C entries (dQ, dK/dV) that serve `attention_bwd_dq` /
-    `attention_bwd_dkv` at head dim d: the TMA + wgmma kernels of
-    csrc/attention_bwd_sm90.cu at head dim 128 (the LLM's),
-    csrc/attention_bwd.cu at every other head dim."""
+def _bwd_pair(d: int):
+    """The C entries (dQ, dK/dV) of the two-kernel backward at head dim d:
+    csrc/attention_bwd_sm90.cu at head dim 128, csrc/attention_bwd.cu at
+    every other."""
     if d == FLASH_SM90_HEAD_DIM:
         return "vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90"
     return "vls_attention_bwd_dq", "vls_attention_bwd_dkv"
+
+
+def attention_bwd_entry(d: int, skv: int, hkv: int):
+    """The C entries that serve `attention_bwd` at head dim d over skv
+    keys and hkv kv heads, in launch order: the one-pass kernel of
+    csrc/attention_short_bwd_sm90.cu wherever the forward took
+    attention_short_sm90.cu (head dim 16, skv <= 64, a batch row's K/V
+    within the resident slot: the SAM2 mask decoder's image->token
+    attention); the TMA + wgmma pair of csrc/attention_bwd_sm90.cu (dQ,
+    then dK/dV) at head dim 128 (the LLM's); csrc/attention_bwd.cu's pair
+    for every other call."""
+    if attention_entry(d, True, skv, hkv) == "vls_attention_short_sm90":
+        return (SHORT_BWD_SM90_ENTRY,)
+    return _bwd_pair(d)
+
+
+@functools.lru_cache(maxsize=256)
+def short_bwd_sm90_blocks(n: int, hkv: int) -> int:
+    """Blocks an SM of attention_short_bwd_sm90.cu at key tile n and hkv
+    kv heads: its launch bounds' count, fewer where the shared memory (a
+    1 KB alignment pad, the ring of Q / O / dO boxes, two K/V slots, the
+    four consumer warps' dK / dV sums, the barriers; 228 KB an SM, 1 KB
+    reserved a block) does not hold them. The C entry sizes its grid the
+    same way."""
+    smem = (1024 + SHORT_BWD_SM90_STAGES * 3 * SHORT_SM90_BQ * 32
+            + 2 * 2 * hkv * max(n, 16) * 32 + 4 * 2 * 16 * n * 4
+            + (2 * SHORT_BWD_SM90_STAGES + 4) * 8)
+    return max(1, min(SHORT_BWD_SM90_BLOCKS[n], 233472 // (smem + 1024)))
+
+
+@functools.lru_cache(maxsize=256)
+def short_bwd_sm90_chunks(batch: int, hq: int, sq: int, slots: int) -> int:
+    """How many chunks attention_short_bwd_sm90.cu cuts each batch row's
+    64-row q tiles into: the count whose work units (batch row, chunk, q
+    head), dealt to min(units, slots) blocks in turn, give the busiest
+    block the least work, counting a unit's own cost (its K/V load and
+    its partial) as one q tile more; the fewest chunks among equals."""
+    ntq = -(-sq // SHORT_SM90_BQ)
+    best = None
+    for chunks in range(1, max(ntq, 1) + 1):
+        units = batch * hq * chunks
+        rounds = -(-units // max(min(units, slots), 1))
+        cost = rounds * (-(-ntq // chunks) + 1)
+        if best is None or cost < best[0]:
+            best = (cost, chunks)
+    return best[1]
+
+
+def short_bwd_sm90_schedule(batch: int, hq: int, hkv: int, sq: int,
+                            chunks: int, grid: int):
+    """attention_short_bwd_sm90.cu's work and reduction, as a pure
+    function: (units, blocks, sums). units[u] = (b, chunk, h, first q
+    tile, end q tile) for the unit whose [2, N, 16] partial is ws[u] (h
+    fastest); blocks[i] = the units block i of `grid` runs, in order (u =
+    i, i + grid, ...); sums[(b, hk)] = the units whose partials the second
+    launch adds into dK / dV of batch row b, kv head hk, in its order
+    (chunk, then the group's q heads)."""
+    ntq = -(-sq // SHORT_SM90_BQ)
+    group = hq // hkv
+    units = [(b, c, h, c * ntq // chunks, (c + 1) * ntq // chunks)
+             for b in range(batch) for c in range(chunks) for h in range(hq)]
+    blocks = [list(range(i, len(units), grid)) for i in range(grid)]
+    sums = {(b, hk): [(b * chunks + c) * hq + hk * group + g
+                      for c in range(chunks) for g in range(group)]
+            for b in range(batch) for hk in range(hkv)}
+    return units, blocks, sums
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _short_bwd_geometry(q_shape, q_stride, k_shape, k_stride, v_stride,
+                        o_stride, do_stride, es):
+    """The int64 geometry array of attention_short_bwd_sm90.cu: the q, k,
+    v, o and dO tensor maps, each as `flash_sm90_tensor_map` gives it for
+    [B, H, S, D] views of these shapes and element strides (o and dO have
+    q's shape): q, o and dO with attention_short_sm90.cu's q box (16
+    columns by SHORT_SM90_BQ rows of one head), k and v with the N keys
+    of every kv head of one batch row, at least 16 (N =
+    `short_sm90_key_tile(Skv)`; TMA zero-fills rows past Skv). Built
+    once per shape, as `_forward_geometry`."""
+    d, hkv, skv = q_shape[3], k_shape[1], k_shape[2]
+    qbox = (d, SHORT_SM90_BQ, 1, 1)
+    kbox = (d, max(short_sm90_key_tile(skv), 16), hkv, 1)
+    geom = ()
+    for shape, stride, what, box in (
+            (q_shape, q_stride, "q", qbox), (k_shape, k_stride, "k", kbox),
+            (k_shape, v_stride, "v", kbox), (q_shape, o_stride, "out", qbox),
+            (q_shape, do_stride, "dout", qbox)):
+        geom += _tensor_map_dims(shape, stride, es, what, box)
+    return array.array("q", geom)
+
+
+def attention_bwd(q, k, v, out, dout, lse, *, scale: float, causal: bool,
+                  kv_bias: Optional[torch.Tensor] = None):
+    """K6a + K6b: (dq, dk, dv) of `attention` from its output and
+    logsumexp. q/k/v/out/dout: [B, H, S, D] bf16 views (out and dout are
+    copied once if their strides do not fit); lse fp32 [B, Hq, Sq]
+    contiguous; kv_bias fp32 [B, Skv] or None (it gets no gradient).
+    Returns dq as a [B, Hq, Sq, D] view of a contiguous [B, Sq, Hq, D]
+    buffer and dk, dv as [B, Hkv, Skv, D] views of [B, Skv, Hkv, D]
+    buffers. The shapes choose the kernels (`attention_bwd_entry`): one
+    launch of attention_short_bwd_sm90.cu (and its summing launch), or
+    the dQ kernel then the dK/dV kernel of a pair."""
+    bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
+    route = attention_bwd_entry(d, skv, hkv)
+    if route != (SHORT_BWD_SM90_ENTRY,):
+        kw = dict(scale=scale, causal=causal, kv_bias=kv_bias)
+        dq, delta = _attention_bwd_dq(route[0], q, k, v, out, dout, lse, **kw)
+        dk, dv = _attention_bwd_dkv(route[1], q, k, v, dout, lse, delta, **kw)
+        return dq, dk, dv
+    out, dout = _addressable(out), _addressable(dout)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("attention_bwd: out and dout must have q's shape")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (bsz, hq, sq) \
+            or not lse.is_contiguous():
+        raise ValueError("attention_bwd: lse must be a contiguous fp32 "
+                         "[B, Hq, Sq] tensor")
+    # the tensor maps check the strides TMA needs, before any launch
+    geom = _short_bwd_geometry(q.shape, q.stride(), k.shape, k.stride(),
+                               v.stride(), out.stride(), dout.stride(),
+                               q.element_size())
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out"),
+                    (dout, "dout")):
+        _require(t, what, contiguous=False)
+    _require(lse, "lse", dtype=torch.float32)
+    bias_sb = _bias_stride(kv_bias, bsz, skv)
+    dq = _bshd(bsz, sq, hq, d, q)
+    dk = _bshd(bsz, skv, hkv, d, k)
+    dv = _bshd(bsz, skv, hkv, d, v)
+    n = short_sm90_key_tile(skv)
+    slots = _sm_count(q.device.index) * short_bwd_sm90_blocks(n, hkv)
+    chunks = short_bwd_sm90_chunks(bsz, hq, sq, slots)
+    ws = torch.empty((bsz * chunks * hq, 2, n, d), device=q.device,
+                     dtype=torch.float32)
+    code = LIBRARY.get().vls_attention_short_bwd_sm90(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(kv_bias),
+        _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(ws),
+        geom.buffer_info()[0], *_strides3(dq), *_strides3(dk),
+        *_strides3(dv), bias_sb, chunks, int(causal), float(scale),
+        _stream())
+    _check_code("attention_bwd", code)
+    ATTENTION_BWD_LAUNCHES.add(SHORT_BWD_SM90_ENTRY)
+    return dq, dk, dv
 
 
 def flash_bwd_sm90_geometry(q, k, v, dout):
@@ -697,15 +866,16 @@ def _bwd_common(q, k, v, dout, lse, kv_bias):
 
 def attention_bwd_dq(q, k, v, out, dout, lse, *, scale: float,
                      causal: bool, kv_bias: Optional[torch.Tensor] = None):
-    """K6a: dQ of `attention` from its output and logsumexp, and the
-    per-row delta = rowsum(dO * O) fp32 [B, Hq, Sq] that
+    """K6a of a pair: dQ of `attention` from its output and logsumexp,
+    and the per-row delta = rowsum(dO * O) fp32 [B, Hq, Sq] that
     `attention_bwd_dkv` reads. q/k/v/out/dout: [B, H, S, D] bf16 views
     (out and dout are copied once if their strides do not fit); lse fp32
     [B, Hq, Sq] contiguous. Returns (dq as a [B, Hq, Sq, D] view of a
     contiguous [B, Sq, Hq, D] buffer, delta). The head dim chooses the
-    kernel (`attention_bwd_entry`)."""
-    return _attention_bwd_dq(attention_bwd_entry(q.shape[-1])[0], q, k, v,
-                             out, dout, lse, scale=scale, causal=causal,
+    pair's kernel: attention_bwd_sm90.cu at 128, attention_bwd.cu at every
+    other (also where `attention_bwd` takes the one-pass kernel)."""
+    return _attention_bwd_dq(_bwd_pair(q.shape[-1])[0], q, k, v, out, dout,
+                             lse, scale=scale, causal=causal,
                              kv_bias=kv_bias)
 
 
@@ -736,17 +906,19 @@ def _attention_bwd_dq(entry, q, k, v, out, dout, lse, *, scale, causal,
             *qkv_s[2], *os_, *ds_, *_strides3(dq), bias_sb, bsz, hq, hkv,
             sq, skv, d, float(scale), int(causal), _stream())
     _check_code("attention_bwd_dq", code)
+    ATTENTION_BWD_LAUNCHES.add(entry)
     return dq, delta
 
 
 def attention_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
                       causal: bool, kv_bias: Optional[torch.Tensor] = None):
-    """K6b: dK and dV of `attention`, summed over each kv head's group of
-    q heads in the kernel. delta: from `attention_bwd_dq`. Returns (dk,
-    dv), each a [B, Hkv, Skv, D] view of a contiguous [B, Skv, Hkv, D]
-    buffer. The head dim chooses the kernel (`attention_bwd_entry`)."""
-    return _attention_bwd_dkv(attention_bwd_entry(q.shape[-1])[1], q, k, v,
-                              dout, lse, delta, scale=scale, causal=causal,
+    """K6b of a pair: dK and dV of `attention`, summed over each kv
+    head's group of q heads in the kernel. delta: from
+    `attention_bwd_dq`. Returns (dk, dv), each a [B, Hkv, Skv, D] view of
+    a contiguous [B, Skv, Hkv, D] buffer. The head dim chooses the pair's
+    kernel, as in `attention_bwd_dq`."""
+    return _attention_bwd_dkv(_bwd_pair(q.shape[-1])[1], q, k, v, dout, lse,
+                              delta, scale=scale, causal=causal,
                               kv_bias=kv_bias)
 
 
@@ -777,6 +949,7 @@ def _attention_bwd_dkv(entry, q, k, v, dout, lse, delta, *, scale, causal,
             *qkv_s[2], *ds_, *_strides3(dk), *_strides3(dv), bias_sb, bsz,
             hq, hkv, sq, skv, d, float(scale), int(causal), _stream())
     _check_code("attention_bwd_dkv", code)
+    ATTENTION_BWD_LAUNCHES.add(entry)
     return dk, dv
 
 

@@ -21,11 +21,14 @@ twin. There is no other fallback.
 When an input requires grad, the CUDA call goes through `_FlashAttention`
 (the counterpart of the JAX package's `custom_vjp` around
 `flash_attention`): its forward launches the same kernel with the
-per-row logsumexp as a second output, and its backward launches K6a
-(`_bwd_dq_kernel`: delta pre-pass + dQ) and K6b (`_bwd_dkv_kernel`: dK,
-dV summed over the GQA group): `csrc/attention_bwd_sm90.cu` (TMA +
-wgmma) at head dim 128, `csrc/attention_bwd.cu` at the other head dims
-(`kernels.attention_bwd_entry`). The per-key bias gets no gradient (it
+per-row logsumexp as a second output, and its backward
+(`kernels.attention_bwd`) computes K6a (`_bwd_dq_kernel`: dQ) and K6b
+(`_bwd_dkv_kernel`: dK, dV summed over the GQA group):
+`csrc/attention_short_bwd_sm90.cu` in one pass wherever the forward took
+attention_short_sm90.cu (the mask decoder), the TMA + wgmma pair of
+`csrc/attention_bwd_sm90.cu` at head dim 128, `csrc/attention_bwd.cu`'s
+pair elsewhere (`kernels.attention_bwd_entry`; each call counts one K6a
+and one K6b). The per-key bias gets no gradient (it
 is a mask). Under `torch.utils.checkpoint` the
 forward runs, and counts, a second time during the backward.
 
@@ -183,9 +186,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, kv_bias, out, lse = ctx.saved_tensors
         kw = dict(scale=ctx.scale, causal=ctx.causal, kv_bias=kv_bias)
         kernels.LAUNCHES.add("K6a")
-        dq, delta = kernels.attention_bwd_dq(q, k, v, out, dout, lse, **kw)
         kernels.LAUNCHES.add("K6b")
-        dk, dv = kernels.attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+        dq, dk, dv = kernels.attention_bwd(q, k, v, out, dout, lse, **kw)
         return dq, dk, dv, None, None, None, None
 
 
