@@ -42,10 +42,12 @@ script exits non-zero without printing a result:
      path's check also asserts that each K3 launch took
      attention_short_sm90.cu, and that attention_sm90.cu served every
      K2 launch, the attention link of every K1 / K8 layer and every
-     trunk block K4 sends it (`trunk_sm90_blocks`), and that
-     gemm_bf16_sm90.cu served every dense of K1 (6 a layer) and K4 (67
-     a trunk: 4 a block and 3 shortcut projections) and gemm_bf16.cu
-     none.
+     trunk block K4 sends it (`trunk_sm90_blocks`: the 3 global ones),
+     that window_attention_sm90.cu served the 13 windowed blocks of
+     every K4 trunk (and every K7 call), pool.cu only the 3 shortcut
+     pools a trunk, and that gemm_bf16_sm90.cu served every dense of K1
+     (6 a layer) and K4 (67 a trunk: 4 a block and 3 shortcut
+     projections) and gemm_bf16.cu none.
   4. the quantized batched slice at full width: the same tower,
      projector and seg head in bf16, the LLM built by
      `llama.init_quantized(bits=4, act_quant=True)` and fused
@@ -104,11 +106,14 @@ The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
 after phase 4, 14 after phase 5.
 
  10. K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
-     8 frames at 1024^2 against `window_attention_plain`, beside SDPA
-     over the partitioned windows (partition copy timed apart) and K4's
-     attention stage (partition + attention + unpartition), and K4's
-     attention call on both C entries, attention.cu and
-     attention_sm90.cu (where the route's key threshold comes from);
+     8 frames at 1024^2 on window_attention_sm90.cu (the route asserted)
+     against `window_attention_plain`, two calls bit-identical, over 10
+     launches back to back and by device time, beside
+     window_attention.cu (forced by `route`), SDPA over the partitioned
+     windows (partition copy timed apart), K4's old attention stage
+     (partition + [pool.cu on q] + attention_sm90.cu + unpartition +
+     crop) and K4's call of the new kernel (the crop written directly,
+     held to the stage), and their sums over a trunk's blocks;
      K8 (the W8A8 layer: `csrc/w8a8_sm90.cu`, `csrc/w8a8.cu`'s row
      kernels, attention_sm90.cu) at the CLIP-L and RADIO-H serving shapes
      against `vit_layer_plain` over the same quantized tree; gemm_s8
@@ -137,8 +142,9 @@ after phase 4, 14 after phase 5.
      tower's (mean, p99); W8A8 and bf16 encode seconds, interleaved over
      7 rounds (median, min, max).
  13. the per-op Hiera trunk (`USE_FUSED_BLOCK = False`) over 8 frames at
-     1024^2: K7 13, K2 3, K4 0; its pyramid against the K4 path's; the
-     two trunks' seconds, interleaved over 7 rounds (median, min, max).
+     1024^2: K7 13 (all on window_attention_sm90.cu), K2 3, K4 0; its
+     pyramid against the K4 path's; the two trunks' seconds, interleaved
+     over 7 rounds (median, min, max).
  14. tiny card-vs-CPU agreement of a RADIO tower (head dim 80), S2, a
      W8A8 tower and the per-op trunk.
 """
@@ -196,9 +202,11 @@ SOURCES = {
            ["attention_short_sm90.cu", "attention.cu"]),
     # every block's attention (head dim 96, 16-4096 keys) on
     # attention_sm90.cu
+    # every windowed block's attention on window_attention_sm90.cu, the
+    # global blocks' on attention_sm90.cu
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
            ["layernorm.cu", "gemm_bf16_sm90.cu", "gemm_bf16.cu",
-            "attention_sm90.cu", "pool.cu"]),
+            "window_attention_sm90.cu", "attention_sm90.cu", "pool.cu"]),
     # more than 8 rows at TMA-aligned widths (the LLM prefill) on
     # w4a8_sm90.cu; decode and other widths on w4a8.cu
     "K5": ("video_llava_seg_torch/csrc/w4a8_sm90.cu",
@@ -212,8 +220,10 @@ SOURCES = {
     "K6b": ("video_llava_seg_torch/csrc/attention_bwd_sm90.cu",
             ["attention_bwd_sm90.cu", "attention_short_bwd_sm90.cu",
              "attention_bwd.cu"]),
-    "K7": ("video_llava_seg_torch/csrc/window_attention.cu",
-           ["window_attention.cu"]),
+    # head dim 96 (every windowed block of Hiera-T / S) on
+    # window_attention_sm90.cu; other head dims on window_attention.cu
+    "K7": ("video_llava_seg_torch/csrc/window_attention_sm90.cu",
+           ["window_attention_sm90.cu", "window_attention.cu"]),
     # gemm_s8 on w8a8_sm90.cu where K and N are multiples of 16 (every
     # dense of both towers), on w8a8.cu elsewhere
     "K8": ("video_llava_seg_torch/ops/vit_block.py",
@@ -445,13 +455,18 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                     "attention_short_bwd_sm90_kernel",),
                 "w4a8_sm90.cu": ("w4a8_sm90_kernel",),
                 "w8a8_sm90.cu": ("gemm_s8_sm90_kernel",),
-                "gemm_bf16_sm90.cu": ("gemm_bf16_sm90_kernel",)}
+                "gemm_bf16_sm90.cu": ("gemm_bf16_sm90_kernel",),
+                "window_attention_sm90.cu": (
+                    "window_attention_sm90_kernel",)}
 # the instances of a templated kernel: attention_sm90.cu's <head dim,
 # bias>: D 64 / 80 / 96 / 128, the bias at 128; gemm_bf16_sm90.cu's
 # <activation>: none, quick_gelu, erf-GELU; attention_short_bwd_sm90.cu's
-# <key tile, bias>: 8 / 16 / 32 / 64 keys, with and without a bias
+# <key tile, bias>: 8 / 16 / 32 / 64 keys, with and without a bias;
+# window_attention_sm90.cu's <key tile, q pool>: 64 and 208 without, 128
+# and 208 with
 SM90_INSTANCES = {"attention_sm90.cu": 5, "gemm_bf16_sm90.cu": 3,
-                  "attention_short_bwd_sm90.cu": 8}
+                  "attention_short_bwd_sm90.cu": 8,
+                  "window_attention_sm90.cu": 4}
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
 
 
@@ -1036,10 +1051,12 @@ def trunk_dense_calls():
 K3_ENTRY = "vls_attention_short_sm90"
 # the C entry of every K2 launch (head dim 128 for the LLM, 96 for the
 # per-op trunk's global blocks) and of the attention link of every K1 /
-# K8 layer (head dims 64 / 80 over 577 keys) and of K4's blocks over at
-# least kernels.FLASH_SM90_MIN_KEYS keys (every block of the trunk)
+# K8 layer (head dims 64 / 80 over 577 keys) and of K4's global blocks
 SM90_ENTRY = "vls_flash_fwd_sm90"
 CUDA_C_ENTRY = "vls_attention_bf16"
+# the C entry of every K7 call at head dim 96 and of every windowed block
+# of a K4 trunk (kernels.window_entry)
+WINDOW_SM90_ENTRY = "vls_window_attention_sm90"
 # the C entry of the mask decoder's flash backward (K6a + K6b in one
 # pass), counted apart by kernels.ATTENTION_BWD_LAUNCHES with the pairs'
 # entries: attention_bwd_sm90.cu's for the LLM layers, attention_bwd.cu's
@@ -1048,12 +1065,10 @@ K6_SM90_PAIR = ("vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90")
 K6_CUDA_C_PAIR = ("vls_attention_bwd_dq", "vls_attention_bwd_dkv")
 
 
-def trunk_sm90_blocks():
-    """(blocks per trunk, of them those whose attention K4 sends to
-    attention_sm90.cu) for the seg head's SAM2.1-hiera-small trunk: one
-    kernels.attention call a block, over ws^2 keys a window or the whole
-    map's for a global block."""
-    from video_llava_seg_torch import kernels
+def _trunk_block_kinds():
+    """(head dim, ws, pooled, keys) of every block of the seg head's
+    SAM2.1-hiera-small trunk at its image size: ws 0 for a global block,
+    keys over a window or the whole map."""
     from video_llava_seg_torch.config import VideoLlavaConfig
     from video_llava_seg_torch.models.sam2 import hiera
     from video_llava_seg_torch.models.seg_head import make_sam2_cfg
@@ -1061,13 +1076,44 @@ def trunk_sm90_blocks():
     sc = make_sam2_cfg(VideoLlavaConfig().seg)
     dims = hiera.block_dims(sc.hiera)
     side = sc.image_size // sc.hiera.patch_stride
-    n = 0
-    for i, (_, dout, nh, ws, _) in enumerate(dims):
+    out = []
+    for i, (_, dout, nh, ws, pool) in enumerate(dims):
         hw = side // (2 ** sum(1 for j in range(i) if dims[j][4]))
-        keys = ws * ws if ws else hw * hw
-        n += kernels.attention_entry(dout // nh, False, keys,
-                                     nh) == SM90_ENTRY
-    return len(dims), n
+        out.append((dout // nh, ws, pool, ws * ws if ws else hw * hw, nh))
+    return out
+
+
+def trunk_sm90_blocks():
+    """(blocks per trunk, of them those whose attention K4 sends to
+    attention_sm90.cu) for the seg head's SAM2.1-hiera-small trunk: the
+    global blocks (one kernels.attention call each over the whole map's
+    keys) where `attention_entry` names it."""
+    from video_llava_seg_torch import kernels
+
+    kinds = _trunk_block_kinds()
+    n = sum(not ws
+            and kernels.attention_entry(hd, False, keys, nh) == SM90_ENTRY
+            for hd, ws, pool, keys, nh in kinds)
+    return len(kinds), n
+
+
+def trunk_window_launches():
+    """kernels.window_attention launches by C entry per pass of the seg
+    head's trunk, through K4 or per op (K7): one a windowed block, on the
+    entry `kernels.window_entry` names."""
+    from video_llava_seg_torch import kernels
+
+    out = dict.fromkeys(kernels.WINDOW_ROUTES, 0)
+    for hd, ws, pool, _, _ in _trunk_block_kinds():
+        if ws:
+            out[kernels.window_entry(hd, ws, 1 + pool)] += 1
+    return out
+
+
+def trunk_pool_launches():
+    """pool.cu launches per pass of the seg head's trunk through K4: the
+    shortcut of every q-pool block."""
+    return sum(pool for _, _, pool, _, _ in _trunk_block_kinds())
 
 
 def reset_launches():
@@ -1080,13 +1126,17 @@ def reset_launches():
     kernels.ATTENTION_LAUNCHES.reset()
     kernels.ATTENTION_BWD_LAUNCHES.reset()
     kernels.GEMM_BF16_LAUNCHES.reset()
+    kernels.WINDOW_LAUNCHES.reset()
+    kernels.MAXPOOL_LAUNCHES.reset()
 
 
 def snapshot_launches():
     """The K1..K8 counts just after a main path ran, under "K3 entry" the
     launches of attention_short_sm90.cu among them, under "sm90 entry"
-    those of attention_sm90.cu, the flash backward's launches (K6a / K6b)
-    and kernels.gemm's (the denses of K1 and K4) by C entry."""
+    those of attention_sm90.cu, the flash backward's launches (K6a / K6b),
+    kernels.gemm's (the denses of K1 and K4) and kernels.window_attention's
+    (K7 and K4's windowed blocks) by C entry, and pool.cu's under
+    "pool"."""
     from video_llava_seg_torch import kernels
 
     counts = kernels.LAUNCHES.snapshot()
@@ -1095,6 +1145,9 @@ def snapshot_launches():
     counts["sm90 entry"] = by_entry[SM90_ENTRY]
     counts.update(kernels.ATTENTION_BWD_LAUNCHES.snapshot())
     counts.update(kernels.GEMM_BF16_LAUNCHES.snapshot())
+    counts.update(kernels.WINDOW_LAUNCHES.snapshot())
+    counts["pool"] = kernels.MAXPOOL_LAUNCHES.snapshot()[
+        "vls_maxpool2x2_bf16"]
     return counts
 
 
@@ -1102,9 +1155,12 @@ def check_launches(tag, counts, expect, why, bwd=None):
     """Every kernel the path runs launched, exactly as often as expected,
     every K3 launch took attention_short_sm90.cu, attention_sm90.cu
     served every K2 launch, the attention link of every K1 / K8 layer and
-    the trunk's blocks `trunk_sm90_blocks` names, and gemm_bf16_sm90.cu
-    every dense of K1 and K4 (`trunk_dense_calls`). bwd: the flash
-    backward's launches expected by C entry (a path with a backward)."""
+    the trunk's blocks `trunk_sm90_blocks` names, gemm_bf16_sm90.cu every
+    dense of K1 and K4 (`trunk_dense_calls`), window_attention_sm90.cu
+    every windowed block of a K4 trunk and every K7 call
+    (`trunk_window_launches`), and pool.cu only what
+    `trunk_pool_launches` counts. bwd: the flash backward's launches
+    expected by C entry (a path with a backward)."""
     from video_llava_seg_torch import kernels
 
     for name in kernels.LaunchCounts.NAMES:
@@ -1141,6 +1197,23 @@ def check_launches(tag, counts, expect, why, bwd=None):
     if got != want:
         raise AssertionError(f"{tag}: kernels.gemm routes {got}, expected "
                              f"{want}")
+    trunks = counts["K4"] // n_blocks
+    win = trunk_window_launches()
+    per_op = counts["K7"] // max(sum(win.values()), 1)
+    want = {e: (trunks + per_op) * win[e] for e in win}
+    got = {e: counts[e] for e in want}
+    log(f"[{tag}] kernels.window_attention launches by C entry: {got} "
+        f"(expected {want}: {win} per trunk x {trunks} K4 trunks + "
+        f"{per_op} per-op trunks)")
+    if got != want:
+        raise AssertionError(f"{tag}: kernels.window_attention routes {got}, "
+                             f"expected {want}")
+    want = trunks * trunk_pool_launches()
+    log(f"[{tag}] pool.cu launches: {counts['pool']} (expected {want}: "
+        f"{trunk_pool_launches()} per K4 trunk x {trunks})")
+    if counts["pool"] != want:
+        raise AssertionError(f"{tag}: {counts['pool']} pool.cu launches, "
+                             f"expected {want}")
     if bwd is not None:
         got = {e: counts[e] for e in bwd}
         log(f"[{tag}] flash backward launches by C entry: {got} (expected "
@@ -1481,13 +1554,14 @@ def hiera_window_kinds(cfg):
 
 def phase_k7_checks(cfg, seed, dev, results):
     """K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
-    the 8 seg frames, against `window_attention_plain`; beside it SDPA
-    over the partitioned windows (the partition copy timed apart) and the
-    time of K4's current attention stage (partition + attention.cu +
-    unpartition) on the same map, and K4's attention call on these
-    windows through both C entries, attention.cu (its route) and
-    attention_sm90.cu (forced): kernels.FLASH_SM90_MIN_KEYS comes from
-    these times. Returns the comparison rows."""
+    the 8 seg frames, on the C entry `kernels.window_entry` names
+    (window_attention_sm90.cu at head dim 96, the route asserted),
+    against `window_attention_plain`, over 10 launches back to back and
+    by device time; beside it window_attention.cu (forced by `route`),
+    SDPA over the partitioned windows (the partition copy timed apart),
+    K4's attention stage (partition + [pool.cu] + attention_sm90.cu +
+    unpartition + crop) and K4's call of the new kernel (the crop written
+    directly). Returns the comparison rows."""
     import torch.nn.functional as F
 
     from video_llava_seg_torch import kernels
@@ -1510,6 +1584,10 @@ def phase_k7_checks(cfg, seed, dev, results):
         scale = hd ** -0.5
         qs, nwr = ws // ps, hp // ws
         n_win = bt * nwr * nwr
+        route = kernels.window_entry(hd, ws, ps)
+        if route != WINDOW_SM90_ENTRY:
+            raise AssertionError(f"K7 at ws {ws}, pool {ps}, head dim {hd} "
+                                 f"routes to {route}")
 
         def partition():
             x = qkv.view(bt, nwr, ws, nwr, ws, 3, nh, hd).permute(
@@ -1527,6 +1605,11 @@ def phase_k7_checks(cfg, seed, dev, results):
                f"{f' (padded to {hp})' if hp != hw else ''}: qkv "
                f"{list(qkv.shape)} h{nh}")
         out_bytes = bt * (hp // ps) ** 2 * dout * 2
+        got = window_attention(qkv, num_heads=nh, ws=ws, q_pool=q_pool)
+        if not torch.equal(got, window_attention(qkv, num_heads=nh, ws=ws,
+                                                 q_pool=q_pool)):
+            raise AssertionError(f"K7 {tag}: two calls differ")
+        del got
         _check("K7", tag,
                lambda: window_attention(qkv, num_heads=nh, ws=ws,
                                         q_pool=q_pool),
@@ -1534,46 +1617,53 @@ def phase_k7_checks(cfg, seed, dev, results):
                lambda: window_attention_plain(qkv.float(), **kw), results,
                (_nbytes(qkv) + out_bytes,
                 4 * n_win * nh * qs * qs * ws * ws * hd, PEAK_BF16),
-               run_library=lambda: F.scaled_dot_product_attention(q, k, v))
+               run_library=lambda: F.scaled_dot_product_attention(q, k, v),
+               run_previous=lambda: kernels.window_attention(
+                   qkv, **kw, route="vls_window_attention"),
+               previous="window_attention.cu", train=10, device_time=True)
         r = results["K7"]["shapes"][-1]
-        part_ms = cuda_ms(partition)
-        k4_ms = cuda_ms(lambda: attention_stage(qkv, num_heads=nh, ws=ws,
-                                                ps=ps).contiguous())
-
-        def k4_call(route):
-            return kernels.attention(q, k, v, scale=scale, route=route)
-
-        old, new = k4_call(CUDA_C_ENTRY), k4_call(SM90_ENTRY)
+        part_ms = cuda_ms(partition, train=10)
+        oh = hw // ps
+        crop = (oh, oh)
+        stage = attention_stage(qkv, num_heads=nh, ws=ws, ps=ps)[
+            :, :oh, :oh].contiguous()
+        new = kernels.window_attention(qkv, **kw, out_hw=crop)
         sync()
-        rel = ((new.float() - old.float()).abs().max()
-               / old.float().abs().max()).item()
+        rel = ((new.float() - stage.float()).abs().max()
+               / stage.float().abs().max()).item()
         if not math.isfinite(rel) or rel > BOUNDS["K2"]:
-            raise AssertionError(f"K4 window call {tag}: the two entries "
-                                 f"differ by {rel:.3e}")
-        del old, new
-        entry_ms = {e: cuda_ms(lambda: k4_call(e), train=10)
-                    for e in (CUDA_C_ENTRY, SM90_ENTRY)}
-        route = kernels.attention_entry(hd, False, ws * ws, nh)
-        rows.append({"shape": tag, "k7_ms": r["ms"], "bound_ms":
-                     r["bound_ms"], "sdpa_ms": r["library_ms"],
-                     "partition_ms": part_ms, "k4_stage_ms": k4_ms,
-                     "keys": ws * ws, "queries": qs * qs,
-                     "k4_call_ms": entry_ms, "k4_route": route})
-        log(f"[k7] {tag}: K7 {r['ms']:.4f} ms; K4's attention stage "
-            f"(partition + attention.cu + unpartition) {k4_ms:.4f} ms; "
-            f"SDPA {r['library_ms']:.4f} ms + its partition copy "
-            f"{part_ms:.4f} ms; K4's attention call over {ws * ws} keys "
-            f"on attention.cu {entry_ms[CUDA_C_ENTRY]:.4f} ms, on "
-            f"attention_sm90.cu {entry_ms[SM90_ENTRY]:.4f} ms (routed to "
-            f"{route}; entries differ by {rel:.2e})")
+            raise AssertionError(f"K4's window call {tag}: the new kernel and "
+                                 f"the stage differ by {rel:.3e}")
+        del new, stage
+        k4_stage_ms = cuda_ms(lambda: attention_stage(
+            qkv, num_heads=nh, ws=ws, ps=ps)[:, :oh, :oh].contiguous(),
+            train=10)
+        k4_new_ms = cuda_ms(lambda: kernels.window_attention(
+            qkv, **kw, out_hw=crop), train=10)
+        rows.append({"shape": tag, "blocks": sum(
+                         1 for d in _trunk_block_kinds()
+                         if d[1] == ws and d[2] == pool and d[0] == hd),
+                     "k7_ms": r["ms"], "k7_device_ms": r["device_ms"],
+                     "bound_ms": r["bound_ms"],
+                     "window_attention_cu_ms": r["previous_ms"],
+                     "sdpa_ms": r["library_ms"], "partition_ms": part_ms,
+                     "k4_stage_ms": k4_stage_ms, "k4_new_ms": k4_new_ms,
+                     "keys": ws * ws,
+                     "queries": qs * qs})
+        log(f"[k7] {tag}: window_attention_sm90.cu {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f}, {r['bound_ms'] / r['device_ms']:.3f} of "
+            f"the bound {r['bound_ms']:.4f}); window_attention.cu "
+            f"{r['previous_ms']:.4f} ms; SDPA {r['library_ms']:.4f} ms + its "
+            f"partition copy {part_ms:.4f} ms; K4: its old attention stage "
+            f"{k4_stage_ms:.4f} ms, the new kernel with the crop "
+            f"{k4_new_ms:.4f} ms (they differ by {rel:.2e})")
         del qkv, q, k, v
         torch.cuda.empty_cache()
-    faster = sorted({row["keys"] for row in rows
-                     if row["k4_call_ms"][SM90_ENTRY]
-                     < row["k4_call_ms"][CUDA_C_ENTRY]})
-    log(f"[k7] K4's window calls faster on attention_sm90.cu at "
-        f"{faster or 'no'} keys; the route sends >= "
-        f"{kernels.FLASH_SM90_MIN_KEYS} keys there")
+    per_trunk = {key: sum(row[key] * row["blocks"] for row in rows)
+                 for key in ("k7_ms", "bound_ms", "k4_stage_ms", "k4_new_ms",
+                             "window_attention_cu_ms")}
+    log(f"[k7] per trunk (blocks x kinds): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_trunk.items()))
     sync()
     return rows
 

@@ -5,7 +5,7 @@ GPU. Run it on two trees in turns (parent, change, change, parent) to
 compare them in one call on one card.
 
     python3 scripts/time_dense_paths.py [--root DIR] [--seed N]
-        [--dense_only] [--out FILE]
+        [--phases PHASE ...] [--out FILE]
 
 --root: a checkout of the repository (default: the one holding this
 script) whose `chip_smoke.py` and `video_llava_seg_torch` are imported,
@@ -31,8 +31,10 @@ are timed at the same ones. Prints one JSON object (also written to
 - "w8a8_encode": chip_smoke's phase 12, the W8A8 and bf16 encodes of
   CLIP-L and RADIO-H (median / min / max of 7 interleaved rounds);
 - "trunk": phase 13, the per-op and the K4 Hiera trunk over 8 frames.
---dense_only stops after "dense". Each phase asserts its own launch
-counts, as chip_smoke.py does.
+--phases runs only the phases it names, in this order (default: all of
+them; e.g. `--phases layers trunk` for the K4 block kinds and both
+trunks). Each phase asserts its own launch counts, as chip_smoke.py
+does.
 """
 
 from __future__ import annotations
@@ -217,11 +219,14 @@ def layer_times(cs, cfg, dev):
     return out
 
 
+PHASES = ("dense", "links", "layers", "w8a8_encode", "trunk")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(OWN_ROOT))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dense_only", action="store_true")
+    ap.add_argument("--phases", nargs="+", choices=PHASES, default=PHASES)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -243,13 +248,16 @@ def main(argv=None):
     cfg = dataclasses.replace(
         VideoLlavaConfig(), seg_token_idx=VideoLlavaConfig().llm.vocab_size
         - 1)
-    result = {"root": str(root), "card": smi,
-              "dense": dense_times(cs, dense_cases(cfg), dev)}
-    if not args.dense_only:
-        result["links"] = link_times(cs, dev)
-        result["layers"] = layer_times(cs, cfg, dev)
-        result["w8a8_encode"] = cs.phase_w8a8_encode(cfg, args.seed, dev)[1]
-        result["trunk"] = cs.phase_hiera_per_op(cfg, args.seed, dev)[1]
+    phases = {
+        "dense": lambda: dense_times(cs, dense_cases(cfg), dev),
+        "links": lambda: link_times(cs, dev),
+        "layers": lambda: layer_times(cs, cfg, dev),
+        "w8a8_encode": lambda: cs.phase_w8a8_encode(cfg, args.seed, dev)[1],
+        "trunk": lambda: cs.phase_hiera_per_op(cfg, args.seed, dev)[1]}
+    result = {"root": str(root), "card": smi}
+    for name in PHASES:
+        if name in args.phases:
+            result[name] = phases[name]()
     line = json.dumps(result)
     print(line, flush=True)
     if args.out:

@@ -26,6 +26,7 @@ from video_llava_seg_torch.ops import hiera_block as thb
 from video_llava_seg_torch.ops import nn as tnn
 from video_llava_seg_torch.ops import vit_block as tvb
 from video_llava_seg_torch.ops.attention import attention_reference
+from video_llava_seg_torch.ops.window_attention import window_attention_plain
 from video_llava_seg_tpu.ops import nn as jnn
 from video_llava_seg_tpu.ops.vit_block import _quick_gelu_f32
 
@@ -273,8 +274,16 @@ def stand_ins(monkeypatch):
             mask = (torch.arange(k.shape[2]) < kv_len).expand(k.shape[0], -1)
         return attention_reference(q, k, v, scale=scale, kv_mask=mask)
 
+    def window_attention(qkv, *, num_heads, ws, scale, ps=1, out_hw=None):
+        o = window_attention_plain(qkv, num_heads=num_heads, ws=ws,
+                                   scale=scale, ps=ps)
+        if out_hw is not None:
+            o = o[:, :out_hw[0], :out_hw[1]].contiguous()
+        return o
+
     monkeypatch.setattr(kernels, "gemm", gemm)
     monkeypatch.setattr(kernels, "attention", attention)
+    monkeypatch.setattr(kernels, "window_attention", window_attention)
     monkeypatch.setattr(kernels, "layernorm", lambda x, g, b, eps:
                         tnn.layer_norm({"scale": g, "bias": b}, x, eps))
     monkeypatch.setattr(kernels, "maxpool2x2", thb.max_pool_2x2)

@@ -12,34 +12,39 @@ held against `flash_backward_plain` / `flash_forward_plain` in fp32 on
 the same bf16 inputs, with the same bound; every kernel op's output must
 carry a grad_fn when an input requires grad. K7 (window attention from
 the fused-qkv map) is held against `window_attention_plain` in fp32 with
-the same bound; K8's building blocks are exact where the TPU kernel's
-arithmetic is (gemm_s8, csrc/w8a8_sm90.cu where K and N are multiples of
-16 and csrc/w8a8.cu elsewhere, bit-equal to the float64 int8 product, to
+the same bound, and at head dim 96 (csrc/window_attention_sm90.cu, TMA +
+wgmma) at the seven Hiera-S kinds within 1e-2, two calls bit-identical,
+its crop equal to the full map's; K4's windowed blocks take it (one
+launch a block, no attention launch, pool.cu only for the shortcut);
+K8's building blocks are exact where the TPU kernel's arithmetic is
+(gemm_s8, csrc/w8a8_sm90.cu where K and N are multiples of 16 and
+csrc/w8a8.cu elsewhere, bit-equal to the float64 int8 product, to
 nn.dense's epilogue, to `gemm_s8_plain` in every epilogue and to each
-other; quant_rows bit-equal to `quantize_activations_rowwise`), and the whole W8A8 layer is held
-against `vit_layer_plain` over the same quantized tree in bf16 (bound
-3e-2: an int8 rounding flip of a bf16 activation moves a row by one
-quantization step). K2 at head dim 128 (csrc/attention_sm90.cu, TMA +
-wgmma) is held to the same bound, to its logsumexp within 1e-5 (both sum
-exp() in fp32 over the same scores), and on a left-pad row that sees only
-masked keys to the mean of its visible V rows. K3 at head dim 16 over
-at most 64 keys (csrc/attention_short_sm90.cu) is held to the same
-bounds on the mask decoder's [B, S, H, 16] views, and a row no key is
-visible to at O = 0, lse = 0. The online form at head dims 64 / 80 / 96
-(csrc/attention_sm90.cu, persistent) is held to the plain forward
-within 1e-2 relative (chip_smoke.py's BOUNDS["K2"]), to its logsumexp
-within 1e-5, to attention_reference and to attention.cu (forced by
-`route`) at the towers' links, the trunk's global block, 577 rows with
-kv_len, Sq < 64, GQA and causal cases, and a
-row no key is visible to at O = 0, lse = 0; K1 and K4 take it on the
-card. K6a / K6b at head dim 128
-(csrc/attention_bwd_sm90.cu) are held to the plain backward with the same
-bound, and on the left-pad rows, which the plain backward treats
+other; quant_rows bit-equal to `quantize_activations_rowwise`), and the
+whole W8A8 layer is held against `vit_layer_plain` over the same
+quantized tree in bf16 (bound 3e-2: an int8 rounding flip of a bf16
+activation moves a row by one quantization step). K2 at head dim 128
+(csrc/attention_sm90.cu, TMA + wgmma) is held to the same bound, to its
+logsumexp within 1e-5 (both sum exp() in fp32 over the same scores), and
+on a left-pad row that sees only masked keys to the mean of its visible
+V rows. K3 at head dim 16 over at most 64 keys
+(csrc/attention_short_sm90.cu) is held to the same bounds on the mask
+decoder's [B, S, H, 16] views, and a row no key is visible to at O = 0,
+lse = 0. The online form at head dims 64 / 80 / 96
+(csrc/attention_sm90.cu, persistent) is held to the plain forward within
+1e-2 relative (chip_smoke.py's BOUNDS["K2"]), to its logsumexp within
+1e-5, to attention_reference and to attention.cu (forced by `route`) at
+the towers' links, the trunk's global block, 577 rows with kv_len, Sq <
+64, GQA and causal cases, and a row no key is visible to at O = 0, lse =
+0; K1 and K4 take it on the card. K6a / K6b at head dim 128
+(csrc/attention_bwd_sm90.cu) are held to the plain backward with the
+same bound, and on the left-pad rows, which the plain backward treats
 differently, to attention_bwd.cu at the same inputs. K6a + K6b in one
-pass at head dim 16 over at most 64 keys (csrc/attention_short_bwd_sm90.cu)
-are held to the plain backward with the same bound on the mask decoder's
-views, GQA, causal and bias cases, with masked keys at exactly zero dK /
-dV, a row no key is visible to at dQ = 0, and two calls bit-identical.
+pass at head dim 16 over at most 64 keys
+(csrc/attention_short_bwd_sm90.cu) are held to the plain backward with
+the same bound on the mask decoder's views, GQA, causal and bias cases,
+with masked keys at exactly zero dK / dV, a row no key is visible to at
+dQ = 0, and two calls bit-identical.
 Run on the card:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
@@ -456,6 +461,121 @@ def test_window_attention_kernel(dev, shape, heads, ws, ps):
     hd = shape[-1] // 3 // heads
     want = window_attention_plain(qkv.float(), num_heads=heads, ws=ws,
                                   scale=hd ** -0.5, ps=ps)
+    assert got.shape == want.shape
+    assert _rel(got, want) < BOUND
+
+
+# window_attention_sm90.cu at the seven window kinds of SAM2.1-hiera-small
+# at 1024^2 (head dim 96; batch 1-2 of the 8 frames): two heads and more,
+# pad keys (ws 7: 49 of 64, ws 14: 196 of 208), packed windows (ws 4, the
+# pooled ws 4 / 8)
+WINDOW_SM90_KINDS = [
+    ((1, 256, 256, 3 * 96), 1, 8, 1),
+    ((1, 256, 256, 3 * 192), 2, 8, 2),
+    ((2, 128, 128, 3 * 192), 2, 4, 1),
+    ((2, 128, 128, 3 * 384), 4, 4, 2),
+    ((2, 70, 70, 3 * 384), 4, 14, 1),
+    ((2, 70, 70, 3 * 768), 8, 14, 2),
+    ((2, 35, 35, 3 * 768), 8, 7, 1),
+]
+WINDOW_BOUND = 1e-2  # chip_smoke.py's BOUNDS["K7"]
+
+
+@pytest.mark.parametrize("shape,heads,ws,ps", WINDOW_SM90_KINDS)
+def test_window_attention_sm90_kinds(dev, shape, heads, ws, ps):
+    """K7 takes window_attention_sm90.cu at every Hiera-S kind: within
+    1e-2 of the plain version in fp32, two calls bit-identical, its crop
+    (out_hw) equal to the full map's, and window_attention.cu (forced)
+    within the same bound."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    qkv = _randn(g, *shape, dev=dev)
+    q_pool = (ps, ps) if ps > 1 else None
+    hd = shape[-1] // 3 // heads
+    assert kernels.window_entry(hd, ws, ps) == kernels.WINDOW_SM90_ENTRY
+    before = kernels.WINDOW_LAUNCHES.snapshot()
+    got = window_attention(qkv, num_heads=heads, ws=ws, q_pool=q_pool)
+    after = kernels.WINDOW_LAUNCHES.snapshot()
+    assert after[kernels.WINDOW_SM90_ENTRY] == \
+        before[kernels.WINDOW_SM90_ENTRY] + 1
+    assert after["vls_window_attention"] == before["vls_window_attention"]
+    want = window_attention_plain(qkv.float(), num_heads=heads, ws=ws,
+                                  scale=hd ** -0.5, ps=ps)
+    assert got.shape == want.shape
+    assert _rel(got, want) < WINDOW_BOUND
+    again = window_attention(qkv, num_heads=heads, ws=ws, q_pool=q_pool)
+    assert torch.equal(got, again)
+    oh, ow = shape[1] // ps - 3, shape[2] // ps - 1
+    crop = kernels.window_attention(qkv, num_heads=heads, ws=ws,
+                                    scale=hd ** -0.5, ps=ps, out_hw=(oh, ow))
+    assert crop.is_contiguous() and torch.equal(crop, got[:, :oh, :ow])
+    old = kernels.window_attention(qkv, num_heads=heads, ws=ws,
+                                   scale=hd ** -0.5, ps=ps,
+                                   route="vls_window_attention")
+    assert _rel(old, want) < WINDOW_BOUND
+
+
+def test_window_attention_sm90_refusals_on_the_card(dev):
+    """The new route at a head dim or window it does not take raises
+    before any launch."""
+    qkv = torch.zeros((1, 16, 16, 3 * 128), device=dev, dtype=torch.bfloat16)
+    before = kernels.WINDOW_LAUNCHES.snapshot()
+    with pytest.raises(ValueError, match="serves head dim 96"):
+        kernels.window_attention(qkv, num_heads=2, ws=8, scale=0.1,
+                                 route=kernels.WINDOW_SM90_ENTRY)
+    with pytest.raises(ValueError, match="serves head dim 96"):
+        kernels.window_attention(qkv[..., :3 * 96].contiguous(), num_heads=1,
+                                 ws=16, scale=0.1,
+                                 route=kernels.WINDOW_SM90_ENTRY)
+    assert kernels.WINDOW_LAUNCHES.snapshot() == before
+
+
+# K4's windowed blocks at head dim 96: (shape, heads, ws, ps, proj)
+HIERA_WINDOW_KINDS = [
+    ((2, 32, 32, 96), 1, 8, 1, False),
+    ((2, 32, 32, 96), 2, 8, 2, True),
+    ((2, 16, 16, 192), 2, 4, 1, False),
+    ((2, 16, 16, 192), 4, 4, 2, True),
+    ((1, 16, 16, 384), 4, 14, 1, False),   # padded to 28
+    ((1, 16, 16, 384), 8, 14, 2, True),    # padded to 28, pooled to 8
+    ((2, 8, 8, 768), 8, 7, 1, False),      # padded to 14
+    # Hiera-B+ / L's head dims 56 / 72 (window_attention.cu)
+    ((2, 32, 32, 112), 2, 8, 1, False),
+    ((1, 16, 16, 144), 4, 8, 2, True),
+    ((1, 16, 16, 144), 2, 14, 1, False),   # padded to 28
+]
+
+
+@pytest.mark.parametrize("shape,heads,ws,ps,proj", HIERA_WINDOW_KINDS)
+def test_hiera_block_window_sm90(dev, shape, heads, ws, ps, proj):
+    """K4's chain sends a windowed block's attention to one launch of the
+    entry `window_entry` names (window_attention_sm90.cu at head dim 96,
+    window_attention.cu at 56 / 72; no attention launch, pool.cu only
+    for the shortcut) and stays within 2e-2 of `hiera_block_plain`."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, h, w, din = shape
+    dout = 2 * din if proj else din
+    blk = {"norm1": _ln(g, din, dev), "norm2": _ln(g, dout, dev),
+           "qkv": _dense(g, din, 3 * dout, dev),
+           "proj_attn": _dense(g, dout, dout, dev),
+           "mlp": {"layers": [_dense(g, dout, 4 * dout, dev),
+                              _dense(g, 4 * dout, dout, dev)]}}
+    if proj:
+        blk["proj"] = _dense(g, din, dout, dev)
+    x = _randn(g, *shape, dev=dev)
+    q_stride = (ps, ps) if ps > 1 else None
+    counts = (kernels.WINDOW_LAUNCHES, kernels.ATTENTION_LAUNCHES,
+              kernels.MAXPOOL_LAUNCHES)
+    before = [c.snapshot() for c in counts]
+    got = hiera_block(blk, x, num_heads=heads, ws=ws, q_stride=q_stride)
+    after = [c.snapshot() for c in counts]
+    win = {e: after[0][e] - before[0][e] for e in after[0]}
+    entry = kernels.window_entry(dout // heads, ws, ps)
+    assert win == {e: int(e == entry) for e in kernels.WINDOW_ROUTES}
+    assert after[1] == before[1]
+    assert (after[2]["vls_maxpool2x2_bf16"]
+            - before[2]["vls_maxpool2x2_bf16"]) == (ps > 1)
+    want = hiera_block_plain(_f32(blk), x.float(), num_heads=heads, ws=ws,
+                             q_stride=q_stride, eps=1e-6)
     assert got.shape == want.shape
     assert _rel(got, want) < BOUND
 

@@ -26,7 +26,9 @@ C entry it took (`gemm_s8_entry`), inside K8 and out;
 (`attention_entry`); `ATTENTION_BWD_LAUNCHES` every flash-backward
 launch by its C entry (`attention_bwd_entry`); `GEMM_BF16_LAUNCHES` every
 `gemm` launch (the bf16 denses of K1 and K4) by its C entry
-(`gemm_bf16_entry`).
+(`gemm_bf16_entry`); `WINDOW_LAUNCHES` every `window_attention` launch
+(K7's, and the windowed attention of K4's chain) by its C entry
+(`window_entry`); `MAXPOOL_LAUNCHES` every `maxpool2x2` launch.
 """
 
 from __future__ import annotations
@@ -77,14 +79,19 @@ _SIGNATURES = {
     "vls_gemm_s8": [_P] * 7 + [_I] * 5 + [_F, _P],
     "vls_gemm_s8_sm90": [_P] * 8 + [_I] * 5 + [_F, _P],
     "vls_window_attention": [_P, _P] + [_I] * 7 + [_F, _P],
+    "vls_window_attention_sm90": [_P] * 3 + [_I] * 12 + [_F, _P],
 }
 
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # attention_sm90.cu: the online form at these head dims, over at least
-# FLASH_SM90_MIN_KEYS keys below head dim 128 (K4's smallest windows, 4 x
-# 4: on an H100 it beat attention.cu at every window kind of the trunk,
-# 16-196 keys; fewer keys were not measured and stay on attention.cu);
+# FLASH_SM90_MIN_KEYS keys below head dim 128. The threshold was measured
+# when K4's windowed blocks ran through `attention` (on an H100 it beat
+# attention.cu at every window kind of the trunk, 16-196 keys; fewer keys
+# were not measured and stay on attention.cu). Those blocks now take
+# `window_attention`, so no main-path call comes near it: the towers' link
+# has 577 keys and K4's global blocks the whole stage-3 map's (4096 at
+# 1024^2);
 # the per-key bias only at FLASH_SM90_HEAD_DIM (the LLM's, also the head
 # dim of attention_bwd_sm90.cu). Its leading TMA box is 64 bf16 columns
 # (one 128-byte swizzle row) by 128 rows of one head of one batch row, in
@@ -156,6 +163,23 @@ W4A8_GEMV_TARGET_BLOCKS = 132 * 8
 # window_attention.cu: all of a window's keys sit in shared memory
 WINDOW_MAX_KEYS = 256
 WINDOW_MAX_HEAD_DIM = 128
+# window_attention_sm90.cu (K7 on TMA + wgmma) at head dim 96: a work unit
+# is a strip of sw pixels of one window row (nw = sw / ws windows side by
+# side) of one head; its k and v are each one TMA box (64 | 32 columns,
+# sw, ws, 1) of a 4-D map over qkv (dims 3C, Wp, Hp, B), its queries nqb
+# boxes (64 | 32, sw, qh, 1) of at most WINDOW_SM90_ROWS rows (one query
+# tile each, or with the q pool one pooled tile together). All of a
+# strip's keys sit in one wgmma N tile of 64 or 208 keys (128 or 208 with
+# the q pool): at most WINDOW_SM90_MAX_KEYS. Several windows share a strip
+# (a block-diagonal mask keeps them apart) where a window's queries would
+# leave a tile mostly empty: up to WINDOW_SM90_ROWS keys a strip without
+# the q pool, 128 with it (power-of-two windows only).
+WINDOW_SM90_ENTRY = "vls_window_attention_sm90"
+WINDOW_SM90_HEAD_DIM = 96
+WINDOW_SM90_ROWS = 64
+WINDOW_SM90_MAX_KEYS = 208
+WINDOW_SM90_POOL_KEYS = 128
+WINDOW_SM90_BOX_COLS = (64, 32)
 
 
 class LaunchCounts:
@@ -198,6 +222,13 @@ ATTENTION_BWD_ROUTES = ("vls_attention_bwd_dq", "vls_attention_bwd_dkv",
                         "vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90",
                         SHORT_BWD_SM90_ENTRY)
 ATTENTION_BWD_LAUNCHES = LaunchCounts(ATTENTION_BWD_ROUTES)
+# window_attention's launches by C entry: K7 counts the per-op trunk's
+# calls, and K4's chain calls it too
+WINDOW_ROUTES = ("vls_window_attention", WINDOW_SM90_ENTRY)
+WINDOW_LAUNCHES = LaunchCounts(WINDOW_ROUTES)
+# pool.cu's launches: K4's shortcut pooling (and its q pooling where the
+# chain keeps its attention stage)
+MAXPOOL_LAUNCHES = LaunchCounts(("vls_maxpool2x2_bf16",))
 
 
 class _Library:
@@ -512,8 +543,8 @@ def attention_entry(d: int, two_pass: bool, skv: int, hkv: int,
     hkv kv heads (`bias`: with a per-key bias): the TMA + wgmma kernel of
     csrc/attention_sm90.cu for the online form at head dim 128 (the LLM),
     and at head dims 64 / 80 / 96 without a bias over at least
-    FLASH_SM90_MIN_KEYS keys (the towers' attention link, every block of
-    the Hiera trunk); csrc/attention_short_sm90.cu for the two-pass
+    FLASH_SM90_MIN_KEYS keys (the towers' attention link, the Hiera
+    trunk's global blocks); csrc/attention_short_sm90.cu for the two-pass
     form (K3) at head dim 16 where all keys fit one wgmma N tile (skv <=
     64) and a batch row's K/V fit a resident slot (the SAM2 mask decoder's
     image->token attention); csrc/attention.cu for every other call (head
@@ -962,6 +993,7 @@ def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, h // 2, w // 2, c), device=x.device, dtype=x.dtype)
     _check_code("maxpool2x2", LIBRARY.get().vls_maxpool2x2_bf16(
         _ptr(x), _ptr(y), n, h, w, c, _stream()))
+    MAXPOOL_LAUNCHES.add("vls_maxpool2x2_bf16")
     return y
 
 
@@ -1221,17 +1253,98 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor,
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def window_sm90_plan(ws: int, ps: int):
+    """window_attention_sm90.cu's plan for windows of ws x ws pixels with
+    q pool ps: (sw, qh, nqb) = strip width in pixels, window rows of a
+    query box, query boxes a unit; None where the kernel does not take
+    the windows (more than WINDOW_SM90_MAX_KEYS keys, or no pooled tile
+    of whole 2x2 cells). Without the pool: sw * qh <= 64 query rows a box
+    (one box of all ws rows where they fit, else boxes of 64 // sw rows);
+    with it: boxes of an even qh whose pooled rows make one tile."""
+    if ws <= 0 or ps not in (1, 2) or ws % ps:
+        return None
+    rows = WINDOW_SM90_ROWS
+    pow2 = ws & (ws - 1) == 0
+    per_strip = rows if ps == 1 else WINDOW_SM90_POOL_KEYS
+    nw = per_strip // (ws * ws) if pow2 and ws * ws < per_strip else 1
+    sw = nw * ws
+    if sw * ws > WINDOW_SM90_MAX_KEYS:
+        return None
+    if ps == 1:
+        qh = ws if sw * ws <= rows else rows // sw
+        nqb = -(-ws // qh)
+    else:
+        qh = min(rows // sw, ws) // 2 * 2
+        if qh < 2:
+            return None
+        nqb = -(-ws // qh)
+        if nqb * (qh // 2) * (sw // 2) > rows:
+            return None
+    return sw, qh, nqb
+
+
+def window_entry(hd: int, ws: int, ps: int) -> str:
+    """The C entry that serves `window_attention` at head dim hd over ws x
+    ws windows with q pool ps: the TMA + wgmma kernel of
+    csrc/window_attention_sm90.cu at head dim 96 (every windowed block of
+    SAM2.1-hiera-tiny / small) where `window_sm90_plan` takes the windows,
+    csrc/window_attention.cu for every other call (Hiera-B+'s head dim 56,
+    Hiera-L's 72, windows of more than WINDOW_SM90_MAX_KEYS keys). K4's
+    chain sends every windowed block's attention to the kernel this
+    names (on an H100 the TMA + wgmma one beat the chain's former
+    partition + attention_sm90.cu stage at every Hiera-S kind)."""
+    if hd == WINDOW_SM90_HEAD_DIM and window_sm90_plan(ws, ps) is not None:
+        return WINDOW_SM90_ENTRY
+    return "vls_window_attention"
+
+
+@functools.lru_cache(maxsize=256)
+def window_sm90_geometry(shape, ws: int, ps: int):
+    """The four bf16 tensor maps that csrc/window_attention_sm90.cu
+    encodes over a contiguous qkv [B, Hp, Wp, 3C], 4 x 11 int64: each dims
+    (3C, Wp, Hp, B) innermost first, the byte strides of Wp, Hp and B, and
+    its box: (64, sw, ws, 1) and (32, sw, ws, 1) for k and v (the 64- and
+    the 32-column box, 128- and 64-byte swizzle), (64, sw, qh, 1) and
+    (32, sw, qh, 1) for q, with (sw, qh) from `window_sm90_plan`. TMA
+    needs byte strides in multiples of 16 below 2^40."""
+    plan = window_sm90_plan(ws, ps)
+    if plan is None:
+        raise ValueError(f"window_attention_sm90: no plan for ws {ws}, "
+                         f"pool {ps}")
+    sw, qh, _ = plan
+    b, hp, wp, c3 = shape
+    strides = (2 * c3, 2 * wp * c3, 2 * hp * wp * c3)
+    if min(strides) <= 0 or any(s % 16 or s >= 1 << 40 for s in strides):
+        raise ValueError(f"window_attention_sm90: TMA needs byte strides "
+                         f"that are positive multiples of 16 below 2^40, "
+                         f"got {strides}")
+    geom = ()
+    for cols in WINDOW_SM90_BOX_COLS:
+        geom += (c3, wp, hp, b) + strides + (cols, sw, ws, 1)
+    for cols in WINDOW_SM90_BOX_COLS:
+        geom += (c3, wp, hp, b) + strides + (cols, sw, qh, 1)
+    return array.array("q", geom)
+
+
 def window_attention(qkv: torch.Tensor, *, num_heads: int, ws: int,
-                     scale: float, ps: int = 1) -> torch.Tensor:
+                     scale: float, ps: int = 1, out_hw=None,
+                     route: Optional[str] = None) -> torch.Tensor:
     """Windowed SDPA over a contiguous fused-qkv NHWC map [B, H, W, 3C]
     (H, W multiples of ws); ps = 2 max-pools q 2x2 per window. Returns
-    [B, H/ps, W/ps, C] bf16."""
-    _require(qkv, "window_attention qkv")
+    [B, H/ps, W/ps, C] bf16, or with out_hw = (oh, ow) its crop [B, oh,
+    ow, C] (window_attention_sm90.cu writes the crop directly). The shape
+    chooses the kernel (`window_entry`); `route` names a C entry of
+    WINDOW_ROUTES instead, for the tests and for timing
+    window_attention.cu beside the kernel that took its calls."""
+    if route is not None and route not in WINDOW_ROUTES:
+        raise ValueError(f"window_attention: route must be one of "
+                         f"{WINDOW_ROUTES}, got {route!r}")
     if qkv.dim() != 4 or qkv.shape[-1] % 3:
         raise ValueError("window_attention: expected qkv [B, H, W, 3C]")
     b, h, w, c3 = qkv.shape
     c = c3 // 3
-    if c % num_heads or (c // num_heads) % 8 \
+    if num_heads <= 0 or c % num_heads or (c // num_heads) % 8 \
             or c // num_heads > WINDOW_MAX_HEAD_DIM:
         raise ValueError(f"window_attention: head dim {c / num_heads} must "
                          f"be a multiple of 8 and <= {WINDOW_MAX_HEAD_DIM}")
@@ -1241,11 +1354,37 @@ def window_attention(qkv: torch.Tensor, *, num_heads: int, ws: int,
     if ps not in (1, 2) or ws % ps:
         raise ValueError(f"window_attention: pool stride {ps} must be 1 or "
                          "2 and divide ws")
-    if (h // ws) * (w // ws) * num_heads > 65535 or b > 65535:
+    hd = c // num_heads
+    entry = route or window_entry(hd, ws, ps)
+    if entry == WINDOW_SM90_ENTRY and window_entry(hd, ws, ps) != entry:
+        raise ValueError(f"window_attention: {entry} serves head dim "
+                         f"{WINDOW_SM90_HEAD_DIM} over windows of at most "
+                         f"{WINDOW_SM90_MAX_KEYS} keys, not head dim {hd}, "
+                         f"ws {ws}, pool {ps}")
+    full = (h // ps, w // ps)
+    oh, ow = full if out_hw is None else out_hw
+    if not (0 < oh <= full[0] and 0 < ow <= full[1]):
+        raise ValueError(f"window_attention: out_hw {out_hw} must crop the "
+                         f"output map {full}")
+    if entry == "vls_window_attention" and (
+            (h // ws) * (w // ws) * num_heads > 65535 or b > 65535):
         raise ValueError("window_attention: too many windows for one launch")
-    o = torch.empty((b, h // ps, w // ps, c), device=qkv.device,
-                    dtype=qkv.dtype)
-    _check_code("window_attention", LIBRARY.get().vls_window_attention(
-        _ptr(qkv), _ptr(o), b, h, w, c, num_heads, ws, ps, float(scale),
-        _stream()))
+    _require(qkv, "window_attention qkv")
+    if entry == WINDOW_SM90_ENTRY:
+        sw, qh, nqb = window_sm90_plan(ws, ps)
+        geom = window_sm90_geometry(tuple(qkv.shape), ws, ps)
+        o = torch.empty((b, oh, ow, c), device=qkv.device, dtype=qkv.dtype)
+        code = LIBRARY.get().vls_window_attention_sm90(
+            _ptr(qkv), _ptr(o), geom.buffer_info()[0], b, h, w, c,
+            num_heads, ws, ps, sw, qh, nqb, oh, ow, float(scale), _stream())
+    else:
+        o = torch.empty((b, full[0], full[1], c), device=qkv.device,
+                        dtype=qkv.dtype)
+        code = LIBRARY.get().vls_window_attention(
+            _ptr(qkv), _ptr(o), b, h, w, c, num_heads, ws, ps, float(scale),
+            _stream())
+    _check_code("window_attention", code)
+    WINDOW_LAUNCHES.add(entry)
+    if (oh, ow) != tuple(o.shape[1:3]):
+        o = o[:, :oh, :ow].contiguous()
     return o

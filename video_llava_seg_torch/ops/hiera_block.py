@@ -11,14 +11,20 @@ VMEM. On CUDA the block is a chain of the port's hand-written kernels
 with the same math:
 
   layernorm.cu -> [gemm_bf16_sm90.cu shortcut proj] -> [pool.cu] ->
-  gemm_bf16_sm90.cu (qkv) -> [pool.cu on q] -> attention_sm90.cu (one
-  window per batch row) -> gemm_bf16_sm90.cu (proj + bias + residual) ->
-  layernorm.cu -> gemm_bf16_sm90.cu (fc1 + bias + erf-GELU) ->
-  gemm_bf16_sm90.cu (fc2 + bias + residual)
+  gemm_bf16_sm90.cu (qkv) -> attention -> gemm_bf16_sm90.cu (proj +
+  bias + residual) -> layernorm.cu -> gemm_bf16_sm90.cu (fc1 + bias +
+  erf-GELU) -> gemm_bf16_sm90.cu (fc2 + bias + residual)
+
+The attention of a windowed block is one `kernels.window_attention`
+launch on the padded fused-qkv map as it lies, which pools q while
+loading and writes the cropped (pooled) map: window_attention_sm90.cu at
+head dim 96 (every windowed block of Hiera-T / S), window_attention.cu
+at the head dims `kernels.window_entry` sends there (Hiera-B+'s 56,
+Hiera-L's 72). A global block keeps `attention_stage`: attention_sm90.cu
+over the whole map as one window, with no copy.
 
 Between launches only layout work in torch: the zero pad of the
-post-norm map, window partition / unpartition (reshape + permute), the
-crop, and strided q/k/v views of the fused qkv windows.
+post-norm map, and strided q/k/v views of a global block's fused qkv.
 
 Kept from the TPU kernel: the post-norm zero padding of maps a window
 does not divide (ws=14 on the 64x64 stage-3 map pads to 70), which is
@@ -89,11 +95,14 @@ def hiera_block_plain(blk, x, *, num_heads: int, ws: int,
 
 
 def attention_stage(qkv, *, num_heads: int, ws: int, ps: int):
-    """The chain's attention stage on a contiguous fused-qkv map [B, Hp,
-    Wp, 3C] (Hp, Wp multiples of ws): window partition (one copy),
-    [pool.cu on q], attention.cu with one window per batch row, and the
-    unpartition of its [window, token, head, hd] output into the (pooled)
-    map [B, Hp/ps, Wp/ps, C] (a view: the caller's crop copies it)."""
+    """Attention over ws x ws windows by `kernels.attention` on a
+    contiguous fused-qkv map [B, Hp, Wp, 3C] (Hp, Wp multiples of ws):
+    window partition (one copy, none for a single window), [pool.cu on
+    q], one window per batch row, and the unpartition of its [window,
+    token, head, hd] output into the (pooled) map [B, Hp/ps, Wp/ps, C],
+    possibly a view. The chain runs it for global blocks (ws = the map's
+    side, ps = 1); chip_smoke times it at the windowed kinds, which the
+    chain ran through it before window_attention_sm90.cu."""
     b, hp, wp, c3 = qkv.shape
     c = c3 // 3
     hd = c // num_heads
@@ -132,7 +141,8 @@ def _hiera_block_cuda(blk, x, *, num_heads: int, ws: int, ps: int,
         shortcut = x
     if ps > 1:
         shortcut = kernels.maxpool2x2(shortcut)
-    if ws == 0:
+    windowed = ws > 0
+    if not windowed:
         if w != h or ps != 1:
             raise ValueError("global Hiera blocks take square unpooled maps")
         ws = h
@@ -143,10 +153,16 @@ def _hiera_block_cuda(blk, x, *, num_heads: int, ws: int, ps: int,
     qkv = kernels.gemm(xn.reshape(-1, cin), blk["qkv"]["kernel"],
                        blk["qkv"]["bias"])
     c = qkv.shape[1] // 3
-    o = attention_stage(qkv.view(b, h + pad_h, w + pad_w, 3 * c),
-                        num_heads=num_heads, ws=ws, ps=ps)
+    qkv = qkv.view(b, h + pad_h, w + pad_w, 3 * c)
+    hd = c // num_heads
     oh, ow = h // ps, w // ps
-    o = o[:, :oh, :ow].contiguous()
+    if windowed:
+        o = kernels.window_attention(qkv, num_heads=num_heads, ws=ws,
+                                     scale=1.0 / math.sqrt(hd), ps=ps,
+                                     out_hw=(oh, ow))
+    else:
+        o = attention_stage(qkv, num_heads=num_heads, ws=ws,
+                            ps=ps).contiguous()
     h1 = kernels.gemm(o.view(-1, c), blk["proj_attn"]["kernel"],
                       blk["proj_attn"]["bias"],
                       residual=shortcut.reshape(-1, c))

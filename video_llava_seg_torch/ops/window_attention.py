@@ -9,17 +9,23 @@ the output). With `q_pool=(2, 2)` the queries are 2x2 max-pooled per
 window (Hiera's stage transitions) and the output is the pooled map
 [B, H/2, W/2, C].
 
-On a CUDA tensor `window_attention` launches `csrc/window_attention.cu`:
-one block per 64 queries of an (image, window, head), q / k / v rows
-gathered through the map's strides (the 2x2 max of q taken while
-loading), all of a window's keys in shared memory, a plain fp32 softmax,
-the output written in map layout. No partitioned or pooled copy is ever
-made. On a CPU tensor it runs `window_attention_plain` (the twin of
-`window_attention_xla`). The JAX package's tile picker and Mosaic
-legality gate have no counterpart here. When autograd records the call,
-the kernel runs inside `ops.recompute.recompute` and the backward
-recomputes through the plain version (the JAX package's `_wa_bwd`).
-"""
+On a CUDA tensor `window_attention` launches the C entry
+`kernels.window_entry` names. At head dim 96 (every windowed block of
+Hiera-T / S) that is `csrc/window_attention_sm90.cu`: a persistent grid
+whose producer thread loads each strip of windows' q / k / v by TMA
+straight from the map, consumer warpgroups that pool q while staging it
+and run both products on wgmma with all of a window's keys in one tile,
+the output written in map layout. K4's chain (`ops/hiera_block.py`)
+calls the same kernel for its windowed blocks. Other head dims
+(Hiera-B+'s 56, Hiera-L's 72) and windows of more than 208 keys take
+`csrc/window_attention.cu`: one block per 64 queries of an (image,
+window, head), rows gathered through the map's strides. Neither makes a
+partitioned or pooled copy. On a CPU tensor it runs
+`window_attention_plain` (the twin of `window_attention_xla`). The JAX
+package's tile picker and Mosaic legality gate have no counterpart here.
+When autograd records the call, the kernel runs inside
+`ops.recompute.recompute` and the backward recomputes through the plain
+version (the JAX package's `_wa_bwd`)."""
 
 from __future__ import annotations
 
