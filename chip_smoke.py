@@ -13,10 +13,12 @@ script exits non-zero without printing a result:
      online form at head dims 64 / 80 / 96), attention_short_sm90.cu
      (K3), attention_bwd_sm90.cu (K6a / K6b), attention_short_bwd_sm90.cu
      (K6a + K6b in one pass, eight instances), w4a8_sm90.cu (K5's
-     prefill), w8a8_sm90.cu (gemm_s8) and gemm_bf16_sm90.cu (the bf16
-     denses of K1 and K4, three instances), and the wgmma (HGMMA bf16,
-     IGMMA int8) and UTMALDG (TMA load) counts in the SASS of each
-     instance of their kernels (a zero, or a missing instance, fails).
+     prefill), w4a8_gemv_sm90.cu (K5's decode, sixteen instances: rows
+     1-8, bf16 / fp32 out), w8a8_sm90.cu (gemm_s8) and gemm_bf16_sm90.cu
+     (the bf16 denses of K1 and K4, three instances), and the wgmma
+     (HGMMA bf16, IGMMA int8; IDP, dp4a, for w4a8_gemv_sm90.cu) and
+     UTMALDG (TMA load) counts in the SASS of each instance of their
+     kernels (a zero, or a missing instance, fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
      bf16 against their plain PyTorch versions run in fp32 on the same
      bf16 inputs (K2 also with the per-key bias of a left-padded batch-2
@@ -28,7 +30,11 @@ script exits non-zero without printing a result:
      needs, against the H100 SXM's published peaks, with the TFLOP/s
      and share of the bound; K2 (attention_sm90.cu at head dim 128) also
      beside attention.cu's online form, which it replaced, and K5's
-     prefill (w4a8_sm90.cu) beside w4a8.cu's mma.sync tile. K3 runs on
+     prefill (w4a8_sm90.cu) beside w4a8.cu's mma.sync tile, its decode
+     (w4a8_gemv_sm90.cu) beside w4a8.cu's GEMV; then K5's five decode
+     denses by device time (`[k5]` lines: CUDA graphs over weight copies
+     past the L2) on both entries and `_int_mm`, and one decode step's
+     129 products in one graph on both entries. K3 runs on
      the mask decoder's [B, S, H, 16] views through
      attention_short_sm90.cu (the route asserted), timed over 10 launches
      back to back beside attention.cu's two-pass form, which it replaced,
@@ -53,7 +59,9 @@ script exits non-zero without printing a result:
      `llama.init_quantized(bits=4, act_quant=True)` and fused
      (`fuse_qkv_gateup`), int8 KV cache; the caption and the referral
      query in ONE `inference.main.get_model_output_batched` call, with
-     the launch counts of K1..K5 taken over exactly that call.
+     the launch counts of K1..K5 taken over exactly that call, K5's by C
+     entry (129 x decode steps + 1 on w4a8_gemv_sm90.cu, 128 on
+     w4a8_sm90.cu, 0 on w4a8.cu).
   5. agreement on a small input: the tiny config through both entry
      points, bf16 and W4A8 batched, on the card (kernels, bf16) and on
      the CPU (plain, fp32).
@@ -207,10 +215,11 @@ SOURCES = {
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
            ["layernorm.cu", "gemm_bf16_sm90.cu", "gemm_bf16.cu",
             "window_attention_sm90.cu", "attention_sm90.cu", "pool.cu"]),
-    # more than 8 rows at TMA-aligned widths (the LLM prefill) on
-    # w4a8_sm90.cu; decode and other widths on w4a8.cu
-    "K5": ("video_llava_seg_torch/csrc/w4a8_sm90.cu",
-           ["w4a8_sm90.cu", "w4a8.cu"]),
+    # <= 8 rows at TMA-aligned widths (every decode product and the
+    # lm_head: most launches) on w4a8_gemv_sm90.cu, more (the LLM prefill)
+    # on w4a8_sm90.cu; other widths on w4a8.cu
+    "K5": ("video_llava_seg_torch/csrc/w4a8_gemv_sm90.cu",
+           ["w4a8_gemv_sm90.cu", "w4a8_sm90.cu", "w4a8.cu"]),
     # head dim 128 (the LLM) on attention_bwd_sm90.cu; the mask decoder
     # (head dim 16 over <= 64 keys) on attention_short_bwd_sm90.cu, K6a and
     # K6b in one pass; attention_bwd.cu keeps the other head dims
@@ -321,14 +330,24 @@ def graph_ms(fn, n: int = 10, reps: int = 5) -> float:
     The replay launches without the host's per-call cost (Python, the
     wrappers' checks, tensor-map encoding), which `cuda_ms` includes where
     it exceeds the device time."""
+    return graph_seq_ms([fn] * n, reps)
+
+
+def graph_seq_ms(fns, reps: int = 5) -> float:
+    """Device time of the calls `fns`, captured once each in order in a
+    CUDA graph, its replay timed by CUDA events (median of `reps`), over
+    their number. Each runs once eagerly first (on a side stream, as
+    capture wants)."""
+    n = len(fns)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(n):
+        for fn in fns:
             fn()
     graph.replay()
     sync()
@@ -454,6 +473,7 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                 "attention_short_bwd_sm90.cu": (
                     "attention_short_bwd_sm90_kernel",),
                 "w4a8_sm90.cu": ("w4a8_sm90_kernel",),
+                "w4a8_gemv_sm90.cu": ("w4a8_gemv_sm90_kernel",),
                 "w8a8_sm90.cu": ("gemm_s8_sm90_kernel",),
                 "gemm_bf16_sm90.cu": ("gemm_bf16_sm90_kernel",),
                 "window_attention_sm90.cu": (
@@ -463,11 +483,15 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
 # <activation>: none, quick_gelu, erf-GELU; attention_short_bwd_sm90.cu's
 # <key tile, bias>: 8 / 16 / 32 / 64 keys, with and without a bias;
 # window_attention_sm90.cu's <key tile, q pool>: 64 and 208 without, 128
-# and 208 with
+# and 208 with; w4a8_gemv_sm90.cu's <rows, fp32 out>: 1-8 rows, bf16 and
+# fp32
 SM90_INSTANCES = {"attention_sm90.cu": 5, "gemm_bf16_sm90.cu": 3,
                   "attention_short_bwd_sm90.cu": 8,
-                  "window_attention_sm90.cu": 4}
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+                  "window_attention_sm90.cu": 4, "w4a8_gemv_sm90.cu": 16}
+# the sources with TMA loads but no wgmma, and the SASS op each must hold
+# instead (w4a8_gemv_sm90.cu: __dp4a)
+SM90_NO_WGMMA = {"w4a8_gemv_sm90.cu": "IDP"}
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "IDP")
 
 
 def _instance(base, mangled):
@@ -520,9 +544,11 @@ def report_sm90_build(kernels):
             c = counts[k]
             log(f"[build] {src} SASS {k}: "
                 + ", ".join(f"{c[op]} {op}" for op in SASS_OPS if c[op]))
-            if not (c["HGMMA"] + c["IGMMA"]) or not c["UTMALDG"]:
-                raise AssertionError(f"{src}: no wgmma or no TMA load in the "
-                                     f"SASS of {k}: {c}")
+            need = SM90_NO_WGMMA.get(src)
+            compute = c[need] if need else c["HGMMA"] + c["IGMMA"]
+            if not compute or not c["UTMALDG"]:
+                raise AssertionError(f"{src}: no {need or 'wgmma'} or no TMA "
+                                     f"load in the SASS of {k}: {c}")
 
 
 def bound_of(nbytes: float, ops: float, peak: float):
@@ -546,7 +572,7 @@ def _check(name, tag, run_kernel, run_plain, run_reference, results, work,
     (joins several outputs for the comparison). run_previous: the kernel
     this one replaced, timed beside it (`previous` names it: K2,
     attention.cu's online form; K3, its two-pass form; K6a / K6b,
-    attention_bwd.cu; K5's prefill, w4a8.cu's mma.sync tile; gemm_s8,
+    attention_bwd.cu; K5, w4a8.cu's mma.sync tile and GEMV; gemm_s8,
     w8a8.cu). train: launches per timing of kernel, library and previous
     kernel (`cuda_ms`). device_time: also their device times without the
     host's cost (`graph_ms`), for kernels whose device time is below it."""
@@ -836,22 +862,17 @@ def phase_w4a8_checks(cfg, prefill_rows: int, seed: int, dev, results):
     batch, 2) and the batch-2 prefill (rows = 2 x its length; the lm_head
     runs on the last position only, so rows = 2 there, fp32 out).
     Exact equality with the plain version; decode timings start from a
-    cold L2, as each layer's weights stream once per token. The prefill
-    shapes run csrc/w4a8_sm90.cu; w4a8.cu's mma.sync tile, which served
-    them before, is timed beside it."""
+    cold L2, as each layer's weights stream once per token. The decode
+    shapes run csrc/w4a8_gemv_sm90.cu, the prefill shapes csrc/
+    w4a8_sm90.cu; w4a8.cu's GEMV and mma.sync tile, which served them
+    before, are timed beside them."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.ops.int4 import (
         unpack_int4,
         w4a8_matmul_plain,
     )
 
-    lc = cfg.llm
-    d, q_dim = lc.hidden_size, lc.num_heads * lc.head_dim
-    kv_dim = lc.num_kv_heads * lc.head_dim
-    denses = [("wqkv", d, q_dim + 2 * kv_dim), ("wo", q_dim, d),
-              ("w_gateup", d, 2 * lc.intermediate_size),
-              ("w_down", lc.intermediate_size, d),
-              ("lm_head", d, lc.vocab_size)]
+    denses = k5_denses(cfg.llm)
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for name, in_dim, out in denses:
@@ -875,7 +896,8 @@ def phase_w4a8_checks(cfg, prefill_rows: int, seed: int, dev, results):
             work = (_nbytes(xq, a_scale, packed, w_scale) + out_bytes,
                     2 * rows * in_dim * out, PEAK_INT8)
             entry = kernels.w4a8_entry(rows, in_dim // 2, out)
-            if entry != ("vls_w4a8" if decode else "vls_w4a8_sm90"):
+            if entry != (kernels.W4A8_GEMV_ENTRY if decode
+                         else "vls_w4a8_sm90"):
                 raise AssertionError(f"K5 {name} [{rows}]: routed to {entry}")
             _check("K5", f"{name} [{rows}, {in_dim}] x [{in_dim}, {out}] "
                    f"{'decode' if decode else 'prefill'} -> "
@@ -889,16 +911,154 @@ def phase_w4a8_checks(cfg, prefill_rows: int, seed: int, dev, results):
                    results, work,
                    run_library=lambda: torch._int_mm(xq_lib, w_i8),
                    flush=scratch.zero_ if decode else None,
-                   run_previous=None if decode else (
-                       lambda: kernels.w4a8_matmul(xq, a_scale, packed,
-                                                   w_scale, dt,
-                                                   route="vls_w4a8")),
+                   run_previous=lambda: kernels.w4a8_matmul(
+                       xq, a_scale, packed, w_scale, dt, route="vls_w4a8"),
                    previous="w4a8.cu")
             del xq, a_scale, xq_lib
         del packed, w_scale, w_i8
         torch.cuda.empty_cache()
     del scratch
     sync()
+
+
+def k5_denses(lc):
+    """(name, in, out) of the fused W4A8 LLM's four denses a layer and
+    its lm_head."""
+    d, q_dim = lc.hidden_size, lc.num_heads * lc.head_dim
+    kv_dim = lc.num_kv_heads * lc.head_dim
+    return [("wqkv", d, q_dim + 2 * kv_dim), ("wo", q_dim, d),
+            ("w_gateup", d, 2 * lc.intermediate_size),
+            ("w_down", lc.intermediate_size, d),
+            ("lm_head", d, lc.vocab_size)]
+
+
+L2_BYTES = 50e6
+
+
+def in_turns(runs):
+    """{name: device ms} of each list of calls in `runs` (`graph_seq_ms`),
+    timed in turns, first to last and back (a, b, c, c, b, a), the mean of
+    each's two: a clock or power state that drifts during the run weighs
+    on all alike."""
+    times = {k: [] for k in runs}
+    for k in list(runs) + list(reversed(runs)):
+        times[k].append(graph_seq_ms(runs[k]))
+    return {k: statistics.mean(v) for k, v in times.items()}
+
+
+def phase_w4a8_decode_device(cfg, seed: int, dev, results, rows: int = 2):
+    """K5 at decode by device time, where the host's cost of a call does
+    not show. Per dense: CUDA graphs over enough distinct weight copies
+    that their bytes exceed 4x the 50 MB L2, so every launch streams its
+    weights from device memory as in decode; the new kernel
+    (w4a8_gemv_sm90.cu), w4a8.cu's GEMV (forced by `route`) and
+    `torch._int_mm` over int8 weights of the unpacked size (column-major,
+    the activations padded to 32 rows: it takes more than 16), timed in
+    turns (`in_turns`). The host's
+    cost of a call is phase 2's `cuda_ms` (one launch) minus this. Then
+    one decode step's 129 products (32 layers' four denses over distinct
+    weights, then the lm_head: ~3.75 GB) in one graph on each entry,
+    against the step's byte bound."""
+    from video_llava_seg_torch import kernels
+
+    lc = cfg.llm
+    denses = k5_denses(lc)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    host = {sh["shape"].split()[0]: sh for sh in results["K5"]["shapes"]
+            if "decode" in sh["shape"]}
+
+    def randint8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    xs, rows_out = {}, []
+    for name, in_dim, out in denses:
+        dt = torch.float32 if name == "lm_head" else torch.bfloat16
+        if in_dim not in xs:
+            xs[in_dim] = (randint8(rows, in_dim).clamp_(min=-127),
+                          torch.rand(rows, 1, generator=g, device=dev)
+                          + 1e-3)
+        xq, a_scale = xs[in_dim]
+        copies = max(2, math.ceil(4 * L2_BYTES / (in_dim // 2 * out)))
+        packed = [randint8(in_dim // 2, out) for _ in range(copies)]
+        w_i8 = [randint8(out, in_dim).t() for _ in range(copies)]
+        w_scale = torch.rand(out, generator=g, device=dev) + 1e-3
+        xq_lib = torch.cat([xq, xq.new_zeros(32 - rows, in_dim)])
+        dev_ms = in_turns({
+            "device_ms": [lambda p=p: kernels.w4a8_matmul(
+                xq, a_scale, p, w_scale, dt) for p in packed],
+            "previous_device_ms": [lambda p=p: kernels.w4a8_matmul(
+                xq, a_scale, p, w_scale, dt, route="vls_w4a8")
+                for p in packed],
+            "library_device_ms": [lambda w=w: torch._int_mm(xq_lib, w)
+                                  for w in w_i8]})
+        nbytes = (_nbytes(xq, a_scale, packed[0], w_scale)
+                  + rows * out * (4 if dt == torch.float32 else 2))
+        b_ms, b_by = bound_of(nbytes, 2 * rows * in_dim * out, PEAK_INT8)
+        sh = host[name]
+        row = {"dense": name, "shape": [rows, in_dim, out], "copies": copies,
+               "bound_ms": b_ms, "bound_by": b_by, **dev_ms,
+               "ms": sh["ms"], "previous_ms": sh["previous_ms"],
+               "library_ms": sh["library_ms"],
+               "host_ms": sh["ms"] - dev_ms["device_ms"],
+               "previous_host_ms": (sh["previous_ms"]
+                                    - dev_ms["previous_device_ms"])}
+        sh.update(dev_ms)
+        log(f"[k5] {name} [{rows}, {in_dim}] x [{in_dim}, {out}] decode by "
+            f"device time (a CUDA graph over {copies} weight copies): "
+            f"w4a8_gemv_sm90.cu {row['device_ms']:.4f} ms "
+            f"({b_ms / row['device_ms']:.3f} of the bound), w4a8.cu "
+            f"{row['previous_device_ms']:.4f} ms, _int_mm "
+            f"{row['library_device_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); host's cost of a call (phase 2's one-launch time "
+            f"minus this) {row['host_ms']:.4f} ms, w4a8.cu "
+            f"{row['previous_host_ms']:.4f} ms")
+        rows_out.append(row)
+        del packed, w_i8, w_scale, xq_lib
+        torch.cuda.empty_cache()
+
+    # one decode step: 32 layers x 4 denses over distinct weights, then
+    # the lm_head, on each entry in one graph
+    layers = [[(randint8(i // 2, o), name) for name, i, o in denses[:4]]
+              for _ in range(lc.num_layers)]
+    _, hd_in, hd_out = denses[4]
+    head = randint8(hd_in // 2, hd_out)
+    scales = {name: torch.rand(o, generator=g, device=dev) + 1e-3
+              for name, _, o in denses}
+
+    def step(route):
+        fns = [lambda p=p, n=n: kernels.w4a8_matmul(
+                   *xs[2 * p.shape[0]], p, scales[n], torch.bfloat16,
+                   route=route)
+               for layer in layers for p, n in layer]
+        fns.append(lambda: kernels.w4a8_matmul(
+            *xs[hd_in], head, scales["lm_head"], torch.float32,
+            route=route))
+        return fns
+
+    def call_bytes(p, out_size):
+        # xq, a_scale, the packed weight, w_scale read; y written
+        return (rows * 2 * p.shape[0] + rows * 4 + p.numel()
+                + 4 * p.shape[1] + rows * p.shape[1] * out_size)
+
+    n_calls = 4 * lc.num_layers + 1
+    nbytes = (sum(call_bytes(p, 2) for layer in layers for p, _ in layer)
+              + call_bytes(head, 4))
+    step_bound = nbytes / HBM_BYTES_S * 1e3
+    step_ms = {k: v * n_calls for k, v in in_turns(
+        {"device_ms": step(None), "previous_device_ms": step("vls_w4a8")}
+    ).items()}
+    log(f"[k5] one decode step's {n_calls} W4A8 products at [{rows}, *] by "
+        f"device time (one CUDA graph, {nbytes / 1e9:.3f} GB): "
+        f"w4a8_gemv_sm90.cu {step_ms['device_ms']:.4f} ms "
+        f"({step_bound / step_ms['device_ms']:.3f} of the bound), w4a8.cu "
+        f"{step_ms['previous_device_ms']:.4f} ms, bound {step_bound:.4f} ms "
+        f"(bytes)")
+    del layers, head, scales, xs
+    torch.cuda.empty_cache()
+    sync()
+    return {"denses": rows_out, "step": {"calls": n_calls,
+                                         "bound_ms": step_bound, **step_ms}}
 
 
 def _smoke_inputs(seed, n_frames, hw, n_seg):
@@ -1128,6 +1288,7 @@ def reset_launches():
     kernels.GEMM_BF16_LAUNCHES.reset()
     kernels.WINDOW_LAUNCHES.reset()
     kernels.MAXPOOL_LAUNCHES.reset()
+    kernels.W4A8_LAUNCHES.reset()
 
 
 def snapshot_launches():
@@ -1135,8 +1296,8 @@ def snapshot_launches():
     launches of attention_short_sm90.cu among them, under "sm90 entry"
     those of attention_sm90.cu, the flash backward's launches (K6a / K6b),
     kernels.gemm's (the denses of K1 and K4) and kernels.window_attention's
-    (K7 and K4's windowed blocks) by C entry, and pool.cu's under
-    "pool"."""
+    (K7 and K4's windowed blocks) and kernels.w4a8_matmul's (K5) by C
+    entry, and pool.cu's under "pool"."""
     from video_llava_seg_torch import kernels
 
     counts = kernels.LAUNCHES.snapshot()
@@ -1146,6 +1307,7 @@ def snapshot_launches():
     counts.update(kernels.ATTENTION_BWD_LAUNCHES.snapshot())
     counts.update(kernels.GEMM_BF16_LAUNCHES.snapshot())
     counts.update(kernels.WINDOW_LAUNCHES.snapshot())
+    counts.update(kernels.W4A8_LAUNCHES.snapshot())
     counts["pool"] = kernels.MAXPOOL_LAUNCHES.snapshot()[
         "vls_maxpool2x2_bf16"]
     return counts
@@ -1214,6 +1376,10 @@ def check_launches(tag, counts, expect, why, bwd=None):
     if counts["pool"] != want:
         raise AssertionError(f"{tag}: {counts['pool']} pool.cu launches, "
                              f"expected {want}")
+    k5 = sum(counts[e] for e in kernels.W4A8_ROUTES)
+    if k5 != counts["K5"]:
+        raise AssertionError(f"{tag}: {k5} w4a8_matmul launches by C entry, "
+                             f"{counts['K5']} K5 launches")
     if bwd is not None:
         got = {e: counts[e] for e in bwd}
         log(f"[{tag}] flash backward launches by C entry: {got} (expected "
@@ -1359,6 +1525,19 @@ def phase_quant_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854)):
            "K7": "none: K4 runs every Hiera block",
            "K8": "none: the tower is bf16 (only the LLM is W4A8)"}
     check_launches("quant", counts, expect, why)
+    # by C entry: the prefill's four denses a layer on w4a8_sm90.cu; every
+    # decode product and the prefill's lm_head (the last position, 2 rows)
+    # on w4a8_gemv_sm90.cu
+    layers = cfg.llm.num_layers
+    want = {kernels.W4A8_GEMV_ENTRY: per_step * n + 1,
+            "vls_w4a8_sm90": 4 * layers, "vls_w4a8": 0}
+    got = {e: counts[e] for e in want}
+    log(f"[quant] w4a8_matmul launches by C entry: {got} (expected {want}: "
+        f"{per_step} x {n} decode steps + the prefill's lm_head, 4 x "
+        f"{layers} prefill denses, none on w4a8.cu)")
+    if got != want:
+        raise AssertionError(f"quant: w4a8_matmul routes {got}, expected "
+                             f"{want}")
     del params, video, tokens, hidden
     torch.cuda.empty_cache()
     sync()
@@ -2911,6 +3090,7 @@ def main(argv=None):
     results = phase_kernel_checks(cfg, prefill_len, batch_len, pad,
                                   args.seed, dev)
     phase_w4a8_checks(cfg, 2 * batch_len, args.seed, dev, results)
+    k5_device = phase_w4a8_decode_device(cfg, args.seed, dev, results)
     k7_rows = phase_k7_checks(cfg, args.seed, dev, results)
     gemm_rows = phase_k8_checks(cfg, args.seed, dev, results)
     link_rows = phase_attention_links(cfg, args.seed, dev, results)
@@ -2964,6 +3144,10 @@ def main(argv=None):
         prev = [sh["previous_ms"] for sh in r["shapes"] if "previous_ms" in sh]
         if prev:
             kernels_out[-1]["previous_ms"] = sum(prev)
+        if name == "K5":
+            kernels_out[-1]["launches_by_entry"] = {
+                e: quant_counts[e] for e in kernels.W4A8_ROUTES}
+            kernels_out[-1]["decode_device"] = k5_device
     # gemm_s8 (K8's int8 dense and int_matmul), counted by route on the
     # W8A8 encodes, the only paths with kernel_qa denses
     r = results["gemm_s8"]

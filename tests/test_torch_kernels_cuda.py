@@ -6,9 +6,12 @@ reference runs in fp32 on the same bf16 values. Bound: max |kernel -
 plain| / max |plain| <= 2e-2 (bf16 keeps ~3 significant digits and the
 kernels round intermediates to bf16 where the plain fp32 path does not).
 The W4A8 kernels (K5: csrc/w4a8_sm90.cu above 8 rows at TMA-aligned
-widths, csrc/w4a8.cu elsewhere) sum integers and must equal their plain
-version bit for bit, on the route `kernels.w4a8_entry` names. The flash backward (K6a / K6b) and the forward's logsumexp are
-held against `flash_backward_plain` / `flash_forward_plain` in fp32 on
+widths, csrc/w4a8_gemv_sm90.cu at <= 8 rows there, csrc/w4a8.cu
+elsewhere) sum integers and must equal their plain version bit for bit,
+on the route `kernels.w4a8_entry` names; the decode kernel also at the
+full Llama-3-8B widths, over two calls, in a CUDA-graph replay and
+against w4a8.cu's GEMV. The flash backward (K6a / K6b) and the
+forward's logsumexp are held against `flash_backward_plain` / `flash_forward_plain` in fp32 on
 the same bf16 inputs, with the same bound; every kernel op's output must
 carry a grad_fn when an input requires grad. K7 (window attention from
 the fused-qkv map) is held against `window_attention_plain` in fp32 with
@@ -216,12 +219,13 @@ def _w4a8_inputs(g, rows, in_dim, out, dev):
     return xq, a_scale, packed, w_scale
 
 
-# rows: the decode GEMV (<= 8), then w4a8_sm90.cu's 128-row tiles whole
+# rows: the decode kernel (1-8), then w4a8_sm90.cu's 128-row tiles whole
 # (128, 256), one row past them (129, 257) and partial (9, 130, 200, 300);
 # widths: in/2 = 2080 leaves a 32-row K tail past the 128-row box, out =
-# 272 a partial channel tile; (136, 100) stays on w4a8.cu's mma.sync tile
-@pytest.mark.parametrize("rows", [1, 2, 3, 8, 9, 128, 129, 130, 200, 256,
-                                  257, 300])
+# 272 a partial channel tile; (136, 100) stays on w4a8.cu (its GEMV and
+# its mma.sync tile)
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8, 9, 128, 129, 130,
+                                  200, 256, 257, 300])
 @pytest.mark.parametrize("in_dim,out", [(256, 384), (4096, 6144),
                                         (14336, 4096), (136, 100),
                                         (4160, 272)])
@@ -232,8 +236,9 @@ def test_w4a8_kernel_bit_exact(dev, rows, in_dim, out):
     g = torch.Generator(device=dev).manual_seed(6)
     xq, a_scale, packed, w_scale = _w4a8_inputs(g, rows, in_dim, out, dev)
     entry = kernels.w4a8_entry(rows, in_dim // 2, out)
-    assert entry == ("vls_w4a8_sm90" if rows > 8 and out % 16 == 0
-                     and (in_dim // 2) % 16 == 0 else "vls_w4a8")
+    aligned = out % 16 == 0 and (in_dim // 2) % 16 == 0
+    assert entry == ("vls_w4a8" if not aligned else "vls_w4a8_sm90"
+                     if rows > 8 else "vls_w4a8_gemv_sm90")
     for dt in (torch.bfloat16, torch.float32):
         got = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, dt)
         want = w4a8_matmul_plain(xq, a_scale, packed, w_scale, dt)
@@ -258,6 +263,76 @@ def test_w4a8_sm90_llama_prefill_shape(dev, in_dim, out):
     old = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, torch.bfloat16,
                               route="vls_w4a8")
     assert torch.equal(old, want)
+
+
+# the fused Llama-3-8B denses of a decode step and the lm_head
+LLAMA_DECODE = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                (4096, 128256)]
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("in_dim,out", LLAMA_DECODE)
+def test_w4a8_gemv_sm90_llama_decode(dev, rows, in_dim, out):
+    """Every Llama-3-8B decode dense at 1 and 2 rows reaches
+    w4a8_gemv_sm90.cu and equals the plain version bit for bit in both
+    output types; w4a8.cu's GEMV, named by `route`, gives the same bits;
+    each call counts one launch of its C entry."""
+    assert kernels.w4a8_entry(rows, in_dim // 2, out) == "vls_w4a8_gemv_sm90"
+    g = torch.Generator(device=dev).manual_seed(11)
+    xq, a_scale, packed, w_scale = _w4a8_inputs(g, rows, in_dim, out, dev)
+    for dt in (torch.bfloat16, torch.float32):
+        before = kernels.W4A8_LAUNCHES.snapshot()
+        got = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, dt)
+        old = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, dt,
+                                  route="vls_w4a8")
+        after = kernels.W4A8_LAUNCHES.snapshot()
+        want = w4a8_matmul_plain(xq, a_scale, packed, w_scale, dt)
+        assert torch.equal(got, want)
+        assert torch.equal(old, want)
+        assert {e: after[e] - before[e] for e in after} == {
+            "vls_w4a8": 1, "vls_w4a8_sm90": 0, "vls_w4a8_gemv_sm90": 1}
+
+
+@pytest.mark.parametrize("rows,in_dim,out", [(2, 4096, 4096),
+                                             (8, 14336, 4096),
+                                             (3, 4160, 272)])
+def test_w4a8_gemv_sm90_calls_repeat_bitwise(dev, rows, in_dim, out):
+    """Two calls give the same bits (the K parts' sums are integers, added
+    in a fixed order)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    xq, a_scale, packed, w_scale = _w4a8_inputs(g, rows, in_dim, out, dev)
+    first = kernels.w4a8_matmul(xq, a_scale, packed, w_scale, torch.bfloat16)
+    second = kernels.w4a8_matmul(xq, a_scale, packed, w_scale,
+                                 torch.bfloat16)
+    assert torch.equal(first, second)
+
+
+def test_w4a8_gemv_sm90_graph_replay(dev):
+    """A CUDA graph of three decode calls (wo and w_down: K split in
+    clusters; the lm_head: whole tiles) replays to the eager results,
+    three replays in a row."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    cases = [(_w4a8_inputs(g, 2, i, o, dev), dt) for i, o, dt in
+             ((4096, 4096, torch.bfloat16), (14336, 4096, torch.bfloat16),
+              (4096, 128256, torch.float32))]
+    run = [lambda c=c, dt=dt: kernels.w4a8_matmul(*c, dt) for c, dt in cases]
+    eager = [f() for f in run]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in run:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in run]
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
 
 
 def test_w4a8_sm90_row_slice_of_a_larger_tensor(dev):
@@ -288,7 +363,8 @@ def test_w4a8_dense_counts_k5(dev):
 @pytest.mark.parametrize("lead", [(1, 3), (2, 5), (2, 150)])
 def test_w4a8_dense_route_on_the_card(dev, lead):
     """The bf16 dense on the card, one K5 launch, equals the CPU result on
-    each route: 3 rows the GEMV, 10 and 300 rows w4a8_sm90.cu."""
+    each route: 3 rows w4a8_gemv_sm90.cu, 10 and 300 rows
+    w4a8_sm90.cu."""
     g = torch.Generator(device=dev).manual_seed(10)
     _, _, packed, w_scale = _w4a8_inputs(g, 1, 512, 256, dev)
     p = {"kernel_q4a": packed, "kernel_scale": w_scale,
@@ -296,7 +372,7 @@ def test_w4a8_dense_route_on_the_card(dev, lead):
     x = _randn(g, *lead, 512, dev=dev)
     rows = math.prod(lead)
     assert kernels.w4a8_entry(rows, 256, 256) == (
-        "vls_w4a8_sm90" if rows > 8 else "vls_w4a8")
+        "vls_w4a8_sm90" if rows > 8 else "vls_w4a8_gemv_sm90")
     before = kernels.LAUNCHES.snapshot()["K5"]
     got = w4a8_dense(p, x)
     assert kernels.LAUNCHES.snapshot()["K5"] == before + 1

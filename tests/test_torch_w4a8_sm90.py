@@ -17,13 +17,14 @@ from video_llava_seg_torch.ops import int4 as tint4
 from video_llava_seg_tpu.ops import int4 as jint4
 from video_llava_seg_tpu.ops import quantization as jquant
 
-# (rows, in, out) -> the C entry; the Llama-3-8B denses at decode (2 rows)
-# and at the batch-2 prefill (10,392 rows), the test widths of w4a8.cu
+# (rows, in, out) -> the C entry; the Llama-3-8B denses at decode (1-8
+# rows: w4a8_gemv_sm90.cu) and at the batch-2 prefill (10,392 rows), the
+# test widths of w4a8.cu
 ROUTES = [
-    ((1, 4096, 6144), "vls_w4a8"),
-    ((2, 14336, 4096), "vls_w4a8"),
-    ((8, 4096, 28672), "vls_w4a8"),
-    ((2, 4096, 128256), "vls_w4a8"),
+    ((1, 4096, 6144), "vls_w4a8_gemv_sm90"),
+    ((2, 14336, 4096), "vls_w4a8_gemv_sm90"),
+    ((8, 4096, 28672), "vls_w4a8_gemv_sm90"),
+    ((2, 4096, 128256), "vls_w4a8_gemv_sm90"),
     ((9, 4096, 6144), "vls_w4a8_sm90"),
     ((10392, 4096, 6144), "vls_w4a8_sm90"),
     ((10392, 4096, 4096), "vls_w4a8_sm90"),
@@ -41,8 +42,9 @@ ROUTES = [
 @pytest.mark.parametrize("shape,want", ROUTES,
                          ids=[f"{r}x{i}x{o}" for (r, i, o), _ in ROUTES])
 def test_w4a8_entry_route(shape, want):
-    """<= 8 rows: the decode GEMV; above, the TMA + wgmma tile where in/2
-    and out are multiples of 16, w4a8.cu's mma.sync tile elsewhere."""
+    """<= 8 rows: the decode kernel (w4a8_gemv_sm90.cu); above, the TMA +
+    wgmma tile where in/2 and out are multiples of 16, w4a8.cu's mma.sync
+    tile elsewhere."""
     rows, in_dim, out = shape
     assert kernels.w4a8_entry(rows, in_dim // 2, out) == want
     assert want in kernels._SIGNATURES and want in kernels.W4A8_ROUTES

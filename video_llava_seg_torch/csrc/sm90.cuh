@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels,
 // attention_sm90.cu (forward), attention_bwd_sm90.cu (backward),
 // attention_short_sm90.cu (K3), w4a8_sm90.cu (K5's prefill),
+// w4a8_gemv_sm90.cu (K5's decode: mbarriers and TMA only),
 // w8a8_sm90.cu (gemm_s8) and gemm_bf16_sm90.cu (the bf16 denses of K1 and
 // K4): mbarrier waits that trap instead of
 // hanging, TMA tile loads (4-D and 2-D), 128-, 64- and 32-byte-swizzle
@@ -554,11 +555,13 @@ inline int encode_bf16(CUtensorMap* map, const void* ptr, const long long* g,
 // byte stride, box (inner, outer)
 constexpr int GEOM_2D = 6;
 
-// Encode a 128-byte-swizzled 2-D tensor map of `type` at ptr + g[0] after
-// checking its box against what the kernel was written for. A refused
-// geometry returns the negated CUresult.
+// Encode a 2-D tensor map of `type` at ptr + g[0] (128-byte swizzle
+// unless another is named) after checking its box against what the
+// kernel was written for. A refused geometry returns the negated
+// CUresult.
 inline int encode_2d(CUtensorMap* map, const void* ptr, const long long* g,
-                     int box_inner, int box_outer, CUtensorMapDataType type) {
+                     int box_inner, int box_outer, CUtensorMapDataType type,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   if (g[0] < 0 || g[4] != box_inner || g[5] != box_outer)
     return (int)cudaErrorInvalidValue;
   EncodeTiledFn fn = encode_fn();
@@ -569,8 +572,8 @@ inline int encode_2d(CUtensorMap* map, const void* ptr, const long long* g,
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode_bound([&] {
     return fn(map, type, 2, (void*)((const char*)ptr + g[0]), dims, strides,
-              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   });
   return r == CUDA_SUCCESS ? 0 : -(int)r;

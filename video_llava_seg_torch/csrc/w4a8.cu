@@ -22,7 +22,12 @@
 //
 // Two regimes, as the TPU wrapper has:
 // - rows <= 8 (decode): bound by the bytes of the packed weights (one
-//   byte per two weights, read once). A GEMV: each thread takes 4 columns
+//   byte per two weights, read once). Where in/2 and out are multiples of
+//   16 and rows x in <= 128 KiB (every Llama-3-8B decode dense and
+//   lm_head) the TMA weight stream of w4a8_gemv_sm90.cu serves these
+//   rows instead; this GEMV keeps the other widths, and
+//   kernels.w4a8_matmul(..., route="vls_w4a8") names it for the tests and
+//   for timing beside the new kernel. A GEMV: each thread takes 4 columns
 //   (one 32-bit word per packed row, so a warp reads 128 contiguous
 //   bytes), byte-transposes 4 packed rows x 4 columns and feeds __dp4a
 //   with 4 k-values per column. The 8 warps of a block split K and reduce

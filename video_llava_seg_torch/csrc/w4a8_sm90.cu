@@ -11,8 +11,9 @@
 //
 // Replaces video_llava_seg_tpu/ops/int4.py::_w4a8_kernel (K5) for more
 // than 8 rows (the LLM prefill) where TMA can address the operands
-// (in/2 and out multiples of 16); w4a8.cu keeps the decode GEMV and
-// every other shape (kernels.w4a8_entry names the route).
+// (in/2 and out multiples of 16); w4a8_gemv_sm90.cu takes the decode
+// rows (<= 8), w4a8.cu every other shape (kernels.w4a8_entry names the
+// route).
 //
 // Arithmetic, bit for bit that of w4a8.cu and of w4a8_matmul_plain:
 // each nibble plane is formed as 16 x its signed value (exact in int8),

@@ -28,7 +28,9 @@ launch by its C entry (`attention_bwd_entry`); `GEMM_BF16_LAUNCHES` every
 `gemm` launch (the bf16 denses of K1 and K4) by its C entry
 (`gemm_bf16_entry`); `WINDOW_LAUNCHES` every `window_attention` launch
 (K7's, and the windowed attention of K4's chain) by its C entry
-(`window_entry`); `MAXPOOL_LAUNCHES` every `maxpool2x2` launch.
+(`window_entry`); `MAXPOOL_LAUNCHES` every `maxpool2x2` launch;
+`W4A8_LAUNCHES` every `w4a8_matmul` launch (K5's) by its C entry
+(`w4a8_entry`).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -75,6 +77,8 @@ _SIGNATURES = {
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
     "vls_w4a8": [_P] * 6 + [_I] * 5 + [_P],
     "vls_w4a8_sm90": [_P] * 6 + [_I] * 4 + [_P],
+    "vls_w4a8_gemv_sm90": [_P] * 6 + [_I] * 7 + [_P],
+    "vls_w4a8_gemv_sm90_clusters": [_I, _I],
     "vls_quant_rows": [_P] * 5 + [_L, _I, _F, _I, _P],
     "vls_gemm_s8": [_P] * 7 + [_I] * 5 + [_F, _P],
     "vls_gemm_s8_sm90": [_P] * 8 + [_I] * 5 + [_F, _P],
@@ -139,6 +143,29 @@ W4A8_SM90_BOX_K = 128
 W4A8_SM90_BOX_ROWS = 128
 W4A8_SM90_BOX_COLS = 128
 W4A8_SM90_ALIGN = 16
+# w4a8_gemv_sm90.cu (the decode product, <= 8 rows): boxes of 64 packed
+# rows by 256 output columns (16 KB; 256-byte rows: scripts/
+# probe_w4a8_gemv.py measured them ahead of 128 x 128 and 32 x 512 boxes
+# on an H100) stream by TMA through a ring of 4-8 stages, as many as fit
+# in a block's shared memory beside the activation rows (rows x in bytes,
+# at most W4A8_GEMV_X_MAX); a column tile's K split into at most
+# W4A8_GEMV_MAX_PARTS parts, a cluster of that many blocks, as many parts
+# as let all of the tiles' clusters run at once (a second wave ran ~1.4x
+# slower in the same probe). W4A8_GEMV_H100_SLOTS[p - 1]: clusters of p
+# blocks, one an SM, an H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters: 132 SMs in GPCs of 16-18); the
+# wrapper asks the device it runs on (`_cluster_slots`)
+W4A8_GEMV_ENTRY = "vls_w4a8_gemv_sm90"
+W4A8_GEMV_BOX_K = 64
+W4A8_GEMV_BOX_N = 256
+W4A8_GEMV_MIN_STAGES = 4
+W4A8_GEMV_MAX_STAGES = 8
+W4A8_GEMV_MAX_PARTS = 8
+W4A8_GEMV_H100_SLOTS = (132, 66, 39, 30, 22, 17, 15, 15)
+W4A8_GEMV_X_MAX = 128 << 10
+# the dynamic shared memory a Hopper block can use
+SM90_SMEM_MAX = 232448
+H100_SMS = 132
 # w8a8_sm90.cu (gemm_s8 on TMA + wgmma): each stage is a TMA box of 128
 # activation rows by 128 columns of K, and one of 128 rows of K by 128
 # output channels; TMA needs 16-byte-aligned bases and byte strides in
@@ -226,6 +253,10 @@ ATTENTION_BWD_LAUNCHES = LaunchCounts(ATTENTION_BWD_ROUTES)
 # calls, and K4's chain calls it too
 WINDOW_ROUTES = ("vls_window_attention", WINDOW_SM90_ENTRY)
 WINDOW_LAUNCHES = LaunchCounts(WINDOW_ROUTES)
+# w4a8_matmul's launches by C entry: K5 counts w4a8_dense's calls, and
+# three C entries serve them (decode, prefill, other widths)
+W4A8_ROUTES = ("vls_w4a8", "vls_w4a8_sm90", W4A8_GEMV_ENTRY)
+W4A8_LAUNCHES = LaunchCounts(W4A8_ROUTES)
 # pool.cu's launches: K4's shortcut pooling (and its q pooling where the
 # chain keeps its attention stage)
 MAXPOOL_LAUNCHES = LaunchCounts(("vls_maxpool2x2_bf16",))
@@ -1008,14 +1039,145 @@ def w4a8_splits(half: int, out: int) -> int:
 
 def w4a8_entry(rows: int, half: int, out: int) -> str:
     """The C entry that serves `w4a8_matmul` at [rows, 2 half] x [2 half,
-    out]: the decode GEMV of csrc/w4a8.cu at <= 8 rows; above, the TMA +
-    wgmma kernel of csrc/w4a8_sm90.cu where TMA can address the operands
-    (half and out multiples of 16), csrc/w4a8.cu's mma.sync tile for
-    every other shape."""
-    if (rows > W4A8_GEMV_MAX_ROWS and half % W4A8_SM90_ALIGN == 0
-            and out % W4A8_SM90_ALIGN == 0):
+    out]. At <= 8 rows: the TMA weight stream of csrc/w4a8_gemv_sm90.cu
+    where `w4a8_gemv_plan` takes the shape (half and out multiples of 16,
+    rows x in <= W4A8_GEMV_X_MAX), else csrc/w4a8.cu's GEMV. Above: the
+    TMA + wgmma kernel of csrc/w4a8_sm90.cu where TMA can address the
+    operands (half and out multiples of 16), csrc/w4a8.cu's mma.sync tile
+    for every other shape."""
+    if rows <= W4A8_GEMV_MAX_ROWS:
+        return (W4A8_GEMV_ENTRY if w4a8_gemv_plan(rows, half, out)
+                is not None else "vls_w4a8")
+    if half % W4A8_SM90_ALIGN == 0 and out % W4A8_SM90_ALIGN == 0:
         return "vls_w4a8_sm90"
     return "vls_w4a8"
+
+
+class W4A8GemvPlan(NamedTuple):
+    """w4a8_gemv_sm90.cu's launch: k_boxes boxes of box_k packed rows down
+    each of `tiles` column tiles of box_n columns. parts == 1: `grid`
+    blocks (one an SM, at most one a tile) take whole tiles in rounds,
+    block i tiles i, i + grid, ...; parts > 1: the grid is tiles x parts
+    blocks in clusters of `parts`, block i part i % parts of tile i //
+    parts (K boxes [p k_boxes // parts, (p + 1) k_boxes // parts)).
+    `stages` boxes a ring, `smem` bytes of dynamic shared memory."""
+    k_boxes: int
+    tiles: int
+    parts: int
+    grid: int
+    stages: int
+    smem: int
+
+
+def w4a8_gemv_smem(rows: int, in_dim: int, stages: int,
+                   box_k: int = W4A8_GEMV_BOX_K,
+                   box_n: int = W4A8_GEMV_BOX_N) -> int:
+    """Dynamic shared memory of a w4a8_gemv_sm90.cu block, as the kernel
+    lays it out from a 128-byte-aligned base: the ring, the activation
+    rows (+ one box of K: reads past in/2 in a K-tail box), the [rows,
+    box_n] int32 sums, 2 stages + 1 mbarriers."""
+    x = -(-(rows * in_dim + box_k) // 16) * 16
+    return (128 + stages * box_k * box_n + x + rows * box_n * 4
+            + (2 * stages + 1) * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def w4a8_gemv_plan(rows: int, half: int, out: int, sms: int = H100_SMS,
+                   box_k: int = W4A8_GEMV_BOX_K,
+                   box_n: int = W4A8_GEMV_BOX_N,
+                   slots: tuple = W4A8_GEMV_H100_SLOTS
+                   ) -> Optional[W4A8GemvPlan]:
+    """The plan of w4a8_gemv_sm90.cu at [rows, 2 half] x [2 half, out] on
+    a card of `sms` SMs, or None where the kernel does not take the shape
+    (rows outside 1..8; half or out not a multiple of 16: TMA's 16-byte
+    row stride and the activations' bulk copy of the high plane at in/2;
+    rows x in over W4A8_GEMV_X_MAX; fewer than W4A8_GEMV_MIN_STAGES
+    stages beside the activations). K split into the most parts, up to
+    W4A8_GEMV_MAX_PARTS and k_boxes, whose clusters the card holds all at
+    once (tiles <= slots[parts - 1]: clusters of that many blocks, one an
+    SM, the card holds together); the deepest ring that fits. box_k /
+    box_n: the kernel's BK / BN (other values for
+    scripts/probe_w4a8_gemv.py's variants only)."""
+    if not (1 <= rows <= W4A8_GEMV_MAX_ROWS) or half <= 0 or out <= 0:
+        return None
+    if half % W4A8_SM90_ALIGN or out % W4A8_SM90_ALIGN:
+        return None
+    if rows * 2 * half > W4A8_GEMV_X_MAX:
+        return None
+    stages = W4A8_GEMV_MAX_STAGES
+    while stages >= W4A8_GEMV_MIN_STAGES and w4a8_gemv_smem(
+            rows, 2 * half, stages, box_k, box_n) > SM90_SMEM_MAX:
+        stages -= 1
+    if stages < W4A8_GEMV_MIN_STAGES:
+        return None
+    k_boxes = -(-half // box_k)
+    tiles = -(-out // box_n)
+    parts = max([p for p in range(2, min(W4A8_GEMV_MAX_PARTS, k_boxes) + 1)
+                 if tiles <= slots[p - 1] and tiles * p <= sms], default=1)
+    grid = tiles * parts if parts > 1 else min(sms, tiles)
+    return W4A8GemvPlan(k_boxes, tiles, parts, grid, stages,
+                        w4a8_gemv_smem(rows, 2 * half, stages, box_k, box_n))
+
+
+def w4a8_gemv_units(plan: W4A8GemvPlan):
+    """The kernel's dealing (`for_each_unit`), block by block: each
+    block's units, (column tile, first K box, end K box), in the order it
+    takes them."""
+    if plan.parts == 1:
+        return [[(t, 0, plan.k_boxes)
+                 for t in range(i, plan.tiles, plan.grid)]
+                for i in range(plan.grid)]
+    return [[(i // plan.parts, i % plan.parts * plan.k_boxes // plan.parts,
+              (i % plan.parts + 1) * plan.k_boxes // plan.parts)]
+            for i in range(plan.grid)]
+
+
+@functools.lru_cache(maxsize=None)
+def w4a8_gemv_sm90_geometry(half: int, out: int,
+                            box_k: int = W4A8_GEMV_BOX_K,
+                            box_n: int = W4A8_GEMV_BOX_N):
+    """The int8 tensor map of packed [half, out] (contiguous) that
+    csrc/w4a8_gemv_sm90.cu encodes, GEOM_2D int64: byte offset 0, dims
+    (out, half) innermost first, the row stride out bytes, box (box_n
+    columns, box_k packed rows); no swizzle. TMA needs a row stride in
+    multiples of 16 bytes; the activations' bulk copy needs the high
+    plane's base (xq + half) 16-byte aligned."""
+    if half <= 0 or out <= 0:
+        raise ValueError(f"w4a8_gemv_sm90: empty weight [{half}, {out}]")
+    if half % W4A8_SM90_ALIGN or out % W4A8_SM90_ALIGN:
+        raise ValueError(f"w4a8_gemv_sm90: TMA needs in/2 and out in "
+                         f"multiples of {W4A8_SM90_ALIGN}, got in/2={half}, "
+                         f"out={out}")
+    return (0, out, half, out, box_n, box_k)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_slots(index: int, smem: int) -> tuple:
+    """Clusters of 1..W4A8_GEMV_MAX_PARTS blocks of `smem` bytes that
+    device `index` holds at once."""
+    with torch.cuda.device(index):
+        lib = LIBRARY.get()
+        return tuple(max(lib.vls_w4a8_gemv_sm90_clusters(p, smem), 0)
+                     for p in range(1, W4A8_GEMV_MAX_PARTS + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_args(rows: int, half: int, out: int, index: int):
+    """(plan, the geometry as a ctypes array) of a call on device `index`,
+    built once a shape: the call is on the decode step's hot path."""
+    first = w4a8_gemv_plan(rows, half, out)
+    if first is None:
+        raise ValueError(f"w4a8_gemv_sm90: does not take [{rows}, "
+                         f"{2 * half}] x [{2 * half}, {out}]")
+    plan = w4a8_gemv_plan(rows, half, out, _sm_count(index),
+                          slots=_cluster_slots(index, first.smem))
+    geom = (ctypes.c_longlong * 6)(*w4a8_gemv_sm90_geometry(half, out))
+    return plan, geom
 
 
 def w4a8_sm90_geometry(xq: torch.Tensor, packed: torch.Tensor):
@@ -1048,9 +1210,6 @@ def w4a8_sm90_geometry(xq: torch.Tensor, packed: torch.Tensor):
             + (0, out, half, packed.stride(0)) + w_box)
 
 
-W4A8_ROUTES = ("vls_w4a8", "vls_w4a8_sm90")
-
-
 def w4a8_matmul(xq: torch.Tensor, a_scale: torch.Tensor,
                 packed: torch.Tensor, w_scale: torch.Tensor,
                 out_dtype: torch.dtype,
@@ -1061,7 +1220,8 @@ def w4a8_matmul(xq: torch.Tensor, a_scale: torch.Tensor,
     (the "halves" int4 layout); w_scale fp32 [out]; out_dtype bf16 or
     fp32. The shape chooses the kernel (`w4a8_entry`); `route` names a C
     entry of W4A8_ROUTES instead, for the tests and for timing csrc/
-    w4a8.cu beside the kernel that took its prefill shapes."""
+    w4a8.cu beside the kernels that took its prefill and decode shapes.
+    W4A8_LAUNCHES counts the launches by C entry."""
     if route is not None and route not in W4A8_ROUTES:
         raise ValueError(f"w4a8: route must be one of {W4A8_ROUTES}, got "
                          f"{route!r}")
@@ -1085,12 +1245,23 @@ def w4a8_matmul(xq: torch.Tensor, a_scale: torch.Tensor,
         raise ValueError(f"w4a8: out_dtype must be bf16 or fp32, got "
                          f"{out_dtype}")
     y = torch.empty((rows, out), device=xq.device, dtype=out_dtype)
-    if (route or w4a8_entry(rows, half, out)) == "vls_w4a8_sm90":
+    entry = route or w4a8_entry(rows, half, out)
+    if entry == W4A8_GEMV_ENTRY:
+        plan, geom = _gemv_args(rows, half, out, xq.device.index)
+        _check_code("w4a8_gemv_sm90", LIBRARY.get().vls_w4a8_gemv_sm90(
+            _ptr(xq), _ptr(a_scale), _ptr(packed), _ptr(w_scale), _ptr(y),
+            ctypes.cast(geom, ctypes.c_void_p), rows, half, out,
+            int(out_dtype == torch.float32), plan.parts, plan.grid,
+            plan.stages, _stream()))
+        W4A8_LAUNCHES.add(entry)
+        return y
+    if entry == "vls_w4a8_sm90":
         geom = (ctypes.c_longlong * 18)(*w4a8_sm90_geometry(xq, packed))
         _check_code("w4a8_sm90", LIBRARY.get().vls_w4a8_sm90(
             _ptr(xq), _ptr(a_scale), _ptr(packed), _ptr(w_scale), _ptr(y),
             ctypes.cast(geom, ctypes.c_void_p), rows, half, out,
             int(out_dtype == torch.float32), _stream()))
+        W4A8_LAUNCHES.add(entry)
         return y
     ksplit, work = 1, None
     if rows <= W4A8_GEMV_MAX_ROWS:
@@ -1102,6 +1273,7 @@ def w4a8_matmul(xq: torch.Tensor, a_scale: torch.Tensor,
         _ptr(xq), _ptr(a_scale), _ptr(packed), _ptr(w_scale), _ptr(y),
         _ptr(work), rows, in_dim, out, int(out_dtype == torch.float32),
         ksplit, _stream()))
+    W4A8_LAUNCHES.add(entry)
     return y
 
 

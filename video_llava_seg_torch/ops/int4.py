@@ -11,8 +11,10 @@ sums add.
 `w4a8_dense` quantizes the activations per row (plain PyTorch, as the
 JAX package leaves it to XLA), then runs the product: on a CUDA tensor
 a hand-written kernel (K5; `kernels.w4a8_entry` names it: the TMA + wgmma
-tile of `csrc/w4a8_sm90.cu` above 8 rows, `csrc/w4a8.cu` for decode and
-widths TMA cannot address), on a CPU tensor `w4a8_matmul_plain`. The accumulation is integer and the epilogue is two
+tile of `csrc/w4a8_sm90.cu` above 8 rows, the TMA weight stream of
+`csrc/w4a8_gemv_sm90.cu` at <= 8 rows (decode, the lm_head),
+`csrc/w4a8.cu` at widths TMA cannot address), on a CPU tensor
+`w4a8_matmul_plain`. The accumulation is integer and the epilogue is two
 fp32 multiplies in a fixed order, so the two agree bit for bit.
 """
 
