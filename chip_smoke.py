@@ -14,11 +14,14 @@ script exits non-zero without printing a result:
      (K3), attention_bwd_sm90.cu (K6a / K6b), attention_short_bwd_sm90.cu
      (K6a + K6b in one pass, eight instances), w4a8_sm90.cu (K5's
      prefill), w4a8_gemv_sm90.cu (K5's decode, sixteen instances: rows
-     1-8, bf16 / fp32 out), w8a8_sm90.cu (gemm_s8) and gemm_bf16_sm90.cu
-     (the bf16 denses of K1 and K4, three instances), and the wgmma
-     (HGMMA bf16, IGMMA int8; IDP, dp4a, for w4a8_gemv_sm90.cu) and
-     UTMALDG (TMA load) counts in the SASS of each instance of their
-     kernels (a zero, or a missing instance, fails).
+     1-8, bf16 / fp32 out), w8a8_sm90.cu (gemm_s8), gemm_bf16_sm90.cu
+     (the bf16 denses of K1 and K4, three instances), layernorm_sm90.cu
+     (K1's / K4's LayerNorms, five instances: 1-5 vectors a lane) and
+     pool_sm90.cu (K4's shortcut pool), and the wgmma (HGMMA bf16, IGMMA
+     int8; IDP, dp4a, for w4a8_gemv_sm90.cu; SHFL / HMNMX2 for the row
+     streams) and UTMALDG (TMA load; UBLKCP, the 1-D bulk copy, for the
+     row streams) counts in the SASS of each instance of their kernels
+     (a zero, or a missing instance, fails).
   2. per-kernel checks at the shapes the main paths give them: K1..K4 in
      bf16 against their plain PyTorch versions run in fp32 on the same
      bf16 inputs (K2 also with the per-key bias of a left-padded batch-2
@@ -50,10 +53,14 @@ script exits non-zero without printing a result:
      K2 launch, the attention link of every K1 / K8 layer and every
      trunk block K4 sends it (`trunk_sm90_blocks`: the 3 global ones),
      that window_attention_sm90.cu served the 13 windowed blocks of
-     every K4 trunk (and every K7 call), pool.cu only the 3 shortcut
-     pools a trunk, and that gemm_bf16_sm90.cu served every dense of K1
-     (6 a layer) and K4 (67 a trunk: 4 a block and 3 shortcut
-     projections) and gemm_bf16.cu none.
+     every K4 trunk (and every K7 call), that gemm_bf16_sm90.cu served
+     every dense of K1 (6 a layer) and K4 (67 a trunk: 4 a block and 3
+     shortcut projections) and gemm_bf16.cu none, that
+     layernorm_sm90.cu served both LayerNorms of every K1 layer and K4
+     block and pool_sm90.cu the 3 shortcut pools a trunk (layernorm.cu
+     and pool.cu none); then a warm repeat of the referral query,
+     outside the counted run, its seg_encode printed beside the cold
+     one's.
   4. the quantized batched slice at full width: the same tower,
      projector and seg head in bf16, the LLM built by
      `llama.init_quantized(bits=4, act_quant=True)` and fused
@@ -105,10 +112,11 @@ non-zero. In the kernels JSON, `launches` is the count of the train
 step (phase 8) for the kernels it runs, of the W4A8 batched call (phase
 4) for K5, of the per-op Hiera trunk (phase 13) for K7, of the CLIP-L
 W8A8 encode (phase 12) for K8 and gemm_s8 (its w8a8_sm90.cu launches)
-and of the bf16 slice (phase 3) for gemm_bf16 (its gemm_bf16_sm90.cu
-launches); `launches_by_path` holds every path's counts (gemm_s8's by
-route, on the W8A8 encodes, the only paths with `kernel_qa` denses;
-gemm_bf16's by route).
+and of the bf16 slice (phase 3) for gemm_bf16, layernorm and
+maxpool2x2 (their sm90 entries' launches); `launches_by_path` holds every
+path's counts (gemm_s8's by route, on the W8A8 encodes, the only paths
+with `kernel_qa` denses; gemm_bf16's, layernorm's and maxpool2x2's by
+route).
 
 The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
 after phase 4, 14 after phase 5.
@@ -119,8 +127,8 @@ after phase 4, 14 after phase 5.
      launches back to back and by device time, beside
      window_attention.cu (forced by `route`), SDPA over the partitioned
      windows (partition copy timed apart), K4's old attention stage
-     (partition + [pool.cu on q] + attention_sm90.cu + unpartition +
-     crop) and K4's call of the new kernel (the crop written directly,
+     (partition + [a 2x2 pool of q] + attention_sm90.cu + unpartition
+     + crop) and K4's call of the new kernel (the crop written directly,
      held to the stage), and their sums over a trunk's blocks;
      K8 (the W8A8 layer: `csrc/w8a8_sm90.cu`, `csrc/w8a8.cu`'s row
      kernels, attention_sm90.cu) at the CLIP-L and RADIO-H serving shapes
@@ -141,6 +149,18 @@ after phase 4, 14 after phase 5.
      (the route asserted), it and gemm_bf16.cu (forced by `route`) held
      against `gemm_plain`, timed (10 launches back to back) beside
      gemm_bf16.cu and `torch.addmm(bias, a, b)`, with each call's bound.
+     Then the row streams (`link_cases`: K1's and K4's LayerNorms on
+     layernorm_sm90.cu, K4's shortcut pools on pool_sm90.cu, the routes
+     asserted) at every main-path shape and at ragged ones
+     (LINK_RAGGED): the LayerNorm within one bf16 step of its plain twin
+     element by element (`ln_bound`), layernorm.cu within 2e-2, both
+     pools bit-equal to theirs, two calls bit-identical; `[links]` rows
+     with the time over 10 launches back to back and by device time
+     over input copies rotated past the L2 (`rotated_device_ms`), beside
+     the old kernel, `F.layer_norm` / `F.max_pool2d` and the byte bound;
+     then w8a8.cu's row quantizers (`ln_quant_rows`, `quant_rows`) at
+     K8's CLIP-L and RADIO-H shapes, timed the same way, with their byte
+     bound and launches per W8A8 encode.
  11. RADIO serving: the bf16 path of phase 3 with the RADIO-H/16@384
      tower (K1 32 per query, K8 0), stage seconds.
  12. W8A8 encode: `llava.encode_video` over `quantize_tree(bits=8,
@@ -191,14 +211,21 @@ REPLACES = {
     # the dense products inside K1 (`_vit_kernel`, vit_block.py:90-182)
     # and K4 (`_block_kernel` / `_mlp_tail`, hiera_block.py:111 / :87)
     "gemm_bf16": "video_llava_seg_tpu/ops/vit_block.py:90",
+    # the LayerNorm stages of K1 (`_vit_kernel`; nn.layer_norm in its XLA
+    # twin, vit_block.py:501 / :516) and K4 (`_ln_f32`, hiera_block.py:80)
+    "layernorm": "video_llava_seg_tpu/ops/hiera_block.py:80",
+    # the shortcut max-pool inside K4's `_block_kernel`
+    "maxpool2x2": "video_llava_seg_tpu/ops/hiera_block.py:111",
 }
 SOURCES = {
     # the attention link (head dims 64 / 80) on attention_sm90.cu
     # the six denses on gemm_bf16_sm90.cu (gemm_bf16.cu kept for the calls
     # gemm_bf16_entry refuses)
+    # the two LayerNorms on layernorm_sm90.cu (layernorm.cu kept for the
+    # widths layernorm_entry refuses)
     "K1": ("video_llava_seg_torch/ops/vit_block.py",
-           ["layernorm.cu", "gemm_bf16_sm90.cu", "gemm_bf16.cu",
-            "attention_sm90.cu"]),
+           ["layernorm_sm90.cu", "layernorm.cu", "gemm_bf16_sm90.cu",
+            "gemm_bf16.cu", "attention_sm90.cu"]),
     # head dim 128 (the LLM) and the per-op Hiera trunk's global blocks
     # (head dim 96) on attention_sm90.cu; attention.cu keeps head dims 16
     # / 32, a bias below 128 and fewer than FLASH_SM90_MIN_KEYS keys
@@ -212,9 +239,13 @@ SOURCES = {
     # attention_sm90.cu
     # every windowed block's attention on window_attention_sm90.cu, the
     # global blocks' on attention_sm90.cu
+    # norm1 / norm2 on layernorm_sm90.cu, the shortcut pool on
+    # pool_sm90.cu (layernorm.cu / pool.cu kept for the shapes their
+    # routes refuse)
     "K4": ("video_llava_seg_torch/ops/hiera_block.py",
-           ["layernorm.cu", "gemm_bf16_sm90.cu", "gemm_bf16.cu",
-            "window_attention_sm90.cu", "attention_sm90.cu", "pool.cu"]),
+           ["layernorm_sm90.cu", "layernorm.cu", "gemm_bf16_sm90.cu",
+            "gemm_bf16.cu", "window_attention_sm90.cu", "attention_sm90.cu",
+            "pool_sm90.cu", "pool.cu"]),
     # <= 8 rows at TMA-aligned widths (every decode product and the
     # lm_head: most launches) on w4a8_gemv_sm90.cu, more (the LLM prefill)
     # on w4a8_sm90.cu; other widths on w4a8.cu
@@ -241,6 +272,10 @@ SOURCES = {
                 ["w8a8_sm90.cu", "w8a8.cu"]),
     "gemm_bf16": ("video_llava_seg_torch/csrc/gemm_bf16_sm90.cu",
                   ["gemm_bf16_sm90.cu", "gemm_bf16.cu"]),
+    "layernorm": ("video_llava_seg_torch/csrc/layernorm_sm90.cu",
+                  ["layernorm_sm90.cu", "layernorm.cu"]),
+    "maxpool2x2": ("video_llava_seg_torch/csrc/pool_sm90.cu",
+                   ["pool_sm90.cu", "pool.cu"]),
 }
 # H100 SXM published dense peaks (NVIDIA data sheet, 700 W): the bound of
 # a call is max(bytes / HBM rate, operations / peak of their type)
@@ -277,7 +312,11 @@ PEAK_INT8 = 1979e12
 BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
           "K6a": 2e-2, "K6b": 2e-2, "K7": 1e-2, "K8": 3e-2,
           # integer sums, the epilogue's steps in a fixed order
-          "gemm_s8": None, "gemm_bf16": 1e-2}
+          "gemm_s8": None, "gemm_bf16": 1e-2,
+          # layernorm_sm90.cu is first held element by element (`ln_bound`:
+          # one bf16 step); relative to the largest element a step is at
+          # most 2^-7. A max rounds nothing: the pool is exact
+          "layernorm": 2 ** -7, "maxpool2x2": None}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -477,21 +516,28 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                 "w8a8_sm90.cu": ("gemm_s8_sm90_kernel",),
                 "gemm_bf16_sm90.cu": ("gemm_bf16_sm90_kernel",),
                 "window_attention_sm90.cu": (
-                    "window_attention_sm90_kernel",)}
+                    "window_attention_sm90_kernel",),
+                "layernorm_sm90.cu": ("layernorm_sm90_kernel",),
+                "pool_sm90.cu": ("maxpool2x2_sm90_kernel",)}
 # the instances of a templated kernel: attention_sm90.cu's <head dim,
 # bias>: D 64 / 80 / 96 / 128, the bias at 128; gemm_bf16_sm90.cu's
 # <activation>: none, quick_gelu, erf-GELU; attention_short_bwd_sm90.cu's
 # <key tile, bias>: 8 / 16 / 32 / 64 keys, with and without a bias;
 # window_attention_sm90.cu's <key tile, q pool>: 64 and 208 without, 128
 # and 208 with; w4a8_gemv_sm90.cu's <rows, fp32 out>: 1-8 rows, bf16 and
-# fp32
+# fp32 out; layernorm_sm90.cu's <vectors a lane>: 1-5
 SM90_INSTANCES = {"attention_sm90.cu": 5, "gemm_bf16_sm90.cu": 3,
                   "attention_short_bwd_sm90.cu": 8,
-                  "window_attention_sm90.cu": 4, "w4a8_gemv_sm90.cu": 16}
+                  "window_attention_sm90.cu": 4, "w4a8_gemv_sm90.cu": 16,
+                  "layernorm_sm90.cu": 5}
 # the sources with TMA loads but no wgmma, and the SASS op each must hold
-# instead (w4a8_gemv_sm90.cu: __dp4a)
-SM90_NO_WGMMA = {"w4a8_gemv_sm90.cu": "IDP"}
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "IDP")
+# instead (w4a8_gemv_sm90.cu: __dp4a; the row streams, whose loads are 1-D
+# bulk copies (UBLKCP) rather than tensor-map loads: the group shuffles of
+# layernorm_sm90.cu, the bf16x2 max of pool_sm90.cu)
+SM90_NO_WGMMA = {"w4a8_gemv_sm90.cu": "IDP", "layernorm_sm90.cu": "SHFL",
+                 "pool_sm90.cu": "HMNMX2"}
+SM90_BULK_ONLY = ("layernorm_sm90.cu", "pool_sm90.cu")
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP", "IDP", "SHFL", "HMNMX2")
 
 
 def _instance(base, mangled):
@@ -504,9 +550,11 @@ def _instance(base, mangled):
 
 def report_sm90_build(kernels):
     """The ptxas report (registers, spills, wgmma serialization warnings)
-    of each TMA + wgmma source and the counts of wgmma (HGMMA, IGMMA) and
-    TMA load (UTMALDG) instructions in the SASS of each of its kernels;
-    fails if a kernel has no wgmma or no TMA load."""
+    of each TMA + wgmma source and of the row streams, and the counts of
+    wgmma (HGMMA, IGMMA), TMA load (UTMALDG) and bulk copy (UBLKCP)
+    instructions in the SASS of each of its kernels; fails if a kernel
+    has no wgmma (or its SM90_NO_WGMMA op) or no TMA load (bulk copy for
+    SM90_BULK_ONLY)."""
     log_text = kernels.LIBRARY.build_log
     for src in SM90_KERNELS:
         start = log_text.index(f"== {src}")
@@ -546,9 +594,10 @@ def report_sm90_build(kernels):
                 + ", ".join(f"{c[op]} {op}" for op in SASS_OPS if c[op]))
             need = SM90_NO_WGMMA.get(src)
             compute = c[need] if need else c["HGMMA"] + c["IGMMA"]
-            if not compute or not c["UTMALDG"]:
-                raise AssertionError(f"{src}: no {need or 'wgmma'} or no TMA "
-                                     f"load in the SASS of {k}: {c}")
+            load = "UBLKCP" if src in SM90_BULK_ONLY else "UTMALDG"
+            if not compute or not c[load]:
+                raise AssertionError(f"{src}: no {need or 'wgmma'} or no "
+                                     f"{load} in the SASS of {k}: {c}")
 
 
 def bound_of(nbytes: float, ops: float, peak: float):
@@ -1115,6 +1164,18 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
     e2e = time.perf_counter() - t_all
     counts = snapshot_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # a warm repeat of the referral query, outside the counted run: its
+    # seg head (the one serving stage that carries the trunk) ran above
+    # as the process's first seg head on this tree
+    name, qs, kw = queries[1]
+    warm = {}
+    serve.get_model_output_frames(
+        params, cfg, tok, frames, qs, "llava_llama_3", max_new_tokens,
+        eos_token_ids=eos, stop_sequences=stops, timings=warm, **kw)
+    sync()
+    log(f"[{tag}] referral seg_encode: cold {outs[1][3]['seg_encode']:.3f} "
+        f"s, warm {warm['seg_encode']:.3f} s (the warm repeat: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in warm.items()) + " s)")
 
     for name, text, logits, timings, total in outs:
         stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
@@ -1186,7 +1247,7 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
     sync()
     return counts, {"seconds": e2e, "peak_gib": peak, "queries": {
         name: {"seconds": total, "stages": timings}
-        for name, _, _, timings, total in outs}}
+        for name, _, _, timings, total in outs}, "warm_referral": warm}
 
 
 # the C entry that must serve every dense of K1 and K4 (kernels.gemm)
@@ -1270,9 +1331,15 @@ def trunk_window_launches():
     return out
 
 
+# the C entries of every LayerNorm of K1 and K4 (kernels.layernorm) and
+# of K4's shortcut pools (kernels.maxpool2x2)
+LAYERNORM_SM90_ENTRY = "vls_layernorm_sm90"
+MAXPOOL_SM90_ENTRY = "vls_maxpool2x2_sm90"
+
+
 def trunk_pool_launches():
-    """pool.cu launches per pass of the seg head's trunk through K4: the
-    shortcut of every q-pool block."""
+    """pool_sm90.cu launches per pass of the seg head's trunk through K4:
+    the shortcut of every q-pool block."""
     return sum(pool for _, _, pool, _, _ in _trunk_block_kinds())
 
 
@@ -1287,6 +1354,7 @@ def reset_launches():
     kernels.ATTENTION_BWD_LAUNCHES.reset()
     kernels.GEMM_BF16_LAUNCHES.reset()
     kernels.WINDOW_LAUNCHES.reset()
+    kernels.LAYERNORM_LAUNCHES.reset()
     kernels.MAXPOOL_LAUNCHES.reset()
     kernels.W4A8_LAUNCHES.reset()
 
@@ -1295,9 +1363,9 @@ def snapshot_launches():
     """The K1..K8 counts just after a main path ran, under "K3 entry" the
     launches of attention_short_sm90.cu among them, under "sm90 entry"
     those of attention_sm90.cu, the flash backward's launches (K6a / K6b),
-    kernels.gemm's (the denses of K1 and K4) and kernels.window_attention's
-    (K7 and K4's windowed blocks) and kernels.w4a8_matmul's (K5) by C
-    entry, and pool.cu's under "pool"."""
+    kernels.gemm's (the denses of K1 and K4), kernels.window_attention's
+    (K7 and K4's windowed blocks), kernels.w4a8_matmul's (K5),
+    kernels.layernorm's and kernels.maxpool2x2's by C entry."""
     from video_llava_seg_torch import kernels
 
     counts = kernels.LAUNCHES.snapshot()
@@ -1308,8 +1376,8 @@ def snapshot_launches():
     counts.update(kernels.GEMM_BF16_LAUNCHES.snapshot())
     counts.update(kernels.WINDOW_LAUNCHES.snapshot())
     counts.update(kernels.W4A8_LAUNCHES.snapshot())
-    counts["pool"] = kernels.MAXPOOL_LAUNCHES.snapshot()[
-        "vls_maxpool2x2_bf16"]
+    counts.update(kernels.LAYERNORM_LAUNCHES.snapshot())
+    counts.update(kernels.MAXPOOL_LAUNCHES.snapshot())
     return counts
 
 
@@ -1320,9 +1388,11 @@ def check_launches(tag, counts, expect, why, bwd=None):
     the trunk's blocks `trunk_sm90_blocks` names, gemm_bf16_sm90.cu every
     dense of K1 and K4 (`trunk_dense_calls`), window_attention_sm90.cu
     every windowed block of a K4 trunk and every K7 call
-    (`trunk_window_launches`), and pool.cu only what
-    `trunk_pool_launches` counts. bwd: the flash backward's launches
-    expected by C entry (a path with a backward)."""
+    (`trunk_window_launches`), layernorm_sm90.cu the two LayerNorms of
+    every K1 layer and K4 block, and pool_sm90.cu what
+    `trunk_pool_launches` counts (layernorm.cu and pool.cu none). bwd:
+    the flash backward's launches expected by C entry (a path with a
+    backward)."""
     from video_llava_seg_torch import kernels
 
     for name in kernels.LaunchCounts.NAMES:
@@ -1370,11 +1440,23 @@ def check_launches(tag, counts, expect, why, bwd=None):
     if got != want:
         raise AssertionError(f"{tag}: kernels.window_attention routes {got}, "
                              f"expected {want}")
-    want = trunks * trunk_pool_launches()
-    log(f"[{tag}] pool.cu launches: {counts['pool']} (expected {want}: "
-        f"{trunk_pool_launches()} per K4 trunk x {trunks})")
-    if counts["pool"] != want:
-        raise AssertionError(f"{tag}: {counts['pool']} pool.cu launches, "
+    want = {MAXPOOL_SM90_ENTRY: trunks * trunk_pool_launches(),
+            "vls_maxpool2x2_bf16": 0}
+    got = {e: counts[e] for e in want}
+    log(f"[{tag}] kernels.maxpool2x2 launches by C entry: {got} (expected "
+        f"{want}: {trunk_pool_launches()} shortcut pools per K4 trunk x "
+        f"{trunks})")
+    if got != want:
+        raise AssertionError(f"{tag}: kernels.maxpool2x2 routes {got}, "
+                             f"expected {want}")
+    want = {LAYERNORM_SM90_ENTRY: 2 * (counts["K1"] + counts["K4"]),
+            "vls_layernorm_bf16": 0}
+    got = {e: counts[e] for e in want}
+    log(f"[{tag}] kernels.layernorm launches by C entry: {got} (expected "
+        f"{want}: 2 per K1 layer x {counts['K1']} + 2 per K4 block x "
+        f"{counts['K4']})")
+    if got != want:
+        raise AssertionError(f"{tag}: kernels.layernorm routes {got}, "
                              f"expected {want}")
     k5 = sum(counts[e] for e in kernels.W4A8_ROUTES)
     if k5 != counts["K5"]:
@@ -1713,6 +1795,47 @@ def dense_cases(cfg):
     return cases
 
 
+def link_cases(cfg):
+    """Every distinct LayerNorm and 2x2 max-pool call of K1's and K4's
+    chains on the main paths (`kernels.layernorm`, `kernels.maxpool2x2`):
+    K1's two LayerNorms at CLIP-L/14-336 and RADIO-H/16-384 over the
+    clip's frames, K4's norm1 / norm2 and the shortcut pool of its q-pool
+    blocks over the trunk's frames at its image size. Returns [(kernel,
+    path, shape, launches)], shape (rows, cols) for "layernorm" and (n, h,
+    w, c) for "maxpool2x2", launches the count per bf16 query (towers) or
+    per trunk pass."""
+    from video_llava_seg_torch.models import vit
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+
+    cases = []
+    for name, vc in (("CLIP-L/14-336", cfg.vision),
+                     ("RADIO-H/16-384", radio_cfg(cfg).vision)):
+        n_tok = (vc.num_patches + int(vc.use_cls_token)
+                 + vc.num_register_tokens)
+        cases.append(("layernorm", name,
+                      (cfg.num_frames * n_tok, vc.hidden_size),
+                      2 * vit.num_layers_run(vc)))
+    sc = make_sam2_cfg(cfg.seg)
+    hc = sc.hiera
+    side = sc.image_size // hc.patch_stride
+    bt = cfg.seg.max_seg_frames
+    trunk, pools = {}, 0
+    for din, dout, _, _, pool in hiera.block_dims(hc):
+        hw = side >> pools
+        ho = hw // 2 if pool else hw
+        calls = [("layernorm", (bt * hw * hw, din)),
+                 ("layernorm", (bt * ho * ho, dout))]
+        if pool:
+            calls.append(("maxpool2x2", (bt, hw, hw, dout)))
+        for key in calls:
+            trunk[key] = trunk.get(key, 0) + 1
+        pools += bool(pool)
+    for (kernel, shape), count in trunk.items():
+        cases.append((kernel, sc.name, shape, count))
+    return cases
+
+
 def hiera_window_kinds(cfg):
     """{(ws, pooled, map side): (first block, padded side, dout, heads)}
     of the windowed blocks of the seg head's trunk at its image size."""
@@ -1738,9 +1861,9 @@ def phase_k7_checks(cfg, seed, dev, results):
     against `window_attention_plain`, over 10 launches back to back and
     by device time; beside it window_attention.cu (forced by `route`),
     SDPA over the partitioned windows (the partition copy timed apart),
-    K4's attention stage (partition + [pool.cu] + attention_sm90.cu +
-    unpartition + crop) and K4's call of the new kernel (the crop written
-    directly). Returns the comparison rows."""
+    K4's attention stage (partition + [a 2x2 pool of q] +
+    attention_sm90.cu + unpartition + crop) and K4's call of the new
+    kernel (the crop written directly). Returns the comparison rows."""
     import torch.nn.functional as F
 
     from video_llava_seg_torch import kernels
@@ -2071,6 +2194,237 @@ def phase_dense_checks(cfg, seed, dev, results):
     return rows
 
 
+def rotated_device_ms(runs, inputs, l2_multiple: int = 4):
+    """{name: device ms of one call} of each `runs[name](x)` over copies of
+    the inputs `inputs()` makes, enough that their bytes exceed
+    l2_multiple x the L2 (so each call reads its input from device memory,
+    as on the main path, where the input was written long before): one
+    CUDA graph of a call on each copy, timed in turns (`in_turns`); the
+    outputs stay alive until the graph is gone, so they rotate too."""
+    first = inputs()
+    size = sum(_nbytes(t) for t in first)
+    copies = [first] + [inputs() for _ in range(
+        max(1, math.ceil(l2_multiple * L2_BYTES / size)) - 1)]
+    keep = []
+    out = in_turns({name: [lambda c=c, fn=fn: keep.append(fn(*c))
+                           for c in copies] for name, fn in runs.items()})
+    keep.clear()
+    del copies, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def ln_bound(x, gamma, beta, eps, want):
+    """The LayerNorm kernels' bound per element: one bf16 step of the
+    plain output `want` (the kernel and the plain twin compute the same
+    fp32 value up to the sums' order and contractions, so their roundings
+    to bf16 differ by at most a step, near a rounding boundary), plus
+    2^-20 of the affine's terms |x_hat * gamma| + |beta| for an element
+    they cancel to near zero (a few fp32 roundings of terms that size)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xhat = (xf - mean) * torch.rsqrt(
+        (xf - mean).square().mean(dim=-1, keepdim=True) + eps)
+    mag = (xhat * gamma.float()).abs() + beta.float().abs()
+    step = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp_min(2.0 ** -126))) - 7)
+    return step + 2.0 ** -20 * mag
+
+
+# the row streams' ragged shapes besides the main path's: one row, fewer
+# rows than a stage, a multiple of a stage plus one (96 columns: 64-row
+# tiles; 1280: 8-row tiles), an odd number of output rows, odd sides
+LINK_RAGGED = [("layernorm", (1, 96)), ("layernorm", (5, 96)),
+               ("layernorm", (64 * 37 + 1, 96)), ("layernorm", (7, 1280)),
+               ("layernorm", (8 * 2309 + 1, 1280)),
+               ("maxpool2x2", (2, 6, 10, 192)),
+               ("maxpool2x2", (3, 7, 9, 384)),
+               ("maxpool2x2", (8, 130, 258, 192))]
+
+
+def phase_link_checks(cfg, seed, dev, results):
+    """The LayerNorms of K1 and K4 (layernorm_sm90.cu) and K4's shortcut
+    pool (pool_sm90.cu) at every main-path shape (`link_cases`) and at
+    the ragged ones (LINK_RAGGED): the route asserted, the LayerNorm held
+    to its plain twin element by element (`ln_bound`) and layernorm.cu
+    (forced by `route`) within 2e-2 relative, the pool and pool.cu bit-
+    equal to the plain twin. At the main-path shapes, timed over 10
+    launches back to back and by device time over input copies rotated
+    past the L2 (`rotated_device_ms`), beside the old kernel and
+    `F.layer_norm` / `F.max_pool2d` (the NHWC map's channels-last view),
+    with the byte bound (input read once, output written once). Returns
+    the `[links]` rows."""
+    import torch.nn.functional as F
+
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.ops import nn
+    from video_llava_seg_torch.ops.hiera_block import max_pool_2x2
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    eps = 1e-6
+    main = [(k, p, sh, n) for k, p, sh, n in link_cases(cfg)]
+    rows = []
+    for kernel, path, shape, launches in main + [
+            (k, "ragged", sh, 0) for k, sh in LINK_RAGGED]:
+        timed = path != "ragged"
+        if kernel == "layernorm":
+            cols = shape[1]
+
+            def inputs(shape=shape, cols=cols):
+                return (3 * torch.randn(shape, generator=g, device=dev)
+                        + 0.5).to(bf),
+
+            (x,) = inputs()
+            gam = torch.randn(cols, generator=g, device=dev).to(bf)
+            bet = torch.randn(cols, generator=g, device=dev).to(bf)
+            entry = kernels.layernorm_entry(*shape)
+            want_entry, old_entry = LAYERNORM_SM90_ENTRY, "vls_layernorm_bf16"
+
+            def run(x, route=None, gam=gam, bet=bet):
+                return kernels.layernorm(x, gam, bet, eps, route=route)
+
+            def plain(x, gam=gam, bet=bet):
+                return nn.layer_norm({"scale": gam, "bias": bet}, x, eps)
+
+            def library(x, gam=gam, bet=bet, cols=cols):
+                return F.layer_norm(x, (cols,), gam, bet, eps)
+
+            got, old = run(x), run(x, old_entry)
+            want = nn.layer_norm({"scale": gam, "bias": bet}, x.float(), eps)
+            sync()
+            excess = ((got.float() - want).abs()
+                      - ln_bound(x, gam, bet, eps, want)).max().item()
+            rel_old = ((old.float() - want).abs().max()
+                       / want.abs().max()).item()
+            if not excess <= 0 or not rel_old <= 2e-2:
+                raise AssertionError(
+                    f"layernorm {list(shape)}: {excess:.3e} past the "
+                    f"element bound, layernorm.cu rel err {rel_old:.3e}")
+            nbytes = 2 * _nbytes(x) + _nbytes(gam, bet)
+            reference = lambda: want  # noqa: E731
+        else:
+            def inputs(shape=shape):
+                return torch.randn(shape, generator=g, device=dev).to(bf),
+
+            (x,) = inputs()
+            entry = kernels.maxpool_entry(*shape)
+            want_entry, old_entry = MAXPOOL_SM90_ENTRY, "vls_maxpool2x2_bf16"
+
+            def run(x, route=None):
+                return kernels.maxpool2x2(x, route=route)
+
+            plain = max_pool_2x2
+
+            def library(x):
+                return F.max_pool2d(x.permute(0, 3, 1, 2), 2)
+
+            got, want = run(x), max_pool_2x2(x)
+            even = shape[1] % 2 == 0 and shape[2] % 2 == 0
+            old = run(x, old_entry) if even else want
+            sync()
+            if not torch.equal(got, want) or not torch.equal(old, want):
+                raise AssertionError(f"maxpool2x2 {list(shape)}: not bit-"
+                                     "equal to max_pool_2x2 (pool_sm90.cu "
+                                     f"{torch.equal(got, want)}, pool.cu "
+                                     f"{torch.equal(old, want)})")
+            nbytes = _nbytes(x) + _nbytes(got)
+            reference = lambda: want  # noqa: E731
+        if entry != want_entry:
+            raise AssertionError(f"{kernel} {list(shape)}: routes to "
+                                 f"{entry}, not {want_entry}")
+        if not torch.equal(run(x), got):
+            raise AssertionError(f"{kernel} {list(shape)}: two calls differ")
+        del got, old
+        if not timed:
+            log(f"[check] {kernel} {list(shape)} (ragged) on {entry}: "
+                "within its bound")
+            continue
+        tag = f"{path} {list(shape)}"
+        _check(kernel, tag, lambda: run(x), lambda: plain(x), reference,
+               results, (nbytes, 0, PEAK_BF16),
+               run_library=lambda: library(x),
+               run_previous=lambda: run(x, old_entry),
+               previous=old_entry, train=10)
+        del want
+        dev_ms = rotated_device_ms(
+            {"device_ms": run,
+             "previous_device_ms": lambda x: run(x, old_entry),
+             "library_device_ms": library}, inputs)
+        r = results[kernel]["shapes"][-1]
+        r.update(dev_ms, launches=launches)
+        row = {"kernel": kernel, "path": path, "shape": list(shape),
+               "entry": entry, "launches": launches, "ms": r["ms"],
+               "previous": old_entry, "previous_ms": r["previous_ms"],
+               "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+               **dev_ms}
+        rows.append(row)
+        b = r["bound_ms"]
+        d_ms = dev_ms["device_ms"]
+        per = "trunk" if path.startswith("sam2") else "bf16 query"
+        log(f"[links] {kernel} {tag} on {entry}: device {d_ms:.4f} ms "
+            f"({b / d_ms:.3f} of the bound), 10 back to back "
+            f"{r['ms']:.4f} ms; {old_entry} device "
+            f"{dev_ms['previous_device_ms']:.4f} / {r['previous_ms']:.4f} "
+            f"ms; library device {dev_ms['library_device_ms']:.4f} / "
+            f"{r['library_ms']:.4f} ms; byte bound {b:.4f} ms; "
+            f"{launches} a {per}")
+        del x
+        torch.cuda.empty_cache()
+    rows += w8a8_row_times(cfg, g, dev)
+    sync()
+    return rows
+
+
+def w8a8_row_times(cfg, g, dev):
+    """w8a8.cu's row quantizers at K8's shapes, timed only (their bits are
+    the CUDA tests'): `ln_quant_rows` (LayerNorm + per-row int8, twice a
+    layer) over the tower's tokens, `quant_rows` (per-row int8) over the
+    attention output and fc1's, over 10 launches back to back and by
+    device time over rotated inputs, with the byte bound (bf16 read; int8
+    and an fp32 scale a row written). Returns the `[links]` rows."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.models import vit
+
+    rows = []
+    for name, vc in (("CLIP-L/14-336", cfg.vision),
+                     ("RADIO-H/16-384", radio_cfg(cfg).vision)):
+        m = cfg.num_frames * (vc.num_patches + int(vc.use_cls_token)
+                              + vc.num_register_tokens)
+        d, dff = vc.hidden_size, vc.intermediate_size
+        gam = torch.randn(d, generator=g, device=dev)
+        bet = torch.randn(d, generator=g, device=dev)
+        layers = vit.num_layers_run(vc)
+        for fn, cols in (("ln_quant_rows", d), ("quant_rows", d),
+                         ("quant_rows", dff)):
+            def inputs(cols=cols):
+                return torch.randn((m, cols), generator=g,
+                                   device=dev).to(torch.bfloat16),
+
+            def run(x, fn=fn):
+                if fn == "ln_quant_rows":
+                    return kernels.ln_quant_rows(x, gam, bet, 1e-6)
+                return kernels.quant_rows(x)
+
+            (x,) = inputs()
+            ms = cuda_ms(lambda: run(x), train=10)
+            del x
+            dev_ms = rotated_device_ms({"device_ms": run}, inputs)
+            nbytes = 3 * m * cols + 4 * m + (8 * d if fn[0] == "l" else 0)
+            b_ms, _ = bound_of(nbytes, 0, PEAK_BF16)
+            row = {"kernel": f"w8a8.cu {fn}", "path": name,
+                   "shape": [m, cols],
+                   "launches": layers * (2 if fn[0] == "l" else 1), "ms": ms,
+                   "bound_ms": b_ms, **dev_ms}
+            rows.append(row)
+            log(f"[links] w8a8.cu {fn} {name} [{m}, {cols}]: device "
+                f"{dev_ms['device_ms']:.4f} ms "
+                f"({b_ms / dev_ms['device_ms']:.3f} of the bound), 10 back "
+                f"to back {ms:.4f} ms; byte bound {b_ms:.4f} ms; "
+                f"{row['launches']} a W8A8 encode")
+    return rows
+
+
 def gemm_s8_checks(name, layer, vc, rows, proj_rows, hidden, act, g, dev,
                    results):
     """gemm_s8 at the six denses of one tower's W8A8 layer as the layer
@@ -2273,7 +2627,9 @@ def phase_w8a8_encode(cfg, seed, dev):
 
 
 # per-op trunk (cuBLAS denses, plain LayerNorm, K7, K2) vs the K4 chain
-# (gemm_bf16, layernorm.cu, attention_sm90.cu), both bf16 through 16 blocks:
+# (gemm_bf16, layernorm.cu, attention_sm90.cu; the LayerNorms on
+# layernorm_sm90.cu since, within a bf16 step of layernorm.cu's), both bf16
+# through 16 blocks:
 # max |a - b| / max |b| per pyramid level. The two round every block's
 # intermediates to bf16 at other places and the residual stream carries
 # it on. Measured on an H100 (700 W): 8.7e-3, 1.2e-2, 2.8e-2, 1.9e-2 by
@@ -3095,6 +3451,7 @@ def main(argv=None):
     gemm_rows = phase_k8_checks(cfg, args.seed, dev, results)
     link_rows = phase_attention_links(cfg, args.seed, dev, results)
     dense_rows = phase_dense_checks(cfg, args.seed, dev, results)
+    row_stream_rows = phase_link_checks(cfg, args.seed, dev, results)
     bf16_counts, _ = phase_slice(cfg, args.seed, args.max_new_tokens, dev)
     quant_counts, quant = phase_quant_slice(cfg, args.seed,
                                             args.max_new_tokens, dev)
@@ -3192,12 +3549,35 @@ def main(argv=None):
         "library_ms": r["library_ms"],
         "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
         "shapes": r["shapes"]})
+    # the row streams (K1's / K4's LayerNorms, K4's shortcut pool), counted
+    # by C entry on every path; times summed over the main-path shapes
+    for name, routes, entry in (
+            ("layernorm", kernels.LAYERNORM_ROUTES, LAYERNORM_SM90_ENTRY),
+            ("maxpool2x2", kernels.MAXPOOL_ROUTES, MAXPOOL_SM90_ENTRY)):
+        r = results[name]
+        source, csrc = SOURCES[name]
+        kernels_out.append({
+            "name": name, "route": "cuda", "source": source,
+            "csrc": [f"video_llava_seg_torch/csrc/{c}" for c in csrc],
+            "replaces": REPLACES[name], "launches": bf16_counts[entry],
+            "launches_by_path": {
+                p: {e: c[e] for e in routes} for p, c in paths.items()},
+            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+            "bound": ("one bf16 step an element (ln_bound)"
+                      if BOUNDS[name] is not None else "exact"),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": r["library_ms"],
+            "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
+            "device_ms": sum(sh["device_ms"] for sh in r["shapes"]),
+            "shapes": r["shapes"]})
     log(json.dumps({"w4a8_batched_slice": quant}))
     log(json.dumps({"vision_slice": {
         "radio_bf16_serving": radio, "w8a8_encode": w8a8,
         "hiera_per_op": hiera_op, "tiny_agreement": tiny_vision,
         "k7_vs_k4_attention_stage": k7_rows, "gemm_s8": gemm_rows,
-        "attention_links": link_rows, "gemm_bf16": dense_rows}}))
+        "attention_links": link_rows, "gemm_bf16": dense_rows,
+        "row_streams": row_stream_rows}}))
     log(json.dumps({"train_slice": train}))
     log(json.dumps({"kernels": kernels_out}))
     log(smi)

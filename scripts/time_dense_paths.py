@@ -10,9 +10,9 @@ compare them in one call on one card.
 --root: a checkout of the repository (default: the one holding this
 script) whose `chip_smoke.py` and `video_llava_seg_torch` are imported,
 so the same measurement runs on each tree's own code. The shapes come
-from this script's own tree (`chip_smoke.dense_cases`), so both trees
-are timed at the same ones. Prints one JSON object (also written to
---out):
+from this script's own tree (`chip_smoke.dense_cases`,
+`chip_smoke.link_cases`), so both trees are timed at the same ones.
+Prints one JSON object (also written to --out):
 - "dense": `kernels.gemm` on the C entry the tree picks at every
   distinct main-path dense shape (K1 at CLIP-L and RADIO-H over 32
   frames, K4 at each block kind of the SAM2.1-hiera-small trunk over 8
@@ -22,9 +22,12 @@ are timed at the same ones. Prints one JSON object (also written to
   residual) and the call's bound (chip_smoke's `bound_of`); the largest
   error against the product in fp32 over the largest output; where the
   call has an activation, also its time without it;
-- "links": the chains' other links at K1's and K4's shapes, layernorm.cu
-  beside `F.layer_norm` and pool.cu beside `F.max_pool2d`, with their
-  byte bounds (10 launches back to back);
+- "links": the chains' other links at every main-path shape
+  (`link_cases`: K1's and K4's LayerNorms, K4's shortcut pools),
+  `kernels.layernorm` and `kernels.maxpool2x2` on the entries the tree
+  picks beside `F.layer_norm` and `F.max_pool2d`, with their byte bounds:
+  10 launches back to back, and by device time over input copies
+  rotated past the L2 (this script's own `chip_smoke.rotated_device_ms`);
 - "layers": one K1 layer at CLIP-L and RADIO-H, one K4 block of each
   kind of the trunk (`vit_layer`, `hiera_block`), ms (CUDA events,
   median of 5);
@@ -49,14 +52,15 @@ from pathlib import Path
 OWN_ROOT = Path(__file__).resolve().parents[1]
 
 
-def _own_dense_cases():
-    """`dense_cases` of this script's own chip_smoke.py, loaded under
-    another name so that --root's chip_smoke stays `chip_smoke`."""
+def _own_chip_smoke():
+    """This script's own chip_smoke.py (its shapes and timing helpers),
+    loaded under another name so that --root's chip_smoke stays
+    `chip_smoke`."""
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke_dense_cases", OWN_ROOT / "chip_smoke.py")
+        "chip_smoke_own", OWN_ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.dense_cases
+    return mod
 
 
 def dense_times(cs, cases, dev):
@@ -114,11 +118,12 @@ def dense_times(cs, cases, dev):
     return out
 
 
-def link_times(cs, dev):
-    """[{link, shape, ms, library_ms, bound_ms}] of the chains' other
-    links at K1's and K4's shapes: layernorm.cu (`kernels.layernorm`)
-    beside `F.layer_norm`, pool.cu (`kernels.maxpool2x2`) beside
-    `F.max_pool2d` over the NHWC map's channels-last NCHW view; each
+def link_times(cs, own, cfg, dev):
+    """[{link, shape, ms, library_ms, bound_ms, device_ms,
+    library_device_ms}] of the chains' other links at every main-path
+    shape (`own.link_cases`): `kernels.layernorm` beside `F.layer_norm`,
+    `kernels.maxpool2x2` beside `F.max_pool2d` over the NHWC map's
+    channels-last NCHW view, each on the C entry the tree picks; each
     byte-bound (input read once, output written once)."""
     import torch
     import torch.nn.functional as F
@@ -127,42 +132,50 @@ def link_times(cs, dev):
 
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(2)
-    # K1: the two LayerNorms of a CLIP-L / RADIO-H layer over 32 x 577
-    # tokens; K4: norm1 / norm2 at each stage of the trunk (8 frames);
-    # pool.cu: the q-pool blocks' shortcut maps and q windows
-    norms = [(18464, 1024), (18464, 1280), (524288, 96), (131072, 192),
-             (32768, 384), (8192, 768)]
-    pools = [(8, 256, 256, 192), (8192, 8, 8, 192), (8, 128, 128, 384),
-             (8192, 4, 4, 384), (8, 64, 64, 768), (200, 14, 14, 768)]
     out = []
-    for rows, cols in norms:
-        x = torch.randn((rows, cols), generator=g, device=dev).to(bf)
-        w = torch.randn(cols, generator=g, device=dev).to(bf)
-        b = torch.randn(cols, generator=g, device=dev).to(bf)
-        out.append({
-            "link": "layernorm.cu", "shape": [rows, cols],
-            "ms": cs.cuda_ms(lambda: kernels.layernorm(x, w, b, 1e-6),
-                             train=10),
-            "library_ms": cs.cuda_ms(lambda: F.layer_norm(
-                x, (cols,), w, b, 1e-6), train=10),
-            "bound_ms": cs.bound_of(2 * cs._nbytes(x) + cs._nbytes(w, b), 0,
-                                    cs.PEAK_BF16)[0]})
+    for kernel, path, shape, launches in own.link_cases(cfg):
+        def inputs(shape=shape):
+            return torch.randn(shape, generator=g, device=dev).to(bf),
+
+        (x,) = inputs()
+        if kernel == "layernorm":
+            cols = shape[1]
+            w = torch.randn(cols, generator=g, device=dev).to(bf)
+            b = torch.randn(cols, generator=g, device=dev).to(bf)
+
+            def run(x, w=w, b=b):
+                return kernels.layernorm(x, w, b, 1e-6)
+
+            def library(x, w=w, b=b, cols=cols):
+                return F.layer_norm(x, (cols,), w, b, 1e-6)
+
+            nbytes = 2 * cs._nbytes(x) + cs._nbytes(w, b)
+        else:
+            def run(x):
+                return kernels.maxpool2x2(x)
+
+            def library(x):
+                return F.max_pool2d(x.permute(0, 3, 1, 2), 2)
+
+            nbytes = cs._nbytes(x) * 5 // 4
+        row = {"link": kernel, "path": path, "shape": list(shape),
+               "launches": launches,
+               "ms": cs.cuda_ms(lambda: run(x), train=10),
+               "library_ms": cs.cuda_ms(lambda: library(x), train=10),
+               "bound_ms": cs.bound_of(nbytes, 0, cs.PEAK_BF16)[0]}
         del x
-    for shape in pools:
-        x = torch.randn(shape, generator=g, device=dev).to(bf)
-        out.append({
-            "link": "pool.cu", "shape": list(shape),
-            "ms": cs.cuda_ms(lambda: kernels.maxpool2x2(x), train=10),
-            "library_ms": cs.cuda_ms(lambda: F.max_pool2d(
-                x.permute(0, 3, 1, 2), 2), train=10),
-            "bound_ms": cs.bound_of(cs._nbytes(x) * 5 / 4, 0,
-                                    cs.PEAK_BF16)[0]})
-        del x
-    torch.cuda.empty_cache()
+        row.update(own.rotated_device_ms(
+            {"device_ms": run, "library_device_ms": library}, inputs))
+        out.append(row)
+        torch.cuda.empty_cache()
     for r in out:
-        print(f"[links] {r['link']} {r['shape']}: {r['ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_ms'] / r['ms']:.3f} of it)", flush=True)
+        print(f"[links] {r['link']} {r['shape']}: device {r['device_ms']:.4f} "
+              f"ms ({r['bound_ms'] / r['device_ms']:.3f} of the bound), 10 "
+              f"back to back {r['ms']:.4f} ms; library device "
+              f"{r['library_device_ms']:.4f} / {r['library_ms']:.4f} ms; "
+              f"bound {r['bound_ms']:.4f} ms; {r['launches']} a "
+              f"{'trunk' if r['path'].startswith('sam2') else 'bf16 query'}",
+              flush=True)
     return out
 
 
@@ -230,7 +243,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
-    dense_cases = _own_dense_cases()
+    own = _own_chip_smoke()
     sys.path.insert(0, str(root))
     import torch
 
@@ -249,8 +262,8 @@ def main(argv=None):
         VideoLlavaConfig(), seg_token_idx=VideoLlavaConfig().llm.vocab_size
         - 1)
     phases = {
-        "dense": lambda: dense_times(cs, dense_cases(cfg), dev),
-        "links": lambda: link_times(cs, dev),
+        "dense": lambda: dense_times(cs, own.dense_cases(cfg), dev),
+        "links": lambda: link_times(cs, own, cfg, dev),
         "layers": lambda: layer_times(cs, cfg, dev),
         "w8a8_encode": lambda: cs.phase_w8a8_encode(cfg, args.seed, dev)[1],
         "trunk": lambda: cs.phase_hiera_per_op(cfg, args.seed, dev)[1]}

@@ -18,7 +18,8 @@ the fused-qkv map) is held against `window_attention_plain` in fp32 with
 the same bound, and at head dim 96 (csrc/window_attention_sm90.cu, TMA +
 wgmma) at the seven Hiera-S kinds within 1e-2, two calls bit-identical,
 its crop equal to the full map's; K4's windowed blocks take it (one
-launch a block, no attention launch, pool.cu only for the shortcut);
+launch a block, no attention launch, pool_sm90.cu only for the
+shortcut);
 K8's building blocks are exact where the TPU kernel's arithmetic is
 (gemm_s8, csrc/w8a8_sm90.cu where K and N are multiples of 16 and
 csrc/w8a8.cu elsewhere, bit-equal to the float64 int8 product, to
@@ -625,8 +626,8 @@ HIERA_WINDOW_KINDS = [
 def test_hiera_block_window_sm90(dev, shape, heads, ws, ps, proj):
     """K4's chain sends a windowed block's attention to one launch of the
     entry `window_entry` names (window_attention_sm90.cu at head dim 96,
-    window_attention.cu at 56 / 72; no attention launch, pool.cu only
-    for the shortcut) and stays within 2e-2 of `hiera_block_plain`."""
+    window_attention.cu at 56 / 72; no attention launch, pool_sm90.cu
+    only for the shortcut) and stays within 2e-2 of `hiera_block_plain`."""
     g = torch.Generator(device=dev).manual_seed(13)
     b, h, w, din = shape
     dout = 2 * din if proj else din
@@ -648,8 +649,9 @@ def test_hiera_block_window_sm90(dev, shape, heads, ws, ps, proj):
     entry = kernels.window_entry(dout // heads, ws, ps)
     assert win == {e: int(e == entry) for e in kernels.WINDOW_ROUTES}
     assert after[1] == before[1]
-    assert (after[2]["vls_maxpool2x2_bf16"]
-            - before[2]["vls_maxpool2x2_bf16"]) == (ps > 1)
+    pooled = {e: after[2][e] - before[2][e] for e in after[2]}
+    assert pooled == {e: int(e == kernels.MAXPOOL_SM90_ENTRY and ps > 1)
+                      for e in kernels.MAXPOOL_ROUTES}
     want = hiera_block_plain(_f32(blk), x.float(), num_heads=heads, ws=ws,
                              q_stride=q_stride, eps=1e-6)
     assert got.shape == want.shape

@@ -2,10 +2,11 @@
 // attention_sm90.cu (forward), attention_bwd_sm90.cu (backward),
 // attention_short_sm90.cu (K3), w4a8_sm90.cu (K5's prefill),
 // w4a8_gemv_sm90.cu (K5's decode: mbarriers and TMA only),
-// w8a8_sm90.cu (gemm_s8) and gemm_bf16_sm90.cu (the bf16 denses of K1 and
-// K4): mbarrier waits that trap instead of
-// hanging, TMA tile loads (4-D and 2-D), 128-, 64- and 32-byte-swizzle
-// wgmma descriptors, the wgmma forms the files use, and
+// w8a8_sm90.cu (gemm_s8), gemm_bf16_sm90.cu (the bf16 denses of K1 and
+// K4), layernorm_sm90.cu and pool_sm90.cu (mbarriers and 1-D bulk copies
+// only): mbarrier waits that trap instead of hanging, TMA tile loads (4-D
+// and 2-D) and 1-D bulk copies, 128-, 64- and 32-byte-swizzle wgmma
+// descriptors, the wgmma forms the files use, and
 // the tensor-map encoding through the runtime's driver entry point (no
 // link against libcuda). Included by each .cu; kernels/__init__.py hashes
 // it with the sources, so an edit rebuilds the library.
@@ -94,6 +95,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4}], [%2];"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// contiguous global bytes -> shared, completing on the mbarrier (a 1-D
+// bulk copy, TMA without a tensor map: 16-byte aligned addresses, a
+// multiple of 16 bytes)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

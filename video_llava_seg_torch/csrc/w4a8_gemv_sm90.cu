@@ -154,17 +154,6 @@ __device__ __forceinline__ int word(const uint4& v, int i) {
   return (int)(i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w);
 }
 
-// contiguous global bytes -> shared, completing on the mbarrier (16-byte
-// aligned addresses, a multiple of 16 bytes)
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }

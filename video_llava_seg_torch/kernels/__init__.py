@@ -28,7 +28,11 @@ launch by its C entry (`attention_bwd_entry`); `GEMM_BF16_LAUNCHES` every
 `gemm` launch (the bf16 denses of K1 and K4) by its C entry
 (`gemm_bf16_entry`); `WINDOW_LAUNCHES` every `window_attention` launch
 (K7's, and the windowed attention of K4's chain) by its C entry
-(`window_entry`); `MAXPOOL_LAUNCHES` every `maxpool2x2` launch;
+(`window_entry`); `LAYERNORM_LAUNCHES` every `layernorm` launch (the
+LayerNorms of K1 and K4) by its C entry (`layernorm_entry`:
+`vls_layernorm_sm90`, `vls_layernorm_bf16`); `MAXPOOL_LAUNCHES` every
+`maxpool2x2` launch (K4's shortcut pool) by its C entry
+(`maxpool_entry`: `vls_maxpool2x2_sm90`, `vls_maxpool2x2_bf16`);
 `W4A8_LAUNCHES` every `w4a8_matmul` launch (K5's) by its C entry
 (`w4a8_entry`).
 """
@@ -62,6 +66,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
     "vls_layernorm_bf16": [_P, _P, _P, _P, _L, _I, _F, _P],
+    "vls_layernorm_sm90": [_P] * 4 + [_L, _I, _F, _I, _I, _I, _P],
     "vls_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "vls_gemm_bf16_sm90": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
     "vls_attention_bf16": [_P] * 6 + [_L] * 13 + [_I] * 7
@@ -75,6 +80,7 @@ _SIGNATURES = {
     "vls_attention_short_bwd_sm90": [_P] * 12 + [_L] * 10
                                     + [_I, _I, _F, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
+    "vls_maxpool2x2_sm90": [_P, _P] + [_I] * 7 + [_P],
     "vls_w4a8": [_P] * 6 + [_I] * 5 + [_P],
     "vls_w4a8_sm90": [_P] * 6 + [_I] * 4 + [_P],
     "vls_w4a8_gemv_sm90": [_P] * 6 + [_I] * 7 + [_P],
@@ -207,6 +213,32 @@ WINDOW_SM90_ROWS = 64
 WINDOW_SM90_MAX_KEYS = 208
 WINDOW_SM90_POOL_KEYS = 128
 WINDOW_SM90_BOX_COLS = (64, 32)
+# layernorm_sm90.cu and pool_sm90.cu (the row streams of K1's and K4's
+# LayerNorms and of K4's shortcut pool): a persistent grid, each block one
+# producer thread keeping 1-D bulk copies of whole work items in flight
+# through a ring of ROW_STREAM_STAGES stages (the C entries take up to
+# ROW_STREAM_MAX_STAGES) and 8 consumer warps; ROW_STREAM_BLOCKS blocks
+# an SM, one where each block would take ROW_STREAM_LONG items or more.
+# On an H100 deeper rings, and two blocks an SM on long streams, ran
+# slower (scripts/probe_row_streams.py). LayerNorm: a row is held by a
+# group of G lanes (the least power of two up to 32 that leaves each lane
+# at most LN_SM90_LANE_VECS 16-byte vectors of it), each lane at most
+# LN_SM90_MAX_VECS vectors (cols <= 1280), a stage one tile of 8 x 32 / G
+# rows. Pool: an item is one output row times a chunk of CW output
+# columns (CW the largest power of two with both input row pieces within
+# POOL_SM90_STAGE bytes), at most 512 16-byte output vectors
+LAYERNORM_SM90_ENTRY = "vls_layernorm_sm90"
+MAXPOOL_SM90_ENTRY = "vls_maxpool2x2_sm90"
+ROW_STREAM_WARPS = 8
+ROW_STREAM_BLOCKS = 2
+ROW_STREAM_LONG = 12
+ROW_STREAM_STAGES = 3
+ROW_STREAM_MAX_STAGES = 8
+ROW_STREAM_BARS = 128
+LN_SM90_LANE_VECS = 4
+LN_SM90_MAX_VECS = 5
+POOL_SM90_STAGE = 24 << 10
+POOL_SM90_MAX_VECS = 2 * 32 * ROW_STREAM_WARPS
 
 
 class LaunchCounts:
@@ -257,9 +289,14 @@ WINDOW_LAUNCHES = LaunchCounts(WINDOW_ROUTES)
 # three C entries serve them (decode, prefill, other widths)
 W4A8_ROUTES = ("vls_w4a8", "vls_w4a8_sm90", W4A8_GEMV_ENTRY)
 W4A8_LAUNCHES = LaunchCounts(W4A8_ROUTES)
-# pool.cu's launches: K4's shortcut pooling (and its q pooling where the
-# chain keeps its attention stage)
-MAXPOOL_LAUNCHES = LaunchCounts(("vls_maxpool2x2_bf16",))
+# layernorm's launches by C entry: K1 and K4 count their layers, two
+# LayerNorms each
+LAYERNORM_ROUTES = ("vls_layernorm_bf16", LAYERNORM_SM90_ENTRY)
+LAYERNORM_LAUNCHES = LaunchCounts(LAYERNORM_ROUTES)
+# maxpool2x2's launches by C entry: K4's shortcut pooling (and its q
+# pooling where the chain keeps its attention stage)
+MAXPOOL_ROUTES = ("vls_maxpool2x2_bf16", MAXPOOL_SM90_ENTRY)
+MAXPOOL_LAUNCHES = LaunchCounts(MAXPOOL_ROUTES)
 
 
 class _Library:
@@ -383,9 +420,73 @@ def _require(t: torch.Tensor, what: str, dtype=torch.bfloat16,
         raise ValueError(f"{what}: data must be 16-byte aligned")
 
 
+class LayerNormPlan(NamedTuple):
+    """layernorm_sm90.cu's launch: G lanes a row, `vecs` 16-byte vectors a
+    lane, `tile_rows` rows a stage (one bulk copy), `stages` stages of
+    `stage_bytes`, `tiles` tiles over the rows, `grid` persistent blocks
+    of `smem` bytes of dynamic shared memory."""
+    group: int
+    vecs: int
+    tile_rows: int
+    stage_bytes: int
+    stages: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def _row_stream_grid(items: int, sms: int) -> int:
+    """A row stream's persistent blocks over `items` work items: two an
+    SM, one an SM on a long stream (ROW_STREAM_LONG items a block or more
+    at two)."""
+    long = items >= ROW_STREAM_LONG * ROW_STREAM_BLOCKS * sms
+    return min(items, sms * (1 if long else ROW_STREAM_BLOCKS))
+
+
+@functools.lru_cache(maxsize=256)
+def layernorm_sm90_plan(rows: int, cols: int, sms: int = H100_SMS):
+    """layernorm_sm90.cu's geometry for a [rows, cols] LayerNorm, or None
+    where it does not take the shape (no rows, cols % 8, more than
+    LN_SM90_MAX_VECS vectors a lane: cols > 1280). Pure; cached per shape,
+    as `_forward_geometry`."""
+    if rows <= 0 or cols <= 0 or cols % 8:
+        return None
+    v = cols // 8
+    group = 1
+    while group < 32 and -(-v // group) > LN_SM90_LANE_VECS:
+        group *= 2
+    vecs = -(-v // group)
+    if vecs > LN_SM90_MAX_VECS:
+        return None
+    tile_rows = ROW_STREAM_WARPS * (32 // group)
+    stage_bytes = tile_rows * cols * 2
+    tiles = -(-rows // tile_rows)
+    smem = (128 + ROW_STREAM_BARS + (4 * cols + 127) // 128 * 128
+            + ROW_STREAM_STAGES * stage_bytes)
+    return LayerNormPlan(group, vecs, tile_rows, stage_bytes,
+                         ROW_STREAM_STAGES, tiles,
+                         _row_stream_grid(tiles, sms), smem)
+
+
+def layernorm_entry(rows: int, cols: int) -> str:
+    """The C entry that serves `layernorm` on a [rows, cols] input:
+    layernorm_sm90.cu where `layernorm_sm90_plan` takes the shape (cols %
+    8 == 0, cols <= 1280: every LayerNorm of K1 and K4), layernorm.cu
+    otherwise."""
+    if layernorm_sm90_plan(rows, cols) is not None:
+        return LAYERNORM_SM90_ENTRY
+    return "vls_layernorm_bf16"
+
+
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              eps: float) -> torch.Tensor:
-    """LayerNorm over the last dim of a contiguous bf16 tensor."""
+              eps: float, route: Optional[str] = None) -> torch.Tensor:
+    """LayerNorm over the last dim of a contiguous bf16 tensor (the
+    plain version is `ops.nn.layer_norm`). The shape chooses the kernel
+    (`layernorm_entry`); `route` names a C entry of LAYERNORM_ROUTES
+    instead, for the tests and for timing layernorm.cu."""
+    if route is not None and route not in LAYERNORM_ROUTES:
+        raise ValueError(f"layernorm: route must be one of "
+                         f"{LAYERNORM_ROUTES}, got {route!r}")
     for t, what in ((x, "x"), (gamma, "gamma"), (beta, "beta")):
         _require(t, f"layernorm {what}")
     cols = x.shape[-1]
@@ -393,9 +494,21 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError("layernorm: gamma/beta must match the last dim")
     y = torch.empty_like(x)
     rows = x.numel() // cols if cols else 0
-    _check_code("layernorm", LIBRARY.get().vls_layernorm_bf16(
-        _ptr(x), _ptr(gamma), _ptr(beta), _ptr(y), rows, cols, float(eps),
-        _stream()))
+    entry = route or layernorm_entry(rows, cols)
+    if entry == LAYERNORM_SM90_ENTRY:
+        plan = layernorm_sm90_plan(rows, cols, _sm_count(x.device.index))
+        if plan is None:
+            raise ValueError(f"layernorm: {LAYERNORM_SM90_ENTRY} does not "
+                             f"take [{rows}, {cols}]")
+        code = LIBRARY.get().vls_layernorm_sm90(
+            _ptr(x), _ptr(gamma), _ptr(beta), _ptr(y), rows, cols,
+            float(eps), plan.group, plan.stages, plan.grid, _stream())
+    else:
+        code = LIBRARY.get().vls_layernorm_bf16(
+            _ptr(x), _ptr(gamma), _ptr(beta), _ptr(y), rows, cols,
+            float(eps), _stream())
+    _check_code("layernorm", code)
+    LAYERNORM_LAUNCHES.add(entry)
     return y
 
 
@@ -1015,16 +1128,81 @@ def _attention_bwd_dkv(entry, q, k, v, dout, lse, delta, *, scale, causal,
     return dk, dv
 
 
-def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 max pool of a contiguous NHWC bf16 map (H, W even)."""
+class PoolPlan(NamedTuple):
+    """pool_sm90.cu's launch: items of one output row by `cw` output
+    columns (`chunks` a row, `items` in all), `stages` stages of
+    `stage_bytes` (both input row pieces), `grid` persistent blocks of
+    `smem` bytes of dynamic shared memory."""
+    cw: int
+    chunks: int
+    items: int
+    stage_bytes: int
+    stages: int
+    grid: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def maxpool_sm90_plan(n: int, h: int, w: int, c: int, sms: int = H100_SMS):
+    """pool_sm90.cu's geometry for a 2x2 max pool of an [n, h, w, c] map,
+    or None where it does not take the map (an empty output, c % 8, more
+    than POOL_SM90_MAX_VECS output vectors in an item of one pixel, 2^31
+    items or more). Pure; cached per shape, as `_forward_geometry`."""
+    oh, ow = h // 2, w // 2
+    if n <= 0 or oh <= 0 or ow <= 0 or c <= 0 or c % 8:
+        return None
+    if c // 8 > POOL_SM90_MAX_VECS:
+        return None
+    cw = 1
+    while 2 * cw <= ow and 8 * 2 * cw * c <= POOL_SM90_STAGE:
+        cw *= 2
+    chunks = -(-ow // cw)
+    items = n * oh * chunks
+    if items >= 1 << 31:
+        return None
+    stage_bytes = 8 * cw * c
+    return PoolPlan(cw, chunks, items, stage_bytes, ROW_STREAM_STAGES,
+                    _row_stream_grid(items, sms),
+                    128 + ROW_STREAM_BARS + ROW_STREAM_STAGES * stage_bytes)
+
+
+def maxpool_entry(n: int, h: int, w: int, c: int) -> str:
+    """The C entry that serves `maxpool2x2` on an [n, h, w, c] map:
+    pool_sm90.cu where `maxpool_sm90_plan` takes it (c % 8 == 0: every
+    shortcut map of K4), pool.cu otherwise."""
+    if maxpool_sm90_plan(n, h, w, c) is not None:
+        return MAXPOOL_SM90_ENTRY
+    return "vls_maxpool2x2_bf16"
+
+
+def maxpool2x2(x: torch.Tensor, route: Optional[str] = None) -> torch.Tensor:
+    """2x2 max pool of a contiguous NHWC bf16 map (the plain version is
+    `ops.hiera_block.max_pool_2x2`). The map chooses the kernel
+    (`maxpool_entry`); `route` names a C entry of MAXPOOL_ROUTES instead.
+    pool_sm90.cu drops an odd last row or column, as the plain version;
+    pool.cu takes even H and W only."""
+    if route is not None and route not in MAXPOOL_ROUTES:
+        raise ValueError(f"maxpool2x2: route must be one of "
+                         f"{MAXPOOL_ROUTES}, got {route!r}")
     _require(x, "maxpool2x2 x")
     n, h, w, c = x.shape
-    if h % 2 or w % 2:
-        raise ValueError("maxpool2x2: H and W must be even")
+    entry = route or maxpool_entry(n, h, w, c)
+    if entry != MAXPOOL_SM90_ENTRY and (h % 2 or w % 2):
+        raise ValueError("maxpool2x2: pool.cu takes even H and W only")
     y = torch.empty((n, h // 2, w // 2, c), device=x.device, dtype=x.dtype)
-    _check_code("maxpool2x2", LIBRARY.get().vls_maxpool2x2_bf16(
-        _ptr(x), _ptr(y), n, h, w, c, _stream()))
-    MAXPOOL_LAUNCHES.add("vls_maxpool2x2_bf16")
+    if entry == MAXPOOL_SM90_ENTRY:
+        plan = maxpool_sm90_plan(n, h, w, c, _sm_count(x.device.index))
+        if plan is None:
+            raise ValueError(f"maxpool2x2: {MAXPOOL_SM90_ENTRY} does not "
+                             f"take {tuple(x.shape)}")
+        code = LIBRARY.get().vls_maxpool2x2_sm90(
+            _ptr(x), _ptr(y), n, h, w, c, plan.cw, plan.stages, plan.grid,
+            _stream())
+    else:
+        code = LIBRARY.get().vls_maxpool2x2_bf16(_ptr(x), _ptr(y), n, h, w,
+                                                 c, _stream())
+    _check_code("maxpool2x2", code)
+    MAXPOOL_LAUNCHES.add(entry)
     return y
 
 

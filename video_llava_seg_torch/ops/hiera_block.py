@@ -10,10 +10,15 @@ The TPU kernel runs the whole block in one launch with its weights in
 VMEM. On CUDA the block is a chain of the port's hand-written kernels
 with the same math:
 
-  layernorm.cu -> [gemm_bf16_sm90.cu shortcut proj] -> [pool.cu] ->
-  gemm_bf16_sm90.cu (qkv) -> attention -> gemm_bf16_sm90.cu (proj +
-  bias + residual) -> layernorm.cu -> gemm_bf16_sm90.cu (fc1 + bias +
-  erf-GELU) -> gemm_bf16_sm90.cu (fc2 + bias + residual)
+  layernorm_sm90.cu -> [gemm_bf16_sm90.cu shortcut proj] ->
+  [pool_sm90.cu] -> gemm_bf16_sm90.cu (qkv) -> attention ->
+  gemm_bf16_sm90.cu (proj + bias + residual) -> layernorm_sm90.cu ->
+  gemm_bf16_sm90.cu (fc1 + bias + erf-GELU) -> gemm_bf16_sm90.cu (fc2 +
+  bias + residual)
+
+(the LayerNorms and the pool on the entries `kernels.layernorm_entry` /
+`kernels.maxpool_entry` name: the sm90 row streams at every width of
+Hiera-T / S / B+ / L, layernorm.cu / pool.cu for the shapes they refuse)
 
 The attention of a windowed block is one `kernels.window_attention`
 launch on the padded fused-qkv map as it lies, which pools q while
@@ -97,8 +102,8 @@ def hiera_block_plain(blk, x, *, num_heads: int, ws: int,
 def attention_stage(qkv, *, num_heads: int, ws: int, ps: int):
     """Attention over ws x ws windows by `kernels.attention` on a
     contiguous fused-qkv map [B, Hp, Wp, 3C] (Hp, Wp multiples of ws):
-    window partition (one copy, none for a single window), [pool.cu on
-    q], one window per batch row, and the unpartition of its [window,
+    window partition (one copy, none for a single window), [a 2x2 max
+    pool of q], one window per batch row, and the unpartition of its [window,
     token, head, hd] output into the (pooled) map [B, Hp/ps, Wp/ps, C],
     possibly a view. The chain runs it for global blocks (ws = the map's
     side, ps = 1); chip_smoke times it at the windowed kinds, which the

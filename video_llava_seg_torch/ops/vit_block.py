@@ -12,10 +12,13 @@ block's 227 KB of shared memory, so on CUDA the layer is a short chain
 of the port's hand-written kernels that keeps the same math and masking
 contract:
 
-  layernorm.cu -> gemm_bf16_sm90.cu x3 (q with the scale fused, k, v)
-  -> attention_sm90.cu (kv_len mask) -> gemm_bf16_sm90.cu (out proj +
-  bias + residual) -> layernorm.cu -> gemm_bf16_sm90.cu (fc1 + bias +
-  activation) -> gemm_bf16_sm90.cu (fc2 + bias + residual)
+  layernorm_sm90.cu -> gemm_bf16_sm90.cu x3 (q with the scale fused,
+  k, v) -> attention_sm90.cu (kv_len mask) -> gemm_bf16_sm90.cu (out
+  proj + bias + residual) -> layernorm_sm90.cu -> gemm_bf16_sm90.cu (fc1
+  + bias + activation) -> gemm_bf16_sm90.cu (fc2 + bias + residual)
+
+(the LayerNorms on layernorm_sm90.cu at CLIP's and RADIO's widths, up to
+1280; `kernels.layernorm_entry` sends wider ones to layernorm.cu)
 
 Between launches only views and reshapes: q/k/v are read in place
 through strides and the attention output lands in [frames, tokens,
