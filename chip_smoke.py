@@ -42,7 +42,11 @@ script exits non-zero without printing a result:
      attention_short_sm90.cu (the route asserted), timed over 10 launches
      back to back beside attention.cu's two-pass form, which it replaced,
      and SDPA, and also by device time alone (a CUDA graph of the 10
-     launches: at these shapes the host's cost of a call exceeds it).
+     launches: at these shapes the host's cost of a call exceeds it); K3
+     also at the SAM2 image predictor's `predict` (q [1, 8, 4096, 16], 9
+     keys: a box, the pad point, 6 output tokens) and the automatic mask
+     generator's point batch ([64, 8, 4096, 16], 8 keys), and K4 also at
+     each block kind of SAM2.1-hiera-tiny over one 1024^2 image.
   3. the bf16 slice at full width (CLIP-L/14-336 over 32 frames,
      Llama-3-8B, SAM2.1-hiera-small at 1024^2 over 8 frames), seeded
      random bf16 weights built on the card: one caption query and one
@@ -119,7 +123,7 @@ with `kernel_qa` denses; gemm_bf16's, layernorm's and maxpool2x2's by
 route).
 
 The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
-after phase 4, 14 after phase 5.
+after phase 4, 14 after phase 5; the SAM2 image slice, 15-17, after 14.
 
  10. K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
      8 frames at 1024^2 on window_attention_sm90.cu (the route asserted)
@@ -175,6 +179,30 @@ after phase 4, 14 after phase 5.
      over 7 rounds (median, min, max).
  14. tiny card-vs-CPU agreement of a RADIO tower (head dim 80), S2, a
      W8A8 tower and the per-op trunk.
+ 15. the SAM2 image predictor at full width: `build_sam2_image_predictor(
+     "tiny", seed=)` (SAM2.1-hiera-tiny, random bf16 weights) on a 1080 x
+     1920 frame: `set_image` (launches by C entry over one call: K4 12,
+     gemm_bf16_sm90.cu 51, window_attention_sm90.cu 9, attention_sm90.cu
+     3, layernorm_sm90.cu 24, pool_sm90.cu 3, the old entries 0; derived
+     from the tiny config by the trunk helpers), two calls bit-identical;
+     `predict` with a box (K3 2, all on attention_short_sm90.cu; two calls
+     bit-identical), with 3 points, with box + points + the previous
+     low-res logits as the mask input (one mask); output shapes, finite
+     logits clipped to +-32; warm `set_image` and `predict` medians and
+     their device busy time (torch.profiler) beside the card's name and
+     power limit; `set_image_batch` of two frames and `predict_batch`;
+     a predictor with max_hole_area = max_sprinkle_area = 64
+     (`fill_holes_and_sprinkles` on the card), and connected components
+     on the card equal to the CPU's.
+ 16. the automatic mask generator over a 1024^2 frame through that
+     predictor: the defaults (32 x 32 points, batches of 64), IoU and
+     stability thresholds 0 (the masks reach NMS and RLE), and one crop
+     layer with min_mask_region_area 25 (AMG_CROP_POINTS_PER_SIDE points
+     a side); seconds per image split into set_image, decode, the masks'
+     transfer to the host and the host's filters; K4 12 a crop and K3 2 a
+     point batch by C entry; well-formed records.
+ 17. tiny card-vs-CPU agreement of sam2-test-tiny through set_image +
+     predict and generate.
 """
 
 from __future__ import annotations
@@ -743,22 +771,18 @@ def hiera_block_ops(blk, bt, hw, din, dout, ws, pool):
 
 def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
                         seed: int, dev):
-    """K1..K4 at the main paths' shapes. prefill_len: the batch-1 caption
-    prefill; batch_len / pad: the batch-2 prefill and the left pad of its
-    shorter row (K2 with a per-key bias)."""
+    """K1..K4 at the main paths' shapes (K3 and K4 also at the SAM2 image
+    predictor's and the automatic mask generator's). prefill_len: the
+    batch-1 caption prefill; batch_len / pad: the batch-2 prefill and the
+    left pad of its shorter row (K2 with a per-key bias)."""
     import torch.nn.functional as F
 
-    from video_llava_seg_torch import kernels
     from video_llava_seg_torch.models import vit
-    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.sam2.config import sam2_config
     from video_llava_seg_torch.models.seg_head import make_sam2_cfg
     from video_llava_seg_torch.ops.attention import (
         attention,
         attention_reference,
-    )
-    from video_llava_seg_torch.ops.hiera_block import (
-        hiera_block,
-        hiera_block_plain,
     )
     from video_llava_seg_torch.ops.quantization import quantized_nbytes
     from video_llava_seg_torch.ops.vit_block import (
@@ -851,19 +875,53 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
     # / v as the decoder builds them, [B, S, H, 16] dense outputs viewed
     # [B, H, S, 16]
     sc = make_sam2_cfg(cfg.seg)
+    # [obj score] + iou + mask tokens + the one sparse prompt per row
+    n_out = int(sc.pred_obj_scores) + 1 + (sc.num_multimask_outputs + 1)
+    k3_check(sc, cfg.seg.max_seg_frames, n_out + 1, g, dev, results)
+    # the SAM2 image predictor (SAM2.1-hiera-tiny, the same decoder
+    # widths): `predict` with a box (2 corner points + the pad point), one
+    # image; the automatic mask generator's batch of 64 points (the point
+    # + the pad point)
+    tc = sam2_config("tiny")
+    k3_check(tc, 1, n_out + 3, g, dev, results, "predict, box")
+    k3_check(tc, 64, n_out + 2, g, dev, results, "AMG point batch")
+
+    # K4: one Hiera-small block of each kind over the 8 seg frames, then
+    # one Hiera-tiny block of each kind over one image (set_image)
+    k4_kind_checks(sc, cfg.seg.max_seg_frames, g, dev, results)
+    k4_kind_checks(tc, 1, g, dev, results, "set_image")
+    torch.cuda.empty_cache()
+    sync()
+    return results
+
+
+def k3_check(sc, bt, n_tok, g, dev, results, what=None):
+    """K3 at the mask decoder's image->token attention of config sc over
+    bt rows and n_tok tokens (keys), against its plain twin, timed beside
+    attention.cu's two-pass form and SDPA."""
+    import torch.nn.functional as F
+
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.ops.attention import (
+        attention,
+        attention_reference,
+    )
+
     heads = sc.twoway_heads
     hd = sc.hidden_dim // sc.attention_downsample_rate // heads
-    # [obj score] + iou + mask tokens + the one sparse prompt per row
-    n_tok = int(sc.pred_obj_scores) + 1 + (sc.num_multimask_outputs + 1) + 1
     nq = sc.image_embedding_size ** 2
-    bt = cfg.seg.max_seg_frames
     check_k3_route(hd, n_tok, heads)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
     q = randn(bt, nq, heads, hd).transpose(1, 2)
     k = randn(bt, n_tok, heads, hd).transpose(1, 2)
     v = randn(bt, n_tok, heads, hd).transpose(1, 2)
     work = (_nbytes(q, k, v, q), 4 * bt * heads * nq * n_tok * hd,
             PEAK_BF16)
-    _check("K3", f"q{list(q.shape)} kv{list(k.shape)}",
+    _check("K3", f"q{list(q.shape)} kv{list(k.shape)}"
+           + (f" ({what})" if what else ""),
            lambda: attention(q, k, v),
            lambda: attention_reference(q, k, v),
            lambda: attention_reference(q.float(), k.float(), v.float()),
@@ -873,11 +931,21 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
                                                  two_pass=True),
            run_previous=lambda: attention_cu(q, k, v, two_pass=True),
            previous="attention.cu two-pass", train=10, device_time=True)
-    del q, k, v
 
-    # K4: one Hiera-small block of each kind over the 8 seg frames
+
+def k4_kind_checks(sc, bt, g, dev, results, what=None):
+    """K4 at one block of each kind (windowed, q-pool, padded, global) of
+    config sc's trunk over bt images at its image size, against the plain
+    twin."""
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.ops.hiera_block import (
+        hiera_block,
+        hiera_block_plain,
+    )
+    from video_llava_seg_torch.ops.quantization import quantized_nbytes
+
     hc = sc.hiera
-    blocks = hiera.init(hc, g, dev, bf)["blocks"]
+    blocks = hiera.init(hc, g, dev, torch.bfloat16)["blocks"]
     dims = hiera.block_dims(hc)
     side = sc.image_size // hc.patch_stride
     kinds = {}
@@ -889,12 +957,14 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
     for kind in ("windowed", "q-pool", "padded", "global"):
         i, hw, din, dout, nh, ws, pool = kinds[kind]
         blk = perturb(blocks[i], g)
-        x = randn(bt, hw, hw, din)
+        x = torch.randn((bt, hw, hw, din), generator=g, device=dev).to(
+            torch.bfloat16)
         ho = hw // 2 if pool else hw
         work = (_nbytes(x) + 2 * bt * ho * ho * dout + quantized_nbytes(blk),
                 hiera_block_ops(blk, bt, hw, din, dout, ws, pool), PEAK_BF16)
         kw = dict(num_heads=nh, ws=ws, q_stride=hc.q_stride if pool else None)
-        _check("K4", f"block {i} {kind} x{list(x.shape)} ws{ws}",
+        _check("K4", f"{sc.name} block {i} {kind} x{list(x.shape)} ws{ws}"
+               + (f" ({what})" if what else ""),
                lambda: hiera_block(blk, x, **kw),
                lambda: hiera_block_plain(blk, x, eps=1e-6, **kw),
                lambda: hiera_block_plain(f32(blk), x.float(), eps=1e-6,
@@ -902,8 +972,6 @@ def phase_kernel_checks(cfg, prefill_len: int, batch_len: int, pad: int,
         del x
     del blocks
     torch.cuda.empty_cache()
-    sync()
-    return results
 
 
 def phase_w4a8_checks(cfg, prefill_rows: int, seed: int, dev, results):
@@ -1254,16 +1322,23 @@ def phase_slice(cfg, seed, max_new_tokens, dev, hw=(480, 854),
 GEMM_SM90_ENTRY = "vls_gemm_bf16_sm90"
 
 
-def trunk_dense_calls():
-    """kernels.gemm calls per pass of the seg head's SAM2.1-hiera-small
-    trunk through K4: qkv, proj, fc1 and fc2 of every block and the
-    shortcut projection of every block that changes the width
-    (`ops/hiera_block.py::_hiera_block_cuda`)."""
+def seg_sam2_cfg():
+    """The seg head's SAM2 config (SAM2.1-hiera-small at 1024^2), which
+    the trunk helpers below count for unless given another."""
     from video_llava_seg_torch.config import VideoLlavaConfig
-    from video_llava_seg_torch.models.sam2 import hiera
     from video_llava_seg_torch.models.seg_head import make_sam2_cfg
 
-    dims = hiera.block_dims(make_sam2_cfg(VideoLlavaConfig().seg).hiera)
+    return make_sam2_cfg(VideoLlavaConfig().seg)
+
+
+def trunk_dense_calls(sc=None):
+    """kernels.gemm calls per pass of a SAM2 config's trunk (default: the
+    seg head's SAM2.1-hiera-small) through K4: qkv, proj, fc1 and fc2 of
+    every block and the shortcut projection of every block that changes
+    the width (`ops/hiera_block.py::_hiera_block_cuda`)."""
+    from video_llava_seg_torch.models.sam2 import hiera
+
+    dims = hiera.block_dims((sc or seg_sam2_cfg()).hiera)
     return sum(4 + (din != dout) for din, dout, _, _, _ in dims)
 
 
@@ -1286,15 +1361,13 @@ K6_SM90_PAIR = ("vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90")
 K6_CUDA_C_PAIR = ("vls_attention_bwd_dq", "vls_attention_bwd_dkv")
 
 
-def _trunk_block_kinds():
-    """(head dim, ws, pooled, keys) of every block of the seg head's
-    SAM2.1-hiera-small trunk at its image size: ws 0 for a global block,
-    keys over a window or the whole map."""
-    from video_llava_seg_torch.config import VideoLlavaConfig
+def _trunk_block_kinds(sc=None):
+    """(head dim, ws, pooled, keys, heads) of every block of a SAM2
+    config's trunk (default: the seg head's) at its image size: ws 0 for
+    a global block, keys over a window or the whole map."""
     from video_llava_seg_torch.models.sam2 import hiera
-    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
 
-    sc = make_sam2_cfg(VideoLlavaConfig().seg)
+    sc = sc or seg_sam2_cfg()
     dims = hiera.block_dims(sc.hiera)
     side = sc.image_size // sc.hiera.patch_stride
     out = []
@@ -1304,28 +1377,28 @@ def _trunk_block_kinds():
     return out
 
 
-def trunk_sm90_blocks():
+def trunk_sm90_blocks(sc=None):
     """(blocks per trunk, of them those whose attention K4 sends to
-    attention_sm90.cu) for the seg head's SAM2.1-hiera-small trunk: the
-    global blocks (one kernels.attention call each over the whole map's
-    keys) where `attention_entry` names it."""
+    attention_sm90.cu) for a SAM2 config's trunk (default: the seg
+    head's): the global blocks (one kernels.attention call each over the
+    whole map's keys) where `attention_entry` names it."""
     from video_llava_seg_torch import kernels
 
-    kinds = _trunk_block_kinds()
+    kinds = _trunk_block_kinds(sc)
     n = sum(not ws
             and kernels.attention_entry(hd, False, keys, nh) == SM90_ENTRY
             for hd, ws, pool, keys, nh in kinds)
     return len(kinds), n
 
 
-def trunk_window_launches():
-    """kernels.window_attention launches by C entry per pass of the seg
-    head's trunk, through K4 or per op (K7): one a windowed block, on the
-    entry `kernels.window_entry` names."""
+def trunk_window_launches(sc=None):
+    """kernels.window_attention launches by C entry per pass of a SAM2
+    config's trunk (default: the seg head's), through K4 or per op (K7):
+    one a windowed block, on the entry `kernels.window_entry` names."""
     from video_llava_seg_torch import kernels
 
     out = dict.fromkeys(kernels.WINDOW_ROUTES, 0)
-    for hd, ws, pool, _, _ in _trunk_block_kinds():
+    for hd, ws, pool, _, _ in _trunk_block_kinds(sc):
         if ws:
             out[kernels.window_entry(hd, ws, 1 + pool)] += 1
     return out
@@ -1337,10 +1410,10 @@ LAYERNORM_SM90_ENTRY = "vls_layernorm_sm90"
 MAXPOOL_SM90_ENTRY = "vls_maxpool2x2_sm90"
 
 
-def trunk_pool_launches():
-    """pool_sm90.cu launches per pass of the seg head's trunk through K4:
-    the shortcut of every q-pool block."""
-    return sum(pool for _, _, pool, _, _ in _trunk_block_kinds())
+def trunk_pool_launches(sc=None):
+    """pool_sm90.cu launches per pass of a SAM2 config's trunk (default:
+    the seg head's) through K4: the shortcut of every q-pool block."""
+    return sum(pool for _, _, pool, _, _ in _trunk_block_kinds(sc))
 
 
 def reset_launches():
@@ -1362,7 +1435,8 @@ def reset_launches():
 def snapshot_launches():
     """The K1..K8 counts just after a main path ran, under "K3 entry" the
     launches of attention_short_sm90.cu among them, under "sm90 entry"
-    those of attention_sm90.cu, the flash backward's launches (K6a / K6b),
+    those of attention_sm90.cu, under "attention.cu entry" those of
+    attention.cu, the flash backward's launches (K6a / K6b),
     kernels.gemm's (the denses of K1 and K4), kernels.window_attention's
     (K7 and K4's windowed blocks), kernels.w4a8_matmul's (K5),
     kernels.layernorm's and kernels.maxpool2x2's by C entry."""
@@ -1372,6 +1446,7 @@ def snapshot_launches():
     by_entry = kernels.ATTENTION_LAUNCHES.snapshot()
     counts["K3 entry"] = by_entry[K3_ENTRY]
     counts["sm90 entry"] = by_entry[SM90_ENTRY]
+    counts["attention.cu entry"] = by_entry[CUDA_C_ENTRY]
     counts.update(kernels.ATTENTION_BWD_LAUNCHES.snapshot())
     counts.update(kernels.GEMM_BF16_LAUNCHES.snapshot())
     counts.update(kernels.WINDOW_LAUNCHES.snapshot())
@@ -1381,7 +1456,7 @@ def snapshot_launches():
     return counts
 
 
-def check_launches(tag, counts, expect, why, bwd=None):
+def check_launches(tag, counts, expect, why, bwd=None, sc=None):
     """Every kernel the path runs launched, exactly as often as expected,
     every K3 launch took attention_short_sm90.cu, attention_sm90.cu
     served every K2 launch, the attention link of every K1 / K8 layer and
@@ -1392,7 +1467,8 @@ def check_launches(tag, counts, expect, why, bwd=None):
     every K1 layer and K4 block, and pool_sm90.cu what
     `trunk_pool_launches` counts (layernorm.cu and pool.cu none). bwd:
     the flash backward's launches expected by C entry (a path with a
-    backward)."""
+    backward). sc: the SAM2 config whose trunk K4 ran (default: the seg
+    head's)."""
     from video_llava_seg_torch import kernels
 
     for name in kernels.LaunchCounts.NAMES:
@@ -1408,7 +1484,7 @@ def check_launches(tag, counts, expect, why, bwd=None):
     if counts["K3 entry"] != counts["K3"]:
         raise AssertionError(f"{tag}: {counts['K3'] - counts['K3 entry']} K3 "
                              f"launches did not take {K3_ENTRY}")
-    n_blocks, per_trunk = trunk_sm90_blocks()
+    n_blocks, per_trunk = trunk_sm90_blocks(sc)
     trunk = counts["K4"] // n_blocks * per_trunk
     links = counts["K1"] + counts["K8"]
     want = counts["K2"] + links + trunk
@@ -1418,7 +1494,7 @@ def check_launches(tag, counts, expect, why, bwd=None):
     if counts["sm90 entry"] != want:
         raise AssertionError(f"{tag}: {counts['sm90 entry']} launches of "
                              f"{SM90_ENTRY}, expected {want}")
-    denses = trunk_dense_calls()
+    denses = trunk_dense_calls(sc)
     want = {GEMM_SM90_ENTRY: 6 * counts["K1"]
             + counts["K4"] // n_blocks * denses,
             "vls_gemm_bf16": 0}
@@ -1430,7 +1506,7 @@ def check_launches(tag, counts, expect, why, bwd=None):
         raise AssertionError(f"{tag}: kernels.gemm routes {got}, expected "
                              f"{want}")
     trunks = counts["K4"] // n_blocks
-    win = trunk_window_launches()
+    win = trunk_window_launches(sc)
     per_op = counts["K7"] // max(sum(win.values()), 1)
     want = {e: (trunks + per_op) * win[e] for e in win}
     got = {e: counts[e] for e in want}
@@ -1440,11 +1516,11 @@ def check_launches(tag, counts, expect, why, bwd=None):
     if got != want:
         raise AssertionError(f"{tag}: kernels.window_attention routes {got}, "
                              f"expected {want}")
-    want = {MAXPOOL_SM90_ENTRY: trunks * trunk_pool_launches(),
-            "vls_maxpool2x2_bf16": 0}
+    pools = trunk_pool_launches(sc)
+    want = {MAXPOOL_SM90_ENTRY: trunks * pools, "vls_maxpool2x2_bf16": 0}
     got = {e: counts[e] for e in want}
     log(f"[{tag}] kernels.maxpool2x2 launches by C entry: {got} (expected "
-        f"{want}: {trunk_pool_launches()} shortcut pools per K4 trunk x "
+        f"{want}: {pools} shortcut pools per K4 trunk x "
         f"{trunks})")
     if got != want:
         raise AssertionError(f"{tag}: kernels.maxpool2x2 routes {got}, "
@@ -2784,6 +2860,375 @@ def phase_tiny_vision_agreement(seed):
 
 
 # ---------------------------------------------------------------------------
+# the SAM2 image slice: SAM2ImagePredictor and the automatic mask generator
+# ---------------------------------------------------------------------------
+
+# the JAX bench's config 1: SAM2.1-hiera-tiny, one 1024^2-resized image
+SAM2_IMAGE_VARIANT = "tiny"
+# a non-square frame: the antialiased resize down to 1024^2 and the masks'
+# resize back both run
+SAM2_IMAGE_HW = (1080, 1920)
+# the automatic mask generator's frame (a square one: the grid's points
+# fall on whole pixels of the 1024^2 model frame)
+AMG_HW = (1024, 1024)
+# the automatic mask generator's crop pass (crop_n_layers=1, 5 crops,
+# min_mask_region_area=25, IoU and stability thresholds 0 so that the
+# masks reach the small-region pass) runs an 8 x 8 point grid a crop, not
+# the default 32 x 32: every mask that survives goes through RLE on the
+# host, and with thresholds 0 that is 3 a point
+AMG_CROP_POINTS_PER_SIDE = 8
+
+
+def sam2_expect(sc, trunks: int, decodes: int, what: str):
+    """(expect, why) for `check_launches` over `trunks` image encodes of
+    config sc (K4 once a block, whatever the batch) and `decodes` mask
+    decoder calls (K3 once a two-way block)."""
+    from video_llava_seg_torch import kernels
+
+    depth = sc.hiera.depth
+    expect = {n: 0 for n in kernels.LaunchCounts.NAMES}
+    expect.update(K4=trunks * depth, K3=decodes * sc.twoway_depth)
+    why = {n: f"none: {what} runs no {n}"
+           for n in kernels.LaunchCounts.NAMES}
+    why.update(K4=f"{depth} Hiera blocks x {trunks} image encodes ({what})",
+               K3=f"image->token attention in the {sc.twoway_depth} two-way "
+                  f"blocks x {decodes} decoder calls ({what})")
+    return expect, why
+
+
+def check_sam2_launches(tag, counts, sc, trunks, decodes, what):
+    """`check_launches` on a SAM2 image path, and no launch of attention.cu
+    (a PR 1 entry; the other old entries are held to 0 there)."""
+    expect, why = sam2_expect(sc, trunks, decodes, what)
+    check_launches(tag, counts, expect, why, sc=sc)
+    if counts["attention.cu entry"]:
+        raise AssertionError(f"{tag}: {counts['attention.cu entry']} "
+                             f"launches of {CUDA_C_ENTRY}")
+
+
+def device_busy_ms(fn):
+    """Device time of one warm call of fn: the sum of the device-side
+    events (kernels, copies, fills) of a torch.profiler trace, not of the
+    host ops that issued them (their device time is the same time again),
+    and its five largest; (None, []) where the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("Activity Buffer")
+              and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    return (total or None), [(e.key[:60], e.self_device_time_total / 1e3)
+                             for e in top]
+
+
+def _check_prediction(tag, out, n_masks, hw):
+    masks, ious, low = out
+    want = (n_masks, *hw)
+    if masks.shape != want or masks.dtype != np.bool_:
+        raise AssertionError(f"{tag}: masks {masks.shape} {masks.dtype}, "
+                             f"expected bool {want}")
+    if ious.shape != (n_masks,) or not np.isfinite(ious).all():
+        raise AssertionError(f"{tag}: ious {ious}")
+    if low.shape[0] != n_masks or not np.isfinite(low).all() \
+            or np.abs(low).max() > 32.0:
+        raise AssertionError(f"{tag}: low-res logits {low.shape} not finite "
+                             "or not clipped to +-32")
+    log(f"[sam2-image] {tag}: masks {list(masks.shape)} "
+        f"({masks.mean():.4f} positive), ious "
+        f"{np.array2string(ious, precision=4)}, low-res {list(low.shape)} "
+        "finite")
+
+
+def phase_sam2_image(seed, dev, smi):
+    """Phase 15: SAM2ImagePredictor at SAM2.1-hiera-tiny's full width,
+    random bf16 weights from the seed, on a 1080 x 1920 frame."""
+    from video_llava_seg_torch.models.sam2.build import (
+        build_sam2_image_predictor,
+    )
+    from video_llava_seg_torch.models.sam2.image_predictor import (
+        SAM2ImagePredictor,
+    )
+    from video_llava_seg_torch.ops.connected_components import (
+        connected_components,
+    )
+
+    pred = build_sam2_image_predictor(SAM2_IMAGE_VARIANT, seed=seed,
+                                      device=dev)
+    sc = pred.cfg
+    r = np.random.default_rng(seed)
+    h, w = SAM2_IMAGE_HW
+    img = r.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    box = np.array([0.2 * w, 0.2 * h, 0.7 * w, 0.8 * h])
+    points = np.array([[0.4 * w, 0.5 * h], [0.6 * w, 0.4 * h],
+                       [0.1 * w, 0.1 * h]])
+    labels = np.array([1, 1, 0])
+    log(f"[sam2-image] {sc.name}: {sc.hiera.depth} Hiera blocks, image "
+        f"{sc.image_size}^2, frame {h} x {w}, bf16 on {smi}")
+
+    sync()
+    t0 = time.perf_counter()
+    pred.set_image(img)
+    sync()
+    cold = time.perf_counter() - t0
+    embed = pred.get_image_embedding().clone()
+    reset_launches()
+    pred.set_image(img)
+    sync()
+    counts = {"set_image": snapshot_launches()}
+    check_sam2_launches("sam2-image set_image", counts["set_image"], sc, 1,
+                        0, "set_image")
+    if not torch.equal(pred.get_image_embedding(), embed):
+        raise AssertionError("two set_image calls on one frame differ")
+
+    reset_launches()
+    out_box = pred.predict(box=box)
+    sync()
+    counts["predict"] = snapshot_launches()
+    check_sam2_launches("sam2-image predict", counts["predict"], sc, 0, 1,
+                        "predict")
+    again = pred.predict(box=box)
+    if not all(np.array_equal(a, b) for a, b in zip(out_box, again)):
+        raise AssertionError("two predict calls on one prompt differ")
+    _check_prediction("predict(box), twice bit-identical", out_box, 3,
+                      (h, w))
+    _check_prediction("predict(3 points)", pred.predict(
+        point_coords=points, point_labels=labels), 3, (h, w))
+    low = out_box[2][np.argmax(out_box[1])][None]
+    _check_prediction("predict(box + 2 points + mask input, one mask)",
+                      pred.predict(point_coords=points[:2],
+                                   point_labels=labels[:2], box=box,
+                                   mask_input=low, multimask_output=False),
+                      1, (h, w))
+
+    t_set, t_pred = wall_seconds([lambda: pred.set_image(img),
+                                  lambda: pred.predict(box=box)])
+    busy_set, top_set = device_busy_ms(lambda: pred.set_image(img))
+    busy_pred, top_pred = device_busy_ms(lambda: pred.predict(box=box))
+
+    def fmt_busy(ms):
+        return "not measured" if ms is None else f"{ms:.3f} ms"
+
+    log(f"[sam2-image] warm set_image: {fmt_wall(t_set)} on {smi}; device "
+        f"busy {fmt_busy(busy_set)} (torch.profiler); cold (the process's "
+        f"first) {cold:.3f} s")
+    log(f"[sam2-image] warm predict (box, 3 masks to {h} x {w}): "
+        f"{fmt_wall(t_pred)} on {smi}; device busy {fmt_busy(busy_pred)}")
+    for what, top in (("set_image", top_set), ("predict", top_pred)):
+        log(f"[sam2-image] {what}'s largest kernels by device time: "
+            + "; ".join(f"{k} {ms:.3f} ms" for k, ms in top))
+
+    img2 = r.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+    box2 = np.array([100.0, 80.0, 900.0, 600.0])
+    reset_launches()
+    pred.set_image_batch([img, img2])
+    sync()
+    counts["set_image_batch"] = snapshot_launches()
+    check_sam2_launches("sam2-image set_image_batch(2)",
+                        counts["set_image_batch"], sc, 1, 0,
+                        "set_image_batch of 2")
+    reset_launches()
+    batch = pred.predict_batch(box_batch=[box, box2])
+    sync()
+    counts["predict_batch"] = snapshot_launches()
+    check_sam2_launches("sam2-image predict_batch(2)",
+                        counts["predict_batch"], sc, 0, 2,
+                        "predict_batch of 2")
+    for i, hw in enumerate(((h, w), (720, 1280))):
+        _check_prediction(f"predict_batch image {i}",
+                          [o[i] for o in batch], 3, hw)
+
+    # hole filling and sprinkle removal on the card
+    holes = SAM2ImagePredictor(pred.params, sc, max_hole_area=64,
+                               max_sprinkle_area=64, device=dev)
+    holes.set_image(img)
+    out_holes = holes.predict(box=box)
+    _check_prediction("predict(box), max_hole_area = max_sprinkle_area = "
+                      "64", out_holes, 3, (h, w))
+    (t_holes,) = wall_seconds([lambda: holes.predict(box=box)])
+    low = torch.from_numpy(out_box[2])
+    for tag, m in (("holes", low <= 0), ("sprinkles", low > 0)):
+        lc, ac = connected_components(m.to(dev))
+        lp, ap = connected_components(m)
+        sync()
+        if not (torch.equal(lc.cpu(), lp) and torch.equal(ac.cpu(), ap)):
+            raise AssertionError(f"connected components ({tag}) on the card "
+                                 "differ from the CPU's")
+    log(f"[sam2-image] fill holes + sprinkles: predict {fmt_wall(t_holes)}; "
+        f"{(out_holes[0] != out_box[0]).mean():.5f} of the mask pixels "
+        "changed; connected components on the card equal the CPU's on "
+        "the low-res masks (labels and areas)")
+    del holes
+    torch.cuda.empty_cache()
+    return pred, counts, {
+        "variant": sc.name, "frame_hw": [h, w], "cold_set_image_s": cold,
+        "set_image_s": t_set, "predict_s": t_pred,
+        "set_image_device_busy_ms": busy_set,
+        "predict_device_busy_ms": busy_pred,
+        "predict_fill_holes_s": t_holes, "card": smi}
+
+
+def _check_records(tag, anns, hw):
+    for a in anns:
+        seg = a["segmentation"]
+        x, y, bw, bh = a["bbox"]
+        if (seg.shape != hw or seg.dtype != np.bool_
+                or a["area"] != int(seg.sum())
+                or not (0 <= x <= x + bw <= hw[1] and 0 <= y <= y + bh
+                        <= hw[0])
+                or not math.isfinite(a["predicted_iou"])
+                or not math.isfinite(a["stability_score"])):
+            raise AssertionError(f"{tag}: a malformed record {a['bbox']}, "
+                                 f"area {a['area']}")
+
+
+def phase_amg(pred, seed, dev, smi):
+    """Phase 16: SAM2AutomaticMaskGenerator over an AMG_HW frame through the
+    phase 15 predictor: the defaults (32 x 32 points in batches of 64),
+    then IoU and stability thresholds 0 (random-weight masks reach NMS and
+    RLE), then one crop layer with min_mask_region_area 25."""
+    from video_llava_seg_torch.models.sam2.amg import generate_crop_boxes
+    from video_llava_seg_torch.models.sam2.automatic_mask_generator import (
+        SAM2AutomaticMaskGenerator,
+    )
+
+    sc = pred.cfg
+    hw = AMG_HW
+    img = np.random.default_rng(seed + 16).integers(0, 256, (*hw, 3),
+                                                    dtype=np.uint8)
+    zero = dict(pred_iou_thresh=0.0, stability_score_thresh=0.0)
+    runs = [("defaults", dict(), pred),
+            ("thresholds 0", zero, pred),
+            (f"crop_n_layers 1, min_mask_region_area 25, thresholds 0, "
+             f"{AMG_CROP_POINTS_PER_SIDE} x {AMG_CROP_POINTS_PER_SIDE} "
+             "points", dict(zero, crop_n_layers=1, min_mask_region_area=25,
+                            points_per_side=AMG_CROP_POINTS_PER_SIDE),
+             (pred.params, sc))]
+    counts, out = {}, {}
+    for name, kw, model in runs:
+        gen = SAM2AutomaticMaskGenerator(model, device=dev, **kw)
+        crops, layers = generate_crop_boxes(hw, gen.crop_n_layers,
+                                            gen.crop_overlap_ratio)
+        per_crop = [-(-len(gen.point_grids[i]) // gen.points_per_batch)
+                    for i in layers]
+        batches = sum(per_crop)
+        timings = {}
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        anns = gen.generate(img, timings=timings)
+        sync()
+        secs = time.perf_counter() - t0
+        counts[name] = snapshot_launches()
+        check_sam2_launches(f"amg {name}", counts[name], sc, len(crops),
+                            batches, f"{len(crops)} crops, {batches} point "
+                            "batches")
+        _check_records(f"amg {name}", anns, hw)
+        host = secs - sum(timings.values())
+        log(f"[amg] {name}: {secs:.3f} s for the image on {smi} ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+            + f", host filters / NMS / RLE {host:.3f} s); {len(anns)} "
+            f"masks; {len(crops)} crops x {per_crop[0]} batches of "
+            f"{gen.points_per_batch} points, K3 "
+            f"{counts[name]['K3']} launches on attention_short_sm90.cu "
+            f"{counts[name]['K3 entry']}")
+        out[name] = {"seconds": secs, "stages": timings, "host_s": host,
+                     "masks": len(anns), "crops": len(crops),
+                     "batches": batches, "k3_launches": counts[name]["K3"]}
+        del gen, anns
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+# tiny SAM2 image paths, card (kernels, bf16) vs CPU (plain, fp32) on the
+# same bf16-rounded weights: the seg head's tiny agreement bound
+# (AGREE_BOUND) on the low-res logits; predicted IoUs within 0.05; each
+# generator mask's pixels equal on at least 0.98 of the image (bf16 moves
+# a mask's edge by a pixel or two)
+SAM2_TINY_IOU_BOUND = 5e-2
+SAM2_TINY_PIXEL_AGREEMENT = 0.98
+
+
+def phase_tiny_sam2_agreement(seed, dev):
+    """Phase 17: sam2-test-tiny through set_image + predict and generate,
+    on the card `dev` (K4's chain; its decoder attends over 8 x 8 image
+    tokens, below K3's 256) and on the CPU (plain, fp32)."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.bridge import cast_tree
+    from video_llava_seg_torch.models.sam2 import base
+    from video_llava_seg_torch.models.sam2.automatic_mask_generator import (
+        SAM2AutomaticMaskGenerator,
+    )
+    from video_llava_seg_torch.models.sam2.config import sam2_config
+    from video_llava_seg_torch.models.sam2.image_predictor import (
+        SAM2ImagePredictor,
+    )
+
+    cfg = sam2_config("sam2-test-tiny")
+    g = torch.Generator().manual_seed(seed)
+    params = cast_tree(cast_tree(perturb(base.init(cfg, g, "cpu",
+                                                   torch.float32), g),
+                                 "cpu", torch.bfloat16), "cpu", torch.float32)
+    cpu = SAM2ImagePredictor(params, cfg, device="cpu")
+    card = SAM2ImagePredictor(params, cfg, device=dev)
+    img = np.random.default_rng(seed + 17).integers(0, 256, (96, 160, 3),
+                                                    dtype=np.uint8)
+    before = kernels.LAUNCHES.snapshot()["K4"]
+    card.set_image(img)
+    sync()
+    if kernels.LAUNCHES.snapshot()["K4"] - before != cfg.hiera.depth:
+        raise AssertionError("tiny set_image: K4 not launched once a block")
+    cpu.set_image(img)
+    out = {}
+    for name, kw in (("box", dict(box=np.array([20.0, 15.0, 120.0, 80.0]))),
+                     ("points", dict(point_coords=np.array([[50.0, 40.0],
+                                                            [100.0, 60.0]]),
+                                     point_labels=np.array([1, 0])))):
+        got, want = card.predict(**kw), cpu.predict(**kw)
+        _agree(f"tiny sam2 predict({name}) low-res", got[2], want[2],
+               AGREE_BOUND)
+        d_iou = float(np.abs(got[1] - want[1]).max())
+        log(f"[agree] tiny sam2 predict({name}): ious max abs diff "
+            f"{d_iou:.3e} (bound {SAM2_TINY_IOU_BOUND:.0e})")
+        if not d_iou <= SAM2_TINY_IOU_BOUND:
+            raise AssertionError(f"tiny sam2 predict({name}): ious disagree")
+        out[name] = d_iou
+    kw = dict(points_per_side=4, points_per_batch=16, pred_iou_thresh=0.0,
+              stability_score_thresh=0.0, box_nms_thresh=1.0,
+              multimask_output=False)
+    recs = [{tuple(a["point_coords"][0]): a
+             for a in SAM2AutomaticMaskGenerator(p, **kw).generate(img)}
+            for p in (card, cpu)]
+    if recs[0].keys() != recs[1].keys() or len(recs[0]) != 16:
+        raise AssertionError(f"tiny generate: {len(recs[0])} / "
+                             f"{len(recs[1])} records by point")
+    agree = min(float((recs[0][k]["segmentation"]
+                       == recs[1][k]["segmentation"]).mean())
+                for k in recs[1])
+    d_iou = max(abs(recs[0][k]["predicted_iou"] - recs[1][k]["predicted_iou"])
+                for k in recs[1])
+    log(f"[agree] tiny sam2 generate: 16 records, one a point; worst mask "
+        f"pixel agreement {agree:.4f} (bound {SAM2_TINY_PIXEL_AGREEMENT}), "
+        f"predicted IoU max abs diff {d_iou:.3e} (bound "
+        f"{SAM2_TINY_IOU_BOUND:.0e})")
+    if not (agree >= SAM2_TINY_PIXEL_AGREEMENT
+            and d_iou <= SAM2_TINY_IOU_BOUND):
+        raise AssertionError("tiny sam2 generate: card and CPU disagree")
+    out["generate_pixel_agreement"] = agree
+    out["generate_iou_diff"] = d_iou
+    return out
+
+
+# ---------------------------------------------------------------------------
 # training phases
 # ---------------------------------------------------------------------------
 
@@ -3462,6 +3907,11 @@ def main(argv=None):
     phase_small_agreement(args.seed)
     phase_small_agreement_quant(args.seed)
     tiny_vision = phase_tiny_vision_agreement(args.seed)
+    predictor, sam2_counts, sam2_image = phase_sam2_image(args.seed, dev,
+                                                          smi)
+    amg_counts, amg = phase_amg(predictor, args.seed, dev, smi)
+    del predictor
+    sam2_tiny = phase_tiny_sam2_agreement(args.seed, dev)
 
     seq_len = train_seq_len(cfg)
     log(f"[flash] the synthetic train batch splices to {seq_len} tokens")
@@ -3490,7 +3940,13 @@ def main(argv=None):
                                      w8a8_counts["clip"][name],
                                  "w8a8_encode_radio":
                                      w8a8_counts["radio"][name],
-                                 "hiera_per_op": hiera_counts[name]},
+                                 "hiera_per_op": hiera_counts[name],
+                                 "sam2_set_image":
+                                     sam2_counts["set_image"][name],
+                                 "sam2_predict":
+                                     sam2_counts["predict"][name],
+                                 "amg_defaults":
+                                     amg_counts["defaults"][name]},
             "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
             "bound": BOUNDS[name] if BOUNDS[name] is not None else "exact",
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3532,7 +3988,8 @@ def main(argv=None):
              "train_step": train_counts, "radio_bf16": radio_counts,
              "w8a8_encode_clip": w8a8_counts["clip"],
              "w8a8_encode_radio": w8a8_counts["radio"],
-             "hiera_per_op": hiera_counts}
+             "hiera_per_op": hiera_counts,
+             "sam2_set_image": sam2_counts["set_image"]}
     kernels_out.append({
         "name": "gemm_bf16", "route": "cuda", "source": source,
         "csrc": [f"video_llava_seg_torch/csrc/{c}" for c in csrc],
@@ -3578,6 +4035,8 @@ def main(argv=None):
         "k7_vs_k4_attention_stage": k7_rows, "gemm_s8": gemm_rows,
         "attention_links": link_rows, "gemm_bf16": dense_rows,
         "row_streams": row_stream_rows}}))
+    log(json.dumps({"sam2_image_slice": {
+        "predictor": sam2_image, "amg": amg, "tiny_agreement": sam2_tiny}}))
     log(json.dumps({"train_slice": train}))
     log(json.dumps({"kernels": kernels_out}))
     log(smi)

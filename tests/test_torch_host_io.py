@@ -140,6 +140,14 @@ state = train_cli.main([
 assert state.step == 2
 assert os.path.exists(os.path.join(out_dir, "train",
                                    "training_complete.flag"))
+from video_llava_seg_torch.models.sam2.build import (
+    build_sam2_image_predictor,
+)
+import numpy as np
+predictor = build_sam2_image_predictor("sam2-test-tiny", device="cpu")
+predictor.set_image(np.zeros((40, 60, 3), np.uint8))
+masks, ious, low_res = predictor.predict(box=np.array([5.0, 5.0, 50.0, 30.0]))
+assert masks.shape == (3, 40, 60) and ious.shape == (3,), masks.shape
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
     k in ("jax", "jaxlib") or k.startswith(("jax.", "jaxlib.",
                                             "video_llava_seg_tpu"))))
@@ -150,10 +158,10 @@ print(len(mods))
 
 def test_port_serves_without_jax(vicas):
     """Every port module imports (the train/ modules included), the
-    quantized batched CLI runs end to end and the training CLI takes two
-    tiny stage-3 QLoRA steps on the CPU, in an interpreter where JAX
-    cannot be imported; afterwards no jax / video_llava_seg_tpu module is
-    loaded."""
+    quantized batched CLI runs end to end, the training CLI takes two
+    tiny stage-3 QLoRA steps and the SAM2 image predictor sets an image
+    and predicts on the CPU, in an interpreter where JAX cannot be
+    imported; afterwards no jax / video_llava_seg_tpu module is loaded."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")])

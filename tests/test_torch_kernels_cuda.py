@@ -658,6 +658,47 @@ def test_hiera_block_window_sm90(dev, shape, heads, ws, ps, proj):
     assert _rel(got, want) < BOUND
 
 
+def _hiera_tiny_kinds():
+    """(index, map side, din, dout, heads, ws, pooled) of one block of
+    each kind of SAM2.1-hiera-tiny's trunk at 1024^2."""
+    from video_llava_seg_torch.models.sam2 import hiera
+    from video_llava_seg_torch.models.sam2.config import sam2_config
+
+    hc = sam2_config("tiny").hiera
+    dims = hiera.block_dims(hc)
+    side, kinds = 1024 // hc.patch_stride, {}
+    for i, (din, dout, nh, ws, pool) in enumerate(dims):
+        hw = side // (2 ** sum(1 for j in range(i) if dims[j][4]))
+        kind = ("global" if ws == 0 else "q-pool" if pool
+                else "padded" if hw % ws else "windowed")
+        kinds.setdefault(kind, (i, hw, din, dout, nh, ws, pool))
+    return kinds
+
+
+@pytest.mark.parametrize("kind", ["windowed", "q-pool", "padded", "global"])
+def test_hiera_tiny_block_batch_1(dev, kind):
+    """K4 at one SAM2.1-hiera-tiny block of each kind over one 1024^2
+    image (the image predictor's set_image: batch 1, where every
+    persistent plan meets a single image) within BOUND of its fp32
+    twin."""
+    i, hw, din, dout, nh, ws, pool = _hiera_tiny_kinds()[kind]
+    g = torch.Generator(device=dev).manual_seed(50 + i)
+    blk = {"norm1": _ln(g, din, dev), "norm2": _ln(g, dout, dev),
+           "qkv": _dense(g, din, 3 * dout, dev),
+           "proj_attn": _dense(g, dout, dout, dev),
+           "mlp": {"layers": [_dense(g, dout, 4 * dout, dev),
+                              _dense(g, 4 * dout, dout, dev)]}}
+    if din != dout:
+        blk["proj"] = _dense(g, din, dout, dev)
+    x = _randn(g, 1, hw, hw, din, dev=dev)
+    q_stride = (2, 2) if pool else None
+    got = hiera_block(blk, x, num_heads=nh, ws=ws, q_stride=q_stride)
+    want = hiera_block_plain(_f32(blk), x.float(), num_heads=nh, ws=ws,
+                             q_stride=q_stride, eps=1e-6)
+    assert got.shape == want.shape
+    assert _rel(got, want) < BOUND
+
+
 def test_attention_head_dim_80(dev):
     """RADIO ViT-H's 16 heads of 80 (the D = 80 instance)."""
     g = torch.Generator(device=dev).manual_seed(11)
@@ -1089,6 +1130,11 @@ SHORT_CASES = {
     # name: (b, hq, hkv, sq, skv, kv_len, bias)
     "serving": (8, 8, 8, 4096, 7, None, False),   # chip_smoke's shapes
     "train": (64, 8, 8, 4096, 7, None, False),
+    # the SAM2 image predictor's predict (a box: 2 corners + the pad
+    # point + 6 output tokens) and the automatic mask generator's point
+    # batch (the point + the pad point + 6 output tokens)
+    "predict": (1, 8, 8, 4096, 9, None, False),
+    "amg_batch": (64, 8, 8, 4096, 8, None, False),
     "partial_tile_gqa4": (3, 8, 2, 1000, 7, None, False),  # no 64 multiple
     "bias": (2, 8, 8, 777, 7, None, True),
     "kv_len": (2, 4, 4, 300, 7, 5, False),

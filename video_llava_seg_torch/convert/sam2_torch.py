@@ -1,9 +1,8 @@
-"""SAM2 torch state dict -> the port's parameter trees, for the parts the
-seg head runs at inference: the Hiera trunk + FPN neck, the prompt
-encoder and the mask decoder (port of those parts of
-`video_llava_seg_tpu/convert/sam2_torch.py`; the memory encoder and
-memory attention belong to the standalone SAM2 slice, ROADMAP queue 1:
-the SAM2 image predictor and the memory and video predictor).
+"""SAM2 torch state dict -> the port's parameter trees (port of
+`video_llava_seg_tpu/convert/sam2_torch.py`): the Hiera trunk + FPN neck,
+the prompt encoder and the mask decoder (what the seg head runs), the
+memory encoder and memory attention, and the whole SAM2 base model
+(`convert_sam2_base`, what `models/sam2/build.build_sam2` loads).
 
 Layout changes (to the JAX package's layout, which the port shares):
   Linear weight [out, in]        -> kernel [in, out]
@@ -173,4 +172,83 @@ def convert_mask_decoder(sd: Mapping, cfg,
         else:
             p["pred_obj_score_head"] = _lin(sd,
                                             f"{prefix}pred_obj_score_head")
+    return p
+
+
+def convert_memory_encoder(sd: Mapping,
+                           prefix: str = "memory_encoder.") -> Dict:
+    layers = []
+    for i in range(4):
+        base_i = 3 * i
+        layers.append({
+            "conv": _conv(sd, f"{prefix}mask_downsampler.encoder.{base_i}"),
+            "ln": _ln(sd, f"{prefix}mask_downsampler.encoder.{base_i + 1}"),
+        })
+    p = {
+        "mask_downsampler": {
+            "layers": layers,
+            "final": _conv(sd, f"{prefix}mask_downsampler.encoder.12"),
+        },
+        "pix_feat_proj": _conv(sd, f"{prefix}pix_feat_proj"),
+        "fuser": {"layers": []},
+    }
+    i = 0
+    while f"{prefix}fuser.layers.{i}.dwconv.weight" in sd:
+        b = f"{prefix}fuser.layers.{i}"
+        p["fuser"]["layers"].append({
+            "dwconv": _conv(sd, f"{b}.dwconv"),
+            "norm": _ln(sd, f"{b}.norm"),
+            "pwconv1": _lin(sd, f"{b}.pwconv1"),
+            "pwconv2": _lin(sd, f"{b}.pwconv2"),
+            "gamma": _t(sd[f"{b}.gamma"]),
+        })
+        i += 1
+    if f"{prefix}out_proj.weight" in sd:
+        p["out_proj"] = _conv(sd, f"{prefix}out_proj")
+    return p
+
+
+def convert_memory_attention(sd: Mapping, cfg,
+                             prefix: str = "memory_attention.") -> Dict:
+    layers = []
+    for i in range(cfg.memory_attention.num_layers):
+        b = f"{prefix}layers.{i}"
+        layers.append({
+            "self_attn": _attn(sd, f"{b}.self_attn"),
+            "cross_attn_image": _attn(sd, f"{b}.cross_attn_image"),
+            "linear1": _lin(sd, f"{b}.linear1"),
+            "linear2": _lin(sd, f"{b}.linear2"),
+            "norm1": _ln(sd, f"{b}.norm1"),
+            "norm2": _ln(sd, f"{b}.norm2"),
+            "norm3": _ln(sd, f"{b}.norm3"),
+        })
+    return {"layers": layers, "norm": _ln(sd, f"{prefix}norm")}
+
+
+def convert_sam2_base(sd: Mapping, cfg) -> Dict:
+    """A whole SAM2Base state dict -> the JAX package's SAM2 tree. conv_s0
+    / conv_s1 stay inside the mask decoder's params (the reference's
+    layout); `models/sam2/base.forward_image` applies them."""
+    p = {
+        "image_encoder": convert_image_encoder(sd),
+        "prompt_encoder": convert_prompt_encoder(sd),
+        "mask_decoder": convert_mask_decoder(sd, cfg),
+        "memory_attention": convert_memory_attention(sd, cfg),
+        "memory_encoder": convert_memory_encoder(sd),
+        "no_mem_embed": _t(sd["no_mem_embed"]),
+        "no_mem_pos_enc": _t(sd["no_mem_pos_enc"]),
+        "maskmem_tpos_enc": _t(sd["maskmem_tpos_enc"]),
+    }
+    if "mask_downsample.weight" in sd:
+        p["mask_downsample"] = _conv(sd, "mask_downsample")
+    if "obj_ptr_proj.layers.0.weight" in sd:
+        p["obj_ptr_proj"] = _mlp(sd, "obj_ptr_proj", 3)
+    elif "obj_ptr_proj.weight" in sd:
+        p["obj_ptr_proj"] = _lin(sd, "obj_ptr_proj")
+    if "obj_ptr_tpos_proj.weight" in sd:
+        p["obj_ptr_tpos_proj"] = _lin(sd, "obj_ptr_tpos_proj")
+    if "no_obj_ptr" in sd:
+        p["no_obj_ptr"] = _t(sd["no_obj_ptr"])
+    if "no_obj_embed_spatial" in sd:
+        p["no_obj_embed_spatial"] = _t(sd["no_obj_embed_spatial"])
     return p

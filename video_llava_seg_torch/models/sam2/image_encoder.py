@@ -11,7 +11,7 @@ import torch
 
 from video_llava_seg_torch.models.sam2 import hiera
 from video_llava_seg_torch.models.sam2.position_encoding import (
-    sine_pos_embed_hw,
+    sine_pos_embed_on,
 )
 from video_llava_seg_torch.ops import nn
 from video_llava_seg_torch.ops.resize import interpolate
@@ -46,9 +46,10 @@ def apply_neck(params, cfg, xs: List[torch.Tensor]):
         else:
             prev = lateral
         out[i] = prev
-        pe = torch.from_numpy(sine_pos_embed_hw(
-            prev.shape[1], prev.shape[2], cfg.fpn.pos_num_feats,
-            cfg.fpn.pos_temperature)).to(prev.device, prev.dtype)
+        pe = sine_pos_embed_on(prev.shape[1], prev.shape[2],
+                               cfg.fpn.pos_num_feats,
+                               cfg.fpn.pos_temperature, prev.device,
+                               prev.dtype)
         pos[i] = pe[None].expand(*prev.shape[:3], pe.shape[-1])
     return out, pos
 

@@ -203,16 +203,47 @@ def predict_masks(params, cfg, image_embeddings, image_pe, sparse_prompt,
     return masks, iou_pred, mask_tokens_out, obj
 
 
+def _stability_scores(mask_logits: torch.Tensor, delta: float):
+    flat = mask_logits.reshape(*mask_logits.shape[:-2], -1)
+    area_i = (flat > delta).sum(-1).float()
+    area_u = (flat > -delta).sum(-1).float()
+    return torch.where(area_u > 0, area_i / area_u,
+                       torch.ones_like(area_u))
+
+
+def dynamic_multimask_via_stability(cfg, all_masks, all_ious):
+    """Fall back from the single-mask token to the best multimask output
+    where the single mask is unstable (the reference's
+    mask_decoder.py:247-301)."""
+    multimask, multi_iou = all_masks[:, 1:], all_ious[:, 1:]
+    best = torch.argmax(multi_iou, dim=-1)
+    bi = torch.arange(all_masks.shape[0], device=all_masks.device)
+    best_masks = multimask[bi, best][:, None]
+    best_ious = multi_iou[bi, best][:, None]
+    single_mask, single_iou = all_masks[:, 0:1], all_ious[:, 0:1]
+    stab = _stability_scores(single_mask,
+                             cfg.dynamic_multimask_stability_delta)
+    is_stable = stab >= cfg.dynamic_multimask_stability_thresh
+    masks = torch.where(is_stable[..., None, None], single_mask, best_masks)
+    ious = torch.where(is_stable, single_iou, best_ious)
+    return masks, ious
+
+
 def apply(params, cfg, image_embeddings, image_pe, sparse_prompt,
           dense_prompt, multimask_output: bool,
-          high_res_features: Optional[List] = None):
+          high_res_features: Optional[List] = None,
+          use_dynamic_stability: bool = False):
     """Returns (masks, iou_pred, sam_tokens_out, object_score_logits);
-    multimask_output selects tokens 1..3, else token 0."""
+    multimask_output selects tokens 1..3, else token 0 (or, with
+    use_dynamic_stability, the best of 1..3 where token 0 is unstable)."""
     masks, iou_pred, mask_tokens_out, obj = predict_masks(
         params, cfg, image_embeddings, image_pe, sparse_prompt, dense_prompt,
         high_res_features)
     if multimask_output:
         out_masks, out_iou = masks[:, 1:], iou_pred[:, 1:]
+    elif use_dynamic_stability:
+        out_masks, out_iou = dynamic_multimask_via_stability(cfg, masks,
+                                                             iou_pred)
     else:
         out_masks, out_iou = masks[:, 0:1], iou_pred[:, 0:1]
     if multimask_output and cfg.use_multimask_token_for_obj_ptr:

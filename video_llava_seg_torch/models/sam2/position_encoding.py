@@ -1,6 +1,7 @@
-"""SAM2 position encodings used by the serving slice (port of
+"""SAM2 position encodings (port of
 `video_llava_seg_tpu/models/sam2/position_encoding.py`): the sine grid of
-the FPN neck and the random-Fourier dense grid of the prompt encoder."""
+the FPN neck, and the random-Fourier encodings of the prompt encoder (its
+dense grid and its point prompts)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,16 @@ def sine_pos_embed_hw(h: int, w: int, num_pos_feats: int,
     return np.concatenate([py, px], axis=2).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def sine_pos_embed_on(h: int, w: int, num_pos_feats: int, temperature: int,
+                      device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`sine_pos_embed_hw` as a tensor on `device` in `dtype`, copied from
+    the host once per (shape, device, dtype): the FPN neck asks for four of
+    them on every encode (~85 MiB in fp32 at 1024^2)."""
+    return torch.from_numpy(sine_pos_embed_hw(
+        h, w, num_pos_feats, temperature)).to(device, dtype)
+
+
 def random_pe_init(g, num_pos_feats: int, device, scale: float = 1.0):
     return {"gaussian_matrix": scale * torch.randn(
         (2, num_pos_feats), generator=g, device=device, dtype=torch.float32)}
@@ -56,3 +67,11 @@ def random_pe_grid(params, size, device) -> torch.Tensor:
     xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return random_pe_encode(params, torch.stack([gx, gy], dim=-1))
+
+
+def random_pe_coords(params, coords: torch.Tensor, image_size) -> torch.Tensor:
+    """Absolute pixel coords [..., 2] (x, y) -> PE, normalised by the image
+    size (h, w)."""
+    h, w = image_size
+    scale = torch.tensor([w, h], dtype=torch.float32, device=coords.device)
+    return random_pe_encode(params, coords.float() / scale)

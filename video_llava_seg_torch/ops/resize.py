@@ -111,7 +111,10 @@ def pil_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
 def _matrix(in_size, out_size, method, antialias, align_corners, device):
+    """`_resize_matrix` on `device`, copied from the host once per shape
+    and device (an image resize to 1024^2 reads ~12 MB of them)."""
     return torch.from_numpy(_resize_matrix(
         in_size, out_size, method, antialias, align_corners)).to(device)
 
