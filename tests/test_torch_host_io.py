@@ -148,6 +148,14 @@ predictor = build_sam2_image_predictor("sam2-test-tiny", device="cpu")
 predictor.set_image(np.zeros((40, 60, 3), np.uint8))
 masks, ious, low_res = predictor.predict(box=np.array([5.0, 5.0, 50.0, 30.0]))
 assert masks.shape == (3, 40, 60) and ious.shape == (3,), masks.shape
+from video_llava_seg_torch.models.sam2.build import (
+    build_sam2_video_predictor,
+)
+video = build_sam2_video_predictor("sam2-test-tiny", device="cpu")
+state = video.init_state(np.zeros((3, 40, 60, 3), np.uint8))
+video.add_new_points_or_box(state, 0, 1, points=[[20.0, 10.0]], labels=[1])
+tracked = [(f, m.shape) for f, _, m in video.propagate_in_video(state)]
+assert tracked == [(i, (1, 1, 40, 60)) for i in range(3)], tracked
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
     k in ("jax", "jaxlib") or k.startswith(("jax.", "jaxlib.",
                                             "video_llava_seg_tpu"))))
@@ -159,9 +167,10 @@ print(len(mods))
 def test_port_serves_without_jax(vicas):
     """Every port module imports (the train/ modules included), the
     quantized batched CLI runs end to end, the training CLI takes two
-    tiny stage-3 QLoRA steps and the SAM2 image predictor sets an image
-    and predicts on the CPU, in an interpreter where JAX cannot be
-    imported; afterwards no jax / video_llava_seg_tpu module is loaded."""
+    tiny stage-3 QLoRA steps, the SAM2 image predictor sets an image and
+    predicts and the SAM2 video predictor tracks a point over three frames
+    on the CPU, in an interpreter where JAX cannot be imported; afterwards
+    no jax / video_llava_seg_tpu module is loaded."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")])

@@ -48,7 +48,14 @@ pass at head dim 16 over at most 64 keys
 (csrc/attention_short_bwd_sm90.cu) are held to the plain backward with
 the same bound on the mask decoder's views, GQA, causal and bias cases,
 with masked keys at exactly zero dK / dV, a row no key is visible to at
-dQ = 0, and two calls bit-identical.
+dQ = 0, and two calls bit-identical. At head dim 256 (SAM2's memory
+attention: csrc/attention_sm90.cu with 64-key K / V tiles) the online
+form is held to the plain forward within 1e-2 and to its logsumexp at
+memory attention's self and full-bank cross shapes, a ragged bank, the
+two-pass form and a causal kv_len case; a memory-attention layer at full
+width takes it twice and stays within BOUND of the fp32 plain layer; a
+K4 global block at Hiera-L's head dim 72 takes attention_sm90.cu
+zero-padded to 80.
 Run on the card:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
@@ -1618,3 +1625,115 @@ def test_attention_short_bwd_sm90_autograd(dev):
     for t, w in zip(leaves, want):
         assert t.grad.dtype == torch.bfloat16
         assert _rel(t.grad, w) < BOUND
+
+
+# ---- csrc/attention_sm90.cu at head dim 256: SAM2's memory attention ----
+
+WIDE_CASES = {
+    # name: (b, sq, skv, two_pass, causal, kv_len): memory attention's
+    # self shape, the cross shape over a full bank (7 memories of 4096
+    # tokens + 16 pointers x 4 tokens), a ragged bank at batch 2 (two
+    # objects), the two-pass form a 32 x 32 grid would take, causal with
+    # kv_len
+    "memory_self": (1, 4096, 4096, False, False, None),
+    "memory_full_bank": (1, 4096, 7 * 4096 + 64, False, False, None),
+    "memory_ragged_bank_b2": (2, 4096, 2 * 4096 + 12, False, False, None),
+    "two_pass_32x32": (1, 1024, 1024, True, False, None),
+    "causal_kv_len": (1, 300, 500, False, True, 450),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_flash_sm90_head_dim_256(dev, name):
+    """The head-dim-256 instance (64-key K / V tiles) against the plain
+    forward (output within HD_BOUND, logsumexp within LSE_BOUND), on
+    attention_sm90.cu whatever the form, two calls bit-identical."""
+    b, sq, skv, two_pass, causal, kv_len = WIDE_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(45)
+    q = _randn(g, b, sq, 1, 256, dev=dev).transpose(1, 2)
+    k = _randn(g, b, skv, 1, 256, dev=dev).transpose(1, 2)
+    v = _randn(g, b, skv, 1, 256, dev=dev).transpose(1, 2)
+    assert kernels.attention_entry(256, two_pass, skv, 1) == SM90
+    kw = dict(scale=1 / 16, causal=causal, two_pass=two_pass,
+              kv_len=-1 if kv_len is None else kv_len)
+    before = kernels.ATTENTION_LAUNCHES.snapshot()[SM90]
+    o, lse = kernels.attention(q, k, v, with_lse=True, **kw)
+    o2 = kernels.attention(q, k, v, **kw)
+    assert kernels.ATTENTION_LAUNCHES.snapshot()[SM90] == before + 2
+    bias = None
+    if kv_len is not None:
+        bias = torch.where(torch.arange(skv, device=dev) < kv_len, 0.0,
+                           MASK_VALUE).float().expand(b, skv).contiguous()
+    want_o, want_lse = flash_forward_plain(q.float(), k.float(), v.float(),
+                                           bias, causal=causal, scale=1 / 16)
+    assert torch.equal(o, o2)
+    assert _rel(o, want_o) < HD_BOUND
+    assert (lse - want_lse).abs().max().item() < LSE_BOUND
+
+
+def test_flash_sm90_head_dim_256_refusals(dev):
+    """No kernel takes a per-key bias at head dim 256: refused before any
+    launch, routed or forced."""
+    g = torch.Generator(device=dev).manual_seed(46)
+    q = _randn(g, 1, 1, 256, 256, dev=dev)
+    bias = torch.zeros(1, 256, device=dev)
+    before = kernels.ATTENTION_LAUNCHES.snapshot()
+    with pytest.raises(ValueError, match="per-key bias"):
+        kernels.attention(q, q, q, scale=1 / 16, kv_bias=bias)
+    with pytest.raises(ValueError, match="per-key bias at 128"):
+        kernels.attention(q, q, q, scale=1 / 16, kv_bias=bias, route=SM90)
+    assert kernels.ATTENTION_LAUNCHES.snapshot() == before
+
+
+def test_hiera_block_global_padded_on_sm90(dev):
+    """A K4 global block at Hiera-L's head dim 72 (C 144, 2 heads) over a
+    24 x 24 map: q, k and v zero-padded to 80 take attention_sm90.cu once,
+    and the block stays within BOUND of its fp32 twin."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    b, hw, c, heads = 2, 24, 144, 2
+    blk = {"norm1": _ln(g, c, dev), "norm2": _ln(g, c, dev),
+           "qkv": _dense(g, c, 3 * c, dev),
+           "proj_attn": _dense(g, c, c, dev),
+           "mlp": {"layers": [_dense(g, c, 4 * c, dev),
+                              _dense(g, 4 * c, c, dev)]}}
+    x = _randn(g, b, hw, hw, c, dev=dev)
+    before = kernels.ATTENTION_LAUNCHES.snapshot()
+    got = hiera_block(blk, x, num_heads=heads, ws=0, q_stride=None)
+    after = kernels.ATTENTION_LAUNCHES.snapshot()
+    assert {e: after[e] - before[e] for e in after} == {
+        e: int(e == SM90) for e in after}
+    want = hiera_block_plain(_f32(blk), x.float(), num_heads=heads, ws=0,
+                             q_stride=None, eps=1e-6)
+    assert _rel(got, want) < BOUND
+
+
+def test_memory_attention_on_the_card(dev):
+    """One memory-attention layer at full width (d_model 256, one head,
+    a 64 x 64 frame) over two spatial memories and two pointers: K2
+    twice (self- and cross-attention) on attention_sm90.cu, within BOUND
+    of the fp32 plain layer on the CPU over the same bf16 weights."""
+    import dataclasses
+
+    from video_llava_seg_torch.models.sam2 import memory
+    from video_llava_seg_torch.models.sam2.config import sam2_config
+
+    sc = sam2_config("tiny")
+    sc = dataclasses.replace(sc, memory_attention=dataclasses.replace(
+        sc.memory_attention, num_layers=1))
+    g = torch.Generator(device=dev).manual_seed(48)
+    params = memory.memory_attention_init(sc, g, dev, torch.bfloat16)
+    hw, m = 4096, sc.mem_dim
+    nt = 2 * sc.hidden_dim // m
+    curr, curr_pos = (_randn(g, 1, hw, 256, dev=dev) for _ in range(2))
+    mem, mem_pos = (_randn(g, 1, 2 * hw + nt, m, dev=dev) for _ in range(2))
+    before = kernels.LAUNCHES.snapshot()["K2"]
+    sm90 = kernels.ATTENTION_LAUNCHES.snapshot()[SM90]
+    got = memory.memory_attention_apply(params, sc, curr, mem, curr_pos,
+                                        mem_pos, num_obj_ptr_tokens=nt)
+    assert kernels.LAUNCHES.snapshot()["K2"] == before + 2
+    assert kernels.ATTENTION_LAUNCHES.snapshot()[SM90] == sm90 + 2
+    cpu = tree_map(lambda t: t.float().cpu(), params)
+    want = memory.memory_attention_apply(
+        cpu, sc, *(t.float().cpu() for t in (curr, mem, curr_pos, mem_pos)),
+        num_obj_ptr_tokens=nt)
+    assert _rel(got.cpu(), want) < BOUND

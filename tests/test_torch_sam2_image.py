@@ -386,12 +386,12 @@ def test_build_defaults_and_refusals():
     import inspect
 
     for fn in (tbuild.build_sam2, tbuild.build_sam2_image_predictor,
-               TPredictor.__init__):
+               tbuild.build_sam2_video_predictor, TPredictor.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert tbuild.default_dtype("cuda") == torch.bfloat16
     assert tbuild.default_dtype("cpu") == torch.float32
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tbuild.build_sam2_video_predictor(TINY)
+    video = tbuild.build_sam2_video_predictor(TINY, device="cpu")
+    assert video.fill_hole_area == 8 and video.compute_dtype == torch.float32
     pred = tbuild.build_sam2_image_predictor(TINY, device="cpu")
     with pytest.raises(RuntimeError, match="set_image"):
         pred.predict(box=np.zeros(4))

@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a) at head dims 64, 80, 96
-// and 128: TMA loads into swizzled shared tiles with mbarrier
+// Flash-attention forward for Hopper (sm_90a) at head dims 64, 80, 96,
+// 128 and 256: TMA loads into swizzled shared tiles with mbarrier
 // completion, both products on wgmma, the softmax state in registers.
 //
 //   o[b,h,i] = softmax_j(scale * q[b,h,i] . k[b,h//g,j] + bias[b,j]) v[b,h//g,j]
@@ -23,15 +23,22 @@
 // recompute. Head dims 64 / 80: the CLIP-L / RADIO-H towers' attention
 // link (577 keys); 96: every block of the SAM2.1-hiera-small trunk (16-196
 // keys a window, 4096 for a global block) and the per-op trunk's global
-// blocks. attention.cu keeps head dims 16 / 32, the bias below 128,
-// fewer than kernels.FLASH_SM90_MIN_KEYS keys and the two-pass form
-// (kernels.attention_entry).
+// blocks; 80 also Hiera-L's global blocks (head dim 72, zero-padded by
+// their caller). Head dim 256: SAM2's memory attention (one head of 256;
+// self-attention over a frame's 4096 tokens, cross-attention over the
+// memory bank's up to 7 x 4096 + 64 keys), whatever the form, for no
+// other kernel has that head dim. attention.cu keeps head dims 16 / 32,
+// the bias below 128, fewer than kernels.FLASH_SM90_MIN_KEYS keys and
+// the two-pass form (kernels.attention_entry).
 //
 // Bound on the card: at the 5.2k causal prefill the two products are
 // 2 * 2 * Hq * D * (Sq * Skv / 2) operations, ~0.22 ms at the bf16 peak,
 // against ~0.01 ms for the bytes of Q, K, V and O: compute-bound. The
 // towers' links over 577 keys are bound by their bytes (0.045 / 0.056
-// ms), the trunk's global block by its operations (0.21 ms). The design
+// ms), the trunk's global block by its operations (0.21 ms), the memory
+// attention's cross-attention over a full bank by its operations (4 x
+// 4096 x 28,736 x 256 = 120.5 GFLOP, 0.122 ms at the bf16 peak). The
+// design
 // keeps the tensor cores fed and everything else off their path:
 //
 // - A block is 3 warpgroups (384 threads). Warpgroup 0 is the producer:
@@ -47,7 +54,8 @@
 //   an item is only 5 kv tiles, and a block per item left the prologue
 //   (barrier init, Q load) and the epilogue exposed.
 // - Shared memory: the Q tile(s) and a two-stage ring of K and V tiles
-//   of 128 keys. A tile is cut into column boxes that each hold whole k16
+//   of 128 keys (64 at head dim 256: Q 64 KB and K / V 128 KB, one Q
+//   buffer). A tile is cut into column boxes that each hold whole k16
 //   steps under the swizzle of its width: 64 columns (one 128-byte
 //   swizzle row; D 128 has two), then at D 80 / 96 a box of the 16 / 32
 //   columns left under the 32- / 64-byte swizzle, each from its own
@@ -64,9 +72,10 @@
 //   accumulator converts pairwise into the bf16 A fragment) and B = V
 //   read MN-major through the transpose bit, one wgmma over the leading
 //   boxes (the leading byte offset steps box to box) and one of N = 16 /
-//   32 over the remainder box, each into its own part of O. D is never
-//   padded: the tensor work is what D counts. S (64 registers a thread),
-//   P (32) and O (D / 2) never leave registers.
+//   32 over the remainder box, each into its own part of O (at head dim
+//   256 one m64n256k16 over the four boxes). D is never padded: the
+//   tensor work is what D counts. S (64 registers a thread; 32 at 256),
+//   P (32; 16) and O (D / 2) never leave registers.
 // - Online softmax in registers: a row lives on a quad of lanes, so its
 //   max takes two shuffles (its sum is reduced once, at the end); the O
 //   rescale is a register multiply; only tiles that cross the causal
@@ -88,9 +97,11 @@
 // the mask value, as attention.cu gives it. Keys masked by the causal
 // diagonal or kv_len are -inf and excluded.
 //
-// Later work: the overlapped schedule at head dims 64 and 128 (ptxas
-// serialized it at 64, and the second P spilled at 128), carrying it
-// across items (an item at the towers' 577 keys is 5 kv tiles), a
+// Later work: at head dim 256 a split over the keys (one object's memory
+// attention is 32 items of 128 query rows, a quarter of the SMs) and
+// the overlapped schedule; the overlapped schedule at head dims 64 and
+// 128 (ptxas serialized it at 64, and the second P spilled at 128),
+// carrying it across items (an item at the towers' 577 keys is 5 kv tiles), a
 // persistent grid at head dim 128, packing a GQA group into one block.
 //
 // The mbarrier, TMA and wgmma helpers and the tensor-map encoding live in
@@ -101,7 +112,6 @@
 namespace {
 
 constexpr int BQ = 128;      // query rows per block, 64 per consumer
-constexpr int BKV = 128;     // keys per tile
 constexpr int STAGES = 2;
 constexpr int NT = 384;      // producer + two consumer warpgroups
 // barriers: per Q buffer (at most two, Tile::Q_BUFS) q full, q empty;
@@ -109,7 +119,8 @@ constexpr int NT = 384;      // producer + two consumer warpgroups
 constexpr int N_BARS = 2 * 2 + 4 * STAGES;
 constexpr int CONSUMER_WARPS = 8;
 
-// The column boxes of a 128-row Q, K or V tile at head dim D: NB0 boxes
+// The column boxes of a 128-row Q tile, or a BKV-row K or V tile, at
+// head dim D: NB0 boxes
 // of W0 = 64 columns (one 128-byte swizzle row), then where D is no
 // multiple of 64 one box of the W1 = D - 64 NB0 columns left (16 or 32:
 // one 32- or 64-byte swizzle row), each box its own 128 rows of shared
@@ -120,45 +131,58 @@ constexpr int W0 = 64;
 
 template <int D>
 struct Tile {
+  // keys a K / V tile: 128, and 64 at head dim 256, where a 128-key
+  // tile's S (64 registers a thread) and P (32) beside O (128) would not
+  // fit a consumer's 240; 64 keys take S 32 + P 16
+  static constexpr int BKV = D == 256 ? 64 : 128;
   static constexpr int NB0 = D / W0;
   static constexpr int N0 = NB0 * W0;    // columns in the leading boxes
   static constexpr int W1 = D - N0;      // remainder box: 0, 16 or 32
-  static constexpr uint32_t BOX0 = BKV * W0 * 2;
+  static constexpr uint32_t BOX0 = BKV * W0 * 2;   // a K / V box
   static constexpr uint32_t BOX1 = BKV * W1 * 2;
   static constexpr uint32_t R1 = NB0 * BOX0;  // the remainder box
-  static constexpr uint32_t BYTES = BKV * D * 2;
+  static constexpr uint32_t BYTES = BKV * D * 2;   // a K / V tile
+  static constexpr uint32_t Q_BOX0 = BQ * W0 * 2;  // a Q box
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;  // a Q tile
   // below head dim 128 a block walks many items (a persistent grid) and
   // the next item's Q loads during this one; at 128 a block takes one
-  // item (the LLM's causal prefill) with one Q buffer
+  // item (the LLM's causal prefill) with one Q buffer; at 256 the grid
+  // is persistent with one Q buffer (two Q buffers and the ring would
+  // need 256 KB)
   static constexpr bool PERSISTENT = D != 128;
-  static constexpr int Q_BUFS = PERSISTENT ? 2 : 1;
+  static constexpr int Q_BUFS = PERSISTENT && D != 256 ? 2 : 1;
   static constexpr uint32_t Q_OFF = 0;
-  static constexpr uint32_t K_OFF = Q_OFF + Q_BUFS * BYTES;
+  static constexpr uint32_t K_OFF = Q_OFF + Q_BUFS * Q_BYTES;
   static constexpr uint32_t V_OFF = K_OFF + STAGES * BYTES;
   static constexpr uint32_t BAR_OFF = V_OFF + STAGES * BYTES;
   // + 1024: the swizzled tiles start on a 1024-byte boundary
   static constexpr size_t SMEM = BAR_OFF + N_BARS * 8 + 1024;
   static_assert(D % 16 == 0, "head dim");
   static_assert(W1 == 0 || W1 == 16 || W1 == 32, "remainder box");
-  static_assert(BYTES % 1024 == 0 && BOX0 % 1024 == 0, "box alignment");
+  static_assert(BYTES % 1024 == 0 && BOX0 % 1024 == 0 &&
+                    Q_BOX0 % 1024 == 0, "box alignment");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 // K-major descriptor of k16 step kk (columns [16 kk, 16 kk + 16)) of rows
-// row0.. of a tile at `tile`: the box that holds the columns, the row's
-// byte offset inside it (k steps inside a swizzle row advance the start
-// address; the hardware swizzles the address it forms)
-template <int D>
+// row0.. of a tile of ROWS rows (BQ for Q, BKV for K) at `tile`: the box
+// that holds the columns, the row's byte offset inside it (k steps
+// inside a swizzle row advance the start address; the hardware swizzles
+// the address it forms)
+template <int D, int ROWS>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int row0,
                                                 int kk) {
   using T = Tile<D>;
+  constexpr uint32_t box0 = ROWS * W0 * 2;
   const int col = 16 * kk;
   if (col < T::N0)
-    return desc_cols<W0>(tile + (col / W0) * T::BOX0 + row0 * 2 * W0 +
+    return desc_cols<W0>(tile + (col / W0) * box0 + row0 * 2 * W0 +
                              (col % W0) * 2,
                          16, 16 * W0);
   constexpr int W1 = T::W1 ? T::W1 : 16;
-  return desc_cols<W1>(tile + T::R1 + row0 * 2 * W1 + (col - T::N0) * 2, 16,
-                       16 * W1);
+  return desc_cols<W1>(tile + T::NB0 * box0 + row0 * 2 * W1 +
+                           (col - T::N0) * 2,
+                       16, 16 * W1);
 }
 
 // One row's columns of an m64nN accumulator (N = 2 x its size), scaled
@@ -192,6 +216,7 @@ struct Item {
   int q0, h, b, hk, n_tiles;
 };
 
+template <int BKV>
 __device__ __forceinline__ Item item_of(int it, const Params& p) {
   const int nq = (p.sq + BQ - 1) / BQ;
   Item r;
@@ -218,11 +243,14 @@ __global__ void __launch_bounds__(NT, 1)
                    const __grid_constant__ CUtensorMap tm_v1,
                    const Params p) {
   using T = Tile<D>;
+  constexpr int BKV = T::BKV;
+  // a thread's S (BKV / 2 fp32) and its P as bf16 pairs (BKV / 4)
+  constexpr int SN = BKV / 2, PN = BKV / 4;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t bars = base + T::BAR_OFF;
-  auto q_s = [&](int i) { return base + T::Q_OFF + i * T::BYTES; };
+  auto q_s = [&](int i) { return base + T::Q_OFF + i * T::Q_BYTES; };
   auto k_s = [&](int s) { return base + T::K_OFF + s * T::BYTES; };
   auto v_s = [&](int s) { return base + T::V_OFF + s * T::BYTES; };
   auto q_full = [&](int i) { return bars + 8u * i; };
@@ -272,15 +300,16 @@ __global__ void __launch_bounds__(NT, 1)
   if (wg == 0) {
     // ---------------- producer ----------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
-    // one tile: the leading boxes, then the remainder box
-    auto load_tile = [&](uint32_t dst, const CUtensorMap* m,
+    // one tile: the leading boxes (box0 bytes each), then the remainder
+    // box
+    auto load_tile = [&](uint32_t dst, uint32_t box0, const CUtensorMap* m,
                          const CUtensorMap* m1, uint32_t bar, int row,
                          int head, int b) {
 #pragma unroll
       for (int i = 0; i < T::NB0; ++i)
-        tma_load(dst + i * T::BOX0, m, bar, i * W0, row, head, b);
+        tma_load(dst + i * box0, m, bar, i * W0, row, head, b);
       if constexpr (T::W1 != 0)
-        tma_load(dst + T::R1, m1, bar, T::N0, row, head, b);
+        tma_load(dst + T::NB0 * box0, m1, bar, T::N0, row, head, b);
     };
     if (tid == 0) {
       // g counts kv tiles and u items with tiles over all of this block's
@@ -288,12 +317,13 @@ __global__ void __launch_bounds__(NT, 1)
       // the next item's Q and first tiles load during this one
       int g = 0, u = 0;
       for (int it = it0; it < it_end; it += step()) {
-        const Item w = item_of(it, p);
+        const Item w = item_of<BKV>(it, p);
         if (w.n_tiles == 0) continue;
         const int qb = u % T::Q_BUFS;
         mbar_wait(q_empty(qb), ((u / T::Q_BUFS) & 1) ^ 1);
-        mbar_expect_tx(q_full(qb), T::BYTES);
-        load_tile(q_s(qb), &tm_q, &tm_q1, q_full(qb), w.q0, w.h, w.b);
+        mbar_expect_tx(q_full(qb), T::Q_BYTES);
+        load_tile(q_s(qb), T::Q_BOX0, &tm_q, &tm_q1, q_full(qb), w.q0, w.h,
+                  w.b);
         ++u;
         for (int t = 0; t < w.n_tiles; ++t, ++g) {
           const int s = g % STAGES;
@@ -302,10 +332,12 @@ __global__ void __launch_bounds__(NT, 1)
           // the first pass over the ring finds every stage free
           mbar_wait(k_empty(s), ph ^ 1);
           mbar_expect_tx(k_full(s), T::BYTES);
-          load_tile(k_s(s), &tm_k, &tm_k1, k_full(s), j0, w.hk, w.b);
+          load_tile(k_s(s), T::BOX0, &tm_k, &tm_k1, k_full(s), j0, w.hk,
+                    w.b);
           mbar_wait(v_empty(s), ph ^ 1);
           mbar_expect_tx(v_full(s), T::BYTES);
-          load_tile(v_s(s), &tm_v, &tm_v1, v_full(s), j0, w.hk, w.b);
+          load_tile(v_s(s), T::BOX0, &tm_v, &tm_v1, v_full(s), j0, w.hk,
+                    w.b);
         }
       }
     }
@@ -341,7 +373,7 @@ __global__ void __launch_bounds__(NT, 1)
     if (PIPELINED && cw == 1) pp_arrive();
     int g = 0, u = 0;  // as the producer counts them
     for (int it = it0; it < it_end; it += step()) {
-      const Item w = item_of(it, p);
+      const Item w = item_of<BKV>(it, p);
       const int n_tiles = w.n_tiles, h = w.h, b = w.b;
       const int qw0 = w.q0 + cw * 64;
       const int qi0 = qw0 + r0, qi1 = qi0 + 8;
@@ -362,24 +394,24 @@ __global__ void __launch_bounds__(NT, 1)
       // part of the row sum, for rows r0 and r0 + 8
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-      // S = Q K^T on stage s: D / 16 k-steps, each on the descriptor of
-      // the box that holds its columns
-      auto issue_qk = [&](float (&sacc)[64], int s) {
+      // S = Q K^T on stage s: D / 16 k-steps (m64nBKVk16), each on the
+      // descriptor of the box that holds its columns
+      auto issue_qk = [&](float (&sacc)[SN], int s) {
         wg_fence();
-        wgmma_ss_first(sacc, kmajor_desc<D>(q_buf, cw * 64, 0),
-                       kmajor_desc<D>(k_s(s), 0, 0));
+        wgmma_ss_first(sacc, kmajor_desc<D, BQ>(q_buf, cw * 64, 0),
+                       kmajor_desc<D, BKV>(k_s(s), 0, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          wgmma_ss(sacc, kmajor_desc<D>(q_buf, cw * 64, kk),
-                   kmajor_desc<D>(k_s(s), 0, kk));
+          wgmma_ss(sacc, kmajor_desc<D, BQ>(q_buf, cw * 64, kk),
+                   kmajor_desc<D, BKV>(k_s(s), 0, kk));
         wg_commit();
       };
-      // O += P V on stage s: 8 k-steps of 16 keys; the A fragment of keys
-      // [16kk, 16kk + 16) is pa[4kk .. 4kk + 3]. V is the MN-major B
-      // operand: one wgmma of N = N0 over the leading boxes (the leading
-      // offset steps box to box) and one of N = W1 over the remainder
-      // box, each into its own accumulator
-      auto issue_pv = [&](uint32_t (&pa)[32], int s) {
+      // O += P V on stage s: BKV / 16 k-steps of 16 keys; the A fragment
+      // of keys [16kk, 16kk + 16) is pa[4kk .. 4kk + 3]. V is the MN-major
+      // B operand: one wgmma of N = N0 over the leading boxes (the leading
+      // offset steps box to box; N = 256 at head dim 256) and one of N =
+      // W1 over the remainder box, each into its own accumulator
+      auto issue_pv = [&](uint32_t (&pa)[PN], int s) {
         // P and O settle before the fence: an instruction that defines a
         // product's input registers inside its issue stage serializes
         // every wgmma (ptxas C7513)
@@ -423,10 +455,10 @@ __global__ void __launch_bounds__(NT, 1)
       // is one): scale, mask, the new running max, P into pa as the bf16 A
       // fragment, the row sums; alpha = exp(old max - new max), the factor
       // O takes before this tile's P V
-      auto softmax = [&](float (&sacc)[64], const float (&bv)[32], int j0,
-                         uint32_t (&pa)[32], float& alpha0, float& alpha1) {
+      auto softmax = [&](float (&sacc)[SN], const float (&bv)[PN], int j0,
+                         uint32_t (&pa)[PN], float& alpha0, float& alpha1) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i)
+        for (int i = 0; i < BKV / 8; ++i)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             if constexpr (HAS_BIAS) {
@@ -448,7 +480,7 @@ __global__ void __launch_bounds__(NT, 1)
           const int d0 = min(lim - 1, p.causal ? qi0 + off - j0 - cq : big);
           const int d1 = min(lim - 1, p.causal ? qi1 + off - j0 - cq : big);
 #pragma unroll
-          for (int i = 0; i < 16; ++i)
+          for (int i = 0; i < BKV / 8; ++i)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               if (8 * i + e > d0) sacc[4 * i + e] = -INFINITY;
@@ -458,7 +490,7 @@ __global__ void __launch_bounds__(NT, 1)
 
         float mx0 = m0, mx1 = m1;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < BKV / 8; ++i) {
           mx0 = fmaxf(mx0, fmaxf(sacc[4 * i], sacc[4 * i + 1]));
           mx1 = fmaxf(mx1, fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
         }
@@ -475,7 +507,7 @@ __global__ void __launch_bounds__(NT, 1)
         m1 = mx1;
         float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < BKV / 8; ++i) {
           const float p00 = ex2((sacc[4 * i] - mu0) * f);
           const float p01 = ex2((sacc[4 * i + 1] - mu0) * f);
           const float p10 = ex2((sacc[4 * i + 2] - mu1) * f);
@@ -496,10 +528,10 @@ __global__ void __launch_bounds__(NT, 1)
           const int s = g % STAGES;
           const uint32_t ph = (g / STAGES) & 1;
           const int j0 = t * BKV;
-          float sacc[64];
+          float sacc[SN];
           mbar_wait(k_full(s), ph);
           issue_qk(sacc, s);
-          float bv[32];
+          float bv[PN];
           if constexpr (HAS_BIAS) {
             // this thread's 32 keys of the bias, fetched while S runs; one
             // base pointer per tile and immediate offsets, so no per-key
@@ -507,7 +539,7 @@ __global__ void __launch_bounds__(NT, 1)
             const float* bt = bias + j0 + cq;
             const int lim = p.skv - j0 - cq;
 #pragma unroll
-            for (int i = 0; i < 16; ++i)
+            for (int i = 0; i < BKV / 8; ++i)
 #pragma unroll
               for (int e = 0; e < 2; ++e)
                 bv[2 * i + e] = 8 * i + e < lim ? __ldg(bt + 8 * i + e) : 0.f;
@@ -515,7 +547,7 @@ __global__ void __launch_bounds__(NT, 1)
           wg_wait<0>();
           pin(sacc);
           if (lane == 0) mbar_arrive(k_empty(s));
-          uint32_t pa[32];
+          uint32_t pa[PN];
           float alpha0, alpha1;
           softmax(sacc, bv, j0, pa, alpha0, alpha1);
           rescale(alpha0, alpha1);
@@ -535,11 +567,11 @@ __global__ void __launch_bounds__(NT, 1)
         // branch (ptxas serializes the products when one sits behind a
         // condition), so tile 0's S and the last P V are issued apart.
         if (n_tiles > 0) {
-          uint32_t pa[32];  // P of the tile whose P V is issued next
-          const float bv[32] = {};
+          uint32_t pa[PN];  // P of the tile whose P V is issued next
+          const float bv[PN] = {};
           {
             const int s = g % STAGES;
-            float sacc[64], alpha0, alpha1;
+            float sacc[SN], alpha0, alpha1;
             mbar_wait(k_full(s), (g / STAGES) & 1);
             pp_sync();
             issue_qk(sacc, s);
@@ -553,7 +585,7 @@ __global__ void __launch_bounds__(NT, 1)
           // tile t - 1 is at ring position g - 1: its stage and phase
           for (int t = 1; t < n_tiles; ++t, ++g) {
             const int s = g % STAGES, sp = (g - 1) % STAGES;
-            float sacc[64], alpha0, alpha1;
+            float sacc[SN], alpha0, alpha1;
             mbar_wait(k_full(s), (g / STAGES) & 1);
             mbar_wait(v_full(sp), ((g - 1) / STAGES) & 1);
             pp_sync();
@@ -563,7 +595,7 @@ __global__ void __launch_bounds__(NT, 1)
             wg_wait<1>();
             pin(sacc);
             if (lane == 0) mbar_arrive(k_empty(s));
-            uint32_t pn[32];
+            uint32_t pn[PN];
             softmax(sacc, bv, t * BKV, pn, alpha0, alpha1);
             wg_wait<0>();
             pin(o0);
@@ -573,7 +605,7 @@ __global__ void __launch_bounds__(NT, 1)
             // O holds tiles ..t - 1 at the old max; tile t's P is at the new
             rescale(alpha0, alpha1);
 #pragma unroll
-            for (int i = 0; i < 32; ++i) pa[i] = pn[i];
+            for (int i = 0; i < PN; ++i) pa[i] = pn[i];
           }
           const int sp = (g - 1) % STAGES;
           mbar_wait(v_full(sp), ((g - 1) / STAGES) & 1);
@@ -637,16 +669,20 @@ int launch(const void* q, const void* k, const void* v, const long long* geom,
   using T = Tile<D>;
   CUtensorMap tm[6];
   const void* ptr[3] = {q, k, v};
-  const int box0[4] = {W0, BKV, 1, 1};
+  // Q's boxes are BQ rows, K's and V's BKV
+  const int rows[3] = {BQ, T::BKV, T::BKV};
   int e = 0;
-  for (int i = 0; i < 3 && e == 0; ++i)
+  for (int i = 0; i < 3 && e == 0; ++i) {
+    const int box0[4] = {W0, rows[i], 1, 1};
     e = encode_bf16_box(&tm[i], ptr[i], geom + i * GEOM, D, box0,
                         swizzle_of(W0));
+  }
   if constexpr (T::W1 != 0) {
-    const int box1[4] = {T::W1, BKV, 1, 1};
-    for (int i = 0; i < 3 && e == 0; ++i)
+    for (int i = 0; i < 3 && e == 0; ++i) {
+      const int box1[4] = {T::W1, rows[i], 1, 1};
       e = encode_bf16_box(&tm[3 + i], ptr[i], geom + (3 + i) * GEOM, D, box1,
                           swizzle_of(T::W1));
+    }
   } else {
     for (int i = 0; i < 3; ++i) tm[3 + i] = tm[i];
   }
@@ -728,6 +764,7 @@ extern "C" int vls_flash_fwd_sm90(
     case 80: return launch<80, false>(q, k, v, geom, p, st);
     case 96: return launch<96, false>(q, k, v, geom, p, st);
     case 128: return launch<128, false>(q, k, v, geom, p, st);
+    case 256: return launch<256, false>(q, k, v, geom, p, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -18,7 +18,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from video_llava_seg_torch.ops.resize import interpolate, pil_bicubic_matrix
+from video_llava_seg_torch.ops.resize import interpolate, pil_resize
 from video_llava_seg_torch.vision_utils import get_resize_padding_params
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -38,24 +38,11 @@ def expand2square(frames: torch.Tensor, fill) -> torch.Tensor:
     return out
 
 
-def _pil_pass(x: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
-    in_size = x.shape[axis]
-    if in_size == out_size:
-        return x
-    m = torch.from_numpy(pil_bicubic_matrix(in_size, out_size)).to(
-        x.device, torch.float64)
-    y = torch.movedim(torch.tensordot(x.double(), m, dims=([axis], [1])),
-                      -1, axis)
-    return torch.floor(y + 0.5).clamp_(0, 255).float()
-
-
 def clip_preprocess_frames(frames: torch.Tensor,
                            image_size: int) -> torch.Tensor:
     """uint8 [T, H, W, 3] -> CLIP-normalised fp32 [T, S, S, 3]."""
     fill = tuple(int(x * 255) for x in CLIP_IMAGE_MEAN)
-    x = expand2square(frames, fill).float()
-    x = _pil_pass(x, image_size, axis=2)   # PIL: horizontal pass first
-    x = _pil_pass(x, image_size, axis=1)
+    x = pil_resize(expand2square(frames, fill), (image_size, image_size))
     mean = torch.tensor(CLIP_IMAGE_MEAN, device=x.device)
     std = torch.tensor(CLIP_IMAGE_STD, device=x.device)
     return (x / 255.0 - mean) / std

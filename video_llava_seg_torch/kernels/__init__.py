@@ -93,6 +93,7 @@ _SIGNATURES = {
 }
 
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
+# attention.cu's head dims (attention_sm90.cu adds FLASH_SM90_WIDE_HEAD_DIM)
 ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # attention_sm90.cu: the online form at these head dims, over at least
 # FLASH_SM90_MIN_KEYS keys below head dim 128. The threshold was measured
@@ -107,9 +108,15 @@ ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # (one 128-byte swizzle row) by 128 rows of one head of one batch row, in
 # the order of the tensor map's dims (D, S, H, B); at head dims 80 / 96 a
 # second map's box holds the 16 / 32 columns left (32- / 64-byte
-# swizzle).
-FLASH_SM90_HEAD_DIMS = (64, 80, 96, 128)
+# swizzle). Head dim 256 (SAM2's memory attention: one head of 256) has
+# no instance anywhere else, so attention_sm90.cu serves every call there
+# without a bias, in either form and over any number of keys; its K and
+# V boxes are FLASH_SM90_WIDE_KV_ROWS rows (a 128-row tile's registers
+# would not fit beside a 256-column O).
+FLASH_SM90_HEAD_DIMS = (64, 80, 96, 128, 256)
 FLASH_SM90_HEAD_DIM = 128
+FLASH_SM90_WIDE_HEAD_DIM = 256
+FLASH_SM90_WIDE_KV_ROWS = 64
 FLASH_SM90_MIN_KEYS = 16
 FLASH_SM90_BOX = (64, 128, 1, 1)
 # attention_short_sm90.cu: the two-pass form (K3) at head dim 16 with all
@@ -647,9 +654,9 @@ def _strides_bhs(t: torch.Tensor, what: str):
 def _check_qkv(q, k, v):
     bsz, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if d not in ATTENTION_HEAD_DIMS:
+    if d not in ATTENTION_HEAD_DIMS and d != FLASH_SM90_WIDE_HEAD_DIM:
         raise ValueError(f"attention: head_dim {d} not in "
-                         f"{ATTENTION_HEAD_DIMS}")
+                         f"{ATTENTION_HEAD_DIMS + (FLASH_SM90_WIDE_HEAD_DIM,)}")
     if k.shape != (bsz, hkv, skv, d) or v.shape != k.shape:
         raise ValueError("attention: k/v shapes do not match")
     if hq % hkv:
@@ -693,7 +700,14 @@ def attention_entry(d: int, two_pass: bool, skv: int, hkv: int,
     64) and a batch row's K/V fit a resident slot (the SAM2 mask decoder's
     image->token attention); csrc/attention.cu for every other call (head
     dims 16 and 32, a bias below head dim 128, fewer keys, the two-pass
-    form elsewhere)."""
+    form elsewhere). At head dim 256 (SAM2's memory attention)
+    attention_sm90.cu serves every call without a bias, and a bias is
+    refused: no kernel has that instance."""
+    if d == FLASH_SM90_WIDE_HEAD_DIM:
+        if bias:
+            raise ValueError("attention: no kernel takes a per-key bias at "
+                             f"head dim {d}")
+        return "vls_flash_fwd_sm90"
     if not two_pass and d == FLASH_SM90_HEAD_DIM:
         return "vls_flash_fwd_sm90"
     if (not two_pass and not bias and d in FLASH_SM90_HEAD_DIMS
@@ -737,12 +751,22 @@ def _tensor_map_dims(shape, stride, es: int, what: str, box):
     return (d, s, h, b, s0, s1, s2) + tuple(box)
 
 
-def flash_sm90_boxes(d: int):
-    """attention_sm90.cu's TMA boxes at head dim d: the leading box
-    FLASH_SM90_BOX and, where d is no multiple of its width, the remainder
-    box of the columns left; None where there is none."""
+def flash_sm90_kv_rows(d: int) -> int:
+    """The rows of attention_sm90.cu's K / V tiles (and boxes) at head dim
+    d: FLASH_SM90_WIDE_KV_ROWS at FLASH_SM90_WIDE_HEAD_DIM, else the
+    Q tile's FLASH_SM90_BOX[1]."""
+    return (FLASH_SM90_WIDE_KV_ROWS if d == FLASH_SM90_WIDE_HEAD_DIM
+            else FLASH_SM90_BOX[1])
+
+
+def flash_sm90_boxes(d: int, rows: int = FLASH_SM90_BOX[1]):
+    """attention_sm90.cu's TMA boxes of `rows` rows at head dim d: the
+    leading box FLASH_SM90_BOX's columns and, where d is no multiple of
+    its width, the remainder box of the columns left; None where there
+    is none."""
+    lead = (FLASH_SM90_BOX[0], rows) + FLASH_SM90_BOX[2:]
     rem = d % FLASH_SM90_BOX[0]
-    return FLASH_SM90_BOX, ((rem,) + FLASH_SM90_BOX[1:] if rem else None)
+    return lead, ((rem,) + lead[1:] if rem else None)
 
 
 @functools.lru_cache(maxsize=256)
@@ -752,8 +776,9 @@ def _forward_geometry(entry, q_shape, q_stride, k_shape, k_stride, v_stride,
     k and v tensor maps, each as `flash_sm90_tensor_map` gives it, for
     [B, H, S, D] views of these shapes and element strides (element size
     es). attention_sm90.cu's boxes are `flash_sm90_boxes(D)`'s leading
-    box, then, where there is one, the q, k and v maps of its remainder
-    box (3 x 11 int64 more);
+    box for q and `flash_sm90_boxes(D, flash_sm90_kv_rows(D))`'s for k
+    and v, then, where there is one, the q, k and v maps of the
+    remainder box (3 x 11 int64 more);
     attention_short_sm90.cu's are 16 columns by SHORT_SM90_BQ rows of one
     head for q, the N keys of every kv head of one batch row for k (N =
     `short_sm90_key_tile(Skv)`), max(N, 16) keys for v (TMA zero-fills
@@ -761,8 +786,11 @@ def _forward_geometry(entry, q_shape, q_stride, k_shape, k_stride, v_stride,
     host's cost of a call is more than the kernel's device time. The C
     entries only read it."""
     if entry == "vls_flash_fwd_sm90":
-        lead, rem = flash_sm90_boxes(q_shape[3])
-        boxes = (lead,) * 3 + ((rem,) * 3 if rem else ())
+        d = q_shape[3]
+        lead, rem = flash_sm90_boxes(d)
+        kv_lead, kv_rem = flash_sm90_boxes(d, flash_sm90_kv_rows(d))
+        boxes = (lead, kv_lead, kv_lead) + ((rem, kv_rem, kv_rem)
+                                           if rem else ())
     else:
         d, hkv, skv = q_shape[3], k_shape[1], k_shape[2]
         n = short_sm90_key_tile(skv)
@@ -799,10 +827,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     entry = route or attention_entry(d, two_pass, skv, hkv,
                                      bias=kv_bias is not None)
     if entry == "vls_flash_fwd_sm90" and (
-            two_pass or d not in FLASH_SM90_HEAD_DIMS
+            (two_pass and d != FLASH_SM90_WIDE_HEAD_DIM)
+            or d not in FLASH_SM90_HEAD_DIMS
             or (kv_bias is not None and d != FLASH_SM90_HEAD_DIM)):
         raise ValueError("attention: vls_flash_fwd_sm90 serves the online "
-                         f"form at head dims {FLASH_SM90_HEAD_DIMS}, with a "
+                         f"form at head dims {FLASH_SM90_HEAD_DIMS} (both "
+                         f"forms at {FLASH_SM90_WIDE_HEAD_DIM}), with a "
                          f"per-key bias at {FLASH_SM90_HEAD_DIM}")
     if entry == "vls_attention_short_sm90" and (
             not two_pass or entry != attention_entry(d, True, skv, hkv)):

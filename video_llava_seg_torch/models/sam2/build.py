@@ -1,7 +1,8 @@
 """SAM2 model builder (port of `video_llava_seg_tpu/models/sam2/build.py`;
 the reference's sam2/build_sam.py).
 
-`build_sam2(variant, checkpoint=...)` returns (params, cfg) on `device`:
+`build_sam2(variant, checkpoint=...)` returns (params, cfg) on `device`
+(`build_sam2_image_predictor` / `build_sam2_video_predictor` wrap it):
 a reference torch checkpoint converted to the JAX package's tree, or,
 without one, random weights drawn from `seed`. Variants are the bare
 names (tiny, small, base_plus, large, sam2-test-tiny) or the reference's
@@ -68,6 +69,15 @@ def build_sam2_image_predictor(variant: str = "small",
 
 
 def build_sam2_video_predictor(variant: str = "small",
-                               checkpoint: Optional[str] = None, **kwargs):
-    raise NotImplementedError(
-        "ROADMAP queue 1 item 4: the SAM2 memory and video predictor")
+                               checkpoint: Optional[str] = None,
+                               seed: int = 0, device="cuda", **kwargs):
+    """A SAM2VideoPredictor over `build_sam2`'s model with the video
+    predictor's post-processing defaults (build_sam.py:88-102:
+    fill_hole_area 8); kwargs go to the predictor."""
+    from video_llava_seg_torch.models.sam2.video_predictor import (
+        SAM2VideoPredictor,
+    )
+
+    params, cfg = build_sam2(variant, checkpoint, seed=seed, device=device)
+    kwargs.setdefault("fill_hole_area", 8)
+    return SAM2VideoPredictor(params, cfg, device=device, **kwargs)

@@ -1,7 +1,8 @@
 """SAM2 position encodings (port of
 `video_llava_seg_tpu/models/sam2/position_encoding.py`): the sine grid of
-the FPN neck, and the random-Fourier encodings of the prompt encoder (its
-dense grid and its point prompts)."""
+the FPN neck and the memory, the 1-D sine encoding of the object
+pointers' temporal positions, and the random-Fourier encodings of the
+prompt encoder (its dense grid and its point prompts)."""
 
 from __future__ import annotations
 
@@ -45,6 +46,18 @@ def sine_pos_embed_on(h: int, w: int, num_pos_feats: int, temperature: int,
     them on every encode (~85 MiB in fp32 at 1024^2)."""
     return torch.from_numpy(sine_pos_embed_hw(
         h, w, num_pos_feats, temperature)).to(device, dtype)
+
+
+def sine_pos_embed_1d(pos: torch.Tensor, dim: int,
+                      temperature: int = 10000) -> torch.Tensor:
+    """get_1d_sine_pe (the reference's sam2/modeling/sam2_utils.py:64-74):
+    pos [...] -> fp32 [..., dim], the sines of all frequencies, then
+    their cosines."""
+    pe_dim = dim // 2
+    dim_t = torch.arange(pe_dim, dtype=torch.float32, device=pos.device)
+    dim_t = temperature ** (2 * (dim_t // 2) / pe_dim)
+    pos_embed = pos.float()[..., None] / dim_t
+    return torch.cat([torch.sin(pos_embed), torch.cos(pos_embed)], dim=-1)
 
 
 def random_pe_init(g, num_pos_feats: int, device, scale: float = 1.0):

@@ -26,7 +26,12 @@ loading and writes the cropped (pooled) map: window_attention_sm90.cu at
 head dim 96 (every windowed block of Hiera-T / S), window_attention.cu
 at the head dims `kernels.window_entry` sends there (Hiera-B+'s 56,
 Hiera-L's 72). A global block keeps `attention_stage`: attention_sm90.cu
-over the whole map as one window, with no copy.
+over the whole map as one window, with no copy at head dim 96
+(Hiera-T / S); at Hiera-B+'s 56 and Hiera-L's 72, which no attention
+kernel has, q, k and v are zero-padded to the next instance (64 / 80,
+`attention_head_dim`) and the output cropped: zero columns add nothing
+to q . k, V's zero columns give zero outputs, and the scale stays
+1 / sqrt(true head dim).
 
 Between launches only layout work in torch: the zero pad of the
 post-norm map, and strided q/k/v views of a global block's fused qkv.
@@ -99,6 +104,19 @@ def hiera_block_plain(blk, x, *, num_heads: int, ws: int,
                              act=nn.gelu)
 
 
+def attention_head_dim(hd: int) -> int:
+    """The head dim `attention_stage` hands `kernels.attention` for a true
+    head dim hd: hd itself where a kernel has it, else the next head dim
+    of attention_sm90.cu (Hiera-B+'s 56 -> 64, Hiera-L's 72 -> 80)."""
+    if hd in kernels.ATTENTION_HEAD_DIMS or hd in kernels.FLASH_SM90_HEAD_DIMS:
+        return hd
+    above = [d for d in kernels.FLASH_SM90_HEAD_DIMS if d > hd]
+    if not above:
+        raise ValueError(f"attention_stage: no attention kernel above head "
+                         f"dim {hd}")
+    return min(above)
+
+
 def attention_stage(qkv, *, num_heads: int, ws: int, ps: int):
     """Attention over ws x ws windows by `kernels.attention` on a
     contiguous fused-qkv map [B, Hp, Wp, 3C] (Hp, Wp multiples of ws):
@@ -107,7 +125,9 @@ def attention_stage(qkv, *, num_heads: int, ws: int, ps: int):
     token, head, hd] output into the (pooled) map [B, Hp/ps, Wp/ps, C],
     possibly a view. The chain runs it for global blocks (ws = the map's
     side, ps = 1); chip_smoke times it at the windowed kinds, which the
-    chain ran through it before window_attention_sm90.cu."""
+    chain ran through it before window_attention_sm90.cu. A head dim no
+    kernel has is zero-padded to `attention_head_dim`'s and the output
+    cropped back."""
     b, hp, wp, c3 = qkv.shape
     c = c3 // 3
     hd = c // num_heads
@@ -126,8 +146,13 @@ def attention_stage(qkv, *, num_heads: int, ws: int, ps: int):
         q = win[..., :c].reshape(nwin, ws * ws, num_heads, hd)
     k = win[..., c:2 * c].reshape(nwin, ws * ws, num_heads, hd)
     v = win[..., 2 * c:].reshape(nwin, ws * ws, num_heads, hd)
+    pad = attention_head_dim(hd) - hd
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
     o = kernels.attention(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
                           v.permute(0, 2, 1, 3), scale=1.0 / math.sqrt(hd))
+    if pad:
+        o = o[..., :hd]
     # [nwin, q_ws*q_ws, heads, hd] storage -> pooled map
     o = o.permute(0, 2, 1, 3).reshape(b, n_wr, n_w, q_ws, q_ws, c)
     return o.permute(0, 1, 3, 2, 4, 5).reshape(b, n_wr * q_ws, n_w * q_ws, c)

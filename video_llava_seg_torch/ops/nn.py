@@ -157,9 +157,10 @@ def _same_pads(size: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
-def conv2d(p, x, stride: Tuple[int, int] = (1, 1), padding="SAME"):
-    """NHWC conv with an HWIO kernel. padding: 'SAME' | 'VALID' |
-    [(lo, hi), (lo, hi)]."""
+def conv2d(p, x, stride: Tuple[int, int] = (1, 1), padding="SAME",
+           groups: int = 1):
+    """NHWC conv with an HWIO kernel (I = input channels / groups).
+    padding: 'SAME' | 'VALID' | [(lo, hi), (lo, hi)]."""
     w = p["kernel"].to(x.dtype)
     kh, kw = w.shape[:2]
     if padding == "SAME":
@@ -173,7 +174,8 @@ def conv2d(p, x, stride: Tuple[int, int] = (1, 1), padding="SAME"):
     (ht, hb), (wl, wr) = pads
     if ht or hb or wl or wr:
         xc = F.pad(xc, (wl, wr, ht, hb))
-    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=tuple(stride))
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=tuple(stride),
+                 groups=groups)
     y = y.permute(0, 2, 3, 1)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)

@@ -7,8 +7,9 @@ antialias), pinned to the original by `tests/test_torch_ops.py`; the
 resize itself is `out = W_h @ x @ W_w^T` in fp32.
 
 `pil_bicubic_matrix` builds the weights of PIL's antialiased bicubic
-resample (a=-0.5), which CLIP preprocessing uses; the card's machine has
-no PIL, so the port resizes CLIP frames with it (inference/utils.py).
+resample (a=-0.5), which CLIP preprocessing and SAM2's video frame loader
+use; the card's machine has no PIL, so the port resizes those frames with
+`pil_resize` (inference/utils.py, data/video_io.py).
 """
 
 from __future__ import annotations
@@ -109,6 +110,30 @@ def pil_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
         if s != 0:
             m[i, xmin:xmax] = w / s
     return m.astype(np.float32)
+
+
+def _pil_pass(x: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
+    """One PIL bicubic pass along `axis`, in float64, rounded and clipped
+    to uint8 levels as PIL's 8-bit resample stores each pass."""
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    m = torch.from_numpy(pil_bicubic_matrix(in_size, out_size)).to(
+        x.device, torch.float64)
+    y = torch.movedim(torch.tensordot(x.double(), m, dims=([axis], [1])),
+                      -1, axis)
+    return torch.floor(y + 0.5).clamp_(0, 255).float()
+
+
+def pil_resize(frames: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """`PIL.Image.resize((w, h))` (BICUBIC, antialiased) of uint8 frames
+    [..., H, W, C] on their device: the horizontal pass, then the
+    vertical, each rounded to uint8 levels. Returns fp32 levels [..., h,
+    w, C]. PIL runs in 22-bit fixed point, so a pixel may land one level
+    away."""
+    x = frames.float()
+    x = _pil_pass(x, size[1], axis=x.dim() - 2)
+    return _pil_pass(x, size[0], axis=x.dim() - 3)
 
 
 @functools.lru_cache(maxsize=64)
