@@ -37,7 +37,7 @@ script exits non-zero without printing a result:
      (w4a8_gemv_sm90.cu) beside w4a8.cu's GEMV; then K5's five decode
      denses by device time (`[k5]` lines: CUDA graphs over weight copies
      past the L2) on both entries and `_int_mm`, and one decode step's
-     129 products in one graph on both entries. K3 runs on
+     129 products in one graph on both entries and on `_int_mm`. K3 runs on
      the mask decoder's [B, S, H, 16] views through
      attention_short_sm90.cu (the route asserted), timed over 10 launches
      back to back beside attention.cu's two-pass form, which it replaced,
@@ -118,8 +118,10 @@ step (phase 8) for the kernels it runs, of the W4A8 batched call (phase
 W8A8 encode (phase 12) for K8 and gemm_s8 (its w8a8_sm90.cu launches)
 and of the bf16 slice (phase 3) for gemm_bf16, layernorm and
 maxpool2x2 (their sm90 entries' launches), of the Hiera-L video
-propagation (phase 18) for K2_hd256 (K2 at head dim 256) and
-K4_hiera_large; `launches_by_path` holds every
+propagation (phase 18) for K2_hd256 (K2 at head dim 256),
+K4_hiera_large and K7_hiera_large (window_attention_sm90.cu at head dim
+72), of Hiera-B+'s set_image (phase 19) for K7_hiera_base_plus (head
+dim 56); `launches_by_path` holds every
 path's counts (gemm_s8's by route, on the W8A8 encodes, the only paths
 with `kernel_qa` denses; gemm_bf16's, layernorm's and maxpool2x2's by
 route).
@@ -179,7 +181,10 @@ the SAM2 video slice, 18-20, after 17.
  13. the per-op Hiera trunk (`USE_FUSED_BLOCK = False`) over 8 frames at
      1024^2: K7 13 (all on window_attention_sm90.cu), K2 3, K4 0; its
      pyramid against the K4 path's; the two trunks' seconds, interleaved
-     over 7 rounds (median, min, max).
+     over 7 rounds (median, min, max). Then SAM2.1-hiera-large's per-op
+     trunk over one frame: K7 45 (all on window_attention_sm90.cu at head
+     dim 72), K2 3 (head dim 72 padded to 80), K4 0, its pyramid against
+     the K4 path's.
  14. tiny card-vs-CPU agreement of a RADIO tower (head dim 80), S2, a
      W8A8 tower and the per-op trunk.
  15. the SAM2 image predictor at full width: `build_sam2_image_predictor(
@@ -216,9 +221,10 @@ the SAM2 video slice, 18-20, after 17.
      first yield (the trunks of the 15 frames not encoded yet, 2 chunks
      of <= 8), each tracked frame (K2 8 = 2 x 4 memory-attention layers,
      all on attention_sm90.cu at head dim 256, K3 2, K4 0, attention.cu
-     0); Hiera-L's trunk takes window_attention.cu for its 45 windowed
-     blocks (head dim 72) and attention_sm90.cu for its 3 global ones
-     (padded to 80). Masks stay on the card, finite, [1, 1, 480, 854].
+     0); Hiera-L's trunk takes window_attention_sm90.cu for its 45
+     windowed blocks (head dim 72), window_attention.cu for none, and
+     attention_sm90.cu for its 3 global ones (padded to 80). Masks stay
+     on the card, finite, [1, 1, 480, 854].
      A warm run (best of 2) gives frames/s by the host clock (synchronised
      after the last frame) and torch.profiler the device busy time.
  19. K2 at head dim 256 (attention_sm90.cu) at memory attention's self
@@ -226,7 +232,16 @@ the SAM2 video slice, 18-20, after 17.
      4096 + 64 keys) against `flash_forward_plain`, timed beside it and
      SDPA (also by device time), with the bound; K4 at each block kind of
      Hiera-L (the padded global block among them) against
-     `hiera_block_plain`.
+     `hiera_block_plain`. Then K7 at every window kind of Hiera-L (head
+     dim 72: ws 8, 4, 16, plain and pooled) and Hiera-B+ (56: ws 8, 4,
+     14, 7, pooled 8 / 4 / 14) over 8 frames at 1024^2 on
+     window_attention_sm90.cu (`k7_kind_check`, as phase 10's `[k7]`
+     lines: the route asserted, against `window_attention_plain`, beside
+     window_attention.cu, SDPA over partitioned windows and the partition
+     copy, by device time too), their sums over a trunk, and a map whose
+     head 1 holds inf and NaN (the other heads bit-equal to the clean
+     map's); then Hiera-B+'s image predictor `set_image` counted by C
+     entry (K4 24, window_attention_sm90.cu 21, window_attention.cu 0).
  20. tiny card-vs-CPU agreement of sam2-test-tiny's video predictor over
      6 frames with two objects: the logits without hole filling, the
      signs with it.
@@ -316,8 +331,8 @@ SOURCES = {
     "K6b": ("video_llava_seg_torch/csrc/attention_bwd_sm90.cu",
             ["attention_bwd_sm90.cu", "attention_short_bwd_sm90.cu",
              "attention_bwd.cu"]),
-    # head dim 96 (every windowed block of Hiera-T / S) on
-    # window_attention_sm90.cu; other head dims on window_attention.cu
+    # head dims 96 / 56 / 72 (every windowed block of Hiera-T / S / B+ /
+    # L) on window_attention_sm90.cu; other head dims on window_attention.cu
     "K7": ("video_llava_seg_torch/csrc/window_attention_sm90.cu",
            ["window_attention_sm90.cu", "window_attention.cu"]),
     # gemm_s8 on w8a8_sm90.cu where K and N are multiples of 16 (every
@@ -376,7 +391,9 @@ BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
           # K2 at head dim 256 (memory attention) is K2: one softmax over
           # up to 28,736 keys, P rounded to bf16; K4 at Hiera-L is K4's
           # chain at head dim 72 (its global block padded to 80)
-          "K2_hd256": 1e-2, "K4_hiera_large": 2e-2}
+          "K2_hd256": 1e-2, "K4_hiera_large": 2e-2,
+          # K7 at Hiera-L's head dim 72 and Hiera-B+'s 56: K7
+          "K7_hiera_large": 1e-2, "K7_hiera_base_plus": 1e-2}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -583,12 +600,13 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
 # bias>: D 64 / 80 / 96 / 128 / 256, the bias at 128; gemm_bf16_sm90.cu's
 # <activation>: none, quick_gelu, erf-GELU; attention_short_bwd_sm90.cu's
 # <key tile, bias>: 8 / 16 / 32 / 64 keys, with and without a bias;
-# window_attention_sm90.cu's <key tile, q pool>: 64 and 208 without, 128
-# and 208 with; w4a8_gemv_sm90.cu's <rows, fp32 out>: 1-8 rows, bf16 and
+# window_attention_sm90.cu's <head dim, key tile, q pool>: head dims 56 /
+# 72 / 96, 64 and 208 (256 at 72) without, 128 and 208 (256) with;
+# w4a8_gemv_sm90.cu's <rows, fp32 out>: 1-8 rows, bf16 and
 # fp32 out; layernorm_sm90.cu's <vectors a lane>: 1-5
 SM90_INSTANCES = {"attention_sm90.cu": 6, "gemm_bf16_sm90.cu": 3,
                   "attention_short_bwd_sm90.cu": 8,
-                  "window_attention_sm90.cu": 4, "w4a8_gemv_sm90.cu": 16,
+                  "window_attention_sm90.cu": 12, "w4a8_gemv_sm90.cu": 16,
                   "layernorm_sm90.cu": 5}
 # the sources with TMA loads but no wgmma, and the SASS op each must hold
 # instead (w4a8_gemv_sm90.cu: __dp4a; the row streams, whose loads are 1-D
@@ -1192,20 +1210,31 @@ def phase_w4a8_decode_device(cfg, seed: int, dev, results, rows: int = 2):
         return (rows * 2 * p.shape[0] + rows * 4 + p.numel()
                 + 4 * p.shape[1] + rows * p.shape[1] * out_size)
 
+    # the library's step: the same 129 products on `torch._int_mm` over
+    # int8 weights of the unpacked size, as the per-dense rows time it
+    xs_lib = {i: torch.cat([xq, xq.new_zeros(32 - rows, i)])
+              for i, (xq, _) in xs.items()}
+    lib_weights = [randint8(o, i).t() for _ in range(lc.num_layers)
+                   for _, i, o in denses[:4]]
+    lib_weights.append(randint8(hd_out, hd_in).t())
+    lib_step = [lambda w=w: torch._int_mm(xs_lib[w.shape[0]], w)
+                for w in lib_weights]
+
     n_calls = 4 * lc.num_layers + 1
     nbytes = (sum(call_bytes(p, 2) for layer in layers for p, _ in layer)
               + call_bytes(head, 4))
     step_bound = nbytes / HBM_BYTES_S * 1e3
     step_ms = {k: v * n_calls for k, v in in_turns(
-        {"device_ms": step(None), "previous_device_ms": step("vls_w4a8")}
-    ).items()}
+        {"device_ms": step(None), "previous_device_ms": step("vls_w4a8"),
+         "library_device_ms": lib_step}).items()}
     log(f"[k5] one decode step's {n_calls} W4A8 products at [{rows}, *] by "
         f"device time (one CUDA graph, {nbytes / 1e9:.3f} GB): "
         f"w4a8_gemv_sm90.cu {step_ms['device_ms']:.4f} ms "
         f"({step_bound / step_ms['device_ms']:.3f} of the bound), w4a8.cu "
-        f"{step_ms['previous_device_ms']:.4f} ms, bound {step_bound:.4f} ms "
+        f"{step_ms['previous_device_ms']:.4f} ms, _int_mm over int8 weights "
+        f"{step_ms['library_device_ms']:.4f} ms, bound {step_bound:.4f} ms "
         f"(bytes)")
-    del layers, head, scales, xs
+    del layers, head, scales, xs, xs_lib, lib_weights, lib_step
     torch.cuda.empty_cache()
     sync()
     return {"denses": rows_out, "step": {"calls": n_calls,
@@ -1949,13 +1978,12 @@ def link_cases(cfg):
     return cases
 
 
-def hiera_window_kinds(cfg):
-    """{(ws, pooled, map side): (first block, padded side, dout, heads)}
-    of the windowed blocks of the seg head's trunk at its image size."""
+def hiera_window_kinds(sc):
+    """{(ws, pooled, map side): [first block, padded side, dout, heads,
+    blocks of the kind]} of the windowed blocks of a SAM2 config's trunk
+    at its image size, in block order."""
     from video_llava_seg_torch.models.sam2 import hiera
-    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
 
-    sc = make_sam2_cfg(cfg.seg)
     dims = hiera.block_dims(sc.hiera)
     side = sc.image_size // sc.hiera.patch_stride
     kinds = {}
@@ -1963,81 +1991,103 @@ def hiera_window_kinds(cfg):
         hw = side // (2 ** sum(1 for j in range(i) if dims[j][4]))
         if ws:
             kinds.setdefault((ws, pool, hw),
-                             (i, -(-hw // ws) * ws, dout, nh))
+                             [i, -(-hw // ws) * ws, dout, nh, 0])[4] += 1
     return kinds
 
 
-def phase_k7_checks(cfg, seed, dev, results):
-    """K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
-    the 8 seg frames, on the C entry `kernels.window_entry` names
-    (window_attention_sm90.cu at head dim 96, the route asserted),
-    against `window_attention_plain`, over 10 launches back to back and
-    by device time; beside it window_attention.cu (forced by `route`),
-    SDPA over the partitioned windows (the partition copy timed apart),
-    K4's attention stage (partition + [a 2x2 pool of q] +
-    attention_sm90.cu + unpartition + crop) and K4's call of the new
-    kernel (the crop written directly). Returns the comparison rows."""
+def k7_kind_check(name, tag, qkv, nh, ws, ps, results):
+    """K7 at one window kind: the route asserted to be
+    window_attention_sm90.cu, two calls bit-identical, held against
+    `window_attention_plain` (fp32) within BOUNDS[name] and timed over 10
+    launches back to back and by device time beside window_attention.cu
+    (forced by `route`), SDPA over windows partitioned beforehand, the
+    partition copy (timed apart) and the plain version. Returns the row
+    of times and the partition's inputs (q, k, v)."""
     import torch.nn.functional as F
 
     from video_llava_seg_torch import kernels
-    from video_llava_seg_torch.ops.hiera_block import attention_stage
     from video_llava_seg_torch.ops.window_attention import (
         window_attention,
         window_attention_plain,
     )
 
+    bt, hp, _, c3 = qkv.shape
+    dout = c3 // 3
+    hd = dout // nh
+    q_pool = (2, 2) if ps == 2 else None
+    qs, nwr = ws // ps, hp // ws
+    n_win = bt * nwr * nwr
+    route = kernels.window_entry(hd, ws, ps)
+    if route != WINDOW_SM90_ENTRY:
+        raise AssertionError(f"K7 at ws {ws}, pool {ps}, head dim {hd} "
+                             f"routes to {route}")
+
+    def partition():
+        x = qkv.view(bt, nwr, ws, nwr, ws, 3, nh, hd).permute(
+            0, 1, 3, 5, 6, 2, 4, 7).reshape(n_win, 3, nh, ws, ws, hd)
+        q = x[:, 0]
+        if ps == 2:
+            q = q.reshape(n_win, nh, qs, 2, qs, 2, hd).amax(dim=(3, 5))
+        return (q.reshape(n_win, nh, qs * qs, hd),
+                x[:, 1].reshape(n_win, nh, ws * ws, hd),
+                x[:, 2].reshape(n_win, nh, ws * ws, hd))
+
+    q, k, v = partition()
+    kw = dict(num_heads=nh, ws=ws, scale=hd ** -0.5, ps=ps)
+    out_bytes = bt * (hp // ps) ** 2 * dout * 2
+    got = window_attention(qkv, num_heads=nh, ws=ws, q_pool=q_pool)
+    if not torch.equal(got, window_attention(qkv, num_heads=nh, ws=ws,
+                                             q_pool=q_pool)):
+        raise AssertionError(f"{name} {tag}: two calls differ")
+    del got
+    _check(name, tag,
+           lambda: window_attention(qkv, num_heads=nh, ws=ws, q_pool=q_pool),
+           lambda: window_attention_plain(qkv, **kw),
+           lambda: window_attention_plain(qkv.float(), **kw), results,
+           (_nbytes(qkv) + out_bytes,
+            4 * n_win * nh * qs * qs * ws * ws * hd, PEAK_BF16),
+           run_library=lambda: F.scaled_dot_product_attention(q, k, v),
+           run_previous=lambda: kernels.window_attention(
+               qkv, **kw, route="vls_window_attention"),
+           previous="window_attention.cu", train=10, device_time=True)
+    r = results[name]["shapes"][-1]
+    part_ms = cuda_ms(partition, train=10)
+    row = {"shape": tag, "k7_ms": r["ms"], "k7_device_ms": r["device_ms"],
+           "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],
+           "window_attention_cu_ms": r["previous_ms"],
+           "window_attention_cu_device_ms": r["previous_device_ms"],
+           "sdpa_ms": r["library_ms"],
+           "sdpa_device_ms": r["library_device_ms"], "partition_ms": part_ms,
+           "keys": ws * ws, "queries": qs * qs}
+    return row, (q, k, v)
+
+
+def phase_k7_checks(cfg, seed, dev, results):
+    """K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
+    the 8 seg frames (`k7_kind_check`: window_attention_sm90.cu at head
+    dim 96, the route asserted, against `window_attention_plain`, beside
+    window_attention.cu, SDPA and the partition copy); beside them K4's
+    attention stage (partition + [a 2x2 pool of q] + attention_sm90.cu +
+    unpartition + crop) and K4's call of the new kernel (the crop written
+    directly). Returns the comparison rows."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+    from video_llava_seg_torch.ops.hiera_block import attention_stage
+
     g = torch.Generator(device=dev).manual_seed(seed + 5)
     bt = cfg.seg.max_seg_frames
     rows = []
-    for (ws, pool, hw), (i, hp, dout, nh) in sorted(
-            hiera_window_kinds(cfg).items(), key=lambda kv: kv[1][0]):
+    for (ws, pool, hw), (i, hp, dout, nh, blocks) in hiera_window_kinds(
+            make_sam2_cfg(cfg.seg)).items():
         qkv = torch.randn((bt, hp, hp, 3 * dout), generator=g,
                           device=dev).to(torch.bfloat16)
         ps = 2 if pool else 1
-        q_pool = (2, 2) if pool else None
         hd = dout // nh
-        scale = hd ** -0.5
-        qs, nwr = ws // ps, hp // ws
-        n_win = bt * nwr * nwr
-        route = kernels.window_entry(hd, ws, ps)
-        if route != WINDOW_SM90_ENTRY:
-            raise AssertionError(f"K7 at ws {ws}, pool {ps}, head dim {hd} "
-                                 f"routes to {route}")
-
-        def partition():
-            x = qkv.view(bt, nwr, ws, nwr, ws, 3, nh, hd).permute(
-                0, 1, 3, 5, 6, 2, 4, 7).reshape(n_win, 3, nh, ws, ws, hd)
-            q = x[:, 0]
-            if pool:
-                q = q.reshape(n_win, nh, qs, 2, qs, 2, hd).amax(dim=(3, 5))
-            return (q.reshape(n_win, nh, qs * qs, hd),
-                    x[:, 1].reshape(n_win, nh, ws * ws, hd),
-                    x[:, 2].reshape(n_win, nh, ws * ws, hd))
-
-        q, k, v = partition()
-        kw = dict(num_heads=nh, ws=ws, scale=scale, ps=ps)
+        kw = dict(num_heads=nh, ws=ws, scale=hd ** -0.5, ps=ps)
         tag = (f"block {i} ws{ws}{' q-pool' if pool else ''} on {hw}^2"
                f"{f' (padded to {hp})' if hp != hw else ''}: qkv "
                f"{list(qkv.shape)} h{nh}")
-        out_bytes = bt * (hp // ps) ** 2 * dout * 2
-        got = window_attention(qkv, num_heads=nh, ws=ws, q_pool=q_pool)
-        if not torch.equal(got, window_attention(qkv, num_heads=nh, ws=ws,
-                                                 q_pool=q_pool)):
-            raise AssertionError(f"K7 {tag}: two calls differ")
-        del got
-        _check("K7", tag,
-               lambda: window_attention(qkv, num_heads=nh, ws=ws,
-                                        q_pool=q_pool),
-               lambda: window_attention_plain(qkv, **kw),
-               lambda: window_attention_plain(qkv.float(), **kw), results,
-               (_nbytes(qkv) + out_bytes,
-                4 * n_win * nh * qs * qs * ws * ws * hd, PEAK_BF16),
-               run_library=lambda: F.scaled_dot_product_attention(q, k, v),
-               run_previous=lambda: kernels.window_attention(
-                   qkv, **kw, route="vls_window_attention"),
-               previous="window_attention.cu", train=10, device_time=True)
-        r = results["K7"]["shapes"][-1]
-        part_ms = cuda_ms(partition, train=10)
+        row, qkv_win = k7_kind_check("K7", tag, qkv, nh, ws, ps, results)
         oh = hw // ps
         crop = (oh, oh)
         stage = attention_stage(qkv, num_heads=nh, ws=ws, ps=ps)[
@@ -2055,30 +2105,96 @@ def phase_k7_checks(cfg, seed, dev, results):
             train=10)
         k4_new_ms = cuda_ms(lambda: kernels.window_attention(
             qkv, **kw, out_hw=crop), train=10)
-        rows.append({"shape": tag, "blocks": sum(
-                         1 for d in _trunk_block_kinds()
-                         if d[1] == ws and d[2] == pool and d[0] == hd),
-                     "k7_ms": r["ms"], "k7_device_ms": r["device_ms"],
-                     "bound_ms": r["bound_ms"],
-                     "window_attention_cu_ms": r["previous_ms"],
-                     "sdpa_ms": r["library_ms"], "partition_ms": part_ms,
-                     "k4_stage_ms": k4_stage_ms, "k4_new_ms": k4_new_ms,
-                     "keys": ws * ws,
-                     "queries": qs * qs})
-        log(f"[k7] {tag}: window_attention_sm90.cu {r['ms']:.4f} ms (device "
-            f"{r['device_ms']:.4f}, {r['bound_ms'] / r['device_ms']:.3f} of "
-            f"the bound {r['bound_ms']:.4f}); window_attention.cu "
-            f"{r['previous_ms']:.4f} ms; SDPA {r['library_ms']:.4f} ms + its "
-            f"partition copy {part_ms:.4f} ms; K4: its old attention stage "
+        row.update(blocks=blocks, k4_stage_ms=k4_stage_ms,
+                   k4_new_ms=k4_new_ms)
+        rows.append(row)
+        log(f"[k7] {tag}: window_attention_sm90.cu {row['k7_ms']:.4f} ms "
+            f"(device {row['k7_device_ms']:.4f}, "
+            f"{row['bound_ms'] / row['k7_device_ms']:.3f} of the bound "
+            f"{row['bound_ms']:.4f}); window_attention.cu "
+            f"{row['window_attention_cu_ms']:.4f} ms; SDPA "
+            f"{row['sdpa_ms']:.4f} ms + its partition copy "
+            f"{row['partition_ms']:.4f} ms; K4: its old attention stage "
             f"{k4_stage_ms:.4f} ms, the new kernel with the crop "
             f"{k4_new_ms:.4f} ms (they differ by {rel:.2e})")
-        del qkv, q, k, v
+        del qkv, qkv_win
         torch.cuda.empty_cache()
     per_trunk = {key: sum(row[key] * row["blocks"] for row in rows)
                  for key in ("k7_ms", "bound_ms", "k4_stage_ms", "k4_new_ms",
                              "window_attention_cu_ms")}
     log(f"[k7] per trunk (blocks x kinds): "
         + ", ".join(f"{k} {v:.4f}" for k, v in per_trunk.items()))
+    sync()
+    return rows
+
+
+def k7_variant_checks(variant, seed, dev, results, bt: int = 8):
+    """K7 at every window kind of SAM2.1-`variant`'s trunk at 1024^2 over
+    bt frames (`k7_kind_check`, recorded under K7_hiera_<variant>): the
+    kinds as the per-op trunk hands them to K7 (the map padded to whole
+    windows), and the sums over a trunk's blocks; then a map whose head 1
+    holds inf and NaN at the head dim's ws 8 and its largest window: the
+    other heads' output bit-equal to the clean map's. Returns the rows."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.models.sam2.config import sam2_config
+
+    sc = sam2_config(variant)
+    name = f"K7_hiera_{variant}"
+    kinds = hiera_window_kinds(sc)
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    rows = []
+    for (ws, pool, hw), (i, hp, dout, nh, blocks) in kinds.items():
+        qkv = torch.randn((bt, hp, hp, 3 * dout), generator=g,
+                          device=dev).to(torch.bfloat16)
+        ps = 2 if pool else 1
+        tag = (f"{sc.name} block {i} (x{blocks}) ws{ws}"
+               f"{' q-pool' if pool else ''} on {hw}^2"
+               f"{f' (padded to {hp})' if hp != hw else ''}: qkv "
+               f"{list(qkv.shape)} h{nh} hd{dout // nh}")
+        row, qkv_win = k7_kind_check(name, tag, qkv, nh, ws, ps, results)
+        row["blocks"] = blocks
+        rows.append(row)
+        log(f"[k7] {tag}: window_attention_sm90.cu {row['k7_ms']:.4f} ms "
+            f"(device {row['k7_device_ms']:.4f}, "
+            f"{row['bound_ms'] / row['k7_device_ms']:.3f} of the bound "
+            f"{row['bound_ms']:.4f}); window_attention.cu "
+            f"{row['window_attention_cu_ms']:.4f} ms (device "
+            f"{row['window_attention_cu_device_ms']:.4f}); SDPA "
+            f"{row['sdpa_ms']:.4f} ms (device {row['sdpa_device_ms']:.4f}) "
+            f"+ its partition copy {row['partition_ms']:.4f} ms; plain "
+            f"{row['plain_ms']:.4f} ms")
+        del qkv, qkv_win
+        torch.cuda.empty_cache()
+    keys = ("k7_ms", "k7_device_ms", "bound_ms", "window_attention_cu_ms",
+            "window_attention_cu_device_ms", "sdpa_ms", "sdpa_device_ms",
+            "partition_ms", "plain_ms")
+    per_trunk = {key: sum(row[key] * row["blocks"] for row in rows)
+                 for key in keys}
+    n_blocks = sum(r["blocks"] for r in rows)
+    log(f"[k7] {sc.name} per trunk of {bt} frames ({n_blocks} windowed "
+        f"blocks): " + ", ".join(f"{k} {v:.4f}" for k, v in per_trunk.items())
+        + f"; device {per_trunk['bound_ms'] / per_trunk['k7_device_ms']:.3f}"
+        f" of the bound")
+    hd = dout // nh
+    for ws, ps in ((8, 1), (max(w for w, _, _ in kinds), 2)):
+        heads, side = 3, 2 * ws
+        qkv = torch.randn((1, side, side, 3 * heads * hd), generator=g,
+                          device=dev).to(torch.bfloat16)
+        bad = qkv.clone().view(1, side, side, 3, heads, hd)
+        bad[..., 1, :] = float("nan")
+        bad[..., 1, ::2] = float("inf")
+        kw = dict(num_heads=heads, ws=ws, scale=hd ** -0.5, ps=ps)
+        got = kernels.window_attention(bad.view_as(qkv), **kw)
+        want = kernels.window_attention(qkv, **kw)
+        sync()
+        keep = [0, 2]
+        got, want = (t.view(*t.shape[:3], heads, hd)[..., keep, :]
+                     for t in (got, want))
+        if not torch.isfinite(got).all() or not torch.equal(got, want):
+            raise AssertionError(f"{name}: a non-finite head 1 reached heads "
+                                 f"0 / 2 at ws {ws}, pool {ps}")
+        log(f"[k7] {sc.name} head dim {hd} ws {ws} pool {ps}: head 1 of q / "
+            f"k / v inf and NaN, heads 0 and 2 bit-equal to the clean map's")
     sync()
     return rows
 
@@ -2750,20 +2866,21 @@ def phase_w8a8_encode(cfg, seed, dev):
 HIERA_PER_OP_BOUND = 8e-2
 
 
-def phase_hiera_per_op(cfg, seed, dev):
-    """The SAM2.1-hiera-small trunk over the 8 seg frames at 1024^2 with
-    `USE_FUSED_BLOCK = False`: K7 for the 13 windowed blocks, K2 for the 3
-    global ones, no K4; the pyramid against the K4 path's."""
+def per_op_trunk(sc, frames, seed, dev, tag, timed=False):
+    """A SAM2 config's Hiera trunk over `frames` frames at its image size
+    with `USE_FUSED_BLOCK = False`: K7 for the windowed blocks (on the
+    entries `window_entry` names), K2 for the global ones (head dims 56 /
+    72 zero-padded to 64 / 80), no K4, counted by C entry; the pyramid
+    against the K4 path's; with `timed` the two trunks' seconds,
+    interleaved over 7 rounds. Returns the launches and a summary."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.models.sam2 import hiera
-    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
 
-    sc = make_sam2_cfg(cfg.seg)
     hc = sc.hiera
-    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    g = torch.Generator(device=dev).manual_seed(seed)
     trunk = perturb(hiera.init(hc, g, dev, torch.bfloat16), g)
-    x = torch.randn((cfg.seg.max_seg_frames, sc.image_size, sc.image_size,
-                     3), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((frames, sc.image_size, sc.image_size, 3), generator=g,
+                    device=dev).to(torch.bfloat16)
 
     def run(fused):
         saved = hiera.USE_FUSED_BLOCK
@@ -2780,33 +2897,54 @@ def phase_hiera_per_op(cfg, seed, dev):
     reset_launches()
     got = run(False)
     counts = snapshot_launches()
-    t_op, t_k4 = wall_seconds([lambda: run(False), lambda: run(True)])
     dims = hiera.block_dims(hc)
     n_global = sum(1 for d in dims if d[3] == 0)
+    hd = dims[-1][1] // dims[-1][2]
     expect = {n: 0 for n in kernels.LaunchCounts.NAMES}
     expect.update(K7=len(dims) - n_global, K2=n_global)
     why = {n: "none: the per-op trunk runs no other kernel"
            for n in kernels.LaunchCounts.NAMES}
     why.update(K7=f"{len(dims) - n_global} windowed blocks",
                K2=f"{n_global} global blocks ({(sc.image_size // 16) ** 2} "
-                  "keys each)",
+                  f"keys each, head dim {hd})",
                K4="none: USE_FUSED_BLOCK is off")
-    check_launches("hiera-per-op", counts, expect, why)
-    rels = []
-    for a, b in zip(got, want):
-        rels.append(((a.float() - b.float()).abs().max()
-                     / b.float().abs().max()).item())
-    log(f"[hiera-per-op] {len(dims)} blocks over x{list(x.shape)}: per-op "
-        f"{fmt_wall(t_op)} vs K4 path {fmt_wall(t_k4)}; pyramid "
-        f"{[list(o.shape) for o in got]} rel err vs the K4 path "
+    check_launches(tag, counts, expect, why, sc=sc)
+    rels = [((a.float() - b.float()).abs().max()
+             / b.float().abs().max()).item() for a, b in zip(got, want)]
+    out = {"rel_err": rels,
+           "launches": {e: counts[e] for e in kernels.WINDOW_ROUTES}}
+    if timed:
+        out["per_op_seconds"], out["k4_seconds"] = wall_seconds(
+            [lambda: run(False), lambda: run(True)])
+    log(f"[{tag}] {sc.name}: {len(dims)} blocks over x{list(x.shape)}, "
+        f"window launches by C entry {out['launches']}; "
+        + (f"per-op {fmt_wall(out['per_op_seconds'])} vs K4 path "
+           f"{fmt_wall(out['k4_seconds'])}; " if timed else "")
+        + f"pyramid {[list(o.shape) for o in got]} rel err vs the K4 path "
         f"{[f'{r:.3e}' for r in rels]} (bound {HIERA_PER_OP_BOUND:.0e})")
     if not all(math.isfinite(r) and r <= HIERA_PER_OP_BOUND for r in rels):
-        raise AssertionError("per-op Hiera trunk disagrees with the K4 path")
+        raise AssertionError(f"{tag}: the per-op Hiera trunk disagrees with "
+                             f"the K4 path")
     del trunk, x, got, want
     torch.cuda.empty_cache()
     sync()
-    return counts, {"per_op_seconds": t_op, "k4_seconds": t_k4,
-                    "rel_err": rels}
+    return counts, out
+
+
+def phase_hiera_per_op(cfg, seed, dev):
+    """Phase 13: the per-op trunk (`per_op_trunk`) of SAM2.1-hiera-small
+    over the 8 seg frames, timed against the K4 path (K7 13, K2 3), then
+    SAM2.1-hiera-large's over one frame (K7 45 on window_attention_sm90.cu
+    at head dim 72, K2 3 padded to 80)."""
+    from video_llava_seg_torch.models.sam2.config import sam2_config
+    from video_llava_seg_torch.models.seg_head import make_sam2_cfg
+
+    counts, out = per_op_trunk(make_sam2_cfg(cfg.seg),
+                               cfg.seg.max_seg_frames, seed + 8, dev,
+                               "hiera-per-op", timed=True)
+    _, out["hiera_large"] = per_op_trunk(sam2_config("large"), 1, seed + 9,
+                                         dev, "hiera-per-op large")
+    return counts, out
 
 
 # tiny towers and trunk, card (kernels, bf16) vs CPU (plain, fp32) on the
@@ -3461,9 +3599,12 @@ def phase_video_kernel_checks(seed, dev, results):
     fp32 within BOUNDS["K2_hd256"], timed over 10 launches back to back
     and by device time beside its plain version and SDPA, with the bound;
     then K4 at each block kind of SAM2.1-hiera-large over one 1024^2
-    image (head dim 72: windowed and q-pool blocks on window_attention.cu,
-    the global block padded to 80 on attention_sm90.cu; its windows
-    divide every map, so no block is padded) against hiera_block_plain."""
+    image (head dim 72: windowed and q-pool blocks on
+    window_attention_sm90.cu, the global block padded to 80 on
+    attention_sm90.cu; its windows divide every map, so no block is
+    padded) against hiera_block_plain; then K7 at every window kind of
+    Hiera-L and Hiera-B+ (`k7_variant_checks`) and Hiera-B+'s set_image
+    launches. Returns the K7 rows by variant and those launches."""
     import torch.nn.functional as F
 
     from video_llava_seg_torch import kernels
@@ -3499,6 +3640,41 @@ def phase_video_kernel_checks(seed, dev, results):
         del q, k, v
     k4_kind_checks(sc, 1, torch.Generator(device=dev).manual_seed(seed + 20),
                    dev, results, name="K4_hiera_large")
+    rows = {v: k7_variant_checks(v, seed, dev, results)
+            for v in ("large", "base_plus")}
+    return rows, base_plus_set_image_launches(seed, dev)
+
+
+def base_plus_set_image_launches(seed, dev):
+    """`SAM2ImagePredictor.set_image` at SAM2.1-hiera-base-plus's full
+    width (random bf16 weights from the seed) on one 480 x 854 frame,
+    counted by C entry: K4 once a block, the 21 windowed blocks (head dim
+    56) on window_attention_sm90.cu, none on window_attention.cu; a
+    finite embedding."""
+    from video_llava_seg_torch.models.sam2.build import (
+        build_sam2_image_predictor,
+    )
+
+    pred = build_sam2_image_predictor("base_plus", seed=seed, device=dev)
+    sc = pred.cfg
+    img = np.random.default_rng(seed + 22).integers(
+        0, 256, (*SAM2_VIDEO_HW, 3), dtype=np.uint8)
+    pred.set_image(img)
+    sync()
+    reset_launches()
+    pred.set_image(img)
+    sync()
+    counts = snapshot_launches()
+    check_sam2_launches(f"sam2-image {sc.name} set_image", counts, sc, 1, 0,
+                        "set_image")
+    if not torch.isfinite(pred.get_image_embedding()).all():
+        raise AssertionError(f"{sc.name} set_image: a non-finite embedding")
+    log(f"[k7] {sc.name} set_image: window_attention_sm90.cu "
+        f"{counts[WINDOW_SM90_ENTRY]}, window_attention.cu "
+        f"{counts['vls_window_attention']} launches; embedding finite")
+    del pred
+    torch.cuda.empty_cache()
+    return counts
 
 
 # tiny video path, card (kernels, bf16) vs CPU (plain, fp32) on the same
@@ -4254,7 +4430,8 @@ def main(argv=None):
     for variant in SAM2_VIDEO_VARIANTS:
         video_counts[variant], video[variant] = phase_sam2_video(
             variant, args.seed, dev, smi)
-    phase_video_kernel_checks(args.seed, dev, results)
+    k7_video_rows, base_plus_counts = phase_video_kernel_checks(
+        args.seed, dev, results)
     video_tiny = phase_tiny_sam2_video_agreement(args.seed, dev)
 
     seq_len = train_seq_len(cfg)
@@ -4397,6 +4574,30 @@ def main(argv=None):
                          else "operations"),
             "library_ms": r["library_ms"], "shapes": r["shapes"],
             **({"device_ms": sum(dev_ms)} if dev_ms else {})})
+    # K7 at Hiera-L's head dim 72 (counted on the video slice's
+    # propagation) and Hiera-B+'s 56 (on its image predictor's set_image)
+    for variant, path, counts in (
+            ("large", "sam2_video_large", video_counts["large"]["propagate"]),
+            ("base_plus", "sam2_set_image_base_plus", base_plus_counts)):
+        name = f"K7_hiera_{variant}"
+        r = results[name]
+        source, csrc = SOURCES["K7"]
+        by = r["bound_by_ms"]
+        kernels_out.append({
+            "name": name, "route": "cuda", "source": source,
+            "csrc": [f"video_llava_seg_torch/csrc/{c}" for c in csrc],
+            "replaces": REPLACES["K7"], "launches": counts[WINDOW_SM90_ENTRY],
+            "launches_by_path": {path: {e: counts[e]
+                                        for e in kernels.WINDOW_ROUTES}},
+            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+            "bound": BOUNDS[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if by["bytes"] >= by["operations"]
+                         else "operations"),
+            "library_ms": r["library_ms"],
+            "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
+            "device_ms": sum(sh["device_ms"] for sh in r["shapes"]),
+            "shapes": r["shapes"], "kinds": k7_video_rows[variant]})
     log(json.dumps({"w4a8_batched_slice": quant}))
     log(json.dumps({"vision_slice": {
         "radio_bf16_serving": radio, "w8a8_encode": w8a8,

@@ -552,7 +552,8 @@ def test_window_attention_kernel(dev, shape, heads, ws, ps):
 # window_attention_sm90.cu at the seven window kinds of SAM2.1-hiera-small
 # at 1024^2 (head dim 96; batch 1-2 of the 8 frames): two heads and more,
 # pad keys (ws 7: 49 of 64, ws 14: 196 of 208), packed windows (ws 4, the
-# pooled ws 4 / 8)
+# pooled ws 4 / 8); then Hiera-L's kinds (head dim 72: ws 16's 256-key
+# tile plain and pooled) and Hiera-B+'s (head dim 56) at smaller maps
 WINDOW_SM90_KINDS = [
     ((1, 256, 256, 3 * 96), 1, 8, 1),
     ((1, 256, 256, 3 * 192), 2, 8, 2),
@@ -561,14 +562,27 @@ WINDOW_SM90_KINDS = [
     ((2, 70, 70, 3 * 384), 4, 14, 1),
     ((2, 70, 70, 3 * 768), 8, 14, 2),
     ((2, 35, 35, 3 * 768), 8, 7, 1),
+    ((1, 64, 64, 3 * 144), 2, 8, 1),
+    ((1, 64, 64, 3 * 288), 4, 8, 2),
+    ((2, 32, 32, 3 * 288), 4, 4, 1),
+    ((2, 32, 32, 3 * 576), 8, 4, 2),
+    ((2, 32, 32, 3 * 576), 8, 16, 1),
+    ((2, 32, 32, 3 * 1152), 16, 16, 2),
+    ((1, 64, 64, 3 * 112), 2, 8, 1),
+    ((1, 64, 64, 3 * 224), 4, 8, 2),
+    ((2, 32, 32, 3 * 224), 4, 4, 1),
+    ((2, 32, 32, 3 * 448), 8, 4, 2),
+    ((2, 28, 28, 3 * 448), 8, 14, 1),
+    ((2, 28, 28, 3 * 896), 16, 14, 2),
+    ((2, 14, 14, 3 * 896), 16, 7, 1),
 ]
 WINDOW_BOUND = 1e-2  # chip_smoke.py's BOUNDS["K7"]
 
 
 @pytest.mark.parametrize("shape,heads,ws,ps", WINDOW_SM90_KINDS)
 def test_window_attention_sm90_kinds(dev, shape, heads, ws, ps):
-    """K7 takes window_attention_sm90.cu at every Hiera-S kind: within
-    1e-2 of the plain version in fp32, two calls bit-identical, its crop
+    """K7 takes window_attention_sm90.cu at every Hiera-S / L / B+ kind:
+    within 1e-2 of the plain version in fp32, two calls bit-identical, its crop
     (out_hw) equal to the full map's, and window_attention.cu (forced)
     within the same bound."""
     g = torch.Generator(device=dev).manual_seed(12)
@@ -598,15 +612,35 @@ def test_window_attention_sm90_kinds(dev, shape, heads, ws, ps):
     assert _rel(old, want) < WINDOW_BOUND
 
 
+@pytest.mark.parametrize("hd,ws,ps", [(72, 16, 1), (72, 16, 2), (72, 8, 1),
+                                      (56, 14, 1), (56, 4, 2), (96, 8, 1)])
+def test_window_attention_sm90_nonfinite_neighbour(dev, hd, ws, ps):
+    """A head whose q, k and v hold inf and NaN leaves every other head's
+    output equal to what it is without them: the tail box's columns past
+    a head are TMA's zeros, never the next head's values."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    heads, side = 3, 2 * ws
+    qkv = _randn(g, 1, side, side, 3 * heads * hd, dev=dev)
+    bad = qkv.clone().view(1, side, side, 3, heads, hd)
+    bad[..., 1, :] = float("nan")
+    bad[..., 1, ::2] = float("inf")
+    kw = dict(num_heads=heads, ws=ws, scale=hd ** -0.5, ps=ps)
+    want = kernels.window_attention(qkv, **kw)
+    got = kernels.window_attention(bad.view_as(qkv), **kw)
+    cut = lambda t: t.view(*t.shape[:3], heads, hd)[..., ::2, :]  # noqa
+    assert torch.equal(cut(got), cut(want))
+    assert torch.isfinite(cut(got)).all()
+
+
 def test_window_attention_sm90_refusals_on_the_card(dev):
     """The new route at a head dim or window it does not take raises
     before any launch."""
     qkv = torch.zeros((1, 16, 16, 3 * 128), device=dev, dtype=torch.bfloat16)
     before = kernels.WINDOW_LAUNCHES.snapshot()
-    with pytest.raises(ValueError, match="serves head dim 96"):
+    with pytest.raises(ValueError, match="serves head dims"):
         kernels.window_attention(qkv, num_heads=2, ws=8, scale=0.1,
                                  route=kernels.WINDOW_SM90_ENTRY)
-    with pytest.raises(ValueError, match="serves head dim 96"):
+    with pytest.raises(ValueError, match="serves head dims"):
         kernels.window_attention(qkv[..., :3 * 96].contiguous(), num_heads=1,
                                  ws=16, scale=0.1,
                                  route=kernels.WINDOW_SM90_ENTRY)
@@ -622,18 +656,20 @@ HIERA_WINDOW_KINDS = [
     ((1, 16, 16, 384), 4, 14, 1, False),   # padded to 28
     ((1, 16, 16, 384), 8, 14, 2, True),    # padded to 28, pooled to 8
     ((2, 8, 8, 768), 8, 7, 1, False),      # padded to 14
-    # Hiera-B+ / L's head dims 56 / 72 (window_attention.cu)
+    # Hiera-B+ / L's head dims 56 / 72
     ((2, 32, 32, 112), 2, 8, 1, False),
     ((1, 16, 16, 144), 4, 8, 2, True),
     ((1, 16, 16, 144), 2, 14, 1, False),   # padded to 28
+    ((2, 32, 32, 576), 8, 16, 1, False),   # Hiera-L's ws 16
+    ((1, 32, 32, 576), 16, 16, 2, True),   # its pooled ws 16
 ]
 
 
 @pytest.mark.parametrize("shape,heads,ws,ps,proj", HIERA_WINDOW_KINDS)
 def test_hiera_block_window_sm90(dev, shape, heads, ws, ps, proj):
     """K4's chain sends a windowed block's attention to one launch of the
-    entry `window_entry` names (window_attention_sm90.cu at head dim 96,
-    window_attention.cu at 56 / 72; no attention launch, pool_sm90.cu
+    entry `window_entry` names (window_attention_sm90.cu at head dims 96,
+    56 and 72; no attention launch, pool_sm90.cu
     only for the shortcut) and stays within 2e-2 of `hiera_block_plain`."""
     g = torch.Generator(device=dev).manual_seed(13)
     b, h, w, din = shape

@@ -437,13 +437,14 @@ def test_padded_global_block_matches_jax(monkeypatch, din, heads):
 def test_hiera_large_trunk_launch_expectations():
     """SAM2.1-hiera-large per trunk through K4 (chip_smoke's launch
     checks): 48 blocks, the 3 global ones on attention_sm90.cu (head dim
-    72 padded to 80), the 45 windowed ones on window_attention.cu (head
-    dim 72), 3 shortcut pools; Hiera-T's as before."""
+    72 padded to 80), the 45 windowed ones on window_attention_sm90.cu
+    (head dim 72; ws 16 in 33 of them), none on window_attention.cu, 3
+    shortcut pools; Hiera-T's as before."""
     large, tiny = tsam2("large"), tsam2("tiny")
     old = "vls_window_attention"
     assert chip_smoke.trunk_sm90_blocks(large) == (48, 3)
     assert chip_smoke.trunk_window_launches(large) == {
-        kernels.WINDOW_SM90_ENTRY: 0, old: 45}
+        kernels.WINDOW_SM90_ENTRY: 45, old: 0}
     assert chip_smoke.trunk_pool_launches(large) == 3
     assert chip_smoke.trunk_sm90_blocks(tiny) == (12, 3)
     assert chip_smoke.trunk_window_launches(tiny) == {

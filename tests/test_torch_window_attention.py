@@ -5,7 +5,9 @@ interpret mode and its XLA oracle), and the port's per-op Hiera trunk
 trunk under the same switch and on its partition-based window path.
 Mirrors tests/test_window_attention.py: head dims 96 / 64 / 32, windows
 8 / 4 / 7 / 14, the 2x2 q pool, and the non-divisible config whose maps
-force the zero-pad + crop path. fp32;
+force the zero-pad + crop path; also Hiera-L's head dim 72 (ws 16 plain
+and pooled) and Hiera-B+'s 56 (ws 14), and a head-dim-72 per-op trunk
+whose global block pads its head dim as the card's path does. fp32;
 tolerance 2e-5 for the op (the JAX kernel test's bound) and 2e-4 for
 the trunk (the JAX test's fused-vs-legacy bound: six blocks of sums in
 other orders)."""
@@ -21,6 +23,7 @@ import torch
 from video_llava_seg_torch import bridge
 from video_llava_seg_torch.models.sam2 import hiera as thiera
 from video_llava_seg_torch.models.sam2.config import HieraConfig as THiera
+from video_llava_seg_torch.ops.attention import attention
 from video_llava_seg_torch.ops.hiera_block import max_pool_2x2
 from video_llava_seg_torch.ops.window_attention import (
     window_attention,
@@ -44,6 +47,9 @@ TRUNK_TOL = dict(atol=2e-4, rtol=2e-4)
     ((1, 16, 24, 3 * 192), 2, 4, 2),    # stage-2 transition
     ((1, 28, 14, 3 * 64), 2, 14, 2),    # ws 14 pooled to 7
     ((1, 16, 16, 3 * 32), 1, 4, 1),     # hd 32
+    ((1, 32, 16, 3 * 72), 1, 16, 1),    # Hiera-L: hd 72, ws 16
+    ((1, 32, 32, 3 * 144), 2, 16, 2),   # Hiera-L's pooled ws 16
+    ((1, 28, 14, 3 * 112), 2, 14, 1),   # Hiera-B+: hd 56, ws 14
 ])
 def test_window_attention_matches_pallas_and_oracle(shape, heads, ws, ps):
     qkv = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
@@ -154,6 +160,51 @@ def test_per_op_trunk_matches_jax_partition_path(trunk):
     finally:
         (thiera.USE_FUSED_BLOCK, jhiera.USE_FUSED_BLOCK,
          jhiera.USE_FUSED_WINDOW_ATTN) = saved
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TRUNK_TOL)
+
+
+# a head-dim-72 trunk (Hiera-L's head dim in every stage): ws 8 on 64^2,
+# q-pools at ws 8 and ws 4, a ws 16 block on 16^2, a global block on 16^2
+# (256 tokens: the kernel path, its head dim padded to 80) and the pooled
+# ws 16 block
+CFG72 = dict(embed_dim=72, num_heads=1, stages=(1, 1, 3, 1),
+             global_att_blocks=(4,), window_pos_embed_bkg_spatial_size=(7, 7),
+             window_spec=(8, 4, 16, 8))
+
+
+def test_per_op_trunk_head_dim_72_matches_jax(monkeypatch):
+    """The per-op trunk at head dim 72 against the JAX per-op trunk: the
+    windowed blocks through K7 (ws 8, 4 and 16, plain and pooled), the
+    global block's attention at head dim 72 zero-padded to 80 (the scale
+    the true head dim's), as on the card."""
+    cfg = THiera(**CFG72)
+    tp = thiera.init(cfg, torch.Generator().manual_seed(3), "cpu",
+                     torch.float32)
+    r = np.random.default_rng(4)
+    tree = bridge.to_numpy(tp)
+    for blk in tree["blocks"]:
+        for leaf in ("qkv", "proj_attn"):
+            blk[leaf]["bias"] = (0.1 * r.standard_normal(
+                blk[leaf]["bias"].shape)).astype(np.float32)
+    x = r.standard_normal((1, 256, 256, 3)).astype(np.float32)
+    head_dims = []
+
+    def spy(q, k, v, **kw):
+        head_dims.append((q.shape[-1], kw.get("backend")))
+        return attention(q, k, v, **kw)
+
+    monkeypatch.setattr(thiera, "attention", spy)
+    saved = (thiera.USE_FUSED_BLOCK, jhiera.USE_FUSED_BLOCK)
+    try:
+        thiera.USE_FUSED_BLOCK = jhiera.USE_FUSED_BLOCK = False
+        want = jhiera.apply(jax.tree.map(jnp.asarray, tree), JHiera(**CFG72),
+                            jnp.asarray(x), interpret=True)
+        got = thiera.apply(bridge.from_jax(tree), cfg, torch.from_numpy(x))
+    finally:
+        thiera.USE_FUSED_BLOCK, jhiera.USE_FUSED_BLOCK = saved
+    assert head_dims == [(80, "auto")]
+    assert [g.shape[1] for g in got] == [64, 32, 16, 8]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TRUNK_TOL)
 

@@ -3,13 +3,14 @@
 // attention_short_sm90.cu (K3), w4a8_sm90.cu (K5's prefill),
 // w4a8_gemv_sm90.cu (K5's decode: mbarriers and TMA only),
 // w8a8_sm90.cu (gemm_s8), gemm_bf16_sm90.cu (the bf16 denses of K1 and
-// K4), layernorm_sm90.cu and pool_sm90.cu (mbarriers and 1-D bulk copies
-// only): mbarrier waits that trap instead of hanging, TMA tile loads (4-D
-// and 2-D) and 1-D bulk copies, 128-, 64- and 32-byte-swizzle wgmma
-// descriptors, the wgmma forms the files use, and
-// the tensor-map encoding through the runtime's driver entry point (no
-// link against libcuda). Included by each .cu; kernels/__init__.py hashes
-// it with the sources, so an edit rebuilds the library.
+// K4), window_attention_sm90.cu (K7), layernorm_sm90.cu and pool_sm90.cu
+// (mbarriers and 1-D bulk copies only): mbarrier waits that trap instead
+// of hanging, TMA tile loads (5-D, 4-D and 2-D) and 1-D bulk copies,
+// 128-, 64- and 32-byte-swizzle wgmma descriptors, the wgmma forms the
+// files use, and the tensor-map encoding through the runtime's driver
+// entry point (no link against libcuda). Included by each .cu;
+// kernels/__init__.py hashes it with the sources, so an edit rebuilds the
+// library.
 
 #pragma once
 
@@ -83,6 +84,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the same for a 5-D tensor map
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 

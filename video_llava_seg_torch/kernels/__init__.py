@@ -203,23 +203,28 @@ W4A8_GEMV_TARGET_BLOCKS = 132 * 8
 # window_attention.cu: all of a window's keys sit in shared memory
 WINDOW_MAX_KEYS = 256
 WINDOW_MAX_HEAD_DIM = 128
-# window_attention_sm90.cu (K7 on TMA + wgmma) at head dim 96: a work unit
-# is a strip of sw pixels of one window row (nw = sw / ws windows side by
-# side) of one head; its k and v are each one TMA box (64 | 32 columns,
-# sw, ws, 1) of a 4-D map over qkv (dims 3C, Wp, Hp, B), its queries nqb
-# boxes (64 | 32, sw, qh, 1) of at most WINDOW_SM90_ROWS rows (one query
-# tile each, or with the q pool one pooled tile together). All of a
-# strip's keys sit in one wgmma N tile of 64 or 208 keys (128 or 208 with
-# the q pool): at most WINDOW_SM90_MAX_KEYS. Several windows share a strip
-# (a block-diagonal mask keeps them apart) where a window's queries would
-# leave a tile mostly empty: up to WINDOW_SM90_ROWS keys a strip without
-# the q pool, 128 with it (power-of-two windows only).
+# window_attention_sm90.cu (K7 on TMA + wgmma) at head dims 56, 72 and 96:
+# a work unit is a strip of sw pixels of one window row (nw = sw / ws
+# windows side by side) of one head; its k and v are each one TMA box
+# (cols, 1, sw, ws, 1) of 5-D maps over qkv (dims: a head's columns, q / k
+# / v head, Wp, Hp, B), its queries nqb boxes (cols, 1, sw, qh, 1) of at
+# most WINDOW_SM90_ROWS rows (one query tile each, or with the q pool one
+# pooled tile together). A head's columns are a leading box and a tail
+# box (`window_sm90_boxes`). All of a strip's keys sit in one wgmma N tile
+# of 64 or WINDOW_SM90_HEAD_KEYS[hd] keys (128 or as many with the q
+# pool): plans take at most WINDOW_SM90_MAX_KEYS. Several windows share a
+# strip (a block-diagonal mask keeps them apart) where a window's queries
+# would leave a tile mostly empty: up to WINDOW_SM90_ROWS keys a strip
+# without the q pool, 128 with it (power-of-two windows only).
 WINDOW_SM90_ENTRY = "vls_window_attention_sm90"
-WINDOW_SM90_HEAD_DIM = 96
+WINDOW_SM90_HEAD_DIM = (56, 72, 96)
 WINDOW_SM90_ROWS = 64
-WINDOW_SM90_MAX_KEYS = 208
+WINDOW_SM90_MAX_KEYS = 256
+# the largest key tile of each head dim's instances: 256 (Hiera-L's ws
+# 16) at 72; at 96 two 256-key slots and the pooled tiles do not fit in
+# shared memory beside the q ring
+WINDOW_SM90_HEAD_KEYS = {56: 208, 72: 256, 96: 208}
 WINDOW_SM90_POOL_KEYS = 128
-WINDOW_SM90_BOX_COLS = (64, 32)
 # layernorm_sm90.cu and pool_sm90.cu (the row streams of K1's and K4's
 # LayerNorms and of K4's shortcut pool): a persistent grid, each block one
 # producer thread keeping 1-D bulk copies of whole work items in flight
@@ -1633,6 +1638,22 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def window_sm90_boxes(hd: int):
+    """window_attention_sm90.cu's column boxes of a head of hd columns:
+    (w0, t, tb) = a leading box of w0 columns (64 from head dim 64 up,
+    else 32, 128- / 64-byte swizzle) and a tail box tb wide (16, 32 or
+    64; 32-, 64- or 128-byte swizzle) over the t = hd - w0 columns left,
+    whose map ends at t columns, so that TMA writes zeros in the tb - t
+    columns past the head (at 96: 64 + 32; 72: 64 + 8 in a 16-column box;
+    56: 32 + 24 in a 32-column box)."""
+    w0 = 64 if hd >= 64 else 32
+    t = hd - w0
+    if hd % 8 or not 0 < t <= 64:
+        raise ValueError(f"window_attention_sm90: no column boxes for head "
+                         f"dim {hd}")
+    return w0, t, 16 if t <= 16 else 32 if t <= 32 else 64
+
+
 @functools.lru_cache(maxsize=None)
 def window_sm90_plan(ws: int, ps: int):
     """window_attention_sm90.cu's plan for windows of ws x ws pixels with
@@ -1667,43 +1688,53 @@ def window_sm90_plan(ws: int, ps: int):
 def window_entry(hd: int, ws: int, ps: int) -> str:
     """The C entry that serves `window_attention` at head dim hd over ws x
     ws windows with q pool ps: the TMA + wgmma kernel of
-    csrc/window_attention_sm90.cu at head dim 96 (every windowed block of
-    SAM2.1-hiera-tiny / small) where `window_sm90_plan` takes the windows,
-    csrc/window_attention.cu for every other call (Hiera-B+'s head dim 56,
-    Hiera-L's 72, windows of more than WINDOW_SM90_MAX_KEYS keys). K4's
+    csrc/window_attention_sm90.cu at head dims 56, 72 and 96 (every
+    windowed block of SAM2.1-hiera-tiny / small / base-plus / large)
+    where `window_sm90_plan` takes the windows and the head dim's key
+    tile holds the strip (WINDOW_SM90_HEAD_KEYS), csrc/window_attention.cu
+    for every other call (other head dims; ws 16 at head dim 96). K4's
     chain sends every windowed block's attention to the kernel this
     names (on an H100 the TMA + wgmma one beat the chain's former
     partition + attention_sm90.cu stage at every Hiera-S kind)."""
-    if hd == WINDOW_SM90_HEAD_DIM and window_sm90_plan(ws, ps) is not None:
+    plan = window_sm90_plan(ws, ps)
+    if hd in WINDOW_SM90_HEAD_DIM and plan is not None \
+            and plan[0] * ws <= WINDOW_SM90_HEAD_KEYS[hd]:
         return WINDOW_SM90_ENTRY
     return "vls_window_attention"
 
 
 @functools.lru_cache(maxsize=256)
-def window_sm90_geometry(shape, ws: int, ps: int):
+def window_sm90_geometry(shape, ws: int, ps: int, hd: int):
     """The four bf16 tensor maps that csrc/window_attention_sm90.cu
-    encodes over a contiguous qkv [B, Hp, Wp, 3C], 4 x 11 int64: each dims
-    (3C, Wp, Hp, B) innermost first, the byte strides of Wp, Hp and B, and
-    its box: (64, sw, ws, 1) and (32, sw, ws, 1) for k and v (the 64- and
-    the 32-column box, 128- and 64-byte swizzle), (64, sw, qh, 1) and
-    (32, sw, qh, 1) for q, with (sw, qh) from `window_sm90_plan`. TMA
-    needs byte strides in multiples of 16 below 2^40."""
+    encodes over a contiguous qkv [B, Hp, Wp, 3C] of heads of hd columns,
+    4 x 15 int64: each the byte offset of its first column (0 for the
+    leading box, 2 * w0 for the tail box), dims (w0 | t, 3 * heads, Wp,
+    Hp, B) innermost first, the byte strides of dims 1..4 (a head, a
+    pixel, a map row, an image), and its box: (w0, 1, sw, ws, 1) and
+    (tb, 1, sw, ws, 1) for k and v, (w0, 1, sw, qh, 1) and (tb, 1, sw, qh,
+    1) for q, with (w0, t, tb) from `window_sm90_boxes` and (sw, qh) from
+    `window_sm90_plan`. TMA needs byte strides in multiples of 16 below
+    2^40."""
     plan = window_sm90_plan(ws, ps)
     if plan is None:
         raise ValueError(f"window_attention_sm90: no plan for ws {ws}, "
                          f"pool {ps}")
     sw, qh, _ = plan
+    w0, t, tb = window_sm90_boxes(hd)
     b, hp, wp, c3 = shape
-    strides = (2 * c3, 2 * wp * c3, 2 * hp * wp * c3)
+    if c3 % (3 * hd):
+        raise ValueError(f"window_attention_sm90: {c3} channels are no "
+                         f"q, k, v of heads of {hd}")
+    strides = (2 * hd, 2 * c3, 2 * wp * c3, 2 * hp * wp * c3)
     if min(strides) <= 0 or any(s % 16 or s >= 1 << 40 for s in strides):
         raise ValueError(f"window_attention_sm90: TMA needs byte strides "
                          f"that are positive multiples of 16 below 2^40, "
                          f"got {strides}")
+    dims = (c3 // hd, wp, hp, b)
     geom = ()
-    for cols in WINDOW_SM90_BOX_COLS:
-        geom += (c3, wp, hp, b) + strides + (cols, sw, ws, 1)
-    for cols in WINDOW_SM90_BOX_COLS:
-        geom += (c3, wp, hp, b) + strides + (cols, sw, qh, 1)
+    for rows in (ws, qh):
+        geom += (0, w0) + dims + strides + (w0, 1, sw, rows, 1)
+        geom += (2 * w0, t) + dims + strides + (tb, 1, sw, rows, 1)
     return array.array("q", geom)
 
 
@@ -1737,9 +1768,9 @@ def window_attention(qkv: torch.Tensor, *, num_heads: int, ws: int,
     hd = c // num_heads
     entry = route or window_entry(hd, ws, ps)
     if entry == WINDOW_SM90_ENTRY and window_entry(hd, ws, ps) != entry:
-        raise ValueError(f"window_attention: {entry} serves head dim "
-                         f"{WINDOW_SM90_HEAD_DIM} over windows of at most "
-                         f"{WINDOW_SM90_MAX_KEYS} keys, not head dim {hd}, "
+        raise ValueError(f"window_attention: {entry} serves head dims "
+                         f"{WINDOW_SM90_HEAD_DIM} over strips of at most "
+                         f"{WINDOW_SM90_HEAD_KEYS} keys, not head dim {hd}, "
                          f"ws {ws}, pool {ps}")
     full = (h // ps, w // ps)
     oh, ow = full if out_hw is None else out_hw
@@ -1752,7 +1783,7 @@ def window_attention(qkv: torch.Tensor, *, num_heads: int, ws: int,
     _require(qkv, "window_attention qkv")
     if entry == WINDOW_SM90_ENTRY:
         sw, qh, nqb = window_sm90_plan(ws, ps)
-        geom = window_sm90_geometry(tuple(qkv.shape), ws, ps)
+        geom = window_sm90_geometry(tuple(qkv.shape), ws, ps, hd)
         o = torch.empty((b, oh, ow, c), device=qkv.device, dtype=qkv.dtype)
         code = LIBRARY.get().vls_window_attention_sm90(
             _ptr(qkv), _ptr(o), geom.buffer_info()[0], b, h, w, c,

@@ -12,7 +12,9 @@ the JAX package's per-op path: LN1, the dim-change shortcut, then
   the 2x2 q pool inside it), the crop and the out projection;
 - global blocks: `_attention` over the whole map (`ops.attention`, K2 /
   K3 on the card, for 256 queries or more; the plain twin below, as the
-  JAX package picks XLA there);
+  JAX package picks XLA there), Hiera-B+'s head dim 56 and Hiera-L's 72
+  zero-padded to the next head dim a kernel has, as K4's
+  `attention_stage` pads them;
 
 then the residual and the LN2 -> GELU MLP. The switch is a module
 attribute, as in the JAX package. The JAX package's partition-based
@@ -21,6 +23,7 @@ fused window path computes the same function."""
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -28,7 +31,11 @@ import torch.nn.functional as F
 
 from video_llava_seg_torch.ops import nn
 from video_llava_seg_torch.ops.attention import attention
-from video_llava_seg_torch.ops.hiera_block import hiera_block, max_pool_2x2
+from video_llava_seg_torch.ops.hiera_block import (
+    attention_head_dim,
+    hiera_block,
+    max_pool_2x2,
+)
 from video_llava_seg_torch.ops.resize import interpolate
 from video_llava_seg_torch.ops.window_attention import window_attention
 
@@ -133,7 +140,14 @@ def _attention(blk, x, num_heads: int,
         q = q.reshape(b, oh * ow, num_heads, head_dim)
     q, k, v = (t.permute(0, 2, 1, 3) for t in (q, k, v))
     backend = "auto" if q.shape[2] >= 256 else "plain"
-    o = attention(q, k, v, backend=backend)
+    # zero columns add nothing to q . k and give zero outputs; the scale
+    # stays the true head dim's
+    pad = attention_head_dim(head_dim) - head_dim if backend == "auto" else 0
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    o = attention(q, k, v, scale=1.0 / math.sqrt(head_dim), backend=backend)
+    if pad:
+        o = o[..., :head_dim]
     o = o.permute(0, 2, 1, 3).reshape(b, oh, ow, dout)
     return nn.dense(blk["proj_attn"], o)
 

@@ -23,9 +23,9 @@ Hiera-T / S / B+ / L, layernorm.cu / pool.cu for the shapes they refuse)
 The attention of a windowed block is one `kernels.window_attention`
 launch on the padded fused-qkv map as it lies, which pools q while
 loading and writes the cropped (pooled) map: window_attention_sm90.cu at
-head dim 96 (every windowed block of Hiera-T / S), window_attention.cu
-at the head dims `kernels.window_entry` sends there (Hiera-B+'s 56,
-Hiera-L's 72). A global block keeps `attention_stage`: attention_sm90.cu
+head dims 96, 56 and 72 (every windowed block of Hiera-T / S / B+ / L),
+window_attention.cu where `kernels.window_entry` sends a call there
+(other head dims). A global block keeps `attention_stage`: attention_sm90.cu
 over the whole map as one window, with no copy at head dim 96
 (Hiera-T / S); at Hiera-B+'s 56 and Hiera-L's 72, which no attention
 kernel has, q, k and v are zero-padded to the next instance (64 / 80,

@@ -10,14 +10,14 @@ window (Hiera's stage transitions) and the output is the pooled map
 [B, H/2, W/2, C].
 
 On a CUDA tensor `window_attention` launches the C entry
-`kernels.window_entry` names. At head dim 96 (every windowed block of
-Hiera-T / S) that is `csrc/window_attention_sm90.cu`: a persistent grid
-whose producer thread loads each strip of windows' q / k / v by TMA
-straight from the map, consumer warpgroups that pool q while staging it
-and run both products on wgmma with all of a window's keys in one tile,
-the output written in map layout. K4's chain (`ops/hiera_block.py`)
-calls the same kernel for its windowed blocks. Other head dims
-(Hiera-B+'s 56, Hiera-L's 72) and windows of more than 208 keys take
+`kernels.window_entry` names. At head dims 96, 56 and 72 (every windowed
+block of Hiera-T / S / B+ / L) that is `csrc/window_attention_sm90.cu`:
+a persistent grid whose producer thread loads each strip of windows'
+q / k / v by TMA straight from the map, consumer warpgroups that pool q
+while staging it and run both products on wgmma with all of a window's
+keys (up to 256) in one tile, the output written in map layout. K4's
+chain (`ops/hiera_block.py`) calls the same kernel for its windowed
+blocks. Other head dims and strips past a head dim's key tile take
 `csrc/window_attention.cu`: one block per 64 queries of an (image,
 window, head), rows gathered through the map's strides. Neither makes a
 partitioned or pooled copy. On a CPU tensor it runs
