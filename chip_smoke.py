@@ -16,8 +16,11 @@ script exits non-zero without printing a result:
      prefill), w4a8_gemv_sm90.cu (K5's decode, sixteen instances: rows
      1-8, bf16 / fp32 out), w8a8_sm90.cu (gemm_s8), gemm_bf16_sm90.cu
      (the bf16 denses of K1 and K4, three instances), layernorm_sm90.cu
-     (K1's / K4's LayerNorms, five instances: 1-5 vectors a lane) and
-     pool_sm90.cu (K4's shortcut pool), and the wgmma (HGMMA bf16, IGMMA
+     (K1's / K4's LayerNorms, five instances: 1-5 vectors a lane),
+     pool_sm90.cu (K4's shortcut pool) and w8a8_rows_sm90.cu (K8's row
+     quantizers, eight instances: 4 / 5 vectors a lane after a LayerNorm
+     with bf16 or fp32 gamma, 4 / 5 / 16 / 20 without, with each
+     instance's SASS instructions a lane-element), and the wgmma (HGMMA bf16, IGMMA
      int8; IDP, dp4a, for w4a8_gemv_sm90.cu; SHFL / HMNMX2 for the row
      streams) and UTMALDG (TMA load; UBLKCP, the 1-D bulk copy, for the
      row streams) counts in the SASS of each instance of their kernels
@@ -167,15 +170,22 @@ the SAM2 video slice, 18-20, after 17.
      with the time over 10 launches back to back and by device time
      over input copies rotated past the L2 (`rotated_device_ms`), beside
      the old kernel, `F.layer_norm` / `F.max_pool2d` and the byte bound;
-     then w8a8.cu's row quantizers (`ln_quant_rows`, `quant_rows`) at
-     K8's CLIP-L and RADIO-H shapes, timed the same way, with their byte
-     bound and launches per W8A8 encode.
+     then K8's row quantizers (`ln_quant_rows`, `quant_rows`) at
+     CLIP-L's and RADIO-H's shapes (`w8a8_row_cases`) and at ragged ones
+     (QUANT_ROWS_RAGGED) on w8a8_rows_sm90.cu (the route asserted):
+     `quant_rows` bit-equal to `quantize_activations_rowwise` (q and
+     scale), `ln_quant_rows` within one int8 step of its twin with under
+     1e-3 of the elements differing and the scales within rtol 1e-2, two
+     calls bit-identical; timed the same way beside w8a8.cu (forced by
+     `route`), with the byte bound, the instruction bound of the
+     instance's SASS and the launches per W8A8 encode.
  11. RADIO serving: the bf16 path of phase 3 with the RADIO-H/16@384
      tower (K1 32 per query, K8 0), stage seconds.
  12. W8A8 encode: `llava.encode_video` over `quantize_tree(bits=8,
      act_quant=True)` of tower + projector, CLIP-L and RADIO-H (K8 23 and
      32, K1 0; gemm_s8 on w8a8_sm90.cu 6 x 23 + 2 and 6 x 32 + 2, on
-     w8a8.cu 0), relative error of the slow features against the bf16
+     w8a8.cu 0; the row quantizers on w8a8_rows_sm90.cu 4 x 23 and 4 x
+     32, 2 ln_quant_rows + 2 quant_rows a layer, on w8a8.cu 0), relative error of the slow features against the bf16
      tower's (mean, p99); W8A8 and bf16 encode seconds, interleaved over
      7 rounds (median, min, max).
  13. the per-op Hiera trunk (`USE_FUSED_BLOCK = False`) over 8 frames at
@@ -275,6 +285,9 @@ REPLACES = {
     "K6b": "video_llava_seg_tpu/ops/attention.py:522",
     "K7": "video_llava_seg_tpu/ops/window_attention.py:32",
     "K8": "video_llava_seg_tpu/ops/vit_block.py:216",
+    # K8's per-row activation quantization (`_quant_rows_f32`, after
+    # `_ln_f32` for the two LayerNorms: vit_block.py:240-243, 300-301, 322)
+    "quant_rows": "video_llava_seg_tpu/ops/vit_block.py:197",
     # K8's int8 dense (`_dense_i8`), which gemm_s8 also serves outside the
     # layer for XLA's int8 dot of nn.dense (video_llava_seg_tpu/ops/nn.py:77)
     "gemm_s8": "video_llava_seg_tpu/ops/vit_block.py:206",
@@ -337,8 +350,13 @@ SOURCES = {
            ["window_attention_sm90.cu", "window_attention.cu"]),
     # gemm_s8 on w8a8_sm90.cu where K and N are multiples of 16 (every
     # dense of both towers), on w8a8.cu elsewhere
+    # the row quantizers on w8a8_rows_sm90.cu (w8a8.cu kept for the
+    # widths quant_rows_entry refuses)
     "K8": ("video_llava_seg_torch/ops/vit_block.py",
-           ["w8a8_sm90.cu", "w8a8.cu", "attention_sm90.cu"]),
+           ["w8a8_rows_sm90.cu", "w8a8_sm90.cu", "w8a8.cu",
+            "attention_sm90.cu"]),
+    "quant_rows": ("video_llava_seg_torch/csrc/w8a8_rows_sm90.cu",
+                   ["w8a8_rows_sm90.cu", "w8a8.cu"]),
     "gemm_s8": ("video_llava_seg_torch/csrc/w8a8_sm90.cu",
                 ["w8a8_sm90.cu", "w8a8.cu"]),
     "gemm_bf16": ("video_llava_seg_torch/csrc/gemm_bf16_sm90.cu",
@@ -595,7 +613,8 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                 "window_attention_sm90.cu": (
                     "window_attention_sm90_kernel",),
                 "layernorm_sm90.cu": ("layernorm_sm90_kernel",),
-                "pool_sm90.cu": ("maxpool2x2_sm90_kernel",)}
+                "pool_sm90.cu": ("maxpool2x2_sm90_kernel",),
+                "w8a8_rows_sm90.cu": ("quant_rows_sm90_kernel",)}
 # the instances of a templated kernel: attention_sm90.cu's <head dim,
 # bias>: D 64 / 80 / 96 / 128 / 256, the bias at 128; gemm_bf16_sm90.cu's
 # <activation>: none, quick_gelu, erf-GELU; attention_short_bwd_sm90.cu's
@@ -603,19 +622,45 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
 # window_attention_sm90.cu's <head dim, key tile, q pool>: head dims 56 /
 # 72 / 96, 64 and 208 (256 at 72) without, 128 and 208 (256) with;
 # w4a8_gemv_sm90.cu's <rows, fp32 out>: 1-8 rows, bf16 and
-# fp32 out; layernorm_sm90.cu's <vectors a lane>: 1-5
+# fp32 out; layernorm_sm90.cu's <vectors a lane>: 1-5;
+# w8a8_rows_sm90.cu's <vectors a lane, LayerNorm, fp32 gamma>: 1-5 with a
+# LayerNorm (bf16 and fp32 gamma), 4, 5, 16, 20 without
 SM90_INSTANCES = {"attention_sm90.cu": 6, "gemm_bf16_sm90.cu": 3,
                   "attention_short_bwd_sm90.cu": 8,
                   "window_attention_sm90.cu": 12, "w4a8_gemv_sm90.cu": 16,
-                  "layernorm_sm90.cu": 5}
+                  "layernorm_sm90.cu": 5, "w8a8_rows_sm90.cu": 8}
 # the sources with TMA loads but no wgmma, and the SASS op each must hold
 # instead (w4a8_gemv_sm90.cu: __dp4a; the row streams, whose loads are 1-D
 # bulk copies (UBLKCP) rather than tensor-map loads: the group shuffles of
-# layernorm_sm90.cu, the bf16x2 max of pool_sm90.cu)
+# layernorm_sm90.cu and w8a8_rows_sm90.cu, the bf16x2 max of pool_sm90.cu)
 SM90_NO_WGMMA = {"w4a8_gemv_sm90.cu": "IDP", "layernorm_sm90.cu": "SHFL",
-                 "pool_sm90.cu": "HMNMX2"}
-SM90_BULK_ONLY = ("layernorm_sm90.cu", "pool_sm90.cu")
+                 "pool_sm90.cu": "HMNMX2", "w8a8_rows_sm90.cu": "SHFL"}
+SM90_BULK_ONLY = ("layernorm_sm90.cu", "pool_sm90.cu", "w8a8_rows_sm90.cu")
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP", "IDP", "SHFL", "HMNMX2")
+# the ops counted besides in w8a8_rows_sm90.cu's instances, for its instruction
+# bound: the division's reciprocal (MUFU) and range check (FCHK), the fp32
+# arithmetic, the byte packs (PRMT), the int8 stores (STG)
+ROW_SASS_OPS = ("MUFU", "FCHK", "FFMA", "FMUL", "FADD", "FMNMX", "PRMT",
+                "F2FP", "LDS", "STG", "CALL")
+# {instance: {op: count, "total": instructions}} of w8a8_rows_sm90.cu,
+# filled by the build phase
+ROW_SASS = {}
+
+
+def row_sass_per_element(kern: str) -> float:
+    """SASS instructions a lane spends on one element in the instance
+    `kern` of w8a8_rows_sm90.cu (`quant_rows_sm90_kernel<NV, LN, GF32>`):
+    the difference of the instruction counts of this instance and the
+    nearest other of its kind (NV n; the smaller where there is one), over
+    the 8 |NV - n| elements it adds (the unrolled loops grow by that much;
+    the set-up, the producer and the per-row divisions stay the same)."""
+    nv, kind = kern.split("<")[1].rstrip(">").split(", ", 1)
+    nv = int(nv)
+    others = [int(k.split("<")[1].split(",")[0]) for k in ROW_SASS
+              if k.split(", ", 1)[1] == kind + ">" and k != kern]
+    n = min(others, key=lambda o: (abs(o - nv), o > nv))
+    other = ROW_SASS[f"quant_rows_sm90_kernel<{n}, {kind}>"]["total"]
+    return (ROW_SASS[kern]["total"] - other) / (8 * (nv - n))
 
 
 def _instance(base, mangled):
@@ -660,6 +705,13 @@ def report_sm90_build(kernels):
         elif kern is not None:
             for op in SASS_OPS:
                 counts[kern][op] += bool(re.search(rf"\b{op}\b", line))
+            if kern.startswith("quant_rows_sm90_kernel"):
+                row = ROW_SASS.setdefault(
+                    kern, dict.fromkeys(ROW_SASS_OPS + ("total",), 0))
+                row["total"] += bool(re.search(r"/\*[0-9a-f]{4,}\*/\s+\S",
+                                               line))
+                for op in ROW_SASS_OPS:
+                    row[op] += bool(re.search(rf"\b{op}\b", line))
     for src, ks in SM90_KERNELS.items():
         found = [k for k in counts if k.split("<")[0] in ks]
         if len(found) < SM90_INSTANCES.get(src, len(ks)):
@@ -676,6 +728,10 @@ def report_sm90_build(kernels):
             if not compute or not c[load]:
                 raise AssertionError(f"{src}: no {need or 'wgmma'} or no "
                                      f"{load} in the SASS of {k}: {c}")
+    for k, c in sorted(ROW_SASS.items()):
+        log(f"[build] w8a8_rows_sm90.cu SASS {k}: {c['total']} "
+            f"instructions ({row_sass_per_element(k):.2f} a lane-element), "
+            + ", ".join(f"{c[op]} {op}" for op in ROW_SASS_OPS))
 
 
 def bound_of(nbytes: float, ops: float, peak: float):
@@ -1474,6 +1530,7 @@ def trunk_window_launches(sc=None):
 # of K4's shortcut pools (kernels.maxpool2x2)
 LAYERNORM_SM90_ENTRY = "vls_layernorm_sm90"
 MAXPOOL_SM90_ENTRY = "vls_maxpool2x2_sm90"
+QUANT_ROWS_SM90_ENTRY = "vls_quant_rows_sm90"
 
 
 def trunk_pool_launches(sc=None):
@@ -1496,6 +1553,7 @@ def reset_launches():
     kernels.LAYERNORM_LAUNCHES.reset()
     kernels.MAXPOOL_LAUNCHES.reset()
     kernels.W4A8_LAUNCHES.reset()
+    kernels.QUANT_ROWS_LAUNCHES.reset()
 
 
 def snapshot_launches():
@@ -1505,7 +1563,8 @@ def snapshot_launches():
     attention.cu, the flash backward's launches (K6a / K6b),
     kernels.gemm's (the denses of K1 and K4), kernels.window_attention's
     (K7 and K4's windowed blocks), kernels.w4a8_matmul's (K5),
-    kernels.layernorm's and kernels.maxpool2x2's by C entry."""
+    kernels.layernorm's, kernels.maxpool2x2's and the row quantizers' (K8)
+    by C entry."""
     from video_llava_seg_torch import kernels
 
     counts = kernels.LAUNCHES.snapshot()
@@ -1519,6 +1578,7 @@ def snapshot_launches():
     counts.update(kernels.W4A8_LAUNCHES.snapshot())
     counts.update(kernels.LAYERNORM_LAUNCHES.snapshot())
     counts.update(kernels.MAXPOOL_LAUNCHES.snapshot())
+    counts.update(kernels.QUANT_ROWS_LAUNCHES.snapshot())
     return counts
 
 
@@ -1530,8 +1590,10 @@ def check_launches(tag, counts, expect, why, bwd=None, sc=None):
     dense of K1 and K4 (`trunk_dense_calls`), window_attention_sm90.cu
     every windowed block of a K4 trunk and every K7 call
     (`trunk_window_launches`), layernorm_sm90.cu the two LayerNorms of
-    every K1 layer and K4 block, and pool_sm90.cu what
-    `trunk_pool_launches` counts (layernorm.cu and pool.cu none). bwd:
+    every K1 layer and K4 block, pool_sm90.cu what
+    `trunk_pool_launches` counts and w8a8_rows_sm90.cu the four row
+    quantizers of every K8 layer (layernorm.cu, pool.cu and w8a8.cu's
+    row quantizers none). bwd:
     the flash backward's launches expected by C entry (a path with a
     backward). sc: the SAM2 config whose trunk K4 ran (default: the seg
     head's)."""
@@ -1599,6 +1661,14 @@ def check_launches(tag, counts, expect, why, bwd=None, sc=None):
         f"{counts['K4']})")
     if got != want:
         raise AssertionError(f"{tag}: kernels.layernorm routes {got}, "
+                             f"expected {want}")
+    want = {QUANT_ROWS_SM90_ENTRY: 4 * counts["K8"], "vls_quant_rows": 0}
+    got = {e: counts[e] for e in want}
+    log(f"[{tag}] row quantizer launches by C entry: {got} (expected "
+        f"{want}: 2 ln_quant_rows + 2 quant_rows per K8 layer x "
+        f"{counts['K8']})")
+    if got != want:
+        raise AssertionError(f"{tag}: the row quantizers route {got}, "
                              f"expected {want}")
     k5 = sum(counts[e] for e in kernels.W4A8_ROUTES)
     if k5 != counts["K5"]:
@@ -2600,57 +2670,204 @@ def phase_link_checks(cfg, seed, dev, results):
             f"{launches} a {per}")
         del x
         torch.cuda.empty_cache()
-    rows += w8a8_row_times(cfg, g, dev)
+    rows += w8a8_row_times(cfg, g, dev, results)
     sync()
     return rows
 
 
-def w8a8_row_times(cfg, g, dev):
-    """w8a8.cu's row quantizers at K8's shapes, timed only (their bits are
-    the CUDA tests'): `ln_quant_rows` (LayerNorm + per-row int8, twice a
-    layer) over the tower's tokens, `quant_rows` (per-row int8) over the
-    attention output and fc1's, over 10 launches back to back and by
-    device time over rotated inputs, with the byte bound (bf16 read; int8
-    and an fp32 scale a row written). Returns the `[links]` rows."""
-    from video_llava_seg_torch import kernels
+# K8's row quantizers at ragged shapes besides the main path's (8-row
+# tiles at these widths): one row, fewer rows than a tile, a multiple of a
+# tile plus one; gamma / beta in fp32 (a tree stored in fp32) or bf16
+QUANT_ROWS_RAGGED = [("ln_quant_rows", (1, 1024), torch.bfloat16),
+                     ("ln_quant_rows", (5, 1280), torch.float32),
+                     ("ln_quant_rows", (8 * 37 + 1, 1280), torch.bfloat16),
+                     ("ln_quant_rows", (8 * 2309 + 1, 1024), torch.float32),
+                     ("quant_rows", (1, 5120), None),
+                     ("quant_rows", (3, 1024), None),
+                     ("quant_rows", (8 * 11 + 1, 4096), None),
+                     ("quant_rows", (8 * 2309 + 1, 1280), None)]
+# ln_quant_rows against its twin, the criteria of
+# tests/test_torch_kernels_cuda.py::test_quant_rows_bit_exact: the norm
+# sums in another order, so a bf16 value may move by one step, and at an
+# int8 rounding boundary its code by one
+QUANT_ROWS_LN_STEPS = 1
+QUANT_ROWS_LN_FRACTION = 1e-3
+QUANT_ROWS_LN_SCALE_RTOL = 1e-2
+
+
+def w8a8_row_cases(cfg):
+    """K8's row quantizer calls in a W8A8 encode of CLIP-L and RADIO-H:
+    [(fn, tower, (rows, cols), launches an encode)]: `ln_quant_rows` over
+    the tower's tokens (twice a layer), `quant_rows` over the attention
+    output and over fc1's (once a layer each)."""
     from video_llava_seg_torch.models import vit
 
-    rows = []
+    out = []
     for name, vc in (("CLIP-L/14-336", cfg.vision),
                      ("RADIO-H/16-384", radio_cfg(cfg).vision)):
         m = cfg.num_frames * (vc.num_patches + int(vc.use_cls_token)
                               + vc.num_register_tokens)
         d, dff = vc.hidden_size, vc.intermediate_size
-        gam = torch.randn(d, generator=g, device=dev)
-        bet = torch.randn(d, generator=g, device=dev)
         layers = vit.num_layers_run(vc)
-        for fn, cols in (("ln_quant_rows", d), ("quant_rows", d),
-                         ("quant_rows", dff)):
-            def inputs(cols=cols):
-                return torch.randn((m, cols), generator=g,
-                                   device=dev).to(torch.bfloat16),
+        out += [("ln_quant_rows", name, (m, d), 2 * layers),
+                ("quant_rows", name, (m, d), layers),
+                ("quant_rows", name, (m, dff), layers)]
+    return out
 
-            def run(x, fn=fn):
-                if fn == "ln_quant_rows":
-                    return kernels.ln_quant_rows(x, gam, bet, 1e-6)
-                return kernels.quant_rows(x)
 
-            (x,) = inputs()
-            ms = cuda_ms(lambda: run(x), train=10)
-            del x
-            dev_ms = rotated_device_ms({"device_ms": run}, inputs)
-            nbytes = 3 * m * cols + 4 * m + (8 * d if fn[0] == "l" else 0)
-            b_ms, _ = bound_of(nbytes, 0, PEAK_BF16)
-            row = {"kernel": f"w8a8.cu {fn}", "path": name,
-                   "shape": [m, cols],
-                   "launches": layers * (2 if fn[0] == "l" else 1), "ms": ms,
-                   "bound_ms": b_ms, **dev_ms}
-            rows.append(row)
-            log(f"[links] w8a8.cu {fn} {name} [{m}, {cols}]: device "
-                f"{dev_ms['device_ms']:.4f} ms "
-                f"({b_ms / dev_ms['device_ms']:.3f} of the bound), 10 back "
-                f"to back {ms:.4f} ms; byte bound {b_ms:.4f} ms; "
-                f"{row['launches']} a W8A8 encode")
+def quant_rows_agree(tag, fn, got, want):
+    """Hold a row quantizer's (q, scale) to its twin's: `quant_rows`
+    bit-equal, `ln_quant_rows` within QUANT_ROWS_LN_STEPS int8 steps with
+    under QUANT_ROWS_LN_FRACTION of the elements differing and the scales
+    within QUANT_ROWS_LN_SCALE_RTOL. Returns (max step, fraction of the
+    elements differing, max relative scale error)."""
+    (q, s), (wq, ws) = got, want
+    steps = (q.int() - wq.int()).abs().max().item()
+    frac = (q != wq).float().mean().item()
+    srel = ((s - ws).abs() / ws.abs()).max().item()
+    if fn == "quant_rows":
+        ok = torch.equal(q, wq) and torch.equal(s, ws)
+    else:
+        ok = (steps <= QUANT_ROWS_LN_STEPS and frac < QUANT_ROWS_LN_FRACTION
+              and srel <= QUANT_ROWS_LN_SCALE_RTOL)
+    if not ok:
+        raise AssertionError(f"{tag}: off its twin (max step {steps}, "
+                             f"{frac:.3e} of the elements differ, scale "
+                             f"rel err {srel:.3e})")
+    return steps, frac, srel
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def w8a8_row_times(cfg, g, dev, results):
+    """K8's row quantizers at CLIP-L's and RADIO-H's shapes
+    (`w8a8_row_cases`) and at QUANT_ROWS_RAGGED on w8a8_rows_sm90.cu (the
+    route asserted): held to their twin (`kernels.quant_rows_plain`;
+    `quant_rows_agree`), two calls bit-identical. At the main-path shapes,
+    with gamma / beta in bf16 as the tree stores them: timed over 10
+    launches back to back and by device time over rotated inputs beside
+    w8a8.cu (forced by `route`, fp32 gamma / beta as it takes them), the
+    plain twin timed once a call, with the byte bound (bf16 read; int8
+    and an fp32 scale a row written; gamma and beta read once) and the
+    instruction bound (the instance's SASS instructions a lane-element,
+    `row_sass_per_element`, over 4 warp instructions a clock on every SM
+    at the card's highest clock). Adds results["quant_rows"]; returns the
+    `[links]` rows."""
+    from video_llava_seg_torch import kernels
+
+    bf = torch.bfloat16
+    eps = 1e-6
+    old = "vls_quant_rows"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
+    rows = []
+    r = results.setdefault("quant_rows", {
+        "max_abs_err": 0, "frac_differing": 0.0, "scale_rel_err": 0.0,
+        "ms": 0.0, "plain_ms": 0.0, "previous_ms": 0.0, "bound_ms": 0.0,
+        "device_ms": 0.0, "previous_device_ms": 0.0,
+        "instruction_bound_ms": 0.0,
+        "shapes": []})
+    cases = ([(fn, tower, shape, n, bf)
+              for fn, tower, shape, n in w8a8_row_cases(cfg)]
+             + [(fn, "ragged", shape, 0, gdt)
+                for fn, shape, gdt in QUANT_ROWS_RAGGED])
+    for fn, path, shape, launches, gdt in cases:
+        m, cols = shape
+        ln = fn == "ln_quant_rows"
+
+        def inputs(shape=shape):
+            return (3 * torch.randn(shape, generator=g, device=dev)
+                    + 0.5).to(bf),
+
+        (x,) = inputs()
+        gam = bet = None
+        if ln:
+            gam = (torch.rand(cols, generator=g, device=dev) + 0.5).to(gdt)
+            bet = (0.1 * torch.randn(cols, generator=g, device=dev)).to(gdt)
+
+        def run(x, route=None, gam=gam, bet=bet, ln=ln):
+            if ln:
+                return kernels.ln_quant_rows(x, gam, bet, eps, route=route)
+            return kernels.quant_rows(x, route=route)
+
+        def plain(x, gam=gam, bet=bet):
+            return kernels.quant_rows_plain(x, gam, bet, eps)
+
+        entry = kernels.quant_rows_entry(m, cols, ln)
+        if entry != QUANT_ROWS_SM90_ENTRY:
+            raise AssertionError(f"{fn} {list(shape)}: routes to {entry}, "
+                                 f"not {QUANT_ROWS_SM90_ENTRY}")
+        tag = f"{fn} {path} {list(shape)}"
+        got = run(x)
+        steps, frac, srel = quant_rows_agree(tag, fn, got, plain(x))
+        again = run(x)
+        sync()
+        if not (torch.equal(again[0], got[0])
+                and torch.equal(again[1], got[1])):
+            raise AssertionError(f"{tag}: two calls differ")
+        del got, again
+        r["max_abs_err"] = max(r["max_abs_err"], steps)
+        r["frac_differing"] = max(r["frac_differing"], frac)
+        r["scale_rel_err"] = max(r["scale_rel_err"], srel)
+        if path == "ragged":
+            log(f"[check] {tag} on {entry}, gamma {gdt}: max step {steps}, "
+                f"{frac:.2e} of the elements differ, scale rel err "
+                f"{srel:.2e}; two calls bit-identical")
+            continue
+        gam32 = None if gam is None else gam.float()
+        bet32 = None if bet is None else bet.float()
+
+        def run_old(x, gam32=gam32, bet32=bet32, ln=ln):
+            if ln:
+                return kernels.ln_quant_rows(x, gam32, bet32, eps, route=old)
+            return kernels.quant_rows(x, route=old)
+
+        ms = cuda_ms(lambda: run(x), train=10)
+        prev_ms = cuda_ms(lambda: run_old(x), train=10)
+        plain_ms = cuda_ms(lambda: plain(x), reps=3)
+        del x
+        dev_ms = rotated_device_ms(
+            {"device_ms": run, "previous_device_ms": run_old}, inputs)
+        nbytes = 3 * m * cols + 4 * m + (_nbytes(gam, bet) if ln else 0)
+        b_ms, _ = bound_of(nbytes, 0, PEAK_BF16)
+        plan = kernels.quant_rows_sm90_plan(m, cols, ln, sms)
+        kern = (f"quant_rows_sm90_kernel<{plan.vecs}, "
+                f"{str(ln).lower()}, false>")
+        ipe = row_sass_per_element(kern)
+        instr_ms = m * cols * ipe / 32 / (sms * 4 * clock) * 1e3
+        d_ms = dev_ms["device_ms"]
+        row = {"kernel": fn, "path": path, "shape": [m, cols],
+               "entry": entry, "launches": launches, "ms": ms,
+               "previous": old, "previous_ms": prev_ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": "bytes",
+               "instruction_bound_ms": instr_ms, "sass_per_element": ipe,
+               "instance": kern, "max_step": steps,
+               "frac_differing": frac, **dev_ms}
+        rows.append(row)
+        r["shapes"].append(row)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("previous_ms", prev_ms), ("bound_ms", b_ms),
+                         ("device_ms", d_ms),
+                         ("instruction_bound_ms", instr_ms),
+                         ("previous_device_ms",
+                          dev_ms["previous_device_ms"])):
+            r[key] += val
+        log(f"[links] {tag} on {entry}: device {d_ms:.4f} ms "
+            f"({b_ms / d_ms:.3f} of the byte bound), 10 back to back "
+            f"{ms:.4f} ms; w8a8.cu device "
+            f"{dev_ms['previous_device_ms']:.4f} / {prev_ms:.4f} ms; plain "
+            f"{plain_ms:.4f} ms; byte bound {b_ms:.4f} ms, instruction bound "
+            f"{instr_ms:.4f} ms ({ipe:.2f} SASS instructions a "
+            f"lane-element of {kern}); {launches} a W8A8 encode; max step "
+            f"{steps}, {frac:.2e} differing")
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2783,8 +3000,8 @@ def phase_w8a8_encode(cfg, seed, dev):
     """`llava.encode_video` on `quantize_tree(bits=8, act_quant=True)` of
     tower + projector (bench.py config 3's int8 leg), CLIP-L and RADIO-H,
     against the bf16 tower's features; launch counts of the W8A8 call.
-    Returns ({tower: counts, tower_gemm_s8: gemm_s8 launches by route},
-    {tower: summary})."""
+    Returns ({tower: counts, tower_gemm_s8: gemm_s8 launches by route,
+    tower_quant_rows: the row quantizers' by route}, {tower: summary})."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.inference.utils import clip_preprocess_frames
     from video_llava_seg_torch.models import llava, projector, vit
@@ -2832,6 +3049,14 @@ def phase_w8a8_encode(cfg, seed, dev):
             raise AssertionError(f"W8A8 {name}: gemm_s8 routes {gemm_counts}, "
                                  f"expected {want}")
         counts_by[f"{name}_gemm_s8"] = gemm_counts
+        # the row quantizers (asserted by check_launches: 4 a K8 layer on
+        # w8a8_rows_sm90.cu, 0 on w8a8.cu)
+        counts_by[f"{name}_quant_rows"] = {
+            e: counts[e] for e in kernels.QUANT_ROWS_ROUTES}
+        log(f"[w8a8-{name}] row quantizers: {2 * n_tower} ln_quant_rows + "
+            f"{2 * n_tower} quant_rows on {QUANT_ROWS_SM90_ENTRY} "
+            f"({counts[QUANT_ROWS_SM90_ENTRY]} launches), "
+            f"{counts['vls_quant_rows']} on w8a8.cu")
         ref = s_bf.float()
         rel = ((s_q.float() - ref).abs() / (ref.std() + 1e-9)).cpu().numpy()
         err = {"mean": float(rel.mean()),
@@ -4504,6 +4729,31 @@ def main(argv=None):
                      >= r["bound_by_ms"]["operations"] else "operations"),
         "library_ms": r["library_ms"],
         "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
+        "shapes": r["shapes"]})
+    # K8's row quantizers, counted by C entry on the W8A8 encodes; times
+    # summed over the main-path shapes (w8a8_row_cases)
+    r = results["quant_rows"]
+    source, csrc = SOURCES["quant_rows"]
+    kernels_out.append({
+        "name": "quant_rows", "route": "cuda", "source": source,
+        "csrc": [f"video_llava_seg_torch/csrc/{c}" for c in csrc],
+        "replaces": REPLACES["quant_rows"],
+        "launches": w8a8_counts["clip_quant_rows"][QUANT_ROWS_SM90_ENTRY],
+        "launches_by_path": {
+            "w8a8_encode_clip": w8a8_counts["clip_quant_rows"],
+            "w8a8_encode_radio": w8a8_counts["radio_quant_rows"]},
+        "max_abs_err": r["max_abs_err"],
+        "bound": ("quant_rows exact; ln_quant_rows within "
+                  f"{QUANT_ROWS_LN_STEPS} int8 step, under "
+                  f"{QUANT_ROWS_LN_FRACTION} of the elements differing, "
+                  f"scales within rtol {QUANT_ROWS_LN_SCALE_RTOL}"),
+        "frac_differing": r["frac_differing"],
+        "scale_rel_err": r["scale_rel_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "previous_ms": r["previous_ms"], "device_ms": r["device_ms"],
+        "previous_device_ms": r["previous_device_ms"],
+        "instruction_bound_ms": r["instruction_bound_ms"],
         "shapes": r["shapes"]})
     # gemm_bf16 (the denses of K1 and K4), counted by C entry on every path
     r = results["gemm_bf16"]

@@ -29,6 +29,11 @@
 //
 // Bound on the card. The row kernels are bound by bytes (one bf16 read, one
 // int8 write; one warp per row, three to four passes over the row from L1).
+// They serve only the widths w8a8_rows_sm90.cu refuses
+// (kernels.quant_rows_entry: cols % 8, more than 1280 columns after a
+// LayerNorm, more than 5120 without), none of K8's CLIP-L / RADIO-H calls,
+// and route="vls_quant_rows" for tests and timing; gemm_s8 here serves
+// the shapes w8a8_sm90.cu refuses (K or N % 16).
 // gemm_s8 at the ViT shapes is bound by int8 tensor-core operations: 128 x
 // 128 output tiles over 8 warps (64 x 32 each), mma.sync m16n8k32
 // s8.s8.s32, 64 deep per step as two 32-deep shared-memory planes. The

@@ -34,7 +34,9 @@ LayerNorms of K1 and K4) by its C entry (`layernorm_entry`:
 `maxpool2x2` launch (K4's shortcut pool) by its C entry
 (`maxpool_entry`: `vls_maxpool2x2_sm90`, `vls_maxpool2x2_bf16`);
 `W4A8_LAUNCHES` every `w4a8_matmul` launch (K5's) by its C entry
-(`w4a8_entry`).
+(`w4a8_entry`); `QUANT_ROWS_LAUNCHES` every `quant_rows` /
+`ln_quant_rows` launch (K8's row quantizers) by its C entry
+(`quant_rows_entry`: `vls_quant_rows_sm90`, `vls_quant_rows`).
 """
 
 from __future__ import annotations
@@ -86,6 +88,7 @@ _SIGNATURES = {
     "vls_w4a8_gemv_sm90": [_P] * 6 + [_I] * 7 + [_P],
     "vls_w4a8_gemv_sm90_clusters": [_I, _I],
     "vls_quant_rows": [_P] * 5 + [_L, _I, _F, _I, _P],
+    "vls_quant_rows_sm90": [_P] * 5 + [_L, _I, _F] + [_I] * 6 + [_P],
     "vls_gemm_s8": [_P] * 7 + [_I] * 5 + [_F, _P],
     "vls_gemm_s8_sm90": [_P] * 8 + [_I] * 5 + [_F, _P],
     "vls_window_attention": [_P, _P] + [_I] * 7 + [_F, _P],
@@ -251,6 +254,24 @@ LN_SM90_LANE_VECS = 4
 LN_SM90_MAX_VECS = 5
 POOL_SM90_STAGE = 24 << 10
 POOL_SM90_MAX_VECS = 2 * 32 * ROW_STREAM_WARPS
+# w8a8_rows_sm90.cu (K8's row quantizers, `ln_quant_rows` / `quant_rows`)
+# on the same row stream: lane groups as LayerNorm's, the row held in
+# registers as raw bf16, at most QUANT_ROWS_SM90_LN_VECS 16-byte vectors
+# a lane after a LayerNorm (cols <= 1280), QUANT_ROWS_SM90_MAX_VECS
+# without (cols <= 5120: fc1's output), rounded up to an instance of
+# QUANT_ROWS_SM90_VECS. A ring of ROW_STREAM_STAGES stages where it fits
+# one block's shared memory, else 2 (80 KB stages at 5120 columns); two
+# blocks an SM where two such rings fit, one elsewhere
+QUANT_ROWS_SM90_ENTRY = "vls_quant_rows_sm90"
+QUANT_ROWS_SM90_LN_VECS = 5
+QUANT_ROWS_SM90_MAX_VECS = 20
+QUANT_ROWS_SM90_VECS = (4, 5, 16, 20)
+QUANT_ROWS_SM90_MIN_STAGES = 2
+# dynamic shared memory: one block's most, and an SM's for its blocks
+# (228 KB less 1 KB reserved a block)
+SMEM_BLOCK_MAX = 232448
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
 
 
 class LaunchCounts:
@@ -309,6 +330,10 @@ LAYERNORM_LAUNCHES = LaunchCounts(LAYERNORM_ROUTES)
 # pooling where the chain keeps its attention stage)
 MAXPOOL_ROUTES = ("vls_maxpool2x2_bf16", MAXPOOL_SM90_ENTRY)
 MAXPOOL_LAUNCHES = LaunchCounts(MAXPOOL_ROUTES)
+# quant_rows' and ln_quant_rows' launches by C entry: K8 counts its
+# layers, four row quantizers each
+QUANT_ROWS_ROUTES = ("vls_quant_rows", QUANT_ROWS_SM90_ENTRY)
+QUANT_ROWS_LAUNCHES = LaunchCounts(QUANT_ROWS_ROUTES)
 
 
 class _Library:
@@ -1498,35 +1523,142 @@ def _rows2d(x: torch.Tensor, what: str):
     return x.shape
 
 
-def _quant_rows(x, gamma, beta, eps: float, ln: bool):
+class QuantRowsPlan(NamedTuple):
+    """w8a8_rows_sm90.cu's launch: G lanes a row, `vecs` 16-byte vectors a
+    lane (the kernel instance), `tile_rows` rows a stage (one bulk copy),
+    `stages` stages of `stage_bytes`, `tiles` tiles over the rows, `grid`
+    persistent blocks of `smem` bytes of dynamic shared memory."""
+    group: int
+    vecs: int
+    tile_rows: int
+    stage_bytes: int
+    stages: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def quant_rows_sm90_plan(rows: int, cols: int, ln: bool,
+                         sms: int = H100_SMS):
+    """w8a8_rows_sm90.cu's geometry for quantizing [rows, cols] (after a
+    LayerNorm where `ln`), or None where it does not take the shape (no
+    rows, cols % 8, more than QUANT_ROWS_SM90_LN_VECS vectors a lane after
+    a LayerNorm: cols > 1280, more than QUANT_ROWS_SM90_MAX_VECS without:
+    cols > 5120). Pure; cached per shape."""
+    if rows <= 0 or cols <= 0 or cols % 8:
+        return None
+    v = cols // 8
+    group = 1
+    while group < 32 and -(-v // group) > LN_SM90_LANE_VECS:
+        group *= 2
+    need = -(-v // group)
+    if need > (QUANT_ROWS_SM90_LN_VECS if ln else QUANT_ROWS_SM90_MAX_VECS):
+        return None
+    vecs = min(n for n in QUANT_ROWS_SM90_VECS if n >= need)
+    tile_rows = ROW_STREAM_WARPS * (32 // group)
+    stage_bytes = tile_rows * cols * 2
+    tiles = -(-rows // tile_rows)
+    fixed = 128 + ROW_STREAM_BARS + ((8 * cols + 127) // 128 * 128
+                                     if ln else 0)
+    stages = ROW_STREAM_STAGES
+    while stages >= QUANT_ROWS_SM90_MIN_STAGES and \
+            fixed + stages * stage_bytes > SMEM_BLOCK_MAX:
+        stages -= 1
+    if stages < QUANT_ROWS_SM90_MIN_STAGES:
+        return None
+    smem = fixed + stages * stage_bytes
+    grid = _row_stream_grid(tiles, sms)
+    if SMEM_SM // (smem + SMEM_RESERVED) < 2:
+        # one block an SM where two rings do not fit (fc1's widths)
+        grid = min(tiles, sms)
+    return QuantRowsPlan(group, vecs, tile_rows, stage_bytes, stages, tiles,
+                         grid, smem)
+
+
+def quant_rows_entry(rows: int, cols: int, ln: bool) -> str:
+    """The C entry that serves `quant_rows` (ln False) or `ln_quant_rows`
+    (ln True) on a [rows, cols] input: w8a8_rows_sm90.cu where
+    `quant_rows_sm90_plan` takes the shape (cols % 8 == 0; cols <= 1280
+    after a LayerNorm, <= 5120 without: every row quantizer of K8 at
+    CLIP-L's and RADIO-H's widths), w8a8.cu otherwise."""
+    if quant_rows_sm90_plan(rows, cols, ln) is not None:
+        return QUANT_ROWS_SM90_ENTRY
+    return "vls_quant_rows"
+
+
+def quant_rows_plain(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                     beta: Optional[torch.Tensor] = None, eps: float = 0.0):
+    """The row quantizers' plain twin: `quantize_activations_rowwise` of x,
+    or of `ops.nn.layer_norm(x)` (fp32, rounded to x's dtype) where gamma
+    and beta are given. The CPU path (`ops.vit_block.vit_layer_plain`)
+    computes the same through `nn.dense`; the tests and chip_smoke hold
+    the kernels to it."""
+    from video_llava_seg_torch.ops import nn
+    from video_llava_seg_torch.ops.quantization import (
+        quantize_activations_rowwise,
+    )
+
+    if gamma is not None:
+        x = nn.layer_norm({"scale": gamma, "bias": beta}, x, eps)
+    return quantize_activations_rowwise(x)
+
+
+def _quant_rows(x, gamma, beta, eps: float, ln: bool, route):
+    if route is not None and route not in QUANT_ROWS_ROUTES:
+        raise ValueError(f"quant_rows: route must be one of "
+                         f"{QUANT_ROWS_ROUTES}, got {route!r}")
     rows, cols = _rows2d(x, "quant_rows x")
     q = torch.empty((rows, cols), device=x.device, dtype=torch.int8)
     scale = torch.empty((rows, 1), device=x.device, dtype=torch.float32)
-    _check_code("quant_rows", LIBRARY.get().vls_quant_rows(
-        _ptr(x), _ptr(gamma), _ptr(beta), _ptr(q), _ptr(scale), rows, cols,
-        float(eps), int(ln), _stream()))
+    entry = route or quant_rows_entry(rows, cols, ln)
+    if entry == QUANT_ROWS_SM90_ENTRY:
+        plan = quant_rows_sm90_plan(rows, cols, ln, _sm_count(x.device.index))
+        if plan is None:
+            raise ValueError(f"quant_rows: {QUANT_ROWS_SM90_ENTRY} does not "
+                             f"take [{rows}, {cols}] (ln {ln})")
+        code = LIBRARY.get().vls_quant_rows_sm90(
+            _ptr(x), _ptr(gamma), _ptr(beta), _ptr(q), _ptr(scale), rows,
+            cols, float(eps), int(ln),
+            int(gamma is not None and gamma.dtype == torch.float32),
+            plan.group, plan.vecs, plan.stages, plan.grid, _stream())
+    else:
+        if gamma is not None:
+            # w8a8.cu takes fp32 gamma / beta
+            gamma, beta = gamma.float(), beta.float()
+        code = LIBRARY.get().vls_quant_rows(
+            _ptr(x), _ptr(gamma), _ptr(beta), _ptr(q), _ptr(scale), rows,
+            cols, float(eps), int(ln), _stream())
+    _check_code("quant_rows", code)
+    QUANT_ROWS_LAUNCHES.add(entry)
     return q, scale
 
 
-def quant_rows(x: torch.Tensor):
+def quant_rows(x: torch.Tensor, route: Optional[str] = None):
     """Per-row symmetric int8 quantization of a contiguous bf16 [rows,
     cols] tensor, bit-equal to `quantize_activations_rowwise`. Returns
-    (int8 [rows, cols], fp32 scale [rows, 1])."""
-    return _quant_rows(x, None, None, 0.0, False)
+    (int8 [rows, cols], fp32 scale [rows, 1]). The shape chooses the
+    kernel (`quant_rows_entry`); `route` names a C entry of
+    QUANT_ROWS_ROUTES instead, for the tests and for timing w8a8.cu."""
+    return _quant_rows(x, None, None, 0.0, False, route)
 
 
 def ln_quant_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                  eps: float):
-    """LayerNorm in fp32 (gamma, beta fp32 [cols]), rounded to bf16, then
-    per-row int8 quantization. Returns (int8 [rows, cols], fp32 [rows,
-    1])."""
+                  eps: float, route: Optional[str] = None):
+    """LayerNorm in fp32 (gamma, beta [cols], both bf16 or both fp32, as
+    the tree stores them), rounded to bf16, then per-row int8
+    quantization. Returns (int8 [rows, cols], fp32 [rows, 1]). `route`
+    as `quant_rows`'."""
     cols = x.shape[-1]
+    if gamma.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"ln_quant_rows: gamma must be bf16 or fp32, got "
+                         f"{gamma.dtype}")
     for t, what in ((gamma, "gamma"), (beta, "beta")):
-        _require(t, f"ln_quant_rows {what}", dtype=torch.float32)
+        _require(t, f"ln_quant_rows {what}", dtype=gamma.dtype)
         if t.numel() != cols:
             raise ValueError(f"ln_quant_rows: {what} must have {cols} "
                              "elements")
-    return _quant_rows(x, gamma, beta, eps, True)
+    return _quant_rows(x, gamma, beta, eps, True, route)
 
 
 def gemm_s8_entry(m: int, k: int, n: int) -> str:

@@ -43,9 +43,13 @@ def sine_pos_embed_on(h: int, w: int, num_pos_feats: int, temperature: int,
                       device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """`sine_pos_embed_hw` as a tensor on `device` in `dtype`, copied from
     the host once per (shape, device, dtype): the FPN neck asks for four of
-    them on every encode (~85 MiB in fp32 at 1024^2)."""
-    return torch.from_numpy(sine_pos_embed_hw(
-        h, w, num_pos_feats, temperature)).to(device, dtype)
+    them on every encode (~85 MiB in fp32 at 1024^2). Built outside
+    inference mode, so that a predictor's first call (under
+    `torch.inference_mode`) caches no inference tensor for a later
+    autograd-recorded call."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(sine_pos_embed_hw(
+            h, w, num_pos_feats, temperature)).to(device, dtype)
 
 
 def sine_pos_embed_1d(pos: torch.Tensor, dim: int,

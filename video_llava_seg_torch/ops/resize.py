@@ -139,9 +139,14 @@ def pil_resize(frames: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 @functools.lru_cache(maxsize=64)
 def _matrix(in_size, out_size, method, antialias, align_corners, device):
     """`_resize_matrix` on `device`, copied from the host once per shape
-    and device (an image resize to 1024^2 reads ~12 MB of them)."""
-    return torch.from_numpy(_resize_matrix(
-        in_size, out_size, method, antialias, align_corners)).to(device)
+    and device (an image resize to 1024^2 reads ~12 MB of them). Built
+    outside inference mode: the SAM2 predictors run under
+    `torch.inference_mode`, and a cached inference tensor would break
+    every later autograd-recorded call at the shape (the tensordot saves
+    it for backward)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_matrix(
+            in_size, out_size, method, antialias, align_corners)).to(device)
 
 
 def _interp_axes(x: torch.Tensor, size: Tuple[int, int], method: str,

@@ -61,10 +61,13 @@ def axial_rope_on(dim: int, end_x: int, end_y: int, theta: float,
     """`axial_rope_cos_sin` tiled `repeat` times along the tokens (memory
     keys: stacked frames of one grid), fp32 on `device`, copied from the
     host once per (grid, dim, repeat, device): memory attention asks for
-    them in every layer of every tracked frame."""
+    them in every layer of every tracked frame. Built outside inference
+    mode, so that the video predictor (under `torch.inference_mode`)
+    caches no inference tensor for a later autograd-recorded call."""
     cos, sin = axial_rope_cos_sin(dim, end_x, end_y, theta)
-    return (torch.from_numpy(np.tile(cos, (repeat, 1))).to(device),
-            torch.from_numpy(np.tile(sin, (repeat, 1))).to(device))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(np.tile(cos, (repeat, 1))).to(device),
+                torch.from_numpy(np.tile(sin, (repeat, 1))).to(device))
 
 
 def _rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):

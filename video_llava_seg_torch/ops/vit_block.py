@@ -31,12 +31,17 @@ A layer whose six denses are all `kernel_qa` (W8A8: int8 weights [in,
 out] with fp32 per-column scales, `quantize_tree(bits=8,
 act_quant=True)`) takes the K8 chain on CUDA, the same steps with every
 dense an int8 product on the tensor cores and the activations quantized
-per row in the kernels (`csrc/w8a8.cu`):
+per row in the kernels:
 
   ln_quant_rows -> gemm_s8 x3 (q with the bf16 attention scale, k, v) ->
-  attention.cu (kv_len mask, scale 1) -> quant_rows -> gemm_s8 (out proj
-  + bias + residual) -> ln_quant_rows -> gemm_s8 (fc1 + bias +
+  attention_sm90.cu (kv_len mask, scale 1) -> quant_rows -> gemm_s8 (out
+  proj + bias + residual) -> ln_quant_rows -> gemm_s8 (fc1 + bias +
   activation) -> quant_rows -> gemm_s8 (fc2 + bias + residual)
+
+(the row quantizers on w8a8_rows_sm90.cu at CLIP's and RADIO's widths,
+the LayerNorm's scale and bias read as the tree stores them; gemm_s8 on
+w8a8_sm90.cu where K and N are multiples of 16; `kernels.quant_rows_entry`
+and `kernels.gemm_s8_entry` send other widths to csrc/w8a8.cu)
 
 Each step rounds to bf16 where the TPU kernel does. A mixed or
 weight-only quantized layer runs `vit_layer_plain` through `nn.dense` on
@@ -117,8 +122,7 @@ def _vit_layer_cuda_i8(p, x, *, num_heads: int, eps: float, kv_len: int,
     x2 = x.reshape(bt * n, d)
 
     def ln(name):
-        return (p[name]["scale"].float().contiguous(),
-                p[name]["bias"].float().contiguous())
+        return p[name]["scale"], p[name]["bias"]
 
     def dense(name, xq, a_scale, **kw):
         w = p[name]

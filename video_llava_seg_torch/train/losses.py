@@ -165,8 +165,11 @@ ENUM_MAX_N = 8
 
 @functools.lru_cache(maxsize=ENUM_MAX_N)
 def _permutations(n: int) -> torch.Tensor:
-    return torch.tensor(list(itertools.permutations(range(n))),
-                        dtype=torch.long)
+    # built outside inference mode: a cached inference tensor would reach
+    # every later call, autograd-recorded ones too
+    with torch.inference_mode(False):
+        return torch.tensor(list(itertools.permutations(range(n))),
+                            dtype=torch.long)
 
 
 def solve_assignment(cost: torch.Tensor):
