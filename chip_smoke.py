@@ -110,7 +110,8 @@ script exits non-zero without printing a result:
   9. train agreement on a small input: one tiny stage-3 QLoRA step on
      the card (kernels, bf16 activations) against the CPU (plain, fp32);
      then the training CLI on the card (tiny, 4 steps, a checkpoint at
-     step 2, resume, the complete flag).
+     step 2, resume, the complete flag), its checkpoint-4 kept for
+     phase 23.
 
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON, the last line is {"ok": true, "device":
@@ -127,11 +128,13 @@ K4_hiera_large and K7_hiera_large (window_attention_sm90.cu at head dim
 dim 56); `launches_by_path` holds every
 path's counts (gemm_s8's by route, on the W8A8 encodes, the only paths
 with `kernel_qa` denses; gemm_bf16's, layernorm's and maxpool2x2's by
-route).
+route), phases 21-23's among them (K5's also by C entry over the W4A8
+beam and sampled calls).
 
 The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
 after phase 4, 14 after phase 5; the SAM2 image slice, 15-17, after 14;
-the SAM2 video slice, 18-20, after 17.
+the SAM2 video slice, 18-20, after 17; the serving entry point's
+sampling, beams and checkpoints, 21-23, after 9.
 
  10. K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
      8 frames at 1024^2 on window_attention_sm90.cu (the route asserted)
@@ -255,6 +258,33 @@ the SAM2 video slice, 18-20, after 17.
  20. tiny card-vs-CPU agreement of sam2-test-tiny's video predictor over
      6 frames with two objects: the logits without hole filling, the
      signs with it.
+ 21. beam search at full width on phase 3's bf16 tree, then on phase 4's
+     W4A8 + int8-KV tree: `llama.beam_generate(num_beams=1)` token-exact
+     with `greedy_generate`; the referral query with num_beams 4 through
+     `get_model_output_frames` (launches counted over that call: K2 = the
+     batch-1 prefill's 32, K5 by C entry 129 x decode steps + 1 on
+     w4a8_gemv_sm90.cu, 128 on w4a8_sm90.cu, 0 on w4a8.cu), its mask
+     logits from the winning beam's hidden states, its text reproduced
+     by `beam_generate` on the same embeddings; the winner's and
+     greedy's length-penalised scores, each from its decode's own
+     log-probs and rescored by one prefill (within BEAM_RESCORE_BOUND);
+     a decode step's host time beside greedy's, the device time of a
+     decode step at 4 rows and at 1 (torch.profiler) and of the cache
+     reorder a step (a CUDA graph).
+ 22. sampling at full width: phase 4's W4A8 batched call (caption +
+     referral, left pad) at temperature 0.2, top_p 0.9 through
+     `get_model_output_batched` (K5 by C entry), the same seed again
+     through `llava.generate` (the same tokens), top_p 1e-9 (the greedy
+     tokens), greedy; a decode step's host time beside greedy's.
+ 23. train -> serve -> score: phase 9's checkpoint-4 through
+     `run_inference` on the card (--load_4bit --num_beams 2) over a
+     synthetic ViCaS directory written here (.npy clip and frames, read
+     by `ArrayFetcher`: the machine has no OpenCV or PIL), the JSON equal
+     to serving the same tree merged in memory (`prepare_params`);
+     `inference.eval` scores it, a tiny seg-head tree's referral and the
+     ground truth itself (1.0); phase 8's full-width QLoRA tree (int8
+     base, adapters attached) served from memory on one caption query
+     (K1 23, K2 32, nothing else).
 """
 
 from __future__ import annotations
@@ -263,11 +293,13 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import zlib
@@ -3306,15 +3338,17 @@ def check_sam2_launches(tag, counts, sc, trunks, decodes, what):
                              f"launches of {CUDA_C_ENTRY}")
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, warm: bool = True):
     """Device time of one warm call of fn: the sum of the device-side
     events (kernels, copies, fills) of a torch.profiler trace, not of the
     host ops that issued them (their device time is the same time again),
-    and its five largest; (None, []) where the trace holds none."""
+    and its five largest; (None, []) where the trace holds none. warm
+    False: fn already ran, the profiled call is the only one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4357,7 +4391,8 @@ def _bytes_of(tensors) -> int:
 
 def phase_train_slice(cfg, seed, dev, steps: int = 3):
     """Three full-width stage-3 QLoRA train steps; returns (counts of the
-    last step, summary)."""
+    last step, summary, the trained params: int8 base, fp32 LoRA and
+    masters, for phase 23 to serve)."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.models import seg_head, vit
     from video_llava_seg_torch.train.optimizer import leaves_with_paths
@@ -4459,12 +4494,12 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
         f"s/step (steps 2..{steps}), first {seconds[0]:.3f} s; peak "
         f"allocated {peak:.1f} GiB; LoRA b unchanged after step 1 (lr 0), "
         "changed after step 2; int8 base bit-identical after every step")
-    del state, tx, params, base, step_fn, batch, lora_b, b_before
+    del state, tx, base, step_fn, batch, lora_b, b_before
     torch.cuda.empty_cache()
     sync()
     return counts, {"steps": rows, "peak_gib": peak,
                     "trainable_bytes": train_b, "frozen_bytes": frozen_b,
-                    "steady_seconds": statistics.mean(seconds[1:])}
+                    "steady_seconds": statistics.mean(seconds[1:])}, params
 
 
 def _tiny_train_cfg():
@@ -4487,11 +4522,12 @@ TRAIN_AGREE_BOUNDS = {"loss": 1e-3, "loss_mask": 1e-2, "grad_norm": 2e-2,
                       "lora_grads": 2e-1}
 
 
-def phase_train_agreement(seed):
+def phase_train_agreement(seed, workdir):
     """One tiny stage-3 QLoRA step on the card and on the CPU, same
-    weights and batch; then the training CLI on the card."""
+    weights and batch; then the training CLI on the card, its output in
+    `workdir` (phase 23 serves its checkpoint-4). Returns (the agreement
+    summary, the CLI's final params on the CPU)."""
     import os
-    import tempfile
 
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.bridge import tree_map
@@ -4554,29 +4590,28 @@ def phase_train_agreement(seed):
                for k, v in rel.items()):
         raise AssertionError("tiny train step: card and CPU disagree")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--stage", "stage3", "--tiny", "--synthetic", "--bits", "8",
-                "--lora_enable", "--device", "cuda", "--save_steps", "2",
-                "--gradient_accumulation_steps", "1", "--output_dir", tmp]
-        train_cli.main(argv + ["--num_train_steps", "2"])
-        first = os.listdir(tmp)
-        train_cli.main(argv + ["--num_train_steps", "4"])
-        with open(os.path.join(tmp, "train_log.jsonl")) as fh:
-            logged = [json.loads(line)["step"] for line in fh]
-        ok = (logged == [1, 2, 3, 4] and "checkpoint-2" in first
-              and os.path.exists(os.path.join(tmp, "checkpoint-4",
-                                              "checkpoint_saved.flag"))
-              and os.path.exists(os.path.join(tmp,
-                                              "training_complete.flag")))
-        log(f"[train-agree] CLI on the card: 2 steps with a checkpoint, then "
-            f"resumed to 4: logged steps {logged}, files "
-            f"{sorted(os.listdir(tmp))}")
-        if not ok:
-            raise AssertionError("training CLI: checkpoint / resume / "
-                                 "complete flag protocol broken")
+    tmp = workdir
+    argv = ["--stage", "stage3", "--tiny", "--synthetic", "--bits", "8",
+            "--lora_enable", "--device", "cuda", "--save_steps", "2",
+            "--gradient_accumulation_steps", "1", "--output_dir", tmp]
+    train_cli.main(argv + ["--num_train_steps", "2"])
+    first = os.listdir(tmp)
+    state = train_cli.main(argv + ["--num_train_steps", "4"])
+    with open(os.path.join(tmp, "train_log.jsonl")) as fh:
+        logged = [json.loads(line)["step"] for line in fh]
+    ok = (logged == [1, 2, 3, 4] and "checkpoint-2" in first
+          and os.path.exists(os.path.join(tmp, "checkpoint-4",
+                                          "checkpoint_saved.flag"))
+          and os.path.exists(os.path.join(tmp, "training_complete.flag")))
+    log(f"[train-agree] CLI on the card: 2 steps with a checkpoint, then "
+        f"resumed to 4: logged steps {logged}, files "
+        f"{sorted(os.listdir(tmp))}")
+    if not ok:
+        raise AssertionError("training CLI: checkpoint / resume / "
+                             "complete flag protocol broken")
     rel["cli_logged_steps"] = logged
     sync()
-    return rel
+    return rel, tree_map(lambda t: t.detach().cpu(), state.params)
 
 
 # the tiny slice runs ~20 layers end to end (tower, LLM, Hiera, decoder)
@@ -4590,6 +4625,534 @@ AGREE_BOUND = 5e-2
 # Measured on an H100 (700 W): 1.75e-2, 0.9987 of the mask signs equal;
 # the bound keeps ~3x of headroom.
 QUANT_AGREE_BOUND = 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the serving entry point's remaining surface: beams, sampling, and
+# train -> serve -> score
+# ---------------------------------------------------------------------------
+
+# a decode's length-penalised score (the mean log-probability of its
+# tokens) against the same tokens rescored by one prefill over prompt and
+# tokens: the prefill runs K2 and 5k-row products where the decode runs
+# the plain attention and 1- or 4-row products, so bf16 / int8 roundings
+# differ. Measured on an H100 (700 W), two seeds: 5.8e-3-6.9e-3 (bf16),
+# 4e-4-1.0e-2 (W4A8 + int8 KV: a per-row int8 level moved); ~2x of
+# headroom. (A 4-beam search need not beat greedy: at random weights,
+# rescored by one prefill, the winner scored 9.6e-4 and 3.4e-3 below
+# greedy's sequence on those seeds; both are printed.)
+BEAM_RESCORE_BOUND = 2e-2
+
+
+def referral_input(cfg, tok, frames, dev):
+    """The referral prompt's ids and the clip, preprocessed on `dev`."""
+    from video_llava_seg_torch.inference import main as serve
+    from video_llava_seg_torch.inference.utils import clip_preprocess_frames
+    from video_llava_seg_torch.mm_utils import tokenizer_image_token
+
+    ids = np.asarray(tokenizer_image_token(
+        serve.build_prompt(cfg, REFERRAL, "llava_llama_3"), tok))[None]
+    video = clip_preprocess_frames(torch.from_numpy(frames).to(dev),
+                                   cfg.vision.image_size)[None]
+    return ids, video.to(torch.bfloat16)
+
+
+def teacher_forced_score(llm, lcfg, embeds, tokens, n: int,
+                         length_penalty: float = 1.0) -> float:
+    """Length-penalised score of tokens[0, :n] after the prompt `embeds`,
+    from one prefill over the prompt and the tokens (the sum of each
+    token's log-probability over n ** length_penalty)."""
+    from video_llava_seg_torch.models import llama
+
+    tok = tokens[:, :n]
+    x = torch.cat([embeds, llama.embed(llm, tok[:, :-1]).to(embeds.dtype)],
+                  dim=1)
+    s = embeds.shape[1]
+    cache = llama.init_kv_cache(lcfg, 1, x.shape[1], embeds.device,
+                                dtype=embeds.dtype)
+    _, hidden, _ = llama.prefill(llm, lcfg, x,
+                                 torch.arange(x.shape[1],
+                                              device=x.device)[None],
+                                 cache, last_logit_only=True)
+    lp = torch.log_softmax(llama.unembed(llm, lcfg, hidden[:, s - 1:]), -1)
+    return float(lp[0].gather(1, tok[0, :, None]).sum()) / n ** \
+        length_penalty
+
+
+def step_device_ms(lcfg, llm, rows: int, prompt_len: int, max_new: int,
+                   dtype, dev):
+    """Device time of one decode step at `rows` rows and of one beam
+    reorder there, at the middle of the decode (the average number of
+    generated slots) on a cache of the serving shape: the step's
+    torch.profiler busy time (its host time is the host's, not this) and
+    the reorder (`_reorder_gen_slots` over K, V and, for an int8 cache,
+    their scales) by a CUDA graph of 10."""
+    from video_llava_seg_torch.models import llama
+
+    cache = llama.init_kv_cache(lcfg, rows, prompt_len + max_new, dev,
+                                dtype=dtype)._replace(
+        length=prompt_len + max_new // 2)
+    emb = llama.embed(llm, torch.zeros((rows, 1), device=dev,
+                                       dtype=torch.long)).to(dtype)
+    step, _ = device_busy_ms(lambda: llama.decode_step(llm, lcfg, emb,
+                                                       cache))
+    parents = torch.arange(rows, device=dev).roll(1)
+
+    def reorder():
+        for x in cache[:2] + cache[3:]:
+            llama._reorder_gen_slots(x, parents, prompt_len, cache.length)
+
+    ms = graph_ms(reorder) if rows > 1 else None
+    del cache
+    torch.cuda.empty_cache()
+    return step, ms
+
+
+def beam_checks(tag, params, cfg, tok, frames, seg, meta, max_new, dev,
+                smi):
+    """One tree's beam checks: num_beams 1 equals greedy; num_beams 4
+    through `get_model_output_frames` on the referral query (launches
+    counted over that call; its seg head reads the winning beam's
+    hidden states), reproduced by `llama.beam_generate` on the same
+    embeddings; the winner's and greedy's scores, each from its own
+    decode and rescored by one prefill (the decode's score within
+    BEAM_RESCORE_BOUND of the rescored one); a decode step's host time
+    beside greedy's, the device time of a decode step at 4 rows and at
+    1 and of the cache reorder. Returns (counts, summary)."""
+    from video_llava_seg_torch.inference import main as serve
+    from video_llava_seg_torch.models import llama, llava
+
+    lcfg = cfg.llm
+    eos = (tok.convert_tokens_to_ids("<|eot_id|>"),)
+    stops = serve.keyword_stop_sequences(tok, "llava_llama_3")
+    ids, video = referral_input(cfg, tok, frames, dev)
+    embeds, _ = llava.embed_prompts(params, cfg, ids, video)
+    kw = dict(max_new_tokens=max_new, eos_token_ids=eos,
+              stop_sequences=tuple(stops))
+    llm = params["llm"]
+    g_info, b_info, g_time, b_time = {}, {}, {}, {}
+    gt, gh, gn = llama.greedy_generate(llm, lcfg, embeds, info=g_info,
+                                       timings=g_time, **kw)
+    bt, bh, bn = llama.beam_generate(llm, lcfg, embeds, num_beams=1, **kw)
+    sync()
+    if bn != gn or not torch.equal(bt, gt):
+        raise AssertionError(f"{tag}: num_beams=1 gave other tokens than "
+                             "greedy")
+    log(f"[{tag}] num_beams=1: {bn} tokens equal to greedy's, hidden "
+        f"states within {float((bh.float() - gh.float()).abs().max()):.3e}")
+
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    text, logits = serve.get_model_output_frames(
+        params, cfg, tok, frames, REFERRAL, "llava_llama_3", max_new,
+        seg_frames_u8=seg, seg_meta=meta, eos_token_ids=list(eos),
+        stop_sequences=stops, num_beams=4)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = snapshot_launches()
+    want_shape = (1, cfg.seg.max_seg_frames, *meta["orig_image_size"])
+    if logits is None or logits.shape != want_shape or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f"{tag}: mask logits "
+                             f"{None if logits is None else logits.shape}, "
+                             f"expected finite {want_shape}")
+    tokens, hidden, n = llama.beam_generate(llm, lcfg, embeds, num_beams=4,
+                                            info=b_info, timings=b_time,
+                                            **kw)
+    sync()
+    if tok.decode(tokens[0, :n].cpu().numpy()).strip() != text:
+        raise AssertionError(f"{tag}: beam_generate on the same embeddings "
+                             "gave another text than the entry point")
+    if not torch.isfinite(hidden[0, :n].float()).all():
+        raise AssertionError(f"{tag}: winning hidden states not finite")
+    score = {"beam": b_info["score"], "greedy": g_info["logprob"][0] / gn}
+    rescored = {"beam": teacher_forced_score(llm, lcfg, embeds, tokens, n),
+                "greedy": teacher_forced_score(llm, lcfg, embeds, gt, gn)}
+    same = n == gn and torch.equal(tokens, gt)
+    log(f"[{tag}] num_beams=4 referral query through "
+        f"get_model_output_frames: {seconds:.3f} s ({n} tokens, "
+        f"{b_info['steps']} decode steps), mask logits "
+        f"{list(logits.shape)} finite from the winning beam's hidden "
+        f"states; length-penalised score from the decode: beam "
+        f"{score['beam']:.6f}, greedy {score['greedy']:.6f}; rescored by "
+        f"one prefill: beam {rescored['beam']:.6f}, greedy "
+        f"{rescored['greedy']:.6f} (the beam's tokens "
+        f"{'equal' if same else 'differ from'} greedy's)")
+    err = max(abs(score[k] - rescored[k]) for k in score)
+    if not err <= BEAM_RESCORE_BOUND:
+        raise AssertionError(f"{tag}: a decode's score is {err:.3e} from "
+                             f"its rescored value (bound "
+                             f"{BEAM_RESCORE_BOUND})")
+
+    s = embeds.shape[1]
+    dev_ms = {r: step_device_ms(lcfg, llm, r, s, max_new, embeds.dtype, dev)
+              for r in (1, 4)}
+    host = {"greedy": g_time["decode"] / g_info["steps"],
+            "beams_4": b_time["decode"] / b_info["steps"]}
+    fmt = (lambda v: "not measured" if v is None else f"{v:.3f} ms")
+    log(f"[{tag}] decode step by the host clock: 4 beams "
+        f"{host['beams_4'] * 1e3:.2f} ms, greedy {host['greedy'] * 1e3:.2f} "
+        f"ms; device time of a decode step at 4 rows {fmt(dev_ms[4][0])}, "
+        f"at 1 row {fmt(dev_ms[1][0])} (torch.profiler, mid-decode; the "
+        f"beam's bookkeeping not included); cache reorder a step (4 beams, "
+        f"{max_new // 2} generated slots) {dev_ms[4][1]:.4f} ms (CUDA "
+        f"graph); {smi}")
+    del embeds, video, gt, gh, bt, bh, tokens, hidden
+    return counts, {"seconds": seconds, "tokens": n,
+                    "decode_steps": b_info["steps"], "score": score,
+                    "rescored": rescored, "host_s_per_step": host,
+                    "step_device_ms": {"rows_4": dev_ms[4][0],
+                                       "rows_1": dev_ms[1][0]},
+                    "reorder_device_ms": dev_ms[4][1]}
+
+
+def phase_beams(cfg, seed, max_new_tokens, dev, smi, hw=(480, 854)):
+    """Phase 21: beam search at full width on phase 3's bf16 tree, then
+    on phase 4's W4A8 + int8-KV tree (K5's launches by C entry over the
+    beam call). Returns (bf16 counts, W4A8 counts, summary); the W4A8
+    tree is returned too, for phase 22."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.models import llava, seg_head, vit
+
+    tok = SmokeTokenizer(cfg.llm.vocab_size)
+    frames, seg, meta = _smoke_inputs(seed, cfg.num_frames, hw,
+                                      cfg.seg.max_seg_frames)
+    params = llava.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev, torch.bfloat16)
+    bf_counts, bf = beam_checks("beams bf16", params, cfg, tok, frames, seg,
+                                meta, max_new_tokens, dev, smi)
+    del params
+    torch.cuda.empty_cache()
+    n_tower = vit.num_layers_run(cfg.vision)
+    sc = seg_head.make_sam2_cfg(cfg.seg)
+    layers = cfg.llm.num_layers
+    expect = {"K1": n_tower, "K2": layers, "K3": sc.twoway_depth,
+              "K4": sc.hiera.depth, "K5": 0, "K6a": 0, "K6b": 0, "K7": 0,
+              "K8": 0}
+    why = {"K1": f"{n_tower} tower layers, one query",
+           "K2": f"{layers} layers of the batch-1 prefill (the K beams "
+                 "decode through the plain twin)",
+           "K3": "image->token attention in the 2 two-way blocks",
+           "K4": "16 Hiera blocks, 8 seg frames batched",
+           "K5": "none: a bf16 tree has no W4A8 dense",
+           "K6a": "none: serving runs no backward",
+           "K6b": "none: serving runs no backward",
+           "K7": "none: K4 runs every Hiera block",
+           "K8": "none: a bf16 tower has no W8A8 layer"}
+    check_launches("beams bf16", bf_counts, expect, why)
+
+    qparams, qcfg = build_quant_params(cfg, seed, dev)
+    q_counts, q = beam_checks("beams w4a8", qparams, qcfg, tok, frames, seg,
+                              meta, max_new_tokens, dev, smi)
+    per_step = 4 * layers + 1
+    steps = q["decode_steps"]
+    expect = dict(expect, K5=per_step * (steps + 1))
+    why = dict(why, K5=f"{per_step} = {layers} layers x 4 fused denses + "
+                       f"lm_head in each of {steps} decode steps at 4 rows, "
+                       f"{4 * layers} prefill denses + the prefill's "
+                       "lm_head", K8="none: the tower is bf16")
+    check_launches("beams w4a8", q_counts, expect, why)
+    want = {kernels.W4A8_GEMV_ENTRY: per_step * steps + 1,
+            "vls_w4a8_sm90": 4 * layers, "vls_w4a8": 0}
+    got = {e: q_counts[e] for e in want}
+    log(f"[beams w4a8] w4a8_matmul launches by C entry over the num_beams=4 "
+        f"call: {got} (expected {want}: {per_step} x {steps} decode steps "
+        f"at 4 rows + the prefill's lm_head on w4a8_gemv_sm90.cu, 4 x "
+        f"{layers} prefill denses on w4a8_sm90.cu, none on w4a8.cu)")
+    if got != want:
+        raise AssertionError(f"beams w4a8: w4a8_matmul routes {got}, "
+                             f"expected {want}")
+    q["k5_by_entry"] = got
+    sync()
+    return bf_counts, q_counts, {"bf16": bf, "w4a8": q}, (qparams, qcfg)
+
+
+def phase_sampling(cfg, quant, seed, max_new_tokens, dev, smi,
+                   hw=(480, 854)):
+    """Phase 22: phase 4's W4A8 batched call (caption + referral, left
+    pad) sampled at temperature 0.2, top_p 0.9 through
+    `get_model_output_batched` (launches counted), then again through
+    `llava.generate` with the same seed (identical tokens), at top_p
+    1e-9 (the greedy tokens) and greedy, with the decode step's host
+    time beside greedy's. Returns (counts, summary)."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.inference import main as serve
+    from video_llava_seg_torch.inference.utils import clip_preprocess_frames
+    from video_llava_seg_torch.models import llava
+
+    params, qcfg = quant
+    tok = SmokeTokenizer(cfg.llm.vocab_size)
+    eos = [tok.convert_tokens_to_ids("<|eot_id|>")]
+    stops = serve.keyword_stop_sequences(tok, "llava_llama_3")
+    frames, seg, meta = _smoke_inputs(seed, cfg.num_frames, hw,
+                                      cfg.seg.max_seg_frames)
+    queries = [(serve.CAPTION_PROMPT, False), (REFERRAL, True)]
+    temp, top_p = 0.2, 0.9
+
+    def gen(s):
+        return torch.Generator(device=dev).manual_seed(s)
+
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    outs = serve.get_model_output_batched(
+        params, qcfg, tok, frames, queries, "llava_llama_3", max_new_tokens,
+        seg_frames_u8=seg, seg_meta=meta, eos_token_ids=eos,
+        stop_sequences=stops, temperature=temp, top_p=top_p,
+        generator=gen(seed))
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = snapshot_launches()
+    logits = outs[1][1]
+    if logits is None or not np.isfinite(logits).all():
+        raise AssertionError("sampling: no finite mask logits")
+
+    ids, lens = serve.batch_prompt_ids(cfg, tok, [q for q, _ in queries],
+                                       "llava_llama_3")
+    video = clip_preprocess_frames(torch.from_numpy(frames).to(dev),
+                                   cfg.vision.image_size)[None].to(
+        torch.bfloat16)
+    kw = dict(max_new_tokens=max_new_tokens, eos_token_ids=tuple(eos),
+              stop_sequences=tuple(stops), pad_side="left", input_lens=lens)
+    runs = {}
+    for name, extra in (
+            ("sampled", dict(temperature=temp, top_p=top_p,
+                             generator=gen(seed))),
+            ("top_p 1e-9", dict(temperature=temp, top_p=1e-9,
+                                generator=gen(seed + 1))),
+            ("greedy", {})):
+        timings = {}
+        tokens, _, n = llava.generate(params, qcfg, ids, video,
+                                      timings=timings, **kw, **extra)
+        sync()
+        runs[name] = (tokens[:, :n].cpu(), n, timings)
+    texts = [tok.decode(t).strip() for t in runs["sampled"][0].numpy()]
+    if texts != [outs[0][0], outs[1][0]]:
+        raise AssertionError("sampling: a second run with the same seed "
+                             "gave other tokens")
+    if not torch.equal(runs["top_p 1e-9"][0], runs["greedy"][0]):
+        raise AssertionError("sampling: top_p 1e-9 did not give the greedy "
+                             "tokens")
+    n = runs["sampled"][1]
+    differ = not torch.equal(runs["sampled"][0], runs["greedy"][0])
+    layers = qcfg.llm.num_layers
+    want = {kernels.W4A8_GEMV_ENTRY: (4 * layers + 1) * n + 1,
+            "vls_w4a8_sm90": 4 * layers, "vls_w4a8": 0}
+    got = {e: counts[e] for e in want}
+    if got != want or counts["K5"] != sum(want.values()):
+        raise AssertionError(f"sampling: w4a8_matmul routes {got}, "
+                             f"expected {want}")
+    step = {k: v[2]["decode"] / v[1] for k, v in runs.items()}
+    log(f"[sampling] W4A8 batch of 2 (caption + referral, left pad) at "
+        f"temperature {temp}, top_p {top_p} through "
+        f"get_model_output_batched: {seconds:.3f} s, {n} decode steps, K5 "
+        f"by C entry {got}; a second run with the same seed gave the same "
+        f"tokens; top_p 1e-9 gave the greedy tokens; the samples "
+        f"{'differ from' if differ else 'equal'} greedy's")
+    log(f"[sampling] decode step by the host clock: sampled "
+        f"{step['sampled'] * 1e3:.2f} ms, top_p 1e-9 "
+        f"{step['top_p 1e-9'] * 1e3:.2f} ms, greedy "
+        f"{step['greedy'] * 1e3:.2f} ms; {smi}")
+    del video
+    return counts, {"seconds": seconds, "decode_steps": n,
+                    "host_s_per_step": step, "differs_from_greedy": differ,
+                    "k5_by_entry": got}
+
+
+class ArrayFetcher:
+    """`VideoAndFrameFetcher`'s surface over a ViCaS directory whose clip
+    and frames are .npy arrays (the card's machine has neither OpenCV nor
+    PIL to decode an mp4 or JPEGs)."""
+
+    def __init__(self, root):
+        self.root = root
+
+    def get_video(self, filename):
+        return np.load(os.path.join(self.root, "ViCaS", "videos", filename))
+
+    def get_frames(self, content, gt_only=True):
+        d = os.path.join(self.root, "ViCaS", "video_frames",
+                         f"{content['video_id']:06d}")
+        segs = [s for s in content["segmentations"]
+                if s["is_gt"] or not gt_only]
+        frames = np.stack([np.load(os.path.join(d, s["filename"]))
+                           for s in segs])
+        n = len(content["segmentations"])
+        return frames, {"orig_image_size": frames.shape[1:3],
+                        "video_id": content["video_id"],
+                        "filenames": [s["filename"] for s in segs],
+                        "timestamps": np.arange(len(segs), dtype=np.float32)
+                        / max(n - 1, 1)}
+
+
+def write_vicas_fixture(root, seed, video_id=7, n_frames=4, hw=(48, 64)):
+    """The tests' synthetic ViCaS layout (videos/, video_frames/,
+    annotations/v1.0/, splits/v1.0/val.json) with the clip and its frames
+    as .npy (see ArrayFetcher): one video, one referral to track 1, whose
+    ground-truth mask is a rectangle on every frame."""
+    from video_llava_seg_torch.ops.masks import encode_rle
+
+    h, w = hw
+    vicas = os.path.join(root, "ViCaS")
+    frames_dir = os.path.join(vicas, "video_frames", f"{video_id:06d}")
+    for d in ("videos", "annotations/v1.0", "splits/v1.0"):
+        os.makedirs(os.path.join(vicas, d))
+    os.makedirs(frames_dir)
+    frames = np.random.default_rng(seed).integers(0, 255, (n_frames, h, w, 3),
+                                                  dtype=np.uint8)
+    np.save(os.path.join(vicas, "videos", "vid7.npy"), frames)
+    mask = np.zeros((h, w), np.uint8)
+    mask[10:30, 10:40] = 1
+    rle = encode_rle(mask)
+    rle["counts"] = rle["counts"].decode("utf-8")
+    segs = []
+    for t in range(n_frames):
+        np.save(os.path.join(frames_dir, f"{t:05d}.npy"), frames[t])
+        segs.append({"filename": f"{t:05d}.npy", "is_gt": True,
+                     "track_ids": [1], "mask_rles": [rle]})
+    content = {"video_id": video_id, "filename": "vid7.npy",
+               "caption_raw_en": "a synthetic scene",
+               "caption_parsed_en_gpt": "a synthetic scene",
+               "object_referrals": [{"prompt": "the bright region",
+                                     "track_ids": [1]}],
+               "segmentations": segs}
+    with open(os.path.join(vicas, "annotations", "v1.0",
+                           f"{video_id:06d}.json"), "w") as fh:
+        json.dump(content, fh)
+    with open(os.path.join(vicas, "splits", "v1.0", "val.json"), "w") as fh:
+        json.dump([video_id], fh)
+    return content
+
+
+def phase_train_serve_score(cfg, workdir, cli_params, qlora_params, seed,
+                            max_new_tokens, dev, smi):
+    """Phase 23: phase 9's checkpoint-4 served by `run_inference` on the
+    card (--load_4bit --num_beams 2, one video of a synthetic ViCaS
+    directory; the tiny training config has no seg head, so captions
+    only) to the JSON of the same tree merged in memory
+    (`prepare_params`); the JSONs, the ground truth re-encoded as a
+    prediction and a tiny tree with a seg head scored by
+    `inference.eval`; then phase 8's full-width QLoRA tree (int8 base,
+    adapters attached) served from memory on one caption query.
+    Returns (QLoRA serving counts, summary)."""
+    from video_llava_seg_torch.bridge import cast_tree
+    from video_llava_seg_torch.inference import eval as vieval
+    from video_llava_seg_torch.inference import main as serve
+    from video_llava_seg_torch.models import llava, vit
+
+    root = os.path.join(workdir, "datasets")
+    content = write_vicas_fixture(root, seed)
+    old_env = os.environ.get("VIDEONET_DATASETS_DIR")
+    os.environ["VIDEONET_DATASETS_DIR"] = root
+    try:
+        ckpt = os.path.join(workdir, "train", "checkpoint-4")
+        tcfg = serve.load_model(ckpt, device="cpu")[1]
+        tok = SmokeTokenizer(tcfg.llm.vocab_size)
+        fetcher = ArrayFetcher(root)
+        out = {k: os.path.join(workdir, "pred", k)
+               for k in ("ckpt", "memory", "seg", "gt")}
+
+        def cli(model_path, out_dir, *flags):
+            return serve.parse_args(["-i", model_path, "-o", out_dir,
+                                     "--max_new_tokens", "4", "--device",
+                                     dev.type, *flags])
+
+        flags = ("--load_4bit", "--num_beams", "2", "--skip_seg")
+        t0 = time.perf_counter()
+        serve.run_inference(cli(ckpt, out["ckpt"], *flags), tokenizer=tok,
+                            fetcher=fetcher)
+        sync()
+        t_ckpt = time.perf_counter() - t0
+        params = serve.prepare_params(cli_params, 4, dev, torch.bfloat16)
+        serve.run_inference(cli("unused", out["memory"], *flags),
+                            model=(params, tcfg, tok), fetcher=fetcher)
+        jsons = {}
+        for k in ("ckpt", "memory"):
+            with open(os.path.join(out[k], "000007.json")) as fh:
+                jsons[k] = json.load(fh)
+        if jsons["ckpt"] != jsons["memory"] or not \
+                jsons["ckpt"]["pred_caption"]:
+            raise AssertionError("the checkpoint served to another JSON "
+                                 "than its tree merged in memory")
+        log(f"[serve-ckpt] checkpoint-4 of the training CLI through "
+            f"run_inference --load_4bit --num_beams 2 on the card: "
+            f"{t_ckpt:.3f} s; the JSON equals the in-memory merge's; "
+            f"caption[:40] {jsons['ckpt']['pred_caption'][:40]!r}")
+
+        # a tiny tree with a seg head: its referral's masks to score
+        scfg = _tiny_cfg()
+        sparams = cast_tree(llava.init(scfg, torch.Generator().manual_seed(
+            seed), "cpu", torch.float32), dev, torch.bfloat16)
+        serve.run_inference(cli("unused", out["seg"]),
+                            model=(sparams, scfg,
+                                   SmokeTokenizer(scfg.llm.vocab_size)),
+                            fetcher=fetcher)
+        os.makedirs(out["gt"])
+        with open(os.path.join(out["gt"], "000007.json"), "w") as fh:
+            json.dump({"video_id": 7, "pred_lgvis_masks": [[
+                {"filename": s["filename"], "mask_rles": s["mask_rles"]}
+                for s in content["segmentations"]]]}, fh)
+        gt_dir = os.path.join(root, "ViCaS", "annotations", "v1.0")
+        scores = {k: vieval.evaluate_dirs(out[k], gt_dir)
+                  for k in ("ckpt", "seg", "gt")}
+        log("[serve-ckpt] inference.eval mean IoU: " + ", ".join(
+            f"{k} {v['mean_iou']:.4f} ({v['num_referrals']} referral)"
+            for k, v in scores.items())
+            + " (ckpt: no seg head, no masks; seg: a random tiny seg head; "
+            "gt: the ground truth as a prediction)")
+        if scores["gt"]["mean_iou"] != 1.0 or not \
+                0.0 <= scores["seg"]["mean_iou"] <= 1.0 or \
+                scores["ckpt"]["num_referrals"] != 1:
+            raise AssertionError(f"inference.eval: scores {scores}")
+    finally:
+        if old_env is None:
+            os.environ.pop("VIDEONET_DATASETS_DIR", None)
+        else:
+            os.environ["VIDEONET_DATASETS_DIR"] = old_env
+
+    # phase 8's QLoRA tree, served from memory: adapters attached to the
+    # int8 base, every other leaf cast to bf16
+    params = serve.prepare_params(qlora_params, None, dev, torch.bfloat16)
+    attached = params["llm"]["layers"][0]["attn"]["wq"]
+    if set(attached) != {"kernel_q", "kernel_scale", "lora"}:
+        raise AssertionError(f"QLoRA tree: wq holds {sorted(attached)}")
+    tok = SmokeTokenizer(cfg.llm.vocab_size)
+    frames, _, _ = _smoke_inputs(seed, cfg.num_frames, (480, 854), 1)
+    reset_launches()
+    sync()
+    timings = {}
+    t0 = time.perf_counter()
+    text, _ = serve.get_model_output_frames(
+        params, cfg, tok, frames, serve.CAPTION_PROMPT, "llava_llama_3",
+        max_new_tokens, eos_token_ids=[tok.convert_tokens_to_ids(
+            "<|eot_id|>")], timings=timings)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = snapshot_launches()
+    if not text:
+        raise AssertionError("QLoRA tree: empty caption")
+    n_tower = vit.num_layers_run(cfg.vision)
+    layers = cfg.llm.num_layers
+    expect = {"K1": n_tower, "K2": layers, "K3": 0, "K4": 0, "K5": 0,
+              "K6a": 0, "K6b": 0, "K7": 0, "K8": 0}
+    why = {"K1": f"{n_tower} tower layers", "K2": f"{layers} prefill layers",
+           "K3": "none: a caption query", "K4": "none: a caption query",
+           "K5": "none: the QLoRA base is weight-only int8",
+           "K6a": "none: serving runs no backward",
+           "K6b": "none: serving runs no backward",
+           "K7": "none: no seg head runs", "K8": "none: a bf16 tower"}
+    check_launches("serve-qlora", counts, expect, why)
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+    log(f"[serve-qlora] phase 8's trained tree (int8 base + fp32 LoRA r=64 "
+        f"attached, cast to bf16) served from memory: caption query "
+        f"{seconds:.3f} s ({stages} s); caption[:40] {text[:40]!r}; {smi}")
+    del params
+    torch.cuda.empty_cache()
+    sync()
+    return counts, {"checkpoint_seconds": t_ckpt, "scores": scores,
+                    "qlora_caption_seconds": seconds,
+                    "qlora_stages": timings}
 
 
 def main(argv=None):
@@ -4663,8 +5226,28 @@ def main(argv=None):
     log(f"[flash] the synthetic train batch splices to {seq_len} tokens")
     phase_flash_bwd_checks(cfg, seq_len, args.seed, dev, results)
     phase_grad_checks(args.seed, dev)
-    train_counts, train = phase_train_slice(cfg, args.seed, dev)
-    train["agreement"] = phase_train_agreement(args.seed)
+    train_counts, train, qlora_params = phase_train_slice(cfg, args.seed,
+                                                          dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        os.makedirs(os.path.join(work, "train"))
+        train["agreement"], cli_params = phase_train_agreement(
+            args.seed, os.path.join(work, "train"))
+        t0 = time.perf_counter()
+        beam_bf16_counts, beam_w4a8_counts, beams, quant_tree = phase_beams(
+            cfg, args.seed, args.max_new_tokens, dev, smi)
+        t1 = time.perf_counter()
+        sampling_counts, sampling = phase_sampling(
+            cfg, quant_tree, args.seed, args.max_new_tokens, dev, smi)
+        del quant_tree
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        qlora_counts, served = phase_train_serve_score(
+            cfg, work, cli_params, qlora_params, args.seed,
+            args.max_new_tokens, dev, smi)
+        t3 = time.perf_counter()
+    del qlora_params
+    log(f"[serving] phases 21 / 22 / 23: {t1 - t0:.1f} / {t2 - t1:.1f} / "
+        f"{t3 - t2:.1f} s")
 
     kernels_out = []
     main_paths = {"K5": quant_counts, "K7": hiera_counts,
@@ -4695,7 +5278,12 @@ def main(argv=None):
                                      amg_counts["defaults"][name],
                                  **{f"sam2_video_{v}":
                                     video_counts[v]["propagate"][name]
-                                    for v in SAM2_VIDEO_VARIANTS}},
+                                    for v in SAM2_VIDEO_VARIANTS},
+                                 "beams_bf16": beam_bf16_counts[name],
+                                 "beams_w4a8": beam_w4a8_counts[name],
+                                 "sampling_w4a8_batched":
+                                     sampling_counts[name],
+                                 "qlora_tree_serving": qlora_counts[name]},
             "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
             "bound": BOUNDS[name] if BOUNDS[name] is not None else "exact",
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -4709,6 +5297,10 @@ def main(argv=None):
         if name == "K5":
             kernels_out[-1]["launches_by_entry"] = {
                 e: quant_counts[e] for e in kernels.W4A8_ROUTES}
+            kernels_out[-1]["launches_by_path"].update({
+                f"{p}_by_entry": {e: c[e] for e in kernels.W4A8_ROUTES}
+                for p, c in (("beams_w4a8", beam_w4a8_counts),
+                             ("sampling_w4a8_batched", sampling_counts))})
             kernels_out[-1]["decode_device"] = k5_device
     # gemm_s8 (K8's int8 dense and int_matmul), counted by route on the
     # W8A8 encodes, the only paths with kernel_qa denses
@@ -4860,6 +5452,9 @@ def main(argv=None):
     log(json.dumps({"sam2_video_slice": {**video,
                                          "tiny_agreement": video_tiny}}))
     log(json.dumps({"train_slice": train}))
+    log(json.dumps({"serving_surface": {"beams": beams,
+                                        "sampling": sampling,
+                                        "train_serve_score": served}}))
     log(json.dumps({"kernels": kernels_out}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 mp4 path of `data/video_io.py`, `inference/video_fetcher.py`, the RLE
 encoder of `ops/masks.py`) pinned to their originals on the same inputs,
 and a fresh interpreter in which importing JAX fails running every port
-module and the quantized, batched `run_inference` on the synthetic ViCaS
-fixture without loading JAX or the JAX package."""
+module, the quantized, batched `run_inference` on the synthetic ViCaS
+fixture and train -> serve -> score without loading JAX or the JAX
+package."""
 
 import json
 import os
@@ -140,6 +141,19 @@ state = train_cli.main([
 assert state.step == 2
 assert os.path.exists(os.path.join(out_dir, "train",
                                    "training_complete.flag"))
+serve = types.SimpleNamespace(**{
+    **vars(args), "model_path": os.path.join(out_dir, "train",
+                                             "checkpoint-2"),
+    "output_dir": os.path.join(out_dir, "served"), "kv_cache_int8": False,
+    "fuse_qkv": False, "batch_queries": 1, "num_beams": 2, "skip_seg": True,
+    "load_4bit": True, "device": "cpu"})
+main.run_inference(serve, tokenizer=FakeTokenizer())
+from video_llava_seg_torch.inference import eval as vieval
+from video_llava_seg_torch.paths import Paths
+gt_dir = str(Paths.vicas_annotations_dir("v1.0"))
+scores = [vieval.evaluate_dirs(d, gt_dir) for d in (out_dir, serve.output_dir)]
+assert [s["num_referrals"] for s in scores] == [1, 1], scores
+assert 0.0 <= scores[0]["mean_iou"] <= 1.0 and scores[1]["mean_iou"] == 0.0
 from video_llava_seg_torch.models.sam2.build import (
     build_sam2_image_predictor,
 )
@@ -167,7 +181,9 @@ print(len(mods))
 def test_port_serves_without_jax(vicas):
     """Every port module imports (the train/ modules included), the
     quantized batched CLI runs end to end, the training CLI takes two
-    tiny stage-3 QLoRA steps, the SAM2 image predictor sets an image and
+    tiny stage-3 QLoRA steps, the serving CLI serves their checkpoint
+    with --load_4bit --num_beams 2 and `inference.eval` scores both
+    outputs, the SAM2 image predictor sets an image and
     predicts and the SAM2 video predictor tracks a point over three frames
     on the CPU, in an interpreter where JAX cannot be imported; afterwards
     no jax / video_llava_seg_tpu module is loaded."""

@@ -128,11 +128,20 @@ def test_run_inference_matches_jax_cli(model, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag,value", [
     ("temperature", 0.7), ("num_beams", 3), ("model_parallel", 2)])
 def test_run_inference_refuses_out_of_slice_flags(flag, value, tmp_path):
+    """The JAX CLI's two gates, beams with sampling and beams with
+    --batch_queries, exit in both packages before anything loads;
+    --model_parallel stays refused (ROADMAP queue 1: parallelism)."""
     args = _args(str(tmp_path))
     setattr(args, flag, value)
-    want = {"temperature": "sampling and beams",
-            "num_beams": "sampling and beams",
-            "model_parallel": "parallelism"}[flag]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1: {want}"):
-        tmain.run_inference(args, model=None)
+    if flag == "model_parallel":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1: parallelism"):
+            tmain.run_inference(args, model=None)
+        return
+    if flag == "temperature":
+        args.num_beams, want = 3, "beam sampling"
+    else:
+        args.batch_queries, want = 2, "one prompt at a time"
+    for package in (tmain, jmain):
+        with pytest.raises(SystemExit, match=want):
+            package.run_inference(args, model=None)

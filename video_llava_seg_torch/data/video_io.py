@@ -92,7 +92,16 @@ def sample_frame_indices(total_frames: int, num_frames: int) -> np.ndarray:
 
 def load_video_uniform(path_or_bytes, num_frames: int,
                        return_timestamps: bool = False):
-    """Decode `num_frames` uniformly sampled RGB frames from an mp4."""
+    """Decode `num_frames` uniformly sampled RGB frames from an mp4 (path
+    or bytes). A [T, H, W, 3] uint8 ndarray is sampled the same way,
+    without decoding."""
+    if isinstance(path_or_bytes, np.ndarray):
+        idx = sample_frame_indices(len(path_or_bytes), num_frames)
+        frames = path_or_bytes[idx]
+        if return_timestamps:
+            return frames, idx.astype(np.float64) / max(
+                len(path_or_bytes) - 1, 1)
+        return frames
     cv2 = _cv2()
     tmp = None
     path = path_or_bytes

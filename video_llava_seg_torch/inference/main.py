@@ -5,9 +5,15 @@ Same flags, same resume-by-output-JSON behaviour and the same output
 schema {video_id, pred_caption, pred_lgvis_masks: [[{filename,
 mask_rles}]]} as the JAX CLI:
 
-    python -m video_llava_seg_torch.inference.main -i <torch checkpoint> \
+    python -m video_llava_seg_torch.inference.main -i <checkpoint dir> \
         -o <out dir> [--load_4bit | --load_8bit] [--kv_cache_int8] \
-        [--fuse_qkv] [--batch_queries N]
+        [--fuse_qkv] [--batch_queries N] [--temperature T [--top_p P] |
+        --num_beams K] [--device cuda|cpu]
+
+Greedy by default; --temperature > 0 samples (nucleus --top_p), one
+generator a video seeded from its video_id, so a resumed run reproduces
+its samples; --num_beams > 1 runs HF-exact beam search, one query at a
+time. `inference/eval.py` scores the output JSONs.
 
 Entry points:
 - `get_model_output_frames`: one query over one clip, uint8 frames in,
@@ -17,9 +23,12 @@ Entry points:
   ragged left-padded generate (--batch_queries; the clip is encoded
   once);
 - `get_model_output`: decodes the mp4, then `get_model_output_frames`;
-- `load_model`: a reference torch checkpoint directory -> (params, cfg,
-  tokenizer) on the card (or the device the caller asks for), with the
-  --load_8bit / --load_4bit gates quantizing the LLM only.
+- `load_model`: a checkpoint directory -> (params, cfg, tokenizer) on
+  the card (or the device the caller asks for): a reference torch
+  checkpoint, or a `checkpoint-<step>/` of the port's trainer
+  (`state.pt`, its LoRA adapters merged); `prepare_params` does the
+  merge, the --load_8bit / --load_4bit gates (the LLM only) and the cast
+  for a params dict already in memory.
 
 mp4 / JPEG decoding, the dataset paths and the RLE codec are the port's
 own copies (`data/video_io.py`, `inference/video_fetcher.py`,
@@ -31,10 +40,9 @@ one when its `config.json` holds the package's config tree with the
 RADIO vision config (`VisionTowerConfig.radio()`: is_radio, one register
 token, final norm) and a projector of `mm_hidden_size` 1280.
 
-Refused with NotImplementedError naming the ROADMAP queue 1 feature:
-sampling and beams, --model_parallel (parallelism), orbax checkpoints
-(the JAX package's format, the only ones that carry LoRA adapters; the
-port's own training checkpoints are the feature to serve instead).
+Refused with NotImplementedError: --model_parallel (ROADMAP queue 1:
+parallelism) and orbax checkpoints (the JAX package's format; the
+machine with the card has no JAX).
 """
 
 from __future__ import annotations
@@ -102,18 +110,45 @@ def get_video_list(gt_dir, version, split, output_dir, overwrite, chunk_idx,
     return ret
 
 
+def prepare_params(params, load_bits: Optional[int] = None, device="cuda",
+                   dtype=torch.bfloat16):
+    """A params dict made ready to serve, in the JAX package's
+    `load_model` order: its `lora` subtree popped and merged
+    (`train.lora.merge_into`: float kernels absorb the delta, a QLoRA
+    int8 base keeps its adapters attached, which `nn.dense` applies);
+    load_bits 8 / 4 quantizing the LLM (`quantize_tree` leaves quantized
+    kernels as they are); then every float leaf but the fp32 scales cast
+    to `dtype` on `device`. Every leaf is detached first, so a training
+    state's trainable leaves serve without autograd recording (and
+    keeping) the activations. The caller's dict is left as it is."""
+    from video_llava_seg_torch.bridge import cast_tree, tree_map
+    from video_llava_seg_torch.ops.quantization import quantize_tree
+    from video_llava_seg_torch.train.lora import merge_into
+
+    params = tree_map(torch.Tensor.detach, params)
+    adapters = params.pop("lora", None)
+    if adapters is not None:
+        params = merge_into(params, adapters)
+    if load_bits is not None:
+        params["llm"] = quantize_tree(params["llm"], load_bits,
+                                      act_quant=load_bits == 4)
+    return cast_tree(params, device, dtype)
+
+
 def load_model(model_path: str, cfg=None, load_bits: Optional[int] = None,
                device="cuda", dtype=torch.bfloat16):
-    """(params, cfg, tokenizer) from a reference torch checkpoint
-    directory (*.safetensors or pytorch_model*.bin, plus config.json).
+    """(params, cfg, tokenizer) from a checkpoint directory: a
+    `checkpoint-<step>/` of the port's trainer (`state.pt`, read with
+    `weights_only=True`, and the config.json beside it), or a reference
+    torch checkpoint (*.safetensors or pytorch_model*.bin, plus
+    config.json). Then `prepare_params`.
 
     load_bits 8 stores the LLM's dense kernels as weight-only int8, 4 as
     W4A8 (packed int4, int8 activations, K5 on the card); the tower, the
-    projector and the seg head stay float, as in the JAX package.
-    Quantization runs on the loaded weights; then every float leaf but
-    the fp32 scales is cast to `dtype` on `device`. The tokenizer is None
-    where `transformers` is missing (the card's machine has none)."""
-    from video_llava_seg_torch.bridge import cast_tree
+    projector and the seg head stay float, as in the JAX package. The
+    tokenizer is None where `transformers` is missing (the card's machine
+    has none) or the directory holds no tokenizer files (a checkpoint of
+    the port's trainer)."""
     from video_llava_seg_torch.config import (
         LlamaConfig,
         ProjectorConfig,
@@ -122,7 +157,7 @@ def load_model(model_path: str, cfg=None, load_bits: Optional[int] = None,
         VisionTowerConfig,
     )
     from video_llava_seg_torch.convert.llava_torch import load_llava_weights
-    from video_llava_seg_torch.ops.quantization import quantize_tree
+    from video_llava_seg_torch.train.trainer import STATE_FILE
 
     cfg_path = osp.join(model_path, "config.json")
     if cfg is None and osp.exists(cfg_path):
@@ -142,31 +177,29 @@ def load_model(model_path: str, cfg=None, load_bits: Optional[int] = None,
     cfg = cfg or VideoLlavaConfig()
 
     tokenizer = None
-    try:
-        from transformers import AutoTokenizer
-    except ImportError:
-        AutoTokenizer = None
-    if AutoTokenizer is not None and osp.isdir(model_path):
-        # local files only: a path that is no directory is never looked
-        # up as a hub repository
+    if any(osp.isfile(osp.join(model_path, f))
+           for f in ("tokenizer_config.json", "tokenizer.json")):
         try:
+            from transformers import AutoTokenizer
+
+            # local files only: nothing is looked up as a hub repository
             tokenizer = AutoTokenizer.from_pretrained(model_path,
                                                       local_files_only=True)
-        except (OSError, ValueError):
+        except (ImportError, OSError, ValueError):
             tokenizer = None
 
-    if osp.isdir(osp.join(model_path, "state")):
-        # orbax is the JAX package's own format, and the only one that
-        # carries LoRA adapters to merge
+    state_path = osp.join(model_path, STATE_FILE)
+    if osp.exists(state_path):
+        params = torch.load(state_path, map_location="cpu",
+                            weights_only=True)["params"]
+    elif osp.isdir(osp.join(model_path, "state")):
         raise NotImplementedError(
-            "orbax checkpoints (the JAX package's format); ROADMAP queue 1: "
-            "serve the port's own training checkpoints")
-    params = load_llava_weights(model_path, cfg)
-    if load_bits is not None:
-        params = dict(params)
-        params["llm"] = quantize_tree(params["llm"], load_bits,
-                                      act_quant=load_bits == 4)
-    return cast_tree(params, device, dtype), cfg, tokenizer
+            "orbax checkpoints (the JAX package's format; the machine with "
+            "the card has no JAX): serve a checkpoint of the port's trainer "
+            f"({STATE_FILE}) or a reference torch checkpoint")
+    else:
+        params = load_llava_weights(model_path, cfg)
+    return prepare_params(params, load_bits, device, dtype), cfg, tokenizer
 
 
 def build_prompt(cfg, qs: str, conv_template_name: str,
@@ -210,12 +243,17 @@ def get_model_output_frames(params, cfg, tokenizer, frames_u8, qs: str,
                             seg_meta: Optional[Dict[str, Any]] = None,
                             eos_token_ids=(), stop_sequences=(),
                             seg_pad_mode: str = "topleft",
+                            temperature: float = 0.0, top_p=None,
+                            generator: Optional[torch.Generator] = None,
+                            num_beams: int = 1,
                             timings: Optional[Dict[str, float]] = None):
     """One query over one clip.
 
     frames_u8: uint8 [T, H, W, 3] (numpy or tensor) sampled video frames;
     seg_frames_u8: uint8 [T', H', W', 3] frames to segment (None: caption
     only), with seg_meta holding at least `orig_image_size`.
+    temperature / top_p / generator (sampling) and num_beams (beam
+    search) go to `llava.generate`.
     Returns (text, mask logits fp32 numpy [N, T', H', W'] or None)."""
     device, dtype = _param_device_dtype(params)
     with stage(timings, "preprocess", device):
@@ -227,7 +265,9 @@ def get_model_output_frames(params, cfg, tokenizer, frames_u8, qs: str,
     tokens, hidden, n = llava.generate(
         params, cfg, input_ids, video, max_new_tokens=max_new_tokens,
         eos_token_ids=tuple(eos_token_ids),
-        stop_sequences=tuple(stop_sequences), timings=timings)
+        stop_sequences=tuple(stop_sequences), temperature=temperature,
+        top_p=top_p, generator=generator, num_beams=num_beams,
+        timings=timings)
     out_ids = tokens[0, :n].cpu().numpy()
     text = tokenizer.decode(out_ids, skip_special_tokens=True).strip()
 
@@ -277,13 +317,17 @@ def get_model_output_batched(params, cfg, tokenizer, frames_u8, queries,
                              seg_meta: Optional[Dict[str, Any]] = None,
                              eos_token_ids=(), stop_sequences=(),
                              seg_pad_mode: str = "topleft",
+                             temperature: float = 0.0, top_p=None,
+                             generator: Optional[torch.Generator] = None,
+                             num_beams: int = 1,
                              timings: Optional[Dict[str, float]] = None):
     """Several queries about ONE clip in one ragged, left-padded generate
     (--batch_queries): the clip is preprocessed and encoded once, its
     visual tokens serve every row, rows stop one by one.
 
     frames_u8: uint8 [T, H, W, 3]; queries: list of (qs, wants_seg);
-    seg_frames_u8 / seg_meta as in `get_model_output_frames`.
+    seg_frames_u8 / seg_meta and the sampling / beam arguments as in
+    `get_model_output_frames` (beams take one query).
     Returns a list of (text, mask logits fp32 numpy [N, T', H', W'] or
     None), one per query."""
     device, dtype = _param_device_dtype(params)
@@ -297,7 +341,8 @@ def get_model_output_batched(params, cfg, tokenizer, frames_u8, queries,
         params, cfg, ids, video, max_new_tokens=max_new_tokens,
         eos_token_ids=tuple(eos_token_ids),
         stop_sequences=tuple(stop_sequences), pad_side="left",
-        input_lens=lens, timings=timings)
+        input_lens=lens, temperature=temperature, top_p=top_p,
+        generator=generator, num_beams=num_beams, timings=timings)
     out_ids = tokens[:, :n].cpu().numpy()
 
     seg_frames = meta = None
@@ -322,10 +367,6 @@ def get_model_output_batched(params, cfg, tokenizer, frames_u8, queries,
 
 
 def _refuse_out_of_slice(args):
-    if float(getattr(args, "temperature", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
-    if int(getattr(args, "num_beams", 1) or 1) > 1:
-        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
     if int(getattr(args, "model_parallel", 1) or 1) > 1:
         raise NotImplementedError("ROADMAP queue 1: parallelism "
                                   "(--model_parallel)")
@@ -355,10 +396,25 @@ def _absorb(pred, content, seg_meta, idx, text, logits, print_captions):
             })
 
 
-def run_inference(args, model=None):
-    """ViCaS inference loop. model: (params, cfg, tokenizer) already on
-    the serving device; without it the checkpoint at args.model_path is
-    loaded onto the card (`load_model`)."""
+def run_inference(args, model=None, tokenizer=None, fetcher=None):
+    """ViCaS inference loop.
+
+    model: (params, cfg, tokenizer) already on the serving device;
+    without it the checkpoint at args.model_path is loaded (`load_model`)
+    onto `args.device` (default the card, in bf16; "cpu" runs the plain
+    versions in fp32). tokenizer: replaces the model's (a checkpoint of
+    the port's trainer carries none). fetcher: the source of each clip
+    and its ground-truth frames (default `VideoAndFrameFetcher(args)`,
+    which decodes with OpenCV and PIL)."""
+    nb = int(getattr(args, "num_beams", 1) or 1)
+    temp = float(getattr(args, "temperature", 0.0) or 0.0)
+    bq = max(1, int(getattr(args, "batch_queries", 1) or 1))
+    if nb > 1 and temp > 0.0:
+        raise SystemExit("--num_beams > 1 with --temperature > 0 (beam "
+                         "sampling) is not supported; pick one")
+    if nb > 1 and bq > 1:
+        raise SystemExit("--num_beams > 1 serves one prompt at a time; "
+                         "drop --batch_queries")
     _refuse_out_of_slice(args)
     from video_llava_seg_torch.data import video_io
     from video_llava_seg_torch.inference.video_fetcher import (
@@ -366,12 +422,16 @@ def run_inference(args, model=None):
     )
 
     if model is not None:
-        params, cfg, tokenizer = model
+        params, cfg, loaded_tok = model
     else:
-        params, cfg, tokenizer = load_model(
+        device = torch.device(getattr(args, "device", None) or "cuda")
+        params, cfg, loaded_tok = load_model(
             args.model_path,
             load_bits=8 if getattr(args, "load_8bit", False)
-            else 4 if getattr(args, "load_4bit", False) else None)
+            else 4 if getattr(args, "load_4bit", False) else None,
+            device=device, dtype=torch.bfloat16 if device.type == "cuda"
+            else torch.float32)
+    tokenizer = tokenizer if tokenizer is not None else loaded_tok
     if getattr(args, "kv_cache_int8", False):
         cfg = dataclasses.replace(
             cfg, llm=dataclasses.replace(cfg.llm, kv_cache_int8=True))
@@ -380,9 +440,9 @@ def run_inference(args, model=None):
 
         params = dict(params)
         params["llm"] = fuse_qkv_gateup(params["llm"])
-    bq = max(1, int(getattr(args, "batch_queries", 1) or 1))
+    device = _param_device_dtype(params)[0]
 
-    fetcher = VideoAndFrameFetcher(args)
+    fetcher = fetcher or VideoAndFrameFetcher(args)
     gt_dir = args.gt_dir or str(Paths.vicas_annotations_dir(
         args.dataset_version))
     output_dir = args.output_dir or osp.join(
@@ -438,6 +498,17 @@ def run_inference(args, model=None):
             return (f"\n{ref['prompt']} Please output the segmentation "
                     "mask."), True
 
+        # sampling mirrors the reference CLI's gate (do_sample iff
+        # temperature > 0); the generator is seeded per video, so a
+        # resumed run reproduces the same samples
+        sample_kwargs = {}
+        if temp > 0.0:
+            sample_kwargs = {
+                "temperature": temp, "top_p": getattr(args, "top_p", None),
+                "generator": torch.Generator(device=device).manual_seed(
+                    video_id)}
+        elif nb > 1:
+            sample_kwargs = {"num_beams": nb}
         if bq > 1:
             # one ragged left-padded generate per bq of the video's
             # queries; the clip decodes and encodes once per group
@@ -449,7 +520,8 @@ def run_inference(args, model=None):
                     [query_of(i) for i in group], conv_template_name,
                     args.max_new_tokens, seg_frames_u8=raw_frames,
                     seg_meta=seg_meta, eos_token_ids=eos_ids,
-                    stop_sequences=stop_seqs, seg_pad_mode=args.seg_pad_mode)
+                    stop_sequences=stop_seqs, seg_pad_mode=args.seg_pad_mode,
+                    **sample_kwargs)
                 for idx, (text, logits) in zip(group, outs):
                     _absorb(pred, content, seg_meta, idx, text, logits,
                             args.print_captions)
@@ -463,14 +535,14 @@ def run_inference(args, model=None):
                     params, cfg, tokenizer, video_bytes, qs,
                     conv_template_name, args.max_new_tokens,
                     eos_token_ids=eos_ids, stop_sequences=stop_seqs,
-                    **kwargs)
+                    **kwargs, **sample_kwargs)
                 _absorb(pred, content, seg_meta, idx, text, logits,
                         args.print_captions)
         with open(output_path, "w") as fh:
             json.dump(pred, fh)
 
 
-def parse_args():
+def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model_path", "-i", required=True)
     p.add_argument("--gt_dir", required=False)
@@ -495,7 +567,9 @@ def parse_args():
     p.add_argument("--fuse_qkv", action="store_true")
     p.add_argument("--kv_cache_int8", action="store_true")
     p.add_argument("--batch_queries", type=int, default=1)
-    return p.parse_args()
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (cuda; cpu for tests)")
+    return p.parse_args(argv)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
-"""Llama-3-shaped decoder LLM, greedy serving path (port of
+"""Llama-3-shaped decoder LLM, serving path (port of
 `video_llava_seg_tpu/models/llama.py`).
 
 RMSNorm, SwiGLU, GQA, 1-D RoPE, a preallocated KV cache (bf16, or int8
-with per-position fp32 scales), left-padded ragged batches, and a greedy
-decode loop that keeps the post-norm hidden state of every emitted token
-(the [SEG] hidden states the seg head reads).
+with per-position fp32 scales), left-padded ragged batches, a greedy or
+sampled decode loop and an HF-exact beam search, each keeping the
+post-norm hidden state of every emitted token (the [SEG] hidden states
+the seg head reads).
 
 Denses go through `ops.nn.dense`, so a quantized tree
 (`init_quantized`, or `ops.quantization.quantize_tree` of a float one)
@@ -18,9 +19,15 @@ cache it reads the int8 K/V and folds the scales in exactly.
 under `torch.utils.checkpoint` (gradient checkpointing), which runs the
 block's attention kernel (K2) a second time in the backward.
 
+Sampling (`greedy_generate` with temperature > 0) cannot reproduce
+`jax.random` bit for bit. Its contract: the same generator seed gives
+the same tokens; the kept set of a step is the JAX package's
+(`nucleus_filter`, pinned to `_select_token` by the CPU tests); and
+top_p -> 0 gives the greedy tokens.
+
 Out of the slice (raise NotImplementedError naming the ROADMAP feature):
-sampling and beam search, the MPT / Mistral switches. `stack_layers`, a
-TPU compile-time workaround, is not ported.
+the MPT / Mistral switches. `stack_layers`, a TPU compile-time
+workaround, is not ported.
 """
 
 from __future__ import annotations
@@ -384,22 +391,78 @@ def decode_step(params, cfg, token_embeds, cache: KVCache, kv_start=None):
     return logits, x, cache._replace(length=cache.length + 1)
 
 
+def nucleus_filter(logits, temperature: float, top_p=None):
+    """[B, V] logits -> fp32 logits / temperature with every token outside
+    the nucleus at -inf (the JAX package's `_select_token` filter, HF
+    TopPLogitsWarper semantics). A token is kept iff the probability mass
+    strictly before it, in descending order, is < top_p; a token whose
+    logit ties the smallest kept one is kept too (`scaled >= thresh`), and
+    the most probable token always survives. top_p None keeps all."""
+    scaled = logits.float() / torch.full((), float(temperature),
+                                         device=logits.device)
+    if top_p is None:
+        return scaled
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+    inf = torch.full((), float("inf"), device=logits.device)
+    thresh = torch.where(keep, srt, inf).amin(dim=-1, keepdim=True)
+    return torch.where(scaled >= thresh, scaled, -inf)
+
+
+def select_token(logits, temperature: float = 0.0, top_p=None,
+                 generator: Optional[torch.Generator] = None):
+    """Next token of each [B, V] logits row: the argmax at temperature 0,
+    else a draw from softmax(`nucleus_filter(...)`) by Gumbel-max over
+    `torch.rand` of `generator` (on the logits' device)."""
+    if not temperature:
+        return torch.argmax(logits, dim=-1)
+    scaled = nucleus_filter(logits, temperature, top_p)
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+
+
+def _stop_hits(tokens, i: int, stop_sequences, max_new_tokens: int):
+    """Rows of tokens [N, max_new] whose emitted tokens [0, i] end with a
+    stop sequence (the reference's KeywordsStoppingCriteria)."""
+    hit = torch.zeros(tokens.shape[0], dtype=torch.bool,
+                      device=tokens.device)
+    for seq in stop_sequences:
+        ln = len(seq)
+        if ln == 0 or ln > max_new_tokens or i + 1 < ln:
+            continue
+        tail = tokens[:, i + 1 - ln:i + 1]
+        hit = hit | (tail == torch.tensor(seq, device=tokens.device)).all(1)
+    return hit
+
+
 def greedy_generate(params, cfg, inputs_embeds, max_new_tokens: int,
                     eos_token_ids: Tuple[int, ...] = (),
                     stop_sequences: Tuple[Tuple[int, ...], ...] = (),
-                    temperature: float = 0.0, pad_lens=None,
-                    timings: Optional[Dict[str, float]] = None):
-    """Greedy decode with the JAX package's loop semantics.
+                    temperature: float = 0.0, pad_lens=None, top_p=None,
+                    generator: Optional[torch.Generator] = None,
+                    timings: Optional[Dict[str, float]] = None,
+                    info: Optional[Dict] = None):
+    """Greedy (or sampled) decode with the JAX package's loop semantics.
+
+    temperature 0 is the argmax; > 0 samples each step from
+    softmax(logits / temperature) filtered to the top_p nucleus
+    (`select_token`), drawing from `generator`, which is then required
+    (a ValueError without it, as the JAX package without an rng key).
 
     pad_lens: optional [B] left-pad counts of a ragged batch (row b's
     prompt fills slots [pad_lens[b], S)): pad keys are masked in prefill
     and decode, and every row's last prompt token sits at S - 1.
 
+    info: optional dict, filled with "steps" (decode steps run) and
+    "logprob" ([B] sum of the model's log-probabilities of each row's
+    emitted tokens, eos included).
+
     Returns (tokens [B, max_new] int64 (eos-padded after a row stops),
     hidden [B, max_new, D] (hidden[:, j] produced token j),
     n_generated int)."""
-    if temperature:
-        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
+    if temperature and generator is None:
+        raise ValueError("temperature > 0 requires a generator")
     b, s, d = inputs_embeds.shape
     dev = inputs_embeds.device
     cache = init_kv_cache(cfg, b, s + max_new_tokens, dev,
@@ -409,11 +472,15 @@ def greedy_generate(params, cfg, inputs_embeds, max_new_tokens: int,
     if pad_lens is not None:
         kv_start = torch.as_tensor(pad_lens, device=dev).long()
         kv_mask = pos >= kv_start[:, None]
+
+    def pick(logits):
+        return select_token(logits, temperature, top_p, generator)
+
     with stage(timings, "prefill", dev):
         logits, hidden, cache = prefill(params, cfg, inputs_embeds, pos,
                                         cache, kv_mask=kv_mask,
                                         last_logit_only=True)
-        tok = torch.argmax(logits[:, -1], dim=-1)
+        tok = pick(logits[:, -1])
     eos = torch.tensor(list(eos_token_ids), device=dev, dtype=torch.long)
     pad_id = int(eos_token_ids[0]) if eos_token_ids else 0
     tokens = torch.zeros((b, max_new_tokens), device=dev, dtype=torch.long)
@@ -421,24 +488,178 @@ def greedy_generate(params, cfg, inputs_embeds, max_new_tokens: int,
                           dtype=inputs_embeds.dtype)
     hiddens[:, 0] = hidden[:, -1]
     done = torch.zeros(b, device=dev, dtype=torch.bool)
+    logprob = torch.zeros(b, device=dev)
     i = 0
     with stage(timings, "decode", dev):
         while i < max_new_tokens and not bool(done.all()):
             # emit token i, decode it, pick token i + 1
             tok = torch.where(done, torch.full_like(tok, pad_id), tok)
             tokens[:, i] = tok
+            if info is not None:
+                lp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+                logprob += torch.where(done, 0.0,
+                                       lp.gather(1, tok[:, None])[:, 0])
             emb = embed(params, tok[:, None]).to(inputs_embeds.dtype)
             logits, h, cache = decode_step(params, cfg, emb, cache,
                                            kv_start=kv_start)
             hiddens[:, i + 1] = h[:, 0]
-            nxt = torch.argmax(logits[:, -1], dim=-1)
-            done = done | torch.isin(tok, eos)
-            for seq in stop_sequences:
-                ln = len(seq)
-                if ln == 0 or ln > max_new_tokens or i + 1 < ln:
-                    continue
-                tail = tokens[:, i + 1 - ln:i + 1]
-                done = done | (tail == torch.tensor(seq, device=dev)).all(1)
+            nxt = pick(logits[:, -1])
+            done = (done | torch.isin(tok, eos)
+                    | _stop_hits(tokens, i, stop_sequences, max_new_tokens))
             tok = nxt
             i += 1
+    if info is not None:
+        info.update(steps=i, logprob=logprob.tolist())
     return tokens, hiddens[:, :max_new_tokens], i
+
+
+def _tile_beams(x, k: int):
+    """A cache array [L, 1, ...] tiled to [L, k, ...] (beam expansion)."""
+    return x.expand(-1, k, *x.shape[2:]).contiguous() if x is not None \
+        else None
+
+
+def _reorder_gen_slots(x, parents, prompt_len: int, length: int):
+    """Permute the beam axis of a cache array [L, K, H, max_len, hd(|1)]
+    IN PLACE over the generated slots written so far, [prompt_len,
+    length). The prefix is written once by the shared prefill, so every
+    beam's prefix holds the same bytes and is never copied; slots from
+    `length` on are written before they are read. The rows are gathered
+    into a new tensor first, so the write does not read its own output."""
+    if x is None or length <= prompt_len:
+        return
+    gen = x[:, :, :, prompt_len:length].index_select(1, parents)
+    x[:, :, :, prompt_len:length] = gen
+
+
+def _top(x, n: int):
+    """The n largest of a 1-D x and their indices, ties to the lower
+    index (`jax.lax.top_k`'s order; `torch.topk` promises none)."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:n], idx[:n]
+
+
+def beam_generate(params, cfg, inputs_embeds, max_new_tokens: int,
+                  eos_token_ids: Tuple[int, ...] = (), num_beams: int = 1,
+                  length_penalty: float = 1.0,
+                  stop_sequences: Tuple[Tuple[int, ...], ...] = (),
+                  timings: Optional[Dict[str, float]] = None,
+                  info: Optional[Dict] = None):
+    """Beam search at batch 1, the JAX package's `beam_generate` step for
+    step (HF's `_beam_search` with early_stopping=False, do_sample=False):
+
+    - each step expands max(2, 1 + n_eos) * K candidates over the K x V
+      accumulated log-probs;
+    - candidates that hit a stopping criterion (eos, max length, a
+      keyword stop sequence) are offered to a fixed K-slot finished pool
+      at sum_logprobs / gen_len ** length_penalty under HF's top-K rank
+      mask, and the pool keeps its best K;
+    - the live set continues with the best K unfinished candidates
+      (finished ones demoted by -1e9);
+    - the loop ends on HF's early-stop heuristic or when every candidate
+      hit a stopping criterion; pool slot 0 is returned.
+
+    Every selection is a stable descending sort, so ties go to the lower
+    index as under `jax.lax.top_k`. The KV cache (float, or int8 with
+    its scales) is tiled to K beams once after the prefill; each step
+    reorders only its generated slots in place (`_reorder_gen_slots`).
+    On the card the K-row decode denses of a W4A8 tree run K5's decode
+    entry (`w4a8_gemv_sm90.cu`, up to 8 rows).
+
+    info: optional dict, filled with "steps" (decode steps run) and
+    "score" (the returned hypothesis's length-penalised score).
+
+    Returns (tokens [1, max_new], hidden [1, max_new, D] of the winning
+    beam (hidden[:, j] produced token j), n_generated int), the contract
+    of `greedy_generate` at batch 1."""
+    b, s, d = inputs_embeds.shape
+    if b != 1:
+        raise ValueError("beam search serves one prompt at a time")
+    k = num_beams
+    n_eos = len(eos_token_ids)
+    kk = max(2, 1 + n_eos) * k              # HF beams_to_keep
+    dev = inputs_embeds.device
+    top_mask = torch.arange(kk, device=dev) < k
+    neg = torch.full((), -1e9, device=dev)  # HF's demotion constant
+    big_l = max_new_tokens
+    vocab = cfg.vocab_size
+    cache = init_kv_cache(cfg, 1, s + big_l, dev, dtype=inputs_embeds.dtype)
+    pos = torch.arange(s, device=dev)[None]
+    with stage(timings, "prefill", dev):
+        logits, hidden, cache = prefill(params, cfg, inputs_embeds, pos,
+                                        cache, last_logit_only=True)
+        lp = torch.log_softmax(logits[0, -1].float(), dim=-1)
+        lp = lp[None].expand(k, -1)
+        cache = KVCache(_tile_beams(cache.k, k), _tile_beams(cache.v, k),
+                        cache.length, _tile_beams(cache.k_scale, k),
+                        _tile_beams(cache.v_scale, k))
+    eos = torch.tensor(list(eos_token_ids), device=dev, dtype=torch.long)
+
+    run_scores = torch.full((k,), -1e9, device=dev)
+    run_scores[0] = 0.0
+    run_tokens = torch.zeros((k, big_l), device=dev, dtype=torch.long)
+    hiddens = torch.zeros((k, big_l + 1, d), device=dev,
+                          dtype=inputs_embeds.dtype)
+    hiddens[:, 0] = hidden[0, -1]
+    fin_scores = torch.full((k,), -1e9, device=dev)
+    fin_tokens = torch.zeros_like(run_tokens)
+    fin_lens = torch.zeros((k,), device=dev, dtype=torch.long)
+    is_fin = torch.zeros((k,), device=dev, dtype=torch.bool)
+    fin_hidden = torch.zeros_like(hiddens)
+    unsat = torch.ones((), device=dev, dtype=torch.bool)
+    i, cont = 0, True
+    with stage(timings, "decode", dev):
+        while i < big_l and cont:
+            acc = run_scores[:, None] + lp[:, :vocab]          # [K, V]
+            t_scores, flat = _top(acc.reshape(-1), kk)
+            parents = torch.div(flat, vocab, rounding_mode="floor")
+            toks = flat % vocab
+            cand_tokens = run_tokens.index_select(0, parents)
+            cand_tokens[:, i] = toks
+            cand_hidden = hiddens.index_select(0, parents)
+
+            # stopping criteria per candidate: eos, max length, stops
+            hits = (torch.isin(toks, eos) | (i + 1 >= big_l)
+                    | _stop_hits(cand_tokens, i, stop_sequences, big_l))
+
+            # live set for the next step: best K unfinished candidates
+            new_run_scores, sel = _top(t_scores + hits.float() * neg, k)
+            sel_parents = parents[sel]
+            next_toks = toks[sel]
+            run_tokens = cand_tokens[sel]
+            new_hiddens = cand_hidden[sel]
+            with torch.profiler.record_function("beam/reorder"):
+                for x in cache[:2] + cache[3:]:
+                    _reorder_gen_slots(x, sel_parents, s, cache.length)
+
+            # finished pool: merge (pool, length-penalised candidates)
+            denom = torch.full((), i + 1.0, device=dev) ** length_penalty
+            lp_fin = t_scores / denom + (~unsat).float() * neg
+            offered = hits & top_mask
+            lp_fin = lp_fin + (~offered).float() * neg
+            fin_scores, mi = _top(torch.cat([fin_scores, lp_fin]), k)
+            fin_tokens = torch.cat([fin_tokens, cand_tokens])[mi]
+            fin_lens = torch.cat([fin_lens, torch.full(
+                (kk,), i + 1, device=dev, dtype=torch.long)])[mi]
+            is_fin = torch.cat([is_fin, offered])[mi]
+            fin_hidden = torch.cat([fin_hidden, cand_hidden])[mi]
+
+            # decode the selected live beams for the next step's log-probs
+            emb = embed(params, next_toks[:, None]).to(inputs_embeds.dtype)
+            logits, h, cache = decode_step(params, cfg, emb, cache)
+            new_hiddens[:, i + 1] = h[:, 0]
+            hiddens = new_hiddens
+            lp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+            run_scores = new_run_scores
+
+            # HF's early-stop heuristic (early_stopping=False): once the
+            # pool is full, stop when the best live sum at this length
+            # cannot beat the worst pooled score
+            best_possible = new_run_scores[0] / denom
+            worst = torch.where(is_fin, fin_scores.min(), neg)
+            unsat = unsat & (best_possible > worst).any()
+            cont = bool(unsat & ~hits.all())
+            i += 1
+    if info is not None:
+        info.update(steps=i, score=float(fin_scores[0]))
+    return fin_tokens[:1], fin_hidden[:1, :big_l], int(fin_lens[0])

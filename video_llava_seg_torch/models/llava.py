@@ -1,9 +1,9 @@
-"""Video-LLaVA-Seg multimodal glue, greedy serving path (port of
+"""Video-LLaVA-Seg multimodal glue, serving path (port of
 `video_llava_seg_tpu/models/llava.py`).
 
 vision tower -> projector -> slow/fast token split -> host-planned splice
--> one gather into the LLM embeddings -> greedy generate -> [SEG] hidden
-states -> SAM2 seg head.
+-> one gather into the LLM embeddings -> greedy, sampled or beam generate
+-> [SEG] hidden states -> SAM2 seg head.
 
 `build_splice_plan` and `visual_tokens_per_sample` are numpy copies of
 the JAX package's (which cannot be imported without JAX); a CPU test
@@ -175,7 +175,7 @@ def assemble_embeds(params, text_ids: torch.Tensor, gather_idx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# forward (training), generate (greedy) and the seg head
+# forward (training), generate and the seg head
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg, video: torch.Tensor, plan: Dict,
@@ -199,28 +199,12 @@ def forward(params, cfg, video: torch.Tensor, plan: Dict,
                              return_logits=return_logits)
 
 
-def generate(params, cfg, input_ids: np.ndarray, video: torch.Tensor,
-             max_new_tokens: int = 256,
-             eos_token_ids: Tuple[int, ...] = (),
-             stop_sequences: Tuple[Tuple[int, ...], ...] = (),
-             pad_side: str = "right",
-             input_lens: Optional[np.ndarray] = None,
-             temperature: float = 0.0, num_beams: int = 1,
-             timings: Optional[Dict[str, float]] = None):
-    """Greedy caption generation, batch-native.
-
-    input_ids: [B, S] numpy with IMAGE_TOKEN_INDEX sentinels; ragged
-    prompts give their lengths in `input_lens` and batch with
-    pad_side='left' (pad keys masked in prefill and decode, rows stop
-    one by one). video: [B, T, H, W, 3] normalised on the model's device,
-    or [1, T, H, W, 3] with B > 1 prompts: the clip is then encoded once
-    and its visual tokens serve every row (several queries about one
-    clip, --batch_queries).
-    Returns (tokens [B, max_new], hidden [B, max_new, D], n_generated)."""
-    if temperature:
-        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
-    if num_beams > 1:
-        raise NotImplementedError("ROADMAP queue 1: sampling and beams")
+def embed_prompts(params, cfg, input_ids: np.ndarray, video: torch.Tensor,
+                  pad_side: str = "right",
+                  input_lens: Optional[np.ndarray] = None,
+                  timings: Optional[Dict[str, float]] = None):
+    """The LLM's input: splice plan, video encode and one gather.
+    Returns (embeds [B, L, D], left-pad counts [B] numpy or None)."""
     plan = build_splice_plan(np.asarray(input_ids),
                              visual_tokens_per_sample(cfg),
                              max_length=cfg.tokenizer_model_max_length,
@@ -238,11 +222,51 @@ def generate(params, cfg, input_ids: np.ndarray, video: torch.Tensor,
     pad_lens = None
     if pad_side == "left":
         pad_lens = plan.gather_idx.shape[1] - plan.seq_lens
+    return embeds, pad_lens
+
+
+def generate(params, cfg, input_ids: np.ndarray, video: torch.Tensor,
+             max_new_tokens: int = 256,
+             eos_token_ids: Tuple[int, ...] = (),
+             stop_sequences: Tuple[Tuple[int, ...], ...] = (),
+             pad_side: str = "right",
+             input_lens: Optional[np.ndarray] = None,
+             temperature: float = 0.0, top_p=None,
+             generator: Optional[torch.Generator] = None,
+             num_beams: int = 1, length_penalty: float = 1.0,
+             timings: Optional[Dict[str, float]] = None):
+    """Caption generation, batch-native: greedy by default, sampled at
+    temperature > 0 (top_p nucleus, draws from `generator`: see
+    `llama.greedy_generate`), beam search at num_beams > 1
+    (`llama.beam_generate`, batch 1 only; sampling and beams are
+    exclusive, a ValueError either way, as in the JAX package).
+
+    input_ids: [B, S] numpy with IMAGE_TOKEN_INDEX sentinels; ragged
+    prompts give their lengths in `input_lens` and batch with
+    pad_side='left' (pad keys masked in prefill and decode, rows stop
+    one by one). video: [B, T, H, W, 3] normalised on the model's device,
+    or [1, T, H, W, 3] with B > 1 prompts: the clip is then encoded once
+    and its visual tokens serve every row (several queries about one
+    clip, --batch_queries).
+    Returns (tokens [B, max_new], hidden [B, max_new, D], n_generated)."""
+    if num_beams > 1:
+        if temperature:
+            raise ValueError("beam search and sampling are exclusive "
+                             "(HF beam-sample is not supported)")
+        if np.asarray(input_ids).shape[0] != 1:
+            raise ValueError("beam search serves one prompt at a time")
+    embeds, pad_lens = embed_prompts(params, cfg, input_ids, video,
+                                     pad_side, input_lens, timings)
+    kw = dict(max_new_tokens=max_new_tokens,
+              eos_token_ids=tuple(eos_token_ids),
+              stop_sequences=tuple(stop_sequences), timings=timings)
+    if num_beams > 1:
+        return llama.beam_generate(params["llm"], cfg.llm, embeds,
+                                   num_beams=num_beams,
+                                   length_penalty=length_penalty, **kw)
     return llama.greedy_generate(params["llm"], cfg.llm, embeds,
-                                 max_new_tokens=max_new_tokens,
-                                 eos_token_ids=tuple(eos_token_ids),
-                                 stop_sequences=tuple(stop_sequences),
-                                 pad_lens=pad_lens, timings=timings)
+                                 pad_lens=pad_lens, temperature=temperature,
+                                 top_p=top_p, generator=generator, **kw)
 
 
 def extract_seg_hidden(tokens, hidden, seg_token_idx: int, n_generated: int,
