@@ -125,7 +125,8 @@ maxpool2x2 (their sm90 entries' launches), of the Hiera-L video
 propagation (phase 18) for K2_hd256 (K2 at head dim 256),
 K4_hiera_large and K7_hiera_large (window_attention_sm90.cu at head dim
 72), of Hiera-B+'s set_image (phase 19) for K7_hiera_base_plus (head
-dim 56); `launches_by_path` holds every
+dim 56), of each family's W4A8 batched call (phases 24 / 25) for
+K2_window / K2_alibi; `launches_by_path` holds every
 path's counts (gemm_s8's by route, on the W8A8 encodes, the only paths
 with `kernel_qa` denses; gemm_bf16's, layernorm's and maxpool2x2's by
 route), phases 21-23's among them (K5's also by C entry over the W4A8
@@ -134,7 +135,8 @@ beam and sampled calls).
 The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
 after phase 4, 14 after phase 5; the SAM2 image slice, 15-17, after 14;
 the SAM2 video slice, 18-20, after 17; the serving entry point's
-sampling, beams and checkpoints, 21-23, after 9.
+sampling, beams and checkpoints, 21-23, after 9; the Mistral and MPT
+families, 24-25, after 23.
 
  10. K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
      8 frames at 1024^2 on window_attention_sm90.cu (the route asserted)
@@ -285,6 +287,32 @@ sampling, beams and checkpoints, 21-23, after 9.
      ground truth itself (1.0); phase 8's full-width QLoRA tree (int8
      base, adapters attached) served from memory on one caption query
      (K1 23, K2 32, nothing else).
+ 24. Mistral-7B at full width (`LlamaConfig.mistral_7b()`: 32 layers, GQA
+     32 / 8, sliding window 4096; the mistral_instruct template; CLIP-L
+     over 32 frames, SAM2.1-hiera-small at 1024^2 x 8): K2 with the window
+     (attention_sm90.cu) at the caption prefill [1, 32, S, 128] and the
+     left-padded batch-2 prefill against `attention_reference(window=)` in
+     fp32 (`K2_window` lines; timed over 10 launches back to back and by
+     device time beside the twin, K2 without the window on the same inputs
+     and SDPA with the boolean band mask; the bound
+     4 D heads sum_i min(i + 1, 4096) operations), the prompt asserted to
+     exceed the window by >= 1000 rows, windows 1, 100 and past the prompt
+     checked; then the W4A8 + int8-KV + fused batched call (caption +
+     referral) and the bf16 batch-1 caption, each counted: K2 32 a
+     prefill, all on attention_sm90.cu, 0 on attention.cu; K5 by C entry
+     (4 x 32 on w4a8_sm90.cu, 129 x decode steps + 1 on
+     w4a8_gemv_sm90.cu, 0 on w4a8.cu); K1 / K3 / K4 as phases 3 / 4; the
+     bf16 tree's decode step's device time (torch.profiler).
+ 25. MPT-7B the same way (`mpt_7b()`: MHA, ALiBi, LayerNorm, erf-GELU MLP,
+     tied head; the mpt template): K2 with ALiBi as the per-head key bias
+     against `attention_reference(alibi=True)` (slope_h * (j - i)), SDPA
+     with the bf16 float mask as its library column (`K2_alibi` lines); K5
+     128 a step (no head: it is tied) and 4 x 32 on w4a8_sm90.cu; the tied
+     head's bf16 product timed. Then both families' tiny decoders (head
+     dim 128) on the card vs the CPU: prefill logits within AGREE_BOUND,
+     greedy tokens equal up to the first step whose CPU top-two margin is
+     below TINY_FAMILY_MARGIN x the prefill logits' largest difference, at
+     batch 1 and a left-padded batch 2.
 """
 
 from __future__ import annotations
@@ -443,7 +471,10 @@ BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
           # chain at head dim 72 (its global block padded to 80)
           "K2_hd256": 1e-2, "K4_hiera_large": 2e-2,
           # K7 at Hiera-L's head dim 72 and Hiera-B+'s 56: K7
-          "K7_hiera_large": 1e-2, "K7_hiera_base_plus": 1e-2}
+          "K7_hiera_large": 1e-2, "K7_hiera_base_plus": 1e-2,
+          # K2 with Mistral's window (fewer keys a row) and with MPT's
+          # ALiBi (the same products, the scores in natural units): K2
+          "K2_window": 1e-2, "K2_alibi": 1e-2}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -5155,6 +5186,487 @@ def phase_train_serve_score(cfg, workdir, cli_params, qlora_params, seed,
                     "qlora_stages": timings}
 
 
+# ---------------------------------------------------------------------------
+# the Mistral and MPT families (phases 24-25)
+# ---------------------------------------------------------------------------
+
+# the conversation template each family serves with
+FAMILY_TEMPLATES = {"mistral": "mistral_instruct", "mpt": "mpt"}
+# Mistral's window checked (not timed) besides its own 4096: one key, a
+# short band, and past the prompt (the causal mask alone)
+WINDOW_EDGES = (1, 100)
+# the tiny family decoders of the card-vs-CPU agreement: head dim 128 (the
+# only one K2 takes a window or a per-head bias at), 2 layers, a prompt of
+# 40 tokens, Mistral's window cut to 8 slots
+TINY_FAMILY_PROMPT = 40
+TINY_FAMILY_WINDOW = 8
+# the least top-two margin (in logits, CPU fp32) of a greedy step whose
+# token the card must reproduce, in units of the largest difference of the
+# two sides' prefill logits: the card runs bf16 products and K2 with bf16
+# P, the CPU fp32 ones (on the same bf16-rounded weights), so a step
+# whose two best logits lie closer than a few such differences is a near
+# tie either side may break
+TINY_FAMILY_MARGIN = 4.0
+# the spread the tiny decoders' head is scaled to (the std of the prompt's
+# logits), so that greedy steps are rarely near ties: at the init's own
+# scale MPT's tied head gives logits ~0.3 apart at most
+TINY_FAMILY_LOGIT_STD = 4.0
+
+
+def family_cfg(cfg, name):
+    """`cfg` with the family's full-width LLM (`LlamaConfig.mistral_7b()` /
+    `mpt_7b()`), the [SEG] token the last id of its vocabulary."""
+    from video_llava_seg_torch.config import LlamaConfig
+
+    lc = (LlamaConfig.mistral_7b() if name == "mistral"
+          else LlamaConfig.mpt_7b())
+    return dataclasses.replace(cfg, llm=lc, seg_token_idx=lc.vocab_size - 1)
+
+
+def window_keys(rows: int, window: int) -> int:
+    """Keys the causal rows 0..rows-1 see under a window: sum_i min(i + 1,
+    window) (every key without one: window >= rows)."""
+    w = min(window, rows)
+    return w * (w + 1) // 2 + (rows - w) * w
+
+
+def family_prompt_lens(cfg, name, tok):
+    """(the spliced caption prompt's length at batch 1; the caption +
+    referral batch's padded length and its shorter row's left pad) under
+    the family's template."""
+    from video_llava_seg_torch.inference import main as serve
+    from video_llava_seg_torch.mm_utils import tokenizer_image_token
+    from video_llava_seg_torch.models import llava
+
+    tmpl = FAMILY_TEMPLATES[name]
+    ids = np.asarray(tokenizer_image_token(
+        serve.build_prompt(cfg, serve.CAPTION_PROMPT, tmpl), tok))[None]
+    per_image = llava.visual_tokens_per_sample(cfg)
+    s = int(llava.build_splice_plan(ids, per_image).seq_lens[0])
+    bids, blens = serve.batch_prompt_ids(
+        cfg, tok, [serve.CAPTION_PROMPT, REFERRAL], tmpl)
+    plan = llava.build_splice_plan(bids, per_image, pad_side="left",
+                                   input_lens=blens)
+    batch_len = plan.gather_idx.shape[1]
+    return s, batch_len, int(batch_len - plan.seq_lens.min())
+
+
+def _k2_agree(tag, got, want):
+    """A correctness-only K2 check within BOUNDS["K2"] (relative to the
+    largest output of the fp32 twin)."""
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-6)
+    log(f"[check] {tag}: max_abs_err {err:.4e}, rel {rel:.3e} (bound "
+        f"{BOUNDS['K2']:.0e})")
+    if not math.isfinite(rel) or rel > BOUNDS["K2"]:
+        raise AssertionError(f"{tag}: rel err {rel:.3e} > bound")
+
+
+def phase_family_kernel_checks(name, fcfg, s, batch_len, pad, seed, dev,
+                               results):
+    """K2's family forms at the shapes of the family's prefill, against the
+    fp32 twin: Mistral's window (4096, causal GQA 32 / 8) at batch 1 over
+    the caption prompt and at the left-padded batch 2 (the per-key pad
+    bias), and at windows 1, 100 and past the prompt; MPT's ALiBi (the
+    per-head key bias, causal MHA) at both. Timed over 10 launches back
+    to back and by device time (a CUDA graph of 10) beside the twin, K2
+    with no window / bias on the same inputs, and SDPA with the equivalent
+    mask (Mistral: a boolean mask; MPT: the bf16 float mask slope_h * (j -
+    i) with -inf past the diagonal and on pad keys)."""
+    import torch.nn.functional as F
+
+    from video_llava_seg_torch.ops.attention import (
+        alibi_slopes,
+        attention,
+        attention_reference,
+    )
+
+    lc = fcfg.llm
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 24)
+    key = "K2_window" if lc.sliding_window else "K2_alibi"
+    fam = (dict(window=lc.sliding_window) if lc.sliding_window
+           else dict(alibi=True))
+    what = (f"window {lc.sliding_window}" if lc.sliding_window
+            else "ALiBi (per-head key bias)")
+    w = lc.sliding_window or 1 << 30
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    def sdpa_mask(rows, kv_mask=None):
+        i = torch.arange(rows, device=dev)
+        rel = i[None, :] - i[:, None]
+        ok = (rel <= 0) & (rel > -w)
+        if lc.use_alibi:
+            slopes = torch.from_numpy(alibi_slopes(lc.num_heads)).to(dev)
+            m = torch.where(ok, slopes[:, None, None] * rel.float(),
+                            -math.inf)[None]
+            if kv_mask is not None:
+                m = m.masked_fill(~kv_mask[:, None, None, :], -math.inf)
+            return m.to(bf)
+        ok = ok[None, None]
+        return ok if kv_mask is None else ok & kv_mask[:, None, None, :]
+
+    for batch, rows in ((1, s), (2, batch_len)):
+        q = randn(batch, lc.num_heads, rows, lc.head_dim)
+        k = randn(batch, lc.num_kv_heads, rows, lc.head_dim)
+        v = randn(batch, lc.num_kv_heads, rows, lc.head_dim)
+        kv_mask = None
+        real = slice(None)
+        keys = window_keys(rows, w)
+        if batch == 2:
+            kv_mask = torch.ones(2, rows, dtype=torch.bool, device=dev)
+            kv_mask[1, :pad] = False
+            real = slice(pad, None)
+            keys += window_keys(rows - pad, w)
+        kw = dict(causal=True, kv_mask=kv_mask)
+        got = attention(q, k, v, **kw, **fam)
+        sync()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{key}: non-finite output")
+        del got
+        mask = sdpa_mask(rows, kv_mask)
+        bias_bytes = (4 * batch * lc.num_heads * rows if lc.use_alibi
+                      else 4 * batch * rows if batch == 2 else 0)
+        work = (2 * _nbytes(q, k, v, q) + bias_bytes,
+                4 * lc.num_heads * lc.head_dim * keys, PEAK_BF16)
+        tag = (f"q{list(q.shape)} kv{list(k.shape)} causal, {what}"
+               + (f", row 1 left-padded by {pad}, real query rows compared"
+                  if batch == 2 else ""))
+        _check(key, tag,
+               lambda: attention(q, k, v, **kw, **fam)[:, :, real],
+               lambda: attention_reference(q, k, v, **kw, **fam)[:, :, real],
+               lambda: attention_reference(q.float(), k.float(), v.float(),
+                                           **kw, **fam)[:, :, real],
+               results, work,
+               run_library=lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask,
+                   enable_gqa=lc.num_kv_heads != lc.num_heads),
+               run_previous=lambda: attention(q, k, v, **kw),
+               previous="K2 causal (no window / head bias)", train=10,
+               device_time=True)
+        if lc.use_alibi:
+            lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            want = attention_reference(q.float(), k.float(), v.float(),
+                                       **kw, **fam)
+            sync()
+            err = ((lib[:, :, real].float() - want[:, :, real]).abs().max()
+                   / want[:, :, real].abs().max()).item()
+            log(f"[check] {key} {tag}: SDPA with the bf16 ALiBi mask, rel "
+                f"err {err:.3e} against the fp32 twin (not bounded: its "
+                f"mask rounds slope_h * (j - i) to bf16)")
+            del lib, want
+        if lc.sliding_window and batch == 1:
+            cut = rows - lc.sliding_window
+            log(f"[check] {key}: the window cuts keys on {cut} of the "
+                f"{rows} query rows")
+            if cut < 1000:
+                raise AssertionError(f"the prompt ({rows}) does not exceed "
+                                     f"the window by 1000 rows")
+            for edge in WINDOW_EDGES + (rows + 7,):
+                _k2_agree(f"K2 window {edge} q{list(q.shape)} causal",
+                          attention(q, k, v, causal=True, window=edge),
+                          attention_reference(q.float(), k.float(),
+                                              v.float(), causal=True,
+                                              window=edge))
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+
+
+def phase_family(name, cfg, seed, max_new_tokens, dev, smi, results,
+                 hw=(480, 854)):
+    """Phase 24 (Mistral-7B) / 25 (MPT-7B) at full width: K2's family form
+    against the twin (`phase_family_kernel_checks`), then the W4A8 +
+    int8-KV + fused batched path (caption + referral in one
+    `get_model_output_batched` call) and the bf16 batch-1 caption
+    (`get_model_output_frames`), each under the family's template, with
+    the launches counted over exactly that call: K2 = 32 a prefill, all on
+    attention_sm90.cu; K5 by C entry; K1 / K3 / K4 as phases 3 / 4. Then
+    the bf16 tree's decode step's device time (torch.profiler) and, for
+    MPT, the tied head's product by CUDA events. Returns (the W4A8 call's
+    counts, summary)."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.inference import main as serve
+    from video_llava_seg_torch.models import llama, llava, seg_head, vit
+    from video_llava_seg_torch.ops.quantization import quantized_nbytes
+
+    fcfg = family_cfg(cfg, name)
+    lc = fcfg.llm
+    tag = f"family {name}"
+    tok = SmokeTokenizer(lc.vocab_size)
+    tmpl = FAMILY_TEMPLATES[name]
+    s, batch_len, pad = family_prompt_lens(fcfg, name, tok)
+    log(f"[{tag}] {lc.num_layers} layers, {lc.num_heads} / "
+        f"{lc.num_kv_heads} heads, window {lc.sliding_window}, ALiBi "
+        f"{lc.use_alibi}, {lc.norm_type}, {lc.mlp_type}, tied head "
+        f"{lc.tie_word_embeddings}; the {tmpl} caption prompt splices to "
+        f"{s} tokens, the caption + referral batch to 2 x {batch_len} (pad "
+        f"{pad})")
+    t0 = time.perf_counter()
+    phase_family_kernel_checks(name, fcfg, s, batch_len, pad, seed, dev,
+                               results)
+    t_checks = time.perf_counter() - t0
+
+    eos = [tok.convert_tokens_to_ids("<|eot_id|>")]
+    stops = serve.keyword_stop_sequences(tok, tmpl)
+    frames, seg, meta = _smoke_inputs(seed, fcfg.num_frames, hw,
+                                      fcfg.seg.max_seg_frames)
+    n_tower = vit.num_layers_run(fcfg.vision)
+    sc = seg_head.make_sam2_cfg(fcfg.seg)
+    layers = lc.num_layers
+    none = dict(K6a=0, K6b=0, K7=0, K8=0)
+    why_none = {"K6a": "none: serving runs no backward",
+                "K6b": "none: serving runs no backward",
+                "K7": "none: K4 runs every Hiera block",
+                "K8": "none: the tower is bf16"}
+
+    # the W4A8 + int8-KV + fused batched path
+    t0 = time.perf_counter()
+    params, qcfg = build_quant_params(fcfg, seed, dev)
+    sync()
+    llm_gb = quantized_nbytes(params["llm"]) / 1e9
+    log(f"[{tag} w4a8] init: W4A8 LLM {llm_gb:.3f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    queries = [(serve.CAPTION_PROMPT, False), (REFERRAL, True)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sync()
+    timings = {}
+    t1 = time.perf_counter()
+    outs = serve.get_model_output_batched(
+        params, qcfg, tok, frames, queries, tmpl, max_new_tokens,
+        seg_frames_u8=seg, seg_meta=meta, eos_token_ids=eos,
+        stop_sequences=stops, timings=timings)
+    sync()
+    w4a8_s = time.perf_counter() - t1
+    counts = snapshot_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    (cap_text, cap_logits), (ref_text, logits) = outs
+    log(f"[{tag} w4a8] caption + referral in one batched call: {w4a8_s:.3f}"
+        f" s (" + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+        + f" s); peak allocated {peak:.1f} GiB; caption[:60] "
+        f"{cap_text[:60]!r}")
+    want_shape = (1, fcfg.seg.max_seg_frames, *hw)
+    if not cap_text or cap_logits is not None:
+        raise AssertionError(f"{tag}: caption row: empty text or a mask")
+    if logits is None or logits.shape != want_shape \
+            or not np.isfinite(logits).all():
+        raise AssertionError(f"{tag}: referral mask logits not finite "
+                             f"{want_shape}")
+    # K5 a step: the fused qkv, wo, the MLP's two denses (Mistral's fused
+    # gate-up; MPT's up) a layer, and the head where it is not tied
+    head = 0 if lc.tie_word_embeddings else 1
+    per_step = 4 * layers + head
+    steps = counts["K5"] // per_step - 1
+    if counts["K5"] % per_step or not 1 <= steps <= max_new_tokens:
+        raise AssertionError(f"{tag}: {counts['K5']} K5 launches are no "
+                             f"whole number of {per_step}-product steps")
+    expect = {"K1": n_tower, "K2": layers, "K3": sc.twoway_depth,
+              "K4": sc.hiera.depth, "K5": per_step * (1 + steps), **none}
+    why = {"K1": f"{n_tower} tower layers, the clip encoded once",
+           "K2": f"{layers} layers of one batch-2 prefill, {what_k2(lc)}",
+           "K3": "image->token attention in the 2 two-way blocks, the "
+                 "referral row only",
+           "K4": "16 Hiera blocks, 8 seg frames batched",
+           "K5": f"{per_step} = {layers} layers x 4 fused denses"
+                 + (" + lm_head" if head else " (tied head: no K5)")
+                 + f", in the prefill and in each of {steps} decode steps",
+           **why_none}
+    check_launches(f"{tag} w4a8", counts, expect, why)
+    if counts["sm90 entry"] < layers or counts["attention.cu entry"]:
+        raise AssertionError(f"{tag}: K2 off attention_sm90.cu")
+    want = {kernels.W4A8_GEMV_ENTRY: per_step * steps + head,
+            "vls_w4a8_sm90": 4 * layers, "vls_w4a8": 0}
+    got = {e: counts[e] for e in want}
+    log(f"[{tag} w4a8] w4a8_matmul launches by C entry: {got} (expected "
+        f"{want}: {per_step} x {steps} decode steps"
+        + (" + the prefill's lm_head" if head else "")
+        + f", 4 x {layers} prefill denses, none on w4a8.cu)")
+    if got != want:
+        raise AssertionError(f"{tag}: w4a8_matmul routes {got}, expected "
+                             f"{want}")
+    del params, outs, logits
+    torch.cuda.empty_cache()
+
+    # the bf16 batch-1 caption
+    t0 = time.perf_counter()
+    params = llava.init(fcfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev, torch.bfloat16)
+    sync()
+    log(f"[{tag} bf16] init {time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    reset_launches()
+    sync()
+    bf16_timings = {}
+    t1 = time.perf_counter()
+    text, _ = serve.get_model_output_frames(
+        params, fcfg, tok, frames, serve.CAPTION_PROMPT, tmpl,
+        max_new_tokens, eos_token_ids=eos, stop_sequences=stops,
+        timings=bf16_timings)
+    sync()
+    bf16_s = time.perf_counter() - t1
+    bf16_counts = snapshot_launches()
+    log(f"[{tag} bf16] caption: {bf16_s:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in bf16_timings.items())
+        + f" s); caption[:60] {text[:60]!r}")
+    if not text:
+        raise AssertionError(f"{tag} bf16: empty caption")
+    expect = {"K1": n_tower, "K2": layers, "K3": 0, "K4": 0, "K5": 0,
+              **none}
+    why = {"K1": f"{n_tower} tower layers", "K2": f"{layers} prefill "
+           f"layers, {what_k2(lc)}", "K3": "none: a caption has no seg head",
+           "K4": "none: a caption has no seg head",
+           "K5": "none: a bf16 tree has no W4A8 dense", **why_none}
+    check_launches(f"{tag} bf16", bf16_counts, expect, why)
+    if bf16_counts["attention.cu entry"]:
+        raise AssertionError(f"{tag} bf16: K2 off attention_sm90.cu")
+    step_ms, _ = step_device_ms(lc, params["llm"], 1, s, max_new_tokens,
+                                torch.bfloat16, dev)
+    log(f"[{tag} bf16] a decode step at 1 row (cache {s} + "
+        f"{max_new_tokens // 2} slots): device {step_ms} ms (torch.profiler"
+        f"); {smi}")
+    head_ms = None
+    if lc.tie_word_embeddings:
+        h = torch.randn(1, 1, lc.hidden_size, device=dev).to(torch.bfloat16)
+        head_ms = cuda_ms(lambda: llama.unembed(params["llm"], lc, h),
+                          train=10)
+        log(f"[{tag} bf16] the tied head's product [1, {lc.hidden_size}] x "
+            f"[{lc.hidden_size}, {lc.vocab_size}] bf16 (torch.matmul over "
+            f"the embedding): {head_ms:.4f} ms a step (10 back to back; "
+            f"the table's bytes at 3.35 TB/s: "
+            f"{2 * lc.hidden_size * lc.vocab_size / HBM_BYTES_S * 1e3:.4f}"
+            f" ms)")
+    del params
+    torch.cuda.empty_cache()
+    sync()
+    return counts, {
+        "prompt_tokens": s, "batch_len": batch_len, "pad": pad,
+        "kernel_checks_seconds": t_checks,
+        "w4a8_batched": {"seconds": w4a8_s, "stages": timings,
+                         "peak_gib": peak, "decode_steps": steps},
+        "bf16_caption": {"seconds": bf16_s, "stages": bf16_timings},
+        "bf16_decode_step_device_ms": step_ms,
+        "tied_head_ms": head_ms, "bf16_launches": bf16_counts}
+
+
+def what_k2(lc) -> str:
+    return (f"window {lc.sliding_window}" if lc.sliding_window
+            else "ALiBi" if lc.use_alibi else "causal")
+
+
+def tiny_family_cfg(name):
+    """The tiny decoder of family `name` for the card-vs-CPU agreement:
+    head dim 128 (K2's window and per-head bias exist only there)."""
+    from video_llava_seg_torch.config import LlamaConfig
+
+    base = dataclasses.replace(LlamaConfig.tiny(), hidden_size=256,
+                               intermediate_size=512, num_heads=2,
+                               num_kv_heads=1, head_dim=128)
+    if name == "mistral":
+        return dataclasses.replace(base, sliding_window=TINY_FAMILY_WINDOW,
+                                   rope_theta=10000.0)
+    return dataclasses.replace(base, num_kv_heads=2, use_rope=False,
+                               use_alibi=True, norm_type="layernorm",
+                               mlp_type="gelu", tie_word_embeddings=True)
+
+
+def phase_tiny_family_agreement(seed):
+    """Each family's tiny decoder: greedy decode on the card (K2 with the
+    window / the ALiBi bias, bf16) and on the CPU (the twin, fp32), same
+    bf16-rounded weights, at batch 1 and at a left-padded batch 2. The
+    prefill's last logits within AGREE_BOUND; the greedy tokens equal up
+    to the first step whose CPU margin (top-two logits, from one fp32
+    forward over the prompt and the CPU's tokens) is below
+    TINY_FAMILY_MARGIN times the prefill logits' largest difference (the
+    steps compared are printed)."""
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.bridge import cast_tree
+    from video_llava_seg_torch.models import llama
+
+    out = {}
+    for name in FAMILY_TEMPLATES:
+        lc = tiny_family_cfg(name)
+        params = llama.init(lc, torch.Generator().manual_seed(seed), "cpu",
+                            torch.float32)
+        r = np.random.default_rng(seed)
+        s = TINY_FAMILY_PROMPT
+        x = r.standard_normal((2, s, lc.hidden_size)).astype(np.float32)
+        x = torch.from_numpy(x).to(torch.bfloat16).float()
+        head = (params["embed_tokens"]["embedding"]
+                if lc.tie_word_embeddings else params["lm_head"]["kernel"])
+        spread = llama.forward(params, lc, x[:1], torch.arange(s))[0].std()
+        head.mul_(TINY_FAMILY_LOGIT_STD / spread)
+        params = cast_tree(cast_tree(params, "cpu", torch.bfloat16), "cpu",
+                           torch.float32)
+        card = cast_tree(params, "cuda", torch.bfloat16)
+        for batch, pad in ((1, None), (2, [0, 9])):
+            xb = x[:batch].clone()
+            if pad is not None:
+                xb[1, :pad[1]] = 0.0
+            kw = dict(pad_lens=pad)
+            pos = torch.arange(s)[None]
+            cache = llama.init_kv_cache(lc, batch, s, "cpu", torch.float32)
+            mask = None
+            if pad is not None:
+                mask = pos >= torch.tensor(pad)[:, None]
+            want_l = llama.prefill(params, lc, xb, pos, cache, kv_mask=mask,
+                                   last_logit_only=True)[0]
+            k2 = kernels.LAUNCHES.snapshot()["K2"]
+            got_l = llama.prefill(
+                card, lc, xb.cuda().to(torch.bfloat16), pos.cuda(),
+                llama.init_kv_cache(lc, batch, s, "cuda"),
+                kv_mask=None if mask is None else mask.cuda(),
+                last_logit_only=True)[0]
+            sync()
+            if kernels.LAUNCHES.snapshot()["K2"] != k2 + lc.num_layers:
+                raise AssertionError(f"tiny {name}: K2 not launched a layer")
+            diff = (got_l.float().cpu() - want_l).abs().max().item()
+            rel = diff / want_l.abs().max().item()
+            thresh = TINY_FAMILY_MARGIN * diff
+            new = 8
+            wt, _, _ = llama.greedy_generate(params, lc, xb, new, (), **kw)
+            gt, _, _ = llama.greedy_generate(
+                card, lc, xb.cuda().to(torch.bfloat16), new, (), **kw)
+            gt = gt.cpu()
+            # the CPU's margins: one fp32 forward over prompt + its tokens
+            seq = torch.cat([xb, llama.embed(params, wt[:, :-1]).float()], 1)
+            am = None
+            if pad is not None:
+                am = torch.arange(seq.shape[1])[None] >= torch.tensor(
+                    pad)[:, None]
+            logits, _ = llama.forward(params, lc, seq,
+                                      torch.arange(seq.shape[1]),
+                                      attn_mask=am)
+            top2 = logits[:, s - 1:].topk(2, dim=-1).values
+            margin = (top2[..., 0] - top2[..., 1])
+            if not torch.equal(logits[:, s - 1:].argmax(-1), wt):
+                raise AssertionError(f"tiny {name}: the CPU's forward does "
+                                     "not reproduce its greedy tokens")
+            compared = 0
+            for j in range(new):
+                if (margin[:, j] < thresh).any():
+                    break
+                if not torch.equal(gt[:, j], wt[:, j]):
+                    raise AssertionError(
+                        f"tiny {name} batch {batch}: token {j} differs at a "
+                        f"CPU margin of {margin[:, j].min().item():.3e}")
+                compared += 1
+            least = (margin[:, :compared].min().item() if compared
+                     else float("nan"))
+            log(f"[agree] tiny {name} batch {batch}: prefill logits card "
+                f"bf16 vs CPU fp32 rel err {rel:.3e} (bound "
+                f"{AGREE_BOUND:.0e}); greedy tokens equal over {compared} of "
+                f"{new} steps (stopped at a CPU margin < {thresh:.3e}: "
+                f"{compared < new}; least margin compared {least:.3e})")
+            if not rel <= AGREE_BOUND:
+                raise AssertionError(f"tiny {name} batch {batch}: the card "
+                                     "disagrees with the CPU")
+            out[f"{name}_b{batch}"] = {"logits_rel_err": rel,
+                                       "tokens_compared": compared}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5248,6 +5760,15 @@ def main(argv=None):
     del qlora_params
     log(f"[serving] phases 21 / 22 / 23: {t1 - t0:.1f} / {t2 - t1:.1f} / "
         f"{t3 - t2:.1f} s")
+    family_counts, families = {}, {}
+    for phase, name in ((24, "mistral"), (25, "mpt")):
+        t0 = time.perf_counter()
+        family_counts[name], families[name] = phase_family(
+            name, cfg, args.seed, args.max_new_tokens, dev, smi, results)
+        families[name]["seconds"] = time.perf_counter() - t0
+        log(f"[family {name}] phase {phase}: "
+            f"{families[name]['seconds']:.1f} s")
+    families["tiny_agreement"] = phase_tiny_family_agreement(args.seed)
 
     kernels_out = []
     main_paths = {"K5": quant_counts, "K7": hiera_counts,
@@ -5440,6 +5961,40 @@ def main(argv=None):
             "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
             "device_ms": sum(sh["device_ms"] for sh in r["shapes"]),
             "shapes": r["shapes"], "kinds": k7_video_rows[variant]})
+    # K2's family forms, counted on each family's W4A8 batched call (one
+    # batch-2 prefill: 32 launches, all on attention_sm90.cu)
+    for name, fam in (("K2_window", "mistral"), ("K2_alibi", "mpt")):
+        r = results[name]
+        source, csrc = SOURCES["K2"]
+        by = r["bound_by_ms"]
+        c, bc = family_counts[fam], families[fam]["bf16_launches"]
+        kernels_out.append({
+            "name": name, "route": "cuda", "source": source,
+            "csrc": [f"video_llava_seg_torch/csrc/{x}" for x in csrc],
+            "replaces": REPLACES["K2"], "launches": c["K2"],
+            "launches_by_path": {
+                f"{fam}_w4a8_batched": c["K2"], f"{fam}_bf16_caption":
+                    bc["K2"]},
+            "launches_by_entry": {
+                f"{fam}_w4a8_batched": {"attention_sm90.cu": c["sm90 entry"],
+                                        "attention.cu":
+                                            c["attention.cu entry"]},
+                f"{fam}_bf16_caption": {"attention_sm90.cu":
+                                            bc["sm90 entry"],
+                                        "attention.cu":
+                                            bc["attention.cu entry"]}},
+            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+            "bound": BOUNDS[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if by["bytes"] >= by["operations"]
+                         else "operations"),
+            "library_ms": r["library_ms"],
+            "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
+            "device_ms": sum(sh["device_ms"] for sh in r["shapes"]),
+            "shapes": r["shapes"]})
+    for fam in FAMILY_TEMPLATES:
+        del families[fam]["bf16_launches"]
+    log(json.dumps({"llm_families": families}))
     log(json.dumps({"w4a8_batched_slice": quant}))
     log(json.dumps({"vision_slice": {
         "radio_bf16_serving": radio, "w8a8_encode": w8a8,

@@ -16,8 +16,9 @@ object (also written to --out):
   (chip_smoke's `cuda_ms`), at K1's / K8's attention link of CLIP-L
   ([32, 16, 577, 64]) and RADIO-H ([32, 16, 577, 80]), the Hiera trunk's
   global block ([8, 4, 4096, 96]) and K2's Llama-3-8B causal prefill
-  ([1, 32, 5196, 128], and [1, 32, 5132, 128] with the logsumexp, the
-  train step's);
+  ([1, 32, 5196, 128]; [2, 32, 5196, 128] with row 1 left-padded by 17
+  keys, the per-key bias instance; and [1, 32, 5132, 128] with the
+  logsumexp, the train step's);
 - "w8a8_encode": chip_smoke's phase 12, the W8A8 and bf16 encodes of
   CLIP-L and RADIO-H (median / min / max of 7 interleaved rounds);
 - "trunk": phase 13, the per-op and the K4 Hiera trunk over 8 frames;
@@ -52,28 +53,37 @@ def attention_times(cs, dev):
 
     g = torch.Generator(device=dev).manual_seed(0)
     cases = {
-        # name: (b, sq, skv, hq, hkv, d, causal, kv_len, with_lse)
-        "clip_l_link": (32, 577, 577, 16, 16, 64, False, 577, False),
-        "radio_h_link": (32, 577, 577, 16, 16, 80, False, 577, False),
-        "trunk_global": (8, 4096, 4096, 4, 4, 96, False, -1, False),
-        "llm_prefill": (1, 5196, 5196, 32, 8, 128, True, -1, False),
-        "llm_train_lse": (1, 5132, 5132, 32, 8, 128, True, -1, True),
+        # name: (b, sq, skv, hq, hkv, d, causal, kv_len, with_lse, the
+        # last row's left-pad keys: a per-key bias where > 0)
+        "clip_l_link": (32, 577, 577, 16, 16, 64, False, 577, False, 0),
+        "radio_h_link": (32, 577, 577, 16, 16, 80, False, 577, False, 0),
+        "trunk_global": (8, 4096, 4096, 4, 4, 96, False, -1, False, 0),
+        "llm_prefill": (1, 5196, 5196, 32, 8, 128, True, -1, False, 0),
+        "llm_prefill_pad": (2, 5196, 5196, 32, 8, 128, True, -1, False, 17),
+        "llm_train_lse": (1, 5132, 5132, 32, 8, 128, True, -1, True, 0),
     }
     out = {}
-    for name, (b, sq, skv, hq, hkv, d, causal, kv_len, lse) in cases.items():
+    for name, case in cases.items():
+        b, sq, skv, hq, hkv, d, causal, kv_len, lse, pad = case
         # [B, S, H, D] buffers viewed [B, H, S, D], as the chains build them
         q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev)
                    .to(torch.bfloat16).transpose(1, 2)
                    for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+        bias = None
+        if pad:
+            bias = torch.zeros((b, skv), device=dev)
+            bias[-1, :pad] = -0.7 * torch.finfo(torch.float32).max
 
         def run():
             return kernels.attention(q, k, v, scale=d ** -0.5, causal=causal,
-                                     kv_len=kv_len, with_lse=lse)
+                                     kv_len=kv_len, kv_bias=bias,
+                                     with_lse=lse)
 
         out[name] = {"shape": [b, hq, sq, d], "kv": [b, hkv, skv, d],
-                     "entry": kernels.attention_entry(d, False, skv, hkv),
+                     "entry": kernels.attention_entry(d, False, skv, hkv,
+                                                      bias=bias is not None),
                      "ms": cs.cuda_ms(run, train=10)}
-        del q, k, v
+        del q, k, v, bias
         torch.cuda.empty_cache()
     return out
 

@@ -1,7 +1,8 @@
 """The port's attention (plain twin, what a CPU tensor runs) vs the JAX
 package's Pallas flash kernel in interpret mode and its XLA
 `attention_reference`, in both of the kernel's regimes: K2 (Skv > 1024,
-causal, GQA, kv_bias, Sq != Skv) and K3 (Skv <= 1024, pad keys).
+causal, GQA, kv_bias, Sq != Skv) and K3 (Skv <= 1024, pad keys); and the
+sliding window / ALiBi against the JAX dispatcher.
 fp32 on both sides; tolerance 1e-5 abs."""
 
 import jax.numpy as jnp
@@ -91,6 +92,15 @@ def test_reference_twin_decode_options():
 
 @pytest.mark.parametrize("kw", [{"window": 8}, {"alibi": True}])
 def test_out_of_slice_variants_raise(kw):
-    q, k, v = (torch.zeros(1, 1, 4, 16) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: sliding-window and ALiBi"):
-        tatt.attention(q, k, v, **kw)
+    """The sliding window (Mistral) and ALiBi (MPT), once refused, now
+    served: on a CPU tensor `attention` equals the JAX package's
+    `attention_reference` (which its own dispatcher runs for both) at a
+    causal GQA prefill with a left-padded row."""
+    q, k, v = _qkv(3, 2, 4, 2, 40, 40, 16)
+    kv_mask = np.ones((2, 40), bool)
+    kv_mask[1, :5] = False
+    want = jatt.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=True, kv_mask=jnp.asarray(kv_mask), **kw)
+    got = tatt.attention(_t(q), _t(k), _t(v), causal=True,
+                         kv_mask=torch.from_numpy(kv_mask), **kw).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)

@@ -2,13 +2,17 @@
 // 128 and 256: TMA loads into swizzled shared tiles with mbarrier
 // completion, both products on wgmma, the softmax state in registers.
 //
-//   o[b,h,i] = softmax_j(scale * q[b,h,i] . k[b,h//g,j] + bias[b,j]) v[b,h//g,j]
+//   o[b,h,i] = softmax_j(scale * q[b,h,i] . k[b,h//g,j] + bias[b,h,j]) v[b,h//g,j]
 //
 // The same function as the online form of attention.cu: bf16 in and out,
 // fp32 softmax state; GQA (kv head = q head // group); causal masking
 // with the diagonal at the sequence ends (key j visible to query i iff
-// j <= i + Skv - Sq); keys at j >= kv_len masked; an optional fp32
-// per-key bias [B, Skv] (head dim 128 only); optionally the fp32
+// j <= i + Skv - Sq); keys at j >= kv_len masked; an optional fp32 bias
+// read through a batch and a head stride (head dim 128 only): per key
+// [B, Skv] with head stride 0 (the left-pad mask), or per head and key
+// [B, Hq, Skv] (MPT's ALiBi as slope_h * j, the pad mask folded in); an
+// optional sliding window (head dim 128 only; Mistral): key j visible to
+// query i only if j > i + Skv - Sq - window; optionally the fp32
 // logsumexp lse [B, Hq, Sq] (natural-log units) that the flash backward
 // (attention_bwd_sm90.cu) reads.
 // A row with no visible key writes O = 0 and lse = 0. Q, K and V are read
@@ -19,11 +23,11 @@
 // Replaces video_llava_seg_tpu/ops/attention.py::_flash_kernel (K2) and
 // the attention inside ops/vit_block.py::_vit_kernel (K1),
 // ::_vit_kernel_i8 (K8) and ops/hiera_block.py::_block_kernel (K4). Head
-// dim 128: the Llama-3-8B prefill and the train step's forward and
-// recompute. Head dims 64 / 80: the CLIP-L / RADIO-H towers' attention
-// link (577 keys); 96: every block of the SAM2.1-hiera-small trunk (16-196
-// keys a window, 4096 for a global block) and the per-op trunk's global
-// blocks; 80 also Hiera-L's global blocks (head dim 72, zero-padded by
+// dim 128: the Llama-3-8B, Mistral-7B and MPT-7B prefills and the train
+// step's forward and recompute. Head dims 64 / 80: the CLIP-L / RADIO-H
+// towers' attention link (577 keys); 96: every block of the
+// SAM2.1-hiera-small trunk (16-196 keys a window, 4096 for a global
+// block) and the per-op trunk's global blocks; 80 also Hiera-L's global blocks (head dim 72, zero-padded by
 // their caller). Head dim 256: SAM2's memory attention (one head of 256;
 // self-attention over a frame's 4096 tokens, cross-attention over the
 // memory bank's up to 7 x 4096 + 64 keys), whatever the form, for no
@@ -79,7 +83,12 @@
 // - Online softmax in registers: a row lives on a quad of lanes, so its
 //   max takes two shuffles (its sum is reduced once, at the end); the O
 //   rescale is a register multiply; only tiles that cross the causal
-//   diagonal or kv_len are masked.
+//   diagonal, kv_len or the window's lower bound are masked.
+// - The window: an item's first kv tile is the one that holds the lowest
+//   key its first query row sees, q0 + Skv - Sq - window + 1, so the
+//   producer loads and the consumers walk only the tiles inside the
+//   band: at Mistral's 4096 over a 5.2k prompt the work is sum_i
+//   min(i + 1, 4096) keys, not sum_i (i + 1).
 // - The schedule at head dims 80 / 96: tile t's S = Q K^T and tile t - 1's
 //   P V are issued together and t's softmax runs while they are in
 //   flight, and the two consumers take turns issuing (named barriers 1
@@ -95,7 +104,9 @@
 // such keys would get -inf - -inf = NaN. Kept finite, all of that row's
 // scores are equal, it gets the mean of its visible V rows and its lse is
 // the mask value, as attention.cu gives it. Keys masked by the causal
-// diagonal or kv_len are -inf and excluded.
+// diagonal, kv_len or the window are -inf and excluded. ALiBi's bias
+// slope_h * j reaches ~0.84 x 5.2k = 4.4k at MPT's prompt, where fp32
+// keeps the score to ~2.4e-4 absolute: far below the bf16 of P.
 //
 // Later work: at head dim 256 a split over the keys (one object's memory
 // attention is 32 items of 128 query rows, a quarter of the SMs) and
@@ -203,17 +214,19 @@ struct Params {
   const float* bias;
   float* lse;
   long long o_sb, o_sh, o_ss;
-  long long bias_sb;
+  long long bias_sb, bias_sh;
   int batch, hq, hkv, sq, skv, kv_len;
+  int window;  // 0: none
   float scale;
   int causal;
 };
 
-// One work item: a block of BQ query rows of one head and batch row. The
-// last query block comes first: under a causal mask it walks the most kv
-// tiles, so the longest items start earliest and the tail is short.
+// One work item: a block of BQ query rows of one head and batch row,
+// over kv tiles [t0, t0 + n_tiles). The last query block comes first:
+// under a causal mask it walks the most kv tiles, so the longest items
+// start earliest and the tail is short.
 struct Item {
-  int q0, h, b, hk, n_tiles;
+  int q0, h, b, hk, t0, n_tiles;
 };
 
 template <int BKV>
@@ -227,7 +240,9 @@ __device__ __forceinline__ Item item_of(int it, const Params& p) {
   const int off = p.skv - p.sq;  // causal diagonal offset
   int kv_end = min(p.kv_len, p.skv);
   if (p.causal) kv_end = min(kv_end, r.q0 + BQ + off);
-  r.n_tiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
+  // the tile of the lowest key the item's first row sees under the window
+  r.t0 = p.window > 0 ? max(0, r.q0 + off - p.window + 1) / BKV : 0;
+  r.n_tiles = kv_end > 0 ? max(0, (kv_end + BKV - 1) / BKV - r.t0) : 0;
   return r;
 }
 
@@ -325,7 +340,7 @@ __global__ void __launch_bounds__(NT, 1)
         load_tile(q_s(qb), T::Q_BOX0, &tm_q, &tm_q1, q_full(qb), w.q0, w.h,
                   w.b);
         ++u;
-        for (int t = 0; t < w.n_tiles; ++t, ++g) {
+        for (int t = w.t0; t < w.t0 + w.n_tiles; ++t, ++g) {
           const int s = g % STAGES;
           const uint32_t ph = (g / STAGES) & 1;
           const int j0 = t * BKV;
@@ -375,9 +390,11 @@ __global__ void __launch_bounds__(NT, 1)
     for (int it = it0; it < it_end; it += step()) {
       const Item w = item_of<BKV>(it, p);
       const int n_tiles = w.n_tiles, h = w.h, b = w.b;
+      const int jt0 = w.t0 * BKV;  // the first kv tile's first key
       const int qw0 = w.q0 + cw * 64;
       const int qi0 = qw0 + r0, qi1 = qi0 + 8;
-      const float* bias = HAS_BIAS ? p.bias + b * p.bias_sb : nullptr;
+      const float* bias =
+          HAS_BIAS ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
       const int qb = u % T::Q_BUFS;
       // this item's Q buffer (the warpgroup's rows from cw * 64)
       const uint32_t q_buf = q_s(qb);
@@ -470,21 +487,28 @@ __global__ void __launch_bounds__(NT, 1)
               sacc[4 * i + 2 + e] *= sc;
             }
           }
-        // only tiles that cross kv_len or this warpgroup's causal diagonal
-        if (j0 + BKV > kv_lim || (p.causal && j0 + BKV - 1 > qw0 + off)) {
+        // only tiles that cross kv_len, this warpgroup's causal diagonal
+        // or the window's lower bound of its last row
+        if (j0 + BKV > kv_lim || (p.causal && j0 + BKV - 1 > qw0 + off) ||
+            (p.window > 0 && j0 <= qw0 + 63 + off - p.window)) {
           // column c = 8i + e of this thread's pairs is key j0 + cq + c:
-          // visible below kv_lim and, under the causal mask, up to the row's
-          // diagonal
+          // visible below kv_lim, under the causal mask up to the row's
+          // diagonal, and under the window from the row's lower bound
           const int big = 1 << 30;
           const int lim = kv_lim - j0 - cq;
           const int d0 = min(lim - 1, p.causal ? qi0 + off - j0 - cq : big);
           const int d1 = min(lim - 1, p.causal ? qi1 + off - j0 - cq : big);
+          const int w0 =
+              p.window > 0 ? qi0 + off - p.window + 1 - j0 - cq : -big;
+          const int w1 = w0 + 8;
 #pragma unroll
           for (int i = 0; i < BKV / 8; ++i)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              if (8 * i + e > d0) sacc[4 * i + e] = -INFINITY;
-              if (8 * i + e > d1) sacc[4 * i + 2 + e] = -INFINITY;
+              if (8 * i + e > d0 || 8 * i + e < w0)
+                sacc[4 * i + e] = -INFINITY;
+              if (8 * i + e > d1 || 8 * i + e < w1)
+                sacc[4 * i + 2 + e] = -INFINITY;
             }
         }
 
@@ -527,7 +551,7 @@ __global__ void __launch_bounds__(NT, 1)
         for (int t = 0; t < n_tiles; ++t, ++g) {
           const int s = g % STAGES;
           const uint32_t ph = (g / STAGES) & 1;
-          const int j0 = t * BKV;
+          const int j0 = jt0 + t * BKV;
           float sacc[SN];
           mbar_wait(k_full(s), ph);
           issue_qk(sacc, s);
@@ -579,7 +603,7 @@ __global__ void __launch_bounds__(NT, 1)
             wg_wait<0>();
             pin(sacc);
             if (lane == 0) mbar_arrive(k_empty(s));
-            softmax(sacc, bv, 0, pa, alpha0, alpha1);
+            softmax(sacc, bv, jt0, pa, alpha0, alpha1);
             ++g;
           }
           // tile t - 1 is at ring position g - 1: its stage and phase
@@ -596,7 +620,7 @@ __global__ void __launch_bounds__(NT, 1)
             pin(sacc);
             if (lane == 0) mbar_arrive(k_empty(s));
             uint32_t pn[PN];
-            softmax(sacc, bv, t * BKV, pn, alpha0, alpha1);
+            softmax(sacc, bv, jt0 + t * BKV, pn, alpha0, alpha1);
             wg_wait<0>();
             pin(o0);
             pin(o1);
@@ -725,12 +749,15 @@ int launch(const void* q, const void* k, const void* v, const long long* geom,
 // geom: 3 x 11 int64 (q, k, v), each dims[4], byte strides[3], box[4],
 // the leading boxes' maps; where the head dim is no multiple of 64, 3 x
 // 11 more for the remainder box's maps. The head dim (dims[0]) picks the
-// instance; the encoding checks every box against it.
+// instance; the encoding checks every box against it. bias_sb / bias_sh:
+// the bias's batch and head strides in elements (bias_sh 0: one bias a
+// key for every head). window: 0 for none; a window or a bias only at
+// head dim 128.
 extern "C" int vls_flash_fwd_sm90(
     const void* q, const void* k, const void* v, void* o, const void* bias,
     void* lse, const long long* geom, long long o_sb, long long o_sh,
-    long long o_ss, long long bias_sb, int kv_len, int causal, float scale,
-    void* stream) {
+    long long o_ss, long long bias_sb, long long bias_sh, int kv_len,
+    int window, int causal, float scale, void* stream) {
   const long long* gq = geom;
   const long long* gk = geom + GEOM;
   const long long* gv = geom + 2 * GEOM;
@@ -746,15 +773,19 @@ extern "C" int vls_flash_fwd_sm90(
   p.lse = (float*)lse;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.bias_sb = bias_sb;
+  p.bias_sh = bias_sh;
   p.batch = batch;
   p.hq = (int)gq[2]; p.hkv = (int)gk[2];
   p.sq = (int)gq[1]; p.skv = (int)gk[1];
   p.kv_len = kv_len;
+  p.window = window;
   p.scale = scale;
   p.causal = causal;
   const cudaStream_t st = (cudaStream_t)stream;
   const int d = (int)gq[0];
-  // the per-key bias only at head dim 128 (the LLM's left-padded batch)
+  if (window < 0 || (window > 0 && d != 128))
+    return (int)cudaErrorInvalidValue;
+  // the bias only at head dim 128 (the LLM's left-padded batch, ALiBi)
   if (bias) {
     if (d == 128) return launch<128, true>(q, k, v, geom, p, st);
     return (int)cudaErrorInvalidValue;

@@ -73,7 +73,7 @@ _SIGNATURES = {
     "vls_gemm_bf16_sm90": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
     "vls_attention_bf16": [_P] * 6 + [_L] * 13 + [_I] * 7
                           + [_F, _I, _I, _P],
-    "vls_flash_fwd_sm90": [_P] * 7 + [_L] * 4 + [_I, _I, _F, _P],
+    "vls_flash_fwd_sm90": [_P] * 7 + [_L] * 5 + [_I] * 3 + [_F, _P],
     "vls_attention_short_sm90": [_P] * 7 + [_L] * 4 + [_I, _I, _F, _P],
     "vls_attention_bwd_dq": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_attention_bwd_dkv": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
@@ -107,8 +107,11 @@ ATTENTION_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # has 577 keys and K4's global blocks the whole stage-3 map's (4096 at
 # 1024^2);
 # the per-key bias only at FLASH_SM90_HEAD_DIM (the LLM's, also the head
-# dim of attention_bwd_sm90.cu). Its leading TMA box is 64 bf16 columns
-# (one 128-byte swizzle row) by 128 rows of one head of one batch row, in
+# dim of attention_bwd_sm90.cu), and there only a sliding window (a lower
+# bound on each query's keys: Mistral) and a bias that varies by head as
+# well as by key (ALiBi's slope_h * j: MPT), in either form and over any
+# number of keys, for attention.cu has neither. Its leading TMA box is 64
+# bf16 columns (one 128-byte swizzle row) by 128 rows of one head of one batch row, in
 # the order of the tensor map's dims (D, S, H, B); at head dims 80 / 96 a
 # second map's box holds the 16 / 32 columns left (32- / 64-byte
 # swizzle). Head dim 256 (SAM2's memory attention: one head of 256) has
@@ -703,6 +706,19 @@ def _bias_stride(kv_bias, bsz, skv):
     return skv
 
 
+def _bias_strides(kv_bias, bsz, hq, skv):
+    """(batch, head) element strides of the forward's bias: a contiguous
+    fp32 [B, Skv] (per key; head stride 0) or [B, Hq, Skv] (per head and
+    key)."""
+    if kv_bias is not None and kv_bias.dim() == 3:
+        _require(kv_bias, "kv_bias", dtype=torch.float32)
+        if tuple(kv_bias.shape) != (bsz, hq, skv):
+            raise ValueError("attention: a per-head kv_bias must be "
+                             "[B, Hq, Skv]")
+        return hq * skv, skv
+    return _bias_stride(kv_bias, bsz, skv), 0
+
+
 def _bshd(bsz, s, h, d, like):
     """A [B, H, S, D] view of a fresh contiguous [B, S, H, D] buffer."""
     return torch.empty_strided((bsz, h, s, d), (s * h * d, d, h * d, 1),
@@ -719,9 +735,15 @@ def short_sm90_key_tile(skv: int) -> int:
 
 
 def attention_entry(d: int, two_pass: bool, skv: int, hkv: int,
-                    bias: bool = False) -> str:
+                    bias: bool = False, window: int = 0,
+                    head_bias: bool = False) -> str:
     """The C entry that serves `attention` at head dim d over skv keys and
-    hkv kv heads (`bias`: with a per-key bias): the TMA + wgmma kernel of
+    hkv kv heads (`bias`: with a per-key bias; `window` > 0: a sliding
+    window; `head_bias`: a bias per head and key, ALiBi's): the TMA +
+    wgmma kernel of csrc/attention_sm90.cu for every call with a window
+    or a per-head bias, which only its head-dim-128 instances take (a
+    ValueError at any other head dim), whatever the form and the key
+    count; the TMA + wgmma kernel of
     csrc/attention_sm90.cu for the online form at head dim 128 (the LLM),
     and at head dims 64 / 80 / 96 without a bias over at least
     FLASH_SM90_MIN_KEYS keys (the towers' attention link, the Hiera
@@ -733,6 +755,12 @@ def attention_entry(d: int, two_pass: bool, skv: int, hkv: int,
     form elsewhere). At head dim 256 (SAM2's memory attention)
     attention_sm90.cu serves every call without a bias, and a bias is
     refused: no kernel has that instance."""
+    if window or head_bias:
+        if d != FLASH_SM90_HEAD_DIM:
+            raise ValueError("attention: a sliding window or a per-head "
+                             f"bias only at head dim {FLASH_SM90_HEAD_DIM} "
+                             f"(attention_sm90.cu), not {d}")
+        return "vls_flash_fwd_sm90"
     if d == FLASH_SM90_WIDE_HEAD_DIM:
         if bias:
             raise ValueError("attention: no kernel takes a per-key bias at "
@@ -839,37 +867,49 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float, causal: bool = False, kv_len: int = -1,
               kv_bias: Optional[torch.Tensor] = None,
               two_pass: bool = False, with_lse: bool = False,
-              route: Optional[str] = None):
+              window: int = 0, route: Optional[str] = None):
     """Flash attention over strided [B, H, S, D] bf16 views.
 
     Returns [B, Hq, Sq, D] as a view of a contiguous [B, Sq, Hq, D]
     buffer (so the caller's merge of heads into channels is free), and
     with `with_lse` also the per-row logsumexp, fp32 [B, Hq, Sq] (0 for a
     row with no visible key). kv_bias: fp32 [B, Skv] additive per-key
-    bias, or None. The head dim, the form and the shapes choose the
-    kernel (`attention_entry`); `route` names a C entry of
-    ATTENTION_ROUTES instead, for the tests and for timing attention.cu
-    beside the kernels that took its calls."""
+    bias, [B, Hq, Skv] per head and key (ALiBi), or None. window > 0:
+    query i (at key slot i + Skv - Sq) sees only keys j > i + Skv - Sq -
+    window (Mistral's sliding window). The head dim, the form, the shapes
+    and these options choose the kernel (`attention_entry`); `route`
+    names a C entry of ATTENTION_ROUTES instead, for the tests and for
+    timing attention.cu beside the kernels that took its calls."""
     if route is not None and route not in ATTENTION_ROUTES:
         raise ValueError(f"attention: route must be one of "
                          f"{ATTENTION_ROUTES}, got {route!r}")
+    if window < 0:
+        raise ValueError(f"attention: window must be >= 0, got {window}")
     bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
+    head_bias = kv_bias is not None and kv_bias.dim() == 3
     entry = route or attention_entry(d, two_pass, skv, hkv,
-                                     bias=kv_bias is not None)
+                                     bias=kv_bias is not None,
+                                     window=window, head_bias=head_bias)
+    if (window or head_bias) and entry != "vls_flash_fwd_sm90":
+        raise ValueError(f"attention: {entry} takes neither a sliding "
+                         "window nor a per-head bias")
     if entry == "vls_flash_fwd_sm90" and (
-            (two_pass and d != FLASH_SM90_WIDE_HEAD_DIM)
+            (two_pass and d != FLASH_SM90_WIDE_HEAD_DIM
+             and not (window or head_bias))
             or d not in FLASH_SM90_HEAD_DIMS
-            or (kv_bias is not None and d != FLASH_SM90_HEAD_DIM)):
+            or (kv_bias is not None and d != FLASH_SM90_HEAD_DIM)
+            or ((window or head_bias) and d != FLASH_SM90_HEAD_DIM)):
         raise ValueError("attention: vls_flash_fwd_sm90 serves the online "
                          f"form at head dims {FLASH_SM90_HEAD_DIMS} (both "
                          f"forms at {FLASH_SM90_WIDE_HEAD_DIM}), with a "
-                         f"per-key bias at {FLASH_SM90_HEAD_DIM}")
+                         f"per-key bias at {FLASH_SM90_HEAD_DIM} (a window "
+                         "or a per-head bias there too)")
     if entry == "vls_attention_short_sm90" and (
             not two_pass or entry != attention_entry(d, True, skv, hkv)):
         raise ValueError(f"attention: {entry} serves the two-pass form at "
                          f"head dim {SHORT_SM90_HEAD_DIM} over up to "
                          f"{SHORT_SM90_MAX_KEYS} keys")
-    bias_sb = _bias_stride(kv_bias, bsz, skv)
+    bias_sb, bias_sh = _bias_strides(kv_bias, bsz, hq, skv)
     o = _bshd(bsz, sq, hq, d, q)
     os_ = (o.stride(0), o.stride(1), o.stride(2))
     lse = (torch.empty((bsz, hq, sq), device=q.device, dtype=torch.float32)
@@ -889,10 +929,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # the tensor maps check the strides TMA needs
         geom = _forward_geometry(entry, q.shape, q.stride(), k.shape,
                                  k.stride(), v.stride(), q.element_size())
-        code = getattr(LIBRARY.get(), entry)(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias), _ptr(lse),
-            geom.buffer_info()[0], *os_, bias_sb, kv_len, int(causal),
-            float(scale), _stream())
+        args = (_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(kv_bias), _ptr(lse),
+                geom.buffer_info()[0], *os_, bias_sb)
+        if entry == "vls_flash_fwd_sm90":
+            code = LIBRARY.get().vls_flash_fwd_sm90(
+                *args, bias_sh, kv_len, window, int(causal), float(scale),
+                _stream())
+        else:
+            code = LIBRARY.get().vls_attention_short_sm90(
+                *args, kv_len, int(causal), float(scale), _stream())
     _check_code("attention", code)
     ATTENTION_LAUNCHES.add(entry)
     return (o, lse) if with_lse else o
@@ -923,15 +968,21 @@ def _bwd_pair(d: int):
     return "vls_attention_bwd_dq", "vls_attention_bwd_dkv"
 
 
-def attention_bwd_entry(d: int, skv: int, hkv: int):
+def attention_bwd_entry(d: int, skv: int, hkv: int, window: int = 0,
+                        head_bias: bool = False):
     """The C entries that serve `attention_bwd` at head dim d over skv
-    keys and hkv kv heads, in launch order: the one-pass kernel of
+    keys and hkv kv heads, in launch order (a sliding window or a per-head
+    bias: a ValueError, no backward kernel takes them): the one-pass
+    kernel of
     csrc/attention_short_bwd_sm90.cu wherever the forward took
     attention_short_sm90.cu (head dim 16, skv <= 64, a batch row's K/V
     within the resident slot: the SAM2 mask decoder's image->token
     attention); the TMA + wgmma pair of csrc/attention_bwd_sm90.cu (dQ,
     then dK/dV) at head dim 128 (the LLM's); csrc/attention_bwd.cu's pair
     for every other call."""
+    if window or head_bias:
+        raise ValueError("attention_bwd: no backward kernel takes a sliding "
+                         "window or a per-head bias (ROADMAP queue 1)")
     if attention_entry(d, True, skv, hkv) == "vls_attention_short_sm90":
         return (SHORT_BWD_SM90_ENTRY,)
     return _bwd_pair(d)

@@ -7,13 +7,21 @@ sampled decode loop and an HF-exact beam search, each keeping the
 post-norm hidden state of every emitted token (the [SEG] hidden states
 the seg head reads).
 
+The config's family switches, as the JAX package has them: Mistral
+(`sliding_window`: each query sees the last `window` slots) and MPT
+(`use_alibi` without RoPE, LayerNorm with a bias, a plain erf-GELU MLP
+with no gate, the head tied to the embedding). Positions are cache slots,
+left-pad slots included: RoPE and ALiBi see only slot differences, and a
+window counts slots, as in the JAX package.
+
 Denses go through `ops.nn.dense`, so a quantized tree
 (`init_quantized`, or `ops.quantization.quantize_tree` of a float one)
 runs its W4A8 products through K5 on the card. Prefill attention goes
 through `ops.attention.attention` (on the card the K2 flash kernel, with
-a per-key bias under left padding). Decode attention stays the plain
-twin, as in the JAX package (no Pallas kernel there); with the int8
-cache it reads the int8 K/V and folds the scales in exactly.
+a per-key bias under left padding, the window as a bound on the keys,
+ALiBi as a per-head key bias). Decode attention stays the plain twin, as
+in the JAX package (no Pallas kernel there); with the int8 cache it
+reads the int8 K/V and folds the scales in exactly.
 
 `forward` is the training forward (no cache): each block optionally
 under `torch.utils.checkpoint` (gradient checkpointing), which runs the
@@ -25,9 +33,10 @@ the same tokens; the kept set of a step is the JAX package's
 (`nucleus_filter`, pinned to `_select_token` by the CPU tests); and
 top_p -> 0 gives the greedy tokens.
 
-Out of the slice (raise NotImplementedError naming the ROADMAP feature):
-the MPT / Mistral switches. `stack_layers`, a TPU compile-time
-workaround, is not ported.
+Out of the slice: training the Mistral / MPT families on the card (the
+flash backward takes neither the window nor ALiBi: `attention` raises
+NotImplementedError under autograd there). `stack_layers`, a TPU
+compile-time workaround, is not ported.
 """
 
 from __future__ import annotations
@@ -43,46 +52,53 @@ from video_llava_seg_torch.ops.rope import apply_rope_1d, rope_1d_cos_sin
 from video_llava_seg_torch.timing import stage
 
 
-def _check_cfg(cfg):
-    if (cfg.use_alibi or cfg.sliding_window is not None or not cfg.use_rope
-            or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu"):
-        raise NotImplementedError("ROADMAP queue 1: the Mistral and MPT "
-                                  "families")
+def _norm_init(cfg, device, dtype):
+    if cfg.norm_type == "layernorm":
+        return nn.layer_norm_init(cfg.hidden_size, device, dtype)
+    return nn.rms_norm_init(cfg.hidden_size, device, dtype)
+
+
+def _norm(p, cfg, x):
+    if cfg.norm_type == "layernorm":
+        return nn.layer_norm(p, x, cfg.rms_norm_eps)
+    return nn.rms_norm(p, x, cfg.rms_norm_eps)
 
 
 def init_layer(cfg, g, device, dtype):
     d = cfg.hidden_size
     kv_dim = cfg.num_kv_heads * cfg.head_dim
     q_dim = cfg.num_heads * cfg.head_dim
+    # drawn in this order: attention, then the MLP (gate, up, down)
+    attn = {
+        "wq": nn.dense_init(g, d, q_dim, device, dtype, bias=False),
+        "wk": nn.dense_init(g, d, kv_dim, device, dtype, bias=False),
+        "wv": nn.dense_init(g, d, kv_dim, device, dtype, bias=False),
+        "wo": nn.dense_init(g, q_dim, d, device, dtype, bias=False),
+    }
+    mlp = {}
+    if cfg.mlp_type == "swiglu":
+        mlp["w_gate"] = nn.dense_init(g, d, cfg.intermediate_size, device,
+                                      dtype, bias=False)
+    mlp["w_up"] = nn.dense_init(g, d, cfg.intermediate_size, device, dtype,
+                                bias=False)
+    mlp["w_down"] = nn.dense_init(g, cfg.intermediate_size, d, device,
+                                  dtype, bias=False)
     return {
-        "input_layernorm": nn.rms_norm_init(d, device, dtype),
-        "attn": {
-            "wq": nn.dense_init(g, d, q_dim, device, dtype, bias=False),
-            "wk": nn.dense_init(g, d, kv_dim, device, dtype, bias=False),
-            "wv": nn.dense_init(g, d, kv_dim, device, dtype, bias=False),
-            "wo": nn.dense_init(g, q_dim, d, device, dtype, bias=False),
-        },
-        "post_attention_layernorm": nn.rms_norm_init(d, device, dtype),
-        "mlp": {
-            "w_gate": nn.dense_init(g, d, cfg.intermediate_size, device,
-                                    dtype, bias=False),
-            "w_up": nn.dense_init(g, d, cfg.intermediate_size, device, dtype,
-                                  bias=False),
-            "w_down": nn.dense_init(g, cfg.intermediate_size, d, device,
-                                    dtype, bias=False),
-        },
+        "input_layernorm": _norm_init(cfg, device, dtype),
+        "attn": attn,
+        "post_attention_layernorm": _norm_init(cfg, device, dtype),
+        "mlp": mlp,
     }
 
 
 def init(cfg, g: torch.Generator, device, dtype):
-    _check_cfg(cfg)
     d = cfg.hidden_size
     p = {
         "embed_tokens": nn.embedding_init(g, cfg.vocab_size, d, device,
                                           dtype),
         "layers": [init_layer(cfg, g, device, dtype)
                    for _ in range(cfg.num_layers)],
-        "norm": nn.rms_norm_init(d, device, dtype),
+        "norm": _norm_init(cfg, device, dtype),
     }
     if not cfg.tie_word_embeddings:
         p["lm_head"] = nn.dense_init(g, d, cfg.vocab_size, device, dtype,
@@ -100,7 +116,6 @@ def init_quantized(cfg, g: torch.Generator, device, dtype=torch.bfloat16,
     train_mode: the QLoRA base (weight-only, bf16 scales)."""
     from video_llava_seg_torch.ops.quantization import quantize_tree
 
-    _check_cfg(cfg)
     d = cfg.hidden_size
 
     def q(tree):
@@ -112,7 +127,7 @@ def init_quantized(cfg, g: torch.Generator, device, dtype=torch.bfloat16,
                                           dtype),
         "layers": [q(init_layer(cfg, g, device, dtype))
                    for _ in range(cfg.num_layers)],
-        "norm": nn.rms_norm_init(d, device, dtype),
+        "norm": _norm_init(cfg, device, dtype),
     }
     if not cfg.tie_word_embeddings:
         p["lm_head"] = q(nn.dense_init(g, d, cfg.vocab_size, device, dtype,
@@ -143,7 +158,7 @@ def fuse_qkv_gateup(params):
     and per-row activation scales keep every output column independent of
     the others, so the fused product equals the separate ones bit for
     bit; it makes 4 dense launches per layer instead of 7 and quantizes
-    each block input once."""
+    each block input once. An MPT layer (no gate) fuses its qkv only."""
     def fuse_layer(layer):
         layer = dict(layer)
         attn = layer["attn"]
@@ -174,7 +189,10 @@ def embed(params, ids):
 
 
 def unembed(params, cfg, h):
-    """fp32 logits [..., V] for the four head kinds of the JAX package."""
+    """fp32 logits [..., V] for the four head kinds of the JAX package.
+    A tied head (MPT) is a plain product with the embedding table, in the
+    hidden dtype (bf16 on the card) and then widened, as the JAX package
+    leaves it to XLA."""
     if cfg.tie_word_embeddings:
         w = params["embed_tokens"]["embedding"].to(h.dtype).t()
         return torch.matmul(h, w).float()
@@ -259,8 +277,9 @@ def _attn_block(layer, cfg, x, cos, sin, *, cache: Optional[KVCache],
     Prefill (pos == 0) attends over the new tokens in the compute dtype
     (flash kernel on the card) and only stores them, quantized under the
     int8 cache; with cache=None (training) nothing is stored. Decode
-    reads the cache prefix [0, pos + s) through the plain twin; kv_start
-    [B] masks each row's left-pad slots."""
+    reads the cache prefix [0, pos + s) through the plain twin, its
+    queries at slots pos.. for the window and ALiBi; kv_start [B] masks
+    each row's left-pad slots. cos / sin: None without RoPE (MPT)."""
     b, s, _ = x.shape
     if "wqkv" in layer["attn"]:
         q_dim = cfg.num_heads * cfg.head_dim
@@ -276,13 +295,15 @@ def _attn_block(layer, cfg, x, cos, sin, *, cache: Optional[KVCache],
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-    q = apply_rope_1d(q, cos, sin)
-    k = apply_rope_1d(k, cos, sin)
+    if cfg.use_rope:
+        q = apply_rope_1d(q, cos, sin)
+        k = apply_rope_1d(k, cos, sin)
     if cache is not None:
         _store_kv(cache, li, pos, k, v)
+    fam = dict(window=cfg.sliding_window, alibi=cfg.use_alibi)
     if pos == 0:
         o = attention(q, k.to(q.dtype), v.to(q.dtype), causal=causal,
-                      kv_mask=kv_mask)
+                      kv_mask=kv_mask, **fam)
     else:
         # slots past the valid prefix would get exactly zero weight
         valid = pos + s
@@ -292,19 +313,24 @@ def _attn_block(layer, cfg, x, cos, sin, *, cache: Optional[KVCache],
                         >= kv_start[:, None])
         ck = cache.k[li, :, :, :valid]
         cv = cache.v[li, :, :, :valid]
+        if cfg.sliding_window is not None or cfg.use_alibi:
+            fam["q_positions"] = torch.arange(pos, valid, device=x.device)
         if cache.k_scale is not None:
             o = attention_reference(
                 q, ck, cv, kv_mask=dec_mask,
                 k_scale=cache.k_scale[li, :, :, :valid, 0],
-                v_scale=cache.v_scale[li, :, :, :valid, 0])
+                v_scale=cache.v_scale[li, :, :, :valid, 0], **fam)
         else:
             o = attention_reference(q, ck.to(q.dtype), cv.to(q.dtype),
-                                    kv_mask=dec_mask)
+                                    kv_mask=dec_mask, **fam)
     o = o.transpose(1, 2).reshape(b, s, -1)
     return nn.dense(layer["attn"]["wo"], o)
 
 
-def _mlp_block(layer, x):
+def _mlp_block(layer, cfg, x):
+    if cfg.mlp_type == "gelu":
+        return nn.dense(layer["mlp"]["w_down"],
+                        nn.gelu(nn.dense(layer["mlp"]["w_up"], x)))
     if "w_gateup" in layer["mlp"]:
         gu = nn.dense(layer["mlp"]["w_gateup"], x)
         half = gu.shape[-1] // 2
@@ -317,12 +343,12 @@ def _mlp_block(layer, x):
 
 def _block(layer, cfg, x, cos, sin, cache: Optional[KVCache], li: int,
            pos: int, causal: bool, kv_mask=None, kv_start=None):
-    h = nn.rms_norm(layer["input_layernorm"], x, cfg.rms_norm_eps)
+    h = _norm(layer["input_layernorm"], cfg, x)
     x = x + _attn_block(layer, cfg, h, cos, sin, cache=cache, li=li,
                         pos=pos, causal=causal, kv_mask=kv_mask,
                         kv_start=kv_start)
-    h = nn.rms_norm(layer["post_attention_layernorm"], x, cfg.rms_norm_eps)
-    return x + _mlp_block(layer, h)
+    h = _norm(layer["post_attention_layernorm"], cfg, x)
+    return x + _mlp_block(layer, cfg, h)
 
 
 def _layers(params, cfg, x, cos, sin, cache: KVCache, pos: int,
@@ -330,7 +356,17 @@ def _layers(params, cfg, x, cos, sin, cache: KVCache, pos: int,
     for li, layer in enumerate(params["layers"]):
         x = _block(layer, cfg, x, cos, sin, cache, li, pos, causal, kv_mask,
                    kv_start)
-    return nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+    return _norm(params["norm"], cfg, x)
+
+
+def _rope(cfg, position_ids):
+    """The RoPE tables (cos, sin) of position_ids [B, S] or [S], or
+    (None, None) for a family without RoPE (MPT)."""
+    if not cfg.use_rope:
+        return None, None
+    if position_ids.dim() == 1:
+        position_ids = position_ids[None]
+    return rope_1d_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
 
 
 def forward(params, cfg, inputs_embeds, position_ids, attn_mask=None,
@@ -344,10 +380,7 @@ def forward(params, cfg, inputs_embeds, position_ids, attn_mask=None,
     backward). return_logits=False skips the unembed (the train step's
     chunked fused lm-head + CE never builds the [S, V] logits).
     Returns (logits fp32 [B, S, V] or None, post-norm hidden [B, S, D])."""
-    _check_cfg(cfg)
-    if position_ids.dim() == 1:
-        position_ids = position_ids[None]
-    cos, sin = rope_1d_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _rope(cfg, position_ids)
     x = inputs_embeds
     kw = dict(cache=None, li=0, pos=0, causal=True, kv_mask=attn_mask)
     for layer in params["layers"]:
@@ -356,7 +389,7 @@ def forward(params, cfg, inputs_embeds, position_ids, attn_mask=None,
                            use_reentrant=False, **kw)
         else:
             x = _block(layer, cfg, x, cos, sin, **kw)
-    x = nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+    x = _norm(params["norm"], cfg, x)
     if not return_logits:
         return None, x
     return unembed(params, cfg, x), x
@@ -367,10 +400,7 @@ def prefill(params, cfg, inputs_embeds, position_ids, cache: KVCache,
     """Fill cache slots [0, S). kv_mask: optional bool [B, S], False keys
     masked (left-padded ragged batches). Returns (logits fp32
     [B, S or 1, V], hidden [B, S, D], cache)."""
-    _check_cfg(cfg)
-    if position_ids.dim() == 1:
-        position_ids = position_ids[None]
-    cos, sin = rope_1d_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _rope(cfg, position_ids)
     s = inputs_embeds.shape[1]
     x = _layers(params, cfg, inputs_embeds, cos, sin, cache, 0, True,
                 kv_mask)
@@ -383,8 +413,8 @@ def decode_step(params, cfg, token_embeds, cache: KVCache, kv_start=None):
     kv_start: optional [B] — slots below it hold left-pad K/V and are
     masked (RoPE keeps slot indices: only position differences enter the
     scores). Returns (logits [B, 1, V], hidden [B, 1, D], cache)."""
-    pos = torch.tensor([[cache.length]], device=token_embeds.device)
-    cos, sin = rope_1d_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _rope(cfg, torch.tensor([[cache.length]],
+                                       device=token_embeds.device))
     x = _layers(params, cfg, token_embeds, cos, sin, cache, cache.length,
                 False, kv_start=kv_start)
     logits = unembed(params, cfg, x)
