@@ -136,7 +136,7 @@ The vision slice, numbered apart: phase 10 runs after phase 2, 11-13
 after phase 4, 14 after phase 5; the SAM2 image slice, 15-17, after 14;
 the SAM2 video slice, 18-20, after 17; the serving entry point's
 sampling, beams and checkpoints, 21-23, after 9; the Mistral and MPT
-families, 24-25, after 23.
+families, 24-25, after 23; the training data path, 26, after 8.
 
  10. K7 at every window kind of the per-op SAM2.1-hiera-small trunk over
      8 frames at 1024^2 on window_attention_sm90.cu (the route asserted)
@@ -313,6 +313,26 @@ families, 24-25, after 23.
      greedy tokens equal up to the first step whose CPU top-two margin is
      below TINY_FAMILY_MARGIN x the prefill logits' largest difference, at
      batch 1 and a left-padded batch 2.
+ 26. the training data path at full width: a ViCaS fixture written here
+     (two videos of 48 frames at 480 x 854 and 8 ground-truth frames as
+     .npy, COCO-RLE masks of two tracks, a caption, a reworded caption
+     and two referrals each) and a Llama-3-format tokenizer.json written
+     without `tokenizers` (the 256 byte symbols, 400 merges learned here,
+     254 specials at 128000, so <sf_vid_separator> / <vid_seg> get 128254
+     / 128255, inside the embedding); `initialize_vision_tokenizer`; the
+     port's ViCaSDataset (.npy readers), collator, length-grouped sampler
+     and CUDA-stream prefetcher feed four stage-3 QLoRA steps on phase
+     8's trained tree with a new optimizer (a referral, two captions, a
+     warm referral): launches by kernel and C entry as phase 8 at the
+     bucketed length, the prefetched tensors equal to the host batch,
+     `num_text_tokens` equal to the host labels' count, finite losses,
+     LoRA b unchanged after step 1 and moving after, the int8 base
+     bit-identical; each step's seconds beside the prefetcher's wait and
+     the seg head's share. Then the tiny training CLI with `--dataset
+     vicas --tokenizer <dir>` on the card from the same fixture, its
+     checkpoint (given the tokenizer's files) served by `run_inference`
+     with the tokenizer `load_model` reads from it, a caption decoded for
+     each video. (Phase 23 serves phase 8's tree after these steps.)
 """
 
 from __future__ import annotations
@@ -331,6 +351,7 @@ import tempfile
 import time
 import types
 import zlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -4420,12 +4441,46 @@ def _bytes_of(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def train_step_expect(cfg):
+    """(launches by kernel, why, the flash backward's by C entry) of one
+    full-width stage-3 QLoRA train step at batch 1, whatever its length
+    and whether its sample is a referral or a caption (the seg head runs
+    either way, a caption on its dummy path)."""
+    from video_llava_seg_torch.models import seg_head, vit
+
+    n_tower = vit.num_layers_run(cfg.vision)
+    sc = seg_head.make_sam2_cfg(cfg.seg)
+    n_dec = sc.twoway_depth
+    layers = cfg.llm.num_layers
+    expect = {"K1": n_tower, "K2": 2 * layers, "K3": n_dec,
+              "K4": sc.hiera.depth, "K5": 0, "K6a": layers + n_dec,
+              "K6b": layers + n_dec, "K7": 0, "K8": 0}
+    why = {"K1": f"{n_tower} tower layers forward; their backward "
+                 "recomputes the plain layer",
+           "K2": f"{layers} LLM layers forward + {layers} recomputed by "
+                 "gradient checkpointing",
+           "K3": f"image->token attention in the {n_dec} two-way blocks",
+           "K4": f"{sc.hiera.depth} Hiera blocks forward over the 8 seg "
+                 "frames; their backward recomputes the plain block",
+           "K5": "none: the train-mode base is weight-only int8",
+           "K6a": f"{layers} LLM layers + {n_dec} mask-decoder "
+                  "image->token attentions",
+           "K6b": f"{layers} LLM layers + {n_dec} mask-decoder "
+                  "image->token attentions",
+           "K7": "none: K4 runs every Hiera block",
+           "K8": "none: the tower trains in bf16 over fp32 masters"}
+    # the LLM layers' backward on attention_bwd_sm90.cu's pair, the mask
+    # decoder's in one pass, none on attention_bwd.cu
+    bwd = {K6_SHORT_ENTRY: n_dec, K6_SM90_PAIR[0]: layers,
+           K6_SM90_PAIR[1]: layers, K6_CUDA_C_PAIR[0]: 0,
+           K6_CUDA_C_PAIR[1]: 0}
+    return expect, why, bwd
+
+
 def phase_train_slice(cfg, seed, dev, steps: int = 3):
     """Three full-width stage-3 QLoRA train steps; returns (counts of the
     last step, summary, the trained params: int8 base, fp32 LoRA and
     masters, for phase 23 to serve)."""
-    from video_llava_seg_torch import kernels
-    from video_llava_seg_torch.models import seg_head, vit
     from video_llava_seg_torch.train.optimizer import leaves_with_paths
     from video_llava_seg_torch.train.train import (
         init_params,
@@ -4457,32 +4512,7 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
     timings = {}
     step_fn = make_train_step(cfg, tcfg, tx, timings=timings)
     data = synthetic_batches(cfg, 1, seed=seed)
-    n_tower = vit.num_layers_run(cfg.vision)
-    sc = seg_head.make_sam2_cfg(cfg.seg)
-    n_dec = sc.twoway_depth
-    expect = {"K1": n_tower, "K2": 2 * cfg.llm.num_layers, "K3": n_dec,
-              "K4": sc.hiera.depth, "K5": 0,
-              "K6a": cfg.llm.num_layers + n_dec,
-              "K6b": cfg.llm.num_layers + n_dec, "K7": 0, "K8": 0}
-    why = {"K1": f"{n_tower} tower layers forward; their backward "
-                 "recomputes the plain layer",
-           "K2": f"{cfg.llm.num_layers} LLM layers forward + "
-                 f"{cfg.llm.num_layers} recomputed by gradient checkpointing",
-           "K3": f"image->token attention in the {n_dec} two-way blocks",
-           "K4": f"{sc.hiera.depth} Hiera blocks forward over the 8 seg "
-                 "frames; their backward recomputes the plain block",
-           "K5": "none: the train-mode base is weight-only int8",
-           "K6a": f"{cfg.llm.num_layers} LLM layers + {n_dec} mask-decoder "
-                  "image->token attentions",
-           "K6b": f"{cfg.llm.num_layers} LLM layers + {n_dec} mask-decoder "
-                  "image->token attentions",
-           "K7": "none: K4 runs every Hiera block",
-           "K8": "none: the tower trains in bf16 over fp32 masters"}
-    # the LLM layers' backward on attention_bwd_sm90.cu's pair, the mask
-    # decoder's in one pass, none on attention_bwd.cu
-    bwd = {K6_SHORT_ENTRY: n_dec, K6_SM90_PAIR[0]: cfg.llm.num_layers,
-           K6_SM90_PAIR[1]: cfg.llm.num_layers, K6_CUDA_C_PAIR[0]: 0,
-           K6_CUDA_C_PAIR[1]: 0}
+    expect, why, bwd = train_step_expect(cfg)
     torch.cuda.reset_peak_memory_stats()
     seconds, rows, counts = [], [], None
     for step in range(steps):
@@ -4531,6 +4561,462 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
     return counts, {"steps": rows, "peak_gib": peak,
                     "trainable_bytes": train_b, "frozen_bytes": frozen_b,
                     "steady_seconds": statistics.mean(seconds[1:])}, params
+
+
+# ---------------------------------------------------------------------------
+# the training data path (phase 26)
+# ---------------------------------------------------------------------------
+
+# the Llama-3 pre-tokenizer pattern (a tokenizer.json's Split regex)
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                  r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                  r"|\s+(?!\S)|\s+")
+# Llama-3's named special tokens, at 128000 + their index; the rest of the
+# 128000-128253 range is reserved_special_token_3 ...; 128254 and 128255
+# stay free for <sf_vid_separator> and <vid_seg>, which must fall inside
+# the 128256 embeddings (nothing resizes them)
+LLAMA3_NAMED = ("<|begin_of_text|>", "<|end_of_text|>",
+                "<|reserved_special_token_0|>",
+                "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+                "<|reserved_special_token_2|>", "<|start_header_id|>",
+                "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>",
+                "<|python_tag|>")
+LLAMA3_SPECIALS = 254
+# the ViCaS fixture of phase 26: two videos of 48 frames at 480 x 854,
+# every sixth frame a ground-truth frame (8), two tracks each
+VICAS_FRAMES, VICAS_HW, VICAS_GT_EVERY = 48, (480, 854), 6
+VICAS_CAPTIONS = {
+    7: ("A man in a red jacket walks a brown dog along a wet city street "
+        "at night, passing parked cars and shop windows while rain falls "
+        "under the orange street lights.",
+        "On a rainy night a man wearing a red coat leads his brown dog down "
+        "a city sidewalk past shops and parked cars."),
+    8: ("Two children kick a white ball across a grassy park on a sunny "
+        "afternoon; one of them falls, gets up laughing and runs after "
+        "the ball while trees sway in the background.",
+        "In a sunny park two kids play football on the grass, one trips "
+        "and gets back up, and the ball rolls toward the trees."),
+}
+VICAS_REFERRALS = {7: ("the man in the red jacket", "the brown dog"),
+                   8: ("the child who falls", "the white ball")}
+
+
+def write_llama3_tokenizer(path, corpus, n_merges: int,
+                           special_base: Optional[int] = 128000,
+                           n_specials: int = LLAMA3_SPECIALS):
+    """A Llama-3-format tokenizer.json + tokenizer_config.json, written
+    without the `tokenizers` library: the 256 byte symbols, `n_merges`
+    BPE merges learned here from `corpus` (the most frequent pair first,
+    ties by the pair), unused entries up to `special_base` (where the
+    specials start; tokenizers numbers them from the vocabulary's size),
+    `ignore_merges`, the Split / ByteLevel
+    pre-tokenizer, the ByteLevel decoder, a TemplateProcessing BOS, and
+    `n_specials` special tokens from `special_base` (the real file's
+    range at the default; None: right after the base vocabulary).
+    Returns `path`."""
+    from collections import Counter
+
+    from video_llava_seg_torch.tokenizer import (
+        bytes_to_unicode,
+        compile_pattern,
+    )
+
+    table = bytes_to_unicode()
+    vocab = {table[b]: b for b in range(256)}
+    regex = compile_pattern(LLAMA3_PATTERN)
+    words = Counter("".join(table[b] for b in w.encode("utf-8"))
+                    for text in corpus for w in regex.findall(text))
+    seqs = {w: list(w) for w in words}
+    merges = []
+    while len(merges) < n_merges:
+        pairs = Counter()
+        for w, n in words.items():
+            s = seqs[w]
+            for a, b in zip(s, s[1:]):
+                pairs[(a, b)] += n
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append([a, b])
+        vocab.setdefault(a + b, len(vocab))
+        for w, s in seqs.items():
+            out, i = [], 0
+            while i < len(s):
+                if i + 1 < len(s) and s[i] == a and s[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(s[i])
+                    i += 1
+            seqs[w] = out
+    if special_base is None:
+        special_base = len(vocab)
+    if len(vocab) > special_base:
+        raise ValueError("the base vocabulary overlaps the special tokens")
+    # tokenizers numbers an added token from the model's vocabulary size,
+    # so the vocabulary runs up to special_base: unused entries that no
+    # pre-token can equal (letters, digits and symbols split apart)
+    while len(vocab) < special_base:
+        vocab[f"<unused_{len(vocab)}>"] = len(vocab)
+    names = list(LLAMA3_NAMED) + [f"<|reserved_special_token_{i}|>"
+                                  for i in range(3, n_specials
+                                                 - len(LLAMA3_NAMED) + 3)]
+    added = [{"id": special_base + i, "content": name, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, name in enumerate(names)]
+    bos = {"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 0}}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [bos, {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [bos, {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": "<|begin_of_text|>",
+                                        "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {"<|begin_of_text|>": {
+                 "id": "<|begin_of_text|>", "ids": [special_base],
+                 "tokens": ["<|begin_of_text|>"]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges}}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(spec, fh, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as fh:
+        json.dump({"bos_token": "<|begin_of_text|>",
+                   "eos_token": "<|eot_id|>",
+                   "clean_up_tokenization_spaces": True,
+                   "model_max_length": 1000000000000000019884624838656,
+                   "tokenizer_class": "PreTrainedTokenizerFast"}, fh)
+    return path
+
+
+def tokenizer_corpus():
+    """The text phase 26's tokenizers learn their merges from: every
+    caption and referral of the fixture, the ViCaS prompts and the
+    llava_llama_3 template around them."""
+    from video_llava_seg_torch.data.vicas import PROMPT_LIST
+    from video_llava_seg_torch.inference import main as serve
+
+    texts = [t for pair in VICAS_CAPTIONS.values() for t in pair]
+    texts += [r for refs in VICAS_REFERRALS.values() for r in refs]
+    texts += PROMPT_LIST + [serve.CAPTION_PROMPT, REFERRAL,
+                            "Please output the segmentation mask.",
+                            "You are a helpful language and vision "
+                            "assistant.", "user\n\n", "assistant\n\n"]
+    return texts
+
+
+def npy_clip(data: bytes, num_frames: int, return_timestamps: bool = False):
+    """`video_io.load_video_uniform` over a clip stored as .npy bytes."""
+    import io
+
+    from video_llava_seg_torch.data import video_io
+
+    return video_io.load_video_uniform(np.load(io.BytesIO(data)),
+                                       num_frames,
+                                       return_timestamps=return_timestamps)
+
+
+# the ViCaS datasets' decoders on this machine (no OpenCV, no PIL)
+NPY_READERS = {"read_clip": npy_clip, "read_frame": np.load}
+
+
+def write_vicas_train_fixture(root, seed, version="v0.1"):
+    """A ViCaS layout with train and val splits of two videos
+    (VICAS_CAPTIONS): clips of VICAS_FRAMES uint8 frames at VICAS_HW and
+    their ground-truth frames as .npy (`NPY_READERS`, `ArrayFetcher`),
+    COCO-RLE masks of two moving tracks on every ground-truth frame, a
+    caption, a reworded caption and two referrals each."""
+    from video_llava_seg_torch.ops.masks import encode_rle
+
+    h, w = VICAS_HW
+    vicas = os.path.join(root, "ViCaS")
+    for d in ("videos", f"annotations/{version}", f"splits/{version}"):
+        os.makedirs(os.path.join(vicas, d), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    for vid, (caption, reworded) in VICAS_CAPTIONS.items():
+        frames = rng.integers(0, 255, (VICAS_FRAMES, h, w, 3),
+                              dtype=np.uint8)
+        np.save(os.path.join(vicas, "videos", f"vid{vid}.npy"), frames)
+        frames_dir = os.path.join(vicas, "video_frames", f"{vid:06d}")
+        os.makedirs(frames_dir, exist_ok=True)
+        segs = []
+        for t in range(VICAS_FRAMES):
+            name = f"{t:05d}.npy"
+            if t % VICAS_GT_EVERY:
+                segs.append({"filename": name, "is_gt": False,
+                             "track_ids": [], "mask_rles": []})
+                continue
+            np.save(os.path.join(frames_dir, name), frames[t])
+            box = np.zeros((h, w), np.uint8)
+            box[100 + 2 * t:260 + 2 * t, 150 + 4 * t:330 + 4 * t] = 1
+            disc = (((ys - 300) ** 2 + (xs - 600 + 3 * t) ** 2)
+                    < 70 ** 2).astype(np.uint8)
+            rles = []
+            for m in (box, disc):
+                rle = encode_rle(m)
+                rle["counts"] = rle["counts"].decode("utf-8")
+                rles.append(rle)
+            segs.append({"filename": name, "is_gt": True,
+                         "track_ids": [1, 2], "mask_rles": rles})
+        content = {"video_id": vid, "filename": f"vid{vid}.npy",
+                   "caption_raw_en": caption,
+                   "caption_parsed_en_gpt": caption,
+                   "reworded_en_captions": [reworded],
+                   "object_referrals": [
+                       {"prompt": p, "track_ids": [k + 1]}
+                       for k, p in enumerate(VICAS_REFERRALS[vid])],
+                   "segmentations": segs}
+        with open(os.path.join(vicas, "annotations", version,
+                               f"{vid:06d}.json"), "w") as fh:
+            json.dump(content, fh)
+    for split in ("train", "val"):
+        with open(os.path.join(vicas, "splits", version, f"{split}.json"),
+                  "w") as fh:
+            json.dump(sorted(VICAS_CAPTIONS), fh)
+
+
+def phase_train_data(cfg, params, seed, dev, smi, workdir, steps: int = 4):
+    """Phase 26: the training data path at full width. A ViCaS fixture
+    (`write_vicas_train_fixture`) and a Llama-3-format tokenizer written
+    here; `initialize_vision_tokenizer`; the port's ViCaS dataset (.npy
+    readers), collator, length-grouped sampler (`train.data_batches`) and
+    CUDA prefetcher feed `steps` stage-3 QLoRA steps on phase 8's trained
+    tree (a new optimizer: update 0 at lr 0); the sampler's order at seed
+    0 gives a referral, two captions, then a warm referral. Per step: launches by
+    kernel and C entry (`train_step_expect`) at the bucketed length, the
+    prefetched tensors equal to the host batch, `num_text_tokens` equal
+    to the host labels' count, finite losses, LoRA b unchanged after step
+    1 and moving after, the int8 base bit-identical; seconds beside the
+    prefetcher's wait and the seg head's share. Returns (the last step's
+    counts, summary)."""
+    from video_llava_seg_torch.config import DataConfig
+    from video_llava_seg_torch.constants import IGNORE_INDEX
+    from video_llava_seg_torch.data.collate import (
+        make_supervised_data_module,
+    )
+    from video_llava_seg_torch.data.prefetch import (
+        host_tensors,
+        prefetch_to_device,
+    )
+    from video_llava_seg_torch.tokenizer import Tokenizer
+    from video_llava_seg_torch.train.optimizer import leaves_with_paths
+    from video_llava_seg_torch.train.train import (
+        data_batches,
+        initialize_vision_tokenizer,
+    )
+    from video_llava_seg_torch.train.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+    from video_llava_seg_torch.train.trainer import step_generator
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "datasets")
+    write_vicas_train_fixture(root, seed)
+    tok_dir = write_llama3_tokenizer(os.path.join(workdir, "tokenizer"),
+                                     tokenizer_corpus(), n_merges=400)
+    tok = Tokenizer.from_pretrained(tok_dir)
+    dcfg = initialize_vision_tokenizer(tok, cfg)
+    log(f"[train-data] fixture and tokenizer written in "
+        f"{time.perf_counter() - t0:.1f} s: {len(tok)} tokens "
+        f"({tok.vocab_size} base, {LLAMA3_SPECIALS} specials, 2 added), "
+        f"<vid_seg> "
+        f"{dcfg.seg_token_idx}, <sf_vid_separator> "
+        f"{dcfg.sf_separator_token_idx}")
+    data_args = DataConfig(num_frames=dcfg.num_frames,
+                           num_slow_frames=dcfg.num_slow_frames,
+                           seg_image_size=dcfg.seg.image_size,
+                           max_seg_frames=dcfg.seg.max_seg_frames)
+    old_env = os.environ.get("VIDEONET_DATASETS_DIR")
+    os.environ["VIDEONET_DATASETS_DIR"] = root
+    try:
+        module = make_supervised_data_module(tok, dcfg, data_args,
+                                             **NPY_READERS)
+    finally:
+        if old_env is None:
+            os.environ.pop("VIDEONET_DATASETS_DIR", None)
+        else:
+            os.environ["VIDEONET_DATASETS_DIR"] = old_env
+    ds = module["train_dataset"]
+    tcfg = train_tcfg(seed=seed)
+    host = []
+
+    def kept(batches):
+        for b in batches:
+            host.append(b)
+            yield b
+
+    prefetch = prefetch_to_device(
+        kept(data_batches(ds, module["data_collator"], tcfg)), dev, size=2,
+        dtype=torch.bfloat16)
+    state, tx = create_train_state(params, tcfg)
+    leaves = leaves_with_paths(params)
+    base = {p: t.clone() for p, t in leaves if p.startswith("llm/")}
+    lora_b = params["lora"]["llm"]["layers"][0]["attn"]["wq"]["kernel_q"]["b"]
+    timings = {}
+    step_fn = make_train_step(dcfg, tcfg, tx, timings=timings)
+    expect, why, bwd = train_step_expect(dcfg)
+    rows, counts = [], None
+    for step in range(steps):
+        batch = next(prefetch)
+        wait = prefetch.waits[-1]
+        want = host_tensors(host[step], torch.bfloat16)
+        same = sorted(batch) == sorted(want) and all(
+            torch.equal(batch[k].cpu(), want[k]) for k in want)
+        if not same:
+            raise AssertionError(f"train-data step {step + 1}: the "
+                                 "prefetched batch differs from the host's")
+        kind = "referral" if bool(host[step]["has_masks"].any()) \
+            else "caption"
+        length = int(batch["gather_idx"].shape[1])
+        b_before = lora_b.detach().clone()
+        timings.clear()
+        reset_launches()
+        sync()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch, step_generator(seed, step))
+        sync()
+        seconds = time.perf_counter() - t1
+        counts = snapshot_launches()
+        m = {k: float(v) for k, v in metrics.items()}
+        n_text = int((host[step]["labels"][:, 1:] != IGNORE_INDEX).sum())
+        share = timings.get("seg", 0.0) / seconds
+        rows.append({"kind": kind, "length": length, "seconds": seconds,
+                     "prefetch_wait_s": wait, "seg_share": share,
+                     "stages": dict(timings), **m})
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+        log(f"[train-data] step {step + 1} ({kind}, {length} tokens "
+            f"bucketed from {int(host[step]['attn_mask'].sum())}): "
+            f"{seconds:.3f} s ({stages} s), seg head {share:.3f} of the "
+            f"step; prefetch wait {wait:.3f} s; loss {m['loss']:.4f} "
+            f"(text {m['loss_text']:.4f}, mask {m['loss_mask']:.4f}), "
+            f"grad_norm {m['grad_norm']:.4f}, {int(m['num_text_tokens'])} "
+            f"text tokens; {smi}")
+        check_launches(f"train-data step {step + 1}", counts, expect, why,
+                       bwd=bwd)
+        if int(m["num_text_tokens"]) != n_text:
+            raise AssertionError(f"train-data step {step + 1}: "
+                                 f"{int(m['num_text_tokens'])} text tokens, "
+                                 f"the host labels count {n_text}")
+        if length % 128 or length > dcfg.tokenizer_model_max_length:
+            raise AssertionError(f"train-data step {step + 1}: length "
+                                 f"{length} is not a bucket")
+        for k in ("loss", "loss_mask"):
+            if not math.isfinite(m[k]):
+                raise AssertionError(f"train-data step {step + 1}: {k} not "
+                                     "finite")
+        if not (math.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
+            raise AssertionError(f"train-data step {step + 1}: bad "
+                                 "grad_norm")
+        moved = not torch.equal(lora_b, b_before)
+        if moved != (step > 0):
+            raise AssertionError(f"train-data step {step + 1}: LoRA b "
+                                 f"{'moved' if moved else 'did not move'} "
+                                 "(lr 0 at update 0, > 0 after)")
+        for p, t in leaves_with_paths(params):
+            if p in base and not torch.equal(t, base[p]):
+                raise AssertionError(f"train-data step {step + 1}: frozen "
+                                     f"base leaf {p} changed")
+    kinds = {r["kind"] for r in rows}
+    if kinds != {"caption", "referral"}:
+        raise AssertionError(f"train-data: the steps saw only {kinds}")
+    log(f"[train-data] {steps} steps from the ViCaS fixture: LoRA b "
+        "unchanged after step 1 (lr 0), changed after; int8 base "
+        "bit-identical; every prefetched batch equal to the host's")
+    prefetch.close()
+    del state, tx, base, step_fn, batch, lora_b, b_before, prefetch
+    torch.cuda.empty_cache()
+    sync()
+    return counts, {"steps": rows, "tokenizer_dir": tok_dir, "root": root}
+
+
+def phase_train_data_cli(seed, dev, smi, workdir, root):
+    """Phase 26, continued: the tiny training CLI on the card from the
+    same fixture (`--dataset vicas --tokenizer <dir>`, .npy readers; the
+    tiny model has no seg head, so its captions only), 2 steps with a
+    checkpoint; the checkpoint given the tokenizer's files and served by
+    `run_inference` with the tokenizer `load_model` reads from it (no
+    SmokeTokenizer), a caption decoded for each video."""
+    import shutil as sh
+
+    from video_llava_seg_torch.inference import main as serve
+    from video_llava_seg_torch.tokenizer import Tokenizer
+    from video_llava_seg_torch.train import train as train_cli
+
+    tok_dir = write_llama3_tokenizer(
+        os.path.join(workdir, "tokenizer_tiny"), tokenizer_corpus(),
+        n_merges=150, special_base=None, n_specials=len(LLAMA3_NAMED))
+    tok = Tokenizer.from_pretrained(tok_dir)
+    out = os.path.join(workdir, "train_data")
+    old_env = os.environ.get("VIDEONET_DATASETS_DIR")
+    os.environ["VIDEONET_DATASETS_DIR"] = root
+    try:
+        t0 = time.perf_counter()
+        state = train_cli.main([
+            "--stage", "stage3", "--tiny", "--dataset", "vicas",
+            "--tokenizer", tok_dir, "--bits", "8", "--lora_enable",
+            "--device", dev.type, "--num_train_steps", "2",
+            "--save_steps", "2", "--gradient_accumulation_steps", "1",
+            "--output_dir", out], readers=NPY_READERS)
+        sync()
+        t_train = time.perf_counter() - t0
+        with open(os.path.join(out, "train_log.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        if state.step != 2 or [r["step"] for r in logged] != [1, 2] or \
+                not all(math.isfinite(r["loss"]) for r in logged):
+            raise AssertionError(f"training CLI from the ViCaS fixture: "
+                                 f"{logged}")
+        ckpt = os.path.join(out, "checkpoint-2")
+        for f in ("tokenizer.json", "tokenizer_config.json"):
+            sh.copy(os.path.join(tok_dir, f), ckpt)
+        loaded = serve.load_model(ckpt, device=dev)[2]
+        if not isinstance(loaded, Tokenizer) or len(loaded) != len(tok):
+            raise AssertionError("load_model: no port tokenizer read from "
+                                 "the checkpoint")
+        pred_dir = os.path.join(workdir, "pred_data")
+        t0 = time.perf_counter()
+        serve.run_inference(serve.parse_args([
+            "-i", ckpt, "-o", pred_dir, "--max_new_tokens", "8",
+            "--dataset_version", "v0.1", "--skip_seg", "--device",
+            dev.type]), fetcher=ArrayFetcher(root))
+        sync()
+        t_serve = time.perf_counter() - t0
+    finally:
+        if old_env is None:
+            os.environ.pop("VIDEONET_DATASETS_DIR", None)
+        else:
+            os.environ["VIDEONET_DATASETS_DIR"] = old_env
+    captions = {}
+    for vid in VICAS_CAPTIONS:
+        with open(os.path.join(pred_dir, f"{vid:06d}.json")) as fh:
+            captions[vid] = json.load(fh)["pred_caption"]
+        if not isinstance(captions[vid], str):
+            raise AssertionError(f"video {vid}: no caption")
+    log(f"[train-data] tiny CLI --dataset vicas --tokenizer on the card: 2 "
+        f"steps in {t_train:.1f} s, losses "
+        f"{[round(r['loss'], 4) for r in logged]}; checkpoint-2 served by "
+        f"run_inference with load_model's tokenizer ({len(loaded)} tokens) "
+        f"in {t_serve:.1f} s: captions {captions}; {smi}")
+    return {"cli_losses": [r["loss"] for r in logged],
+            "cli_seconds": t_train, "serve_seconds": t_serve,
+            "captions": captions}
 
 
 def _tiny_train_cfg():
@@ -5740,6 +6226,16 @@ def main(argv=None):
     phase_grad_checks(args.seed, dev)
     train_counts, train, qlora_params = phase_train_slice(cfg, args.seed,
                                                           dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as work:
+        t0 = time.perf_counter()
+        data_counts, data = phase_train_data(cfg, qlora_params, args.seed,
+                                             dev, smi, work)
+        data["cli"] = phase_train_data_cli(args.seed, dev, smi, work,
+                                           data.pop("root"))
+        data.pop("tokenizer_dir")
+        data["seconds"] = time.perf_counter() - t0
+        train["vicas_data_path"] = data
+    log(f"[train-data] phase 26: {data['seconds']:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         os.makedirs(os.path.join(work, "train"))
         train["agreement"], cli_params = phase_train_agreement(
@@ -5800,6 +6296,7 @@ def main(argv=None):
                                  **{f"sam2_video_{v}":
                                     video_counts[v]["propagate"][name]
                                     for v in SAM2_VIDEO_VARIANTS},
+                                 "train_step_vicas": data_counts[name],
                                  "beams_bf16": beam_bf16_counts[name],
                                  "beams_w4a8": beam_w4a8_counts[name],
                                  "sampling_w4a8_batched":
@@ -5872,7 +6369,8 @@ def main(argv=None):
     r = results["gemm_bf16"]
     source, csrc = SOURCES["gemm_bf16"]
     paths = {"bf16": bf16_counts, "w4a8_batched": quant_counts,
-             "train_step": train_counts, "radio_bf16": radio_counts,
+             "train_step": train_counts, "train_step_vicas": data_counts,
+             "radio_bf16": radio_counts,
              "w8a8_encode_clip": w8a8_counts["clip"],
              "w8a8_encode_radio": w8a8_counts["radio"],
              "hiera_per_op": hiera_counts,

@@ -97,9 +97,9 @@ def test_encode_rle_copy_matches():
 
 
 _SCRIPT = r"""
-import dataclasses, importlib, json, os, pkgutil, sys, types
-for name in ("jax", "jaxlib"):
-    sys.modules[name] = None  # importing JAX fails from here on
+import dataclasses, importlib, json, os, pkgutil, shutil, sys, types
+for name in ("jax", "jaxlib", "transformers", "tokenizers", "regex"):
+    sys.modules[name] = None  # importing these fails from here on
 import torch
 import video_llava_seg_torch as pkg
 mods = [m for _, m, _ in pkgutil.walk_packages(pkg.__path__,
@@ -170,9 +170,28 @@ state = video.init_state(np.zeros((3, 40, 60, 3), np.uint8))
 video.add_new_points_or_box(state, 0, 1, points=[[20.0, 10.0]], labels=[1])
 tracked = [(f, m.shape) for f, _, m in video.propagate_in_video(state)]
 assert tracked == [(i, (1, 1, 40, 60)) for i in range(3)], tracked
+tok_dir = sys.argv[2]
+state = train_cli.main([
+    "--stage", "stage3", "--tiny", "--dataset", "vicas", "--tokenizer",
+    tok_dir, "--bits", "8", "--lora_enable", "--device", "cpu",
+    "--num_train_steps", "2", "--save_steps", "2",
+    "--gradient_accumulation_steps", "1", "--output_dir",
+    os.path.join(out_dir, "train_data")])
+assert state.step == 2
+ckpt = os.path.join(out_dir, "train_data", "checkpoint-2")
+for f in ("tokenizer.json", "tokenizer_config.json"):
+    shutil.copy(os.path.join(tok_dir, f), ckpt)
+_, _, loaded_tok = main.load_model(ckpt, device="cpu")
+assert type(loaded_tok).__module__ == "video_llava_seg_torch.tokenizer"
+main.run_inference(types.SimpleNamespace(**{
+    **vars(serve), "model_path": ckpt, "num_beams": 1, "load_4bit": False,
+    "output_dir": os.path.join(out_dir, "served_data")}))
+with open(os.path.join(out_dir, "served_data", "000007.json")) as fh:
+    assert isinstance(json.load(fh)["pred_caption"], str)
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
-    k in ("jax", "jaxlib") or k.startswith(("jax.", "jaxlib.",
-                                            "video_llava_seg_tpu"))))
+    k in ("jax", "jaxlib", "transformers", "tokenizers", "regex")
+    or k.startswith(("jax.", "jaxlib.", "video_llava_seg_tpu",
+                     "transformers.", "tokenizers."))))
 assert not loaded, loaded
 print(len(mods))
 """
@@ -185,13 +204,30 @@ def test_port_serves_without_jax(vicas):
     with --load_4bit --num_beams 2 and `inference.eval` scores both
     outputs, the SAM2 image predictor sets an image and
     predicts and the SAM2 video predictor tracks a point over three frames
-    on the CPU, in an interpreter where JAX cannot be imported; afterwards
-    no jax / video_llava_seg_tpu module is loaded."""
+    on the CPU; then the training CLI takes two steps from the ViCaS
+    fixture through the port's tokenizer and `run_inference` serves their
+    checkpoint with the tokenizer `load_model` reads from it; all in an
+    interpreter where JAX, transformers, tokenizers and regex cannot be
+    imported, and afterwards none of them (nor video_llava_seg_tpu) is
+    loaded."""
+    from test_torch_tokenizer import write_llama3
+
+    vicas_dir = vicas / "ViCaS"
+    ann = vicas_dir / "annotations" / "v1.0" / "000007.json"
+    content = json.loads(ann.read_text())
+    content["reworded_en_captions"] = ["a reworded caption"]
+    for version in ("v1.0", "v0.1"):  # the training CLI reads v0.1
+        for sub in ("annotations", "splits"):
+            os.makedirs(vicas_dir / sub / version, exist_ok=True)
+        (vicas_dir / "annotations" / version / "000007.json").write_text(
+            json.dumps(content))
+        (vicas_dir / "splits" / version / "train.json").write_text("[7]")
+    tok_dir = write_llama3(str(vicas / "tokenizer"), vocab_size=400)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")])
     res = subprocess.run([sys.executable, "-c", _SCRIPT,
-                          str(vicas / "out")], cwd=REPO, env=env,
+                          str(vicas / "out"), tok_dir], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert int(res.stdout.strip().splitlines()[-1]) >= 30

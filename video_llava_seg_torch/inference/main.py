@@ -146,9 +146,11 @@ def load_model(model_path: str, cfg=None, load_bits: Optional[int] = None,
     load_bits 8 stores the LLM's dense kernels as weight-only int8, 4 as
     W4A8 (packed int4, int8 activations, K5 on the card); the tower, the
     projector and the seg head stay float, as in the JAX package. The
-    tokenizer is None where `transformers` is missing (the card's machine
-    has none) or the directory holds no tokenizer files (a checkpoint of
-    the port's trainer)."""
+    tokenizer is the port's own (`tokenizer.py`, no `transformers`) read
+    from the directory's tokenizer.json on any device, None where the
+    directory holds none (the port's trainer writes none into its
+    checkpoints); a directory with only a SentencePiece tokenizer.model is
+    refused."""
     from video_llava_seg_torch.config import (
         LlamaConfig,
         ProjectorConfig,
@@ -178,15 +180,11 @@ def load_model(model_path: str, cfg=None, load_bits: Optional[int] = None,
 
     tokenizer = None
     if any(osp.isfile(osp.join(model_path, f))
-           for f in ("tokenizer_config.json", "tokenizer.json")):
-        try:
-            from transformers import AutoTokenizer
+           for f in ("tokenizer.json", "tokenizer.model")):
+        # a tokenizer.model alone (SentencePiece) is refused with a message
+        from video_llava_seg_torch.tokenizer import Tokenizer
 
-            # local files only: nothing is looked up as a hub repository
-            tokenizer = AutoTokenizer.from_pretrained(model_path,
-                                                      local_files_only=True)
-        except (ImportError, OSError, ValueError):
-            tokenizer = None
+        tokenizer = Tokenizer.from_pretrained(model_path)
 
     state_path = osp.join(model_path, STATE_FILE)
     if osp.exists(state_path):
@@ -402,8 +400,9 @@ def run_inference(args, model=None, tokenizer=None, fetcher=None):
     model: (params, cfg, tokenizer) already on the serving device;
     without it the checkpoint at args.model_path is loaded (`load_model`)
     onto `args.device` (default the card, in bf16; "cpu" runs the plain
-    versions in fp32). tokenizer: replaces the model's (a checkpoint of
-    the port's trainer carries none). fetcher: the source of each clip
+    versions in fp32). tokenizer: replaces the model's (the one
+    `load_model` reads from the checkpoint's tokenizer.json; a checkpoint
+    of the port's trainer carries none). fetcher: the source of each clip
     and its ground-truth frames (default `VideoAndFrameFetcher(args)`,
     which decodes with OpenCV and PIL)."""
     nb = int(getattr(args, "num_beams", 1) or 1)

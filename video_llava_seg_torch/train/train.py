@@ -3,11 +3,21 @@
     python -m video_llava_seg_torch.train.train --stage stage3 --synthetic \\
         --bits 8 --lora_enable [--tiny] [--device cuda|cpu] ...
 
+    python -m video_llava_seg_torch.train.train --stage stage3 \
+        --dataset vicas --tokenizer <local dir with tokenizer.json> ...
+
 Same flags, stage presets and LLM-family presets as the JAX CLI, plus
-`--device` (default `cuda`; the tests pass `cpu`). Out of this port for
-now, and raising NotImplementedError with their ROADMAP queue 1
-features: `--model_parallel > 1` and `--fsdp` (parallelism), and the
-non-synthetic dataset path with its tokenizer (the training data path).
+`--device` (default `cuda`; the tests pass `cpu`). The dataset path is
+the JAX CLI's: `data/collate.make_supervised_data_module`, the
+length-grouped sampler (or a seeded permutation), then a prefetcher that
+stays two batches ahead on `--device` (`data/prefetch.py`: pinned
+memory, copies on a side CUDA stream). `--tokenizer` is a local
+directory read by the port's own tokenizer (`tokenizer.py`); a family
+preset's hub id is refused, nothing is downloaded. Decoding an mp4 / the
+GT JPEGs needs OpenCV / PIL on the host; `train()` and `main()` take
+other decoders as `readers`. Out of this port for now, and raising
+NotImplementedError with their ROADMAP queue 1 feature: `--model_parallel
+> 1` and `--fsdp` (parallelism).
 """
 
 from __future__ import annotations
@@ -49,7 +59,12 @@ from video_llava_seg_torch.train.trainer import (
 
 def initialize_vision_tokenizer(tokenizer, cfg, with_seg: bool = True):
     """Add the special tokens and capture their ids. Returns the updated
-    cfg (seg / slow-fast separator token ids)."""
+    cfg (seg / slow-fast separator token ids).
+
+    Raises ValueError where an added id falls outside the LLM's
+    embedding (`cfg.llm.vocab_size`): neither package resizes it (the
+    reference does), and on the card an out-of-range id would trip a
+    device-side assert in the embedding gather and the loss."""
     added = []
     if cfg.num_slow_frames != cfg.num_frames:
         added.append(SLOW_FAST_SEPARATOR_TOKEN)
@@ -64,6 +79,13 @@ def initialize_vision_tokenizer(tokenizer, cfg, with_seg: bool = True):
     if with_seg and cfg.seg is not None:
         updates["seg_token_idx"] = tokenizer.convert_tokens_to_ids(
             VIDEO_SEG_TOKEN)
+    for name, tid in updates.items():
+        if tid is None or not 0 <= tid < cfg.llm.vocab_size:
+            raise ValueError(
+                f"initialize_vision_tokenizer: {name} = {tid} lies outside "
+                f"the LLM's {cfg.llm.vocab_size} embeddings (the tokenizer "
+                f"holds {len(tokenizer)} tokens); the embedding is not "
+                "resized, so give a tokenizer whose added tokens fit")
     return dataclasses.replace(cfg, **updates)
 
 
@@ -227,9 +249,39 @@ def init_params(cfg, tcfg, device, restore_weights: Optional[str] = None):
     return params
 
 
+def data_batches(dataset, collator, tcfg) -> Iterator[Dict]:
+    """Collated batches for ever: length-grouped (modality mode) where the
+    dataset gives `modality_lengths`, else a seeded permutation (the JAX
+    CLI's order; one replica)."""
+    from video_llava_seg_torch.data.sampler import LengthGroupedSampler
+
+    bsz = tcfg.per_device_batch_size
+    lengths = getattr(dataset, "modality_lengths", None)
+    if callable(lengths):
+        lengths = lengths()
+    if lengths is not None:
+        sampler = LengthGroupedSampler(bsz, 1, list(lengths),
+                                       seed=tcfg.seed, group_by_modality=True)
+        while True:
+            buf = []
+            for k in sampler:
+                buf.append(k)
+                if len(buf) == bsz:
+                    yield collator([dataset[int(i)] for i in buf])
+                    buf = []
+    else:
+        order = np.random.RandomState(tcfg.seed).permutation(len(dataset))
+        i = 0
+        while True:
+            idx = [order[(i + j) % len(dataset)] for j in range(bsz)]
+            i += bsz
+            yield collator([dataset[int(k)] for k in idx])
+
+
 def train(cfg, tcfg, data_args: Optional[DataConfig] = None,
           tokenizer=None, restore_weights: Optional[str] = None,
-          synthetic: bool = False, device="cuda"):
+          synthetic: bool = False, device="cuda",
+          readers: Optional[Dict] = None):
     """Build the state (`init_params`), the optimizer and the step, then
     run `trainer.train_loop`. Returns the final state.
 
@@ -238,24 +290,45 @@ def train(cfg, tcfg, data_args: Optional[DataConfig] = None,
     makes the LLM compute in fp32); on the card the port builds the int8
     base with bf16 scales and embedding, keeps fp32 masters for every
     trainable leaf and feeds bf16 frames, so the kernels see bf16 (see
-    `init_params`). On the CPU both run fp32 and agree closely."""
+    `init_params`). On the CPU both run fp32 and agree closely.
+
+    Without `synthetic` the batches come from `data_args`' dataset,
+    tokenized by `tokenizer` (`make_supervised_data_module`;
+    `data_batches`), prefetched onto `device` two ahead. readers: the
+    datasets' decoders (`read_clip`, `read_frame`) where OpenCV / PIL are
+    not to be used."""
     if tcfg.mesh.model_parallel > 1 or tcfg.mesh.fsdp:
         raise NotImplementedError("ROADMAP queue 1: parallelism "
                                   "(--model_parallel, --fsdp)")
-    if not synthetic:
-        raise NotImplementedError("ROADMAP queue 1: the training data "
-                                  "path and tokenizer")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: --device cuda but no CUDA device")
-    params = init_params(cfg, tcfg, dev, restore_weights)
-    state, tx = create_train_state(params, tcfg)
-    step_fn = make_train_step(cfg, tcfg, tx)
-    data_iter = synthetic_batches(cfg, tcfg.per_device_batch_size,
-                                  seed=tcfg.seed)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    state = train_loop(state, step_fn, data_iter, tcfg, to_json(cfg),
-                       prepare=lambda b: batch_to_device(b, dev, dtype))
+    if synthetic:
+        data_iter = synthetic_batches(cfg, tcfg.per_device_batch_size,
+                                      seed=tcfg.seed)
+        prepare = lambda b: batch_to_device(b, dev, dtype)  # noqa: E731
+    else:
+        from video_llava_seg_torch.data.collate import (
+            make_supervised_data_module,
+        )
+        from video_llava_seg_torch.data.prefetch import prefetch_to_device
+
+        module = make_supervised_data_module(tokenizer, cfg, data_args,
+                                             **(readers or {}))
+        data_iter = prefetch_to_device(
+            data_batches(module["train_dataset"], module["data_collator"],
+                         tcfg), dev, size=2, dtype=dtype)
+        prepare = None
+    try:
+        params = init_params(cfg, tcfg, dev, restore_weights)
+        state, tx = create_train_state(params, tcfg)
+        step_fn = make_train_step(cfg, tcfg, tx)
+        state = train_loop(state, step_fn, data_iter, tcfg, to_json(cfg),
+                           prepare=prepare)
+    finally:
+        if not synthetic:
+            data_iter.close()
     if tcfg.save_projector_only:
         save_projector_only(tcfg.output_dir, state.params)
     return state
@@ -329,13 +402,20 @@ def build_configs(args):
         lrs=OptimGroupLRs(**lr_over),
         mesh=MeshConfig(model_parallel=args.model_parallel,
                         fsdp=args.fsdp))
+    # the clip and seg-frame layout follow the model (the JAX CLI keeps
+    # DataConfig's full-width defaults, which --tiny cannot take)
+    seg_layout = ({} if cfg.seg is None else dict(
+        seg_image_size=cfg.seg.image_size,
+        max_seg_frames=cfg.seg.max_seg_frames))
     data_args = DataConfig(
         dataset=args.dataset or preset.get("dataset", "vicas"),
-        conv_template=conv_template)
+        conv_template=conv_template, num_frames=cfg.num_frames,
+        num_slow_frames=cfg.num_slow_frames, **seg_layout)
     return cfg, tcfg, data_args
 
 
-def main(argv=None):
+def main(argv=None, readers: Optional[Dict] = None):
+    """The CLI. readers: the datasets' decoders, as `train`'s."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=sorted(STAGE_PRESETS), default=None,
                     help="training stage preset (reference scripts parity)")
@@ -360,7 +440,9 @@ def main(argv=None):
                     help="override the LLM/projector peak LR")
     ap.add_argument("--vision_tower_lr", type=float, default=None)
     ap.add_argument("--tokenizer", default=None,
-                    help="HF tokenizer id; defaults per --llm family")
+                    help="local directory holding the tokenizer.json "
+                         "(required without --synthetic; hub ids are not "
+                         "fetched)")
     ap.add_argument("--llm", default="llama3_8b",
                     choices=("llama3_8b", "vicuna_7b"),
                     help="LLM family preset (reference llama3/ and vicuna/ "
@@ -375,13 +457,26 @@ def main(argv=None):
                     help="torch device of the run (cuda; cpu for tests)")
     args = ap.parse_args(argv)
     cfg, tcfg, data_args = build_configs(args)
+    tokenizer = None
     if not args.synthetic:
-        # the dataset path needs a tokenizer (transformers), which the
-        # port does not carry yet
-        raise NotImplementedError("ROADMAP queue 1: the training data "
-                                  "path and tokenizer")
-    return train(cfg, tcfg, data_args, restore_weights=args.restore_weights,
-                 synthetic=True, device=args.device)
+        from video_llava_seg_torch.tokenizer import Tokenizer
+
+        path = args.tokenizer or _LLM_FAMILIES[args.llm]["tokenizer"]
+        if not osp.isdir(path):
+            raise SystemExit(
+                f"--tokenizer {path!r} is not a local directory: give the "
+                "directory holding the checkpoint's tokenizer.json (the "
+                f"--llm {args.llm} preset names the hub id "
+                f"{_LLM_FAMILIES[args.llm]['tokenizer']!r}; nothing is "
+                "downloaded)")
+        tokenizer = Tokenizer.from_pretrained(path)
+        cfg = initialize_vision_tokenizer(
+            tokenizer, cfg, with_seg=STAGE_PRESETS.get(args.stage, {}).get(
+                "with_seg", True))
+    return train(cfg, tcfg, data_args, tokenizer,
+                 restore_weights=args.restore_weights,
+                 synthetic=args.synthetic, device=args.device,
+                 readers=readers)
 
 
 if __name__ == "__main__":
