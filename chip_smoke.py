@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ViCaS serving paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--max_new_tokens N]
+    python3 chip_smoke.py [--seed N] [--max_new_tokens N] [--parallel_only]
 
 Phases, each printed on its own line(s); any failure raises and the
 script exits non-zero without printing a result:
@@ -333,6 +333,39 @@ families, 24-25, after 23; the training data path, 26, after 8.
      checkpoint (given the tokenizer's files) served by `run_inference`
      with the tokenizer `load_model` reads from it, a caption decoded for
      each video. (Phase 23 serves phase 8's tree after these steps.)
+ 27. tensor-parallel serving at tp = 2 (`parallel/`): K2 and K5 at one
+     rank's shard shapes against their plain versions (`K2_tp2`,
+     `K5_tp2` lines: Llama-3-8B's 16 / 4 heads, MPT-7B's 16 / 16 with
+     rank 1's ALiBi slopes; every K5 product of a rank at the prefill
+     rows and one decode row, the row-parallel wo / w_down with unit
+     scales and fp32 output, exact); then Llama-3-8B in bf16 and W4A8
+     and MPT-7B in W4A8 (32 layers, full width; CLIP-L and the seg head
+     whole on each rank) served on the phase-23 fixture by this process
+     and by two ranks sharing the card (gloo, spawned here) through
+     `run_inference --model_parallel 2` (TP_MAX_NEW tokens): W4A8
+     prefill logits and every greedy token bit-equal to the one
+     process's; bf16 prefill logits within TP_BF16_LOGIT_ATOL and the
+     tokens equal up to a near tie (TP_MARGIN), with a control (layer
+     0's sums left out) that must exceed the limit; rank 0 alone writing
+     the JSON; each rank's launches by C entry printed and asserted (K2
+     all on attention_sm90.cu, K5 on w4a8_sm90.cu / w4a8_gemv_sm90.cu);
+     each rank's seconds split into its collectives and the rest.
+ 28. a one-rank NCCL group runs phase 26's first two steps through the
+     --fsdp code from the same trainable leaves and device batches:
+     losses, grad norms and parameters bit-equal.
+ 29. --fsdp on the two ranks of phase 27 (FSDP_LAYERS layers, full
+     width): the stage-3 QLoRA state sharded, a row of the global batch
+     each: steps 1-2 through the trainer's loop, step 3 in memory, then a
+     fresh state resumed from rank 0's gathered checkpoint-2 to step 3,
+     bitwise. Against this process's FSDP_STEPS steps over both rows:
+     the loss and grad norm of every step within FSDP_LOSS_RTOL /
+     FSDP_GRAD_NORM_RTOL, and the trainable leaves after the two
+     nonzero-lr updates within FSDP_UPDATE_RTOL of the update and 3 x lr
+     an update of each other; the control (one process on row 0 alone)
+     must fail them. Each rank's peak memory is printed. Two ranks
+     sharing one card measure no multi-GPU speed.
+
+    python3 chip_smoke.py --parallel_only    # the build, phases 27 / 29
 """
 
 from __future__ import annotations
@@ -495,7 +528,9 @@ BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
           "K7_hiera_large": 1e-2, "K7_hiera_base_plus": 1e-2,
           # K2 with Mistral's window (fewer keys a row) and with MPT's
           # ALiBi (the same products, the scores in natural units): K2
-          "K2_window": 1e-2, "K2_alibi": 1e-2}
+          "K2_window": 1e-2, "K2_alibi": 1e-2,
+          # K2 and K5 at one tensor-parallel rank's shard shapes: K2, K5
+          "K2_tp2": 1e-2, "K5_tp2": None}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -657,6 +692,9 @@ def phase_environment():
                             text=True, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # as the training CLI: deterministic convolution backward, so that a
+    # step repeats bit for bit (phases 28 / 29)
+    torch.backends.cudnn.deterministic = True
     log(f"[env] card: {smi}")
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, devices "
@@ -4825,7 +4863,7 @@ def phase_train_data(cfg, params, seed, dev, smi, workdir, steps: int = 4):
         create_train_state,
         make_train_step,
     )
-    from video_llava_seg_torch.train.trainer import step_generator
+    from video_llava_seg_torch.train.trainer import RowGenerators
 
     t0 = time.perf_counter()
     root = os.path.join(workdir, "datasets")
@@ -4874,6 +4912,11 @@ def phase_train_data(cfg, params, seed, dev, smi, workdir, steps: int = 4):
     step_fn = make_train_step(dcfg, tcfg, tx, timings=timings)
     expect, why, bwd = train_step_expect(dcfg)
     rows, counts = [], None
+    # phase 28's reference: the trainable leaves before step 1 and after
+    # FSDP_REF_STEPS steps, those steps' device batches and metrics
+    fsdp_ref = {"start": {p: t.detach().clone() for p, t in leaves
+                          if not p.startswith("llm/")},
+                "batches": [], "metrics": [], "cfg": dcfg}
     for step in range(steps):
         batch = next(prefetch)
         wait = prefetch.waits[-1]
@@ -4891,11 +4934,18 @@ def phase_train_data(cfg, params, seed, dev, smi, workdir, steps: int = 4):
         reset_launches()
         sync()
         t1 = time.perf_counter()
-        state, metrics = step_fn(state, batch, step_generator(seed, step))
+        state, metrics = step_fn(state, batch, RowGenerators(seed, step))
         sync()
         seconds = time.perf_counter() - t1
         counts = snapshot_launches()
         m = {k: float(v) for k, v in metrics.items()}
+        if step < FSDP_REF_STEPS:
+            fsdp_ref["batches"].append(batch)
+            fsdp_ref["metrics"].append(m)
+            if step + 1 == FSDP_REF_STEPS:
+                fsdp_ref["after"] = {p: t.detach().clone() for p, t in
+                                     leaves_with_paths(params)
+                                     if p in fsdp_ref["start"]}
         n_text = int((host[step]["labels"][:, 1:] != IGNORE_INDEX).sum())
         share = timings.get("seg", 0.0) / seconds
         rows.append({"kind": kind, "length": length, "seconds": seconds,
@@ -4944,7 +4994,8 @@ def phase_train_data(cfg, params, seed, dev, smi, workdir, steps: int = 4):
     del state, tx, base, step_fn, batch, lora_b, b_before, prefetch
     torch.cuda.empty_cache()
     sync()
-    return counts, {"steps": rows, "tokenizer_dir": tok_dir, "root": root}
+    return counts, {"steps": rows, "tokenizer_dir": tok_dir, "root": root,
+                    "fsdp_ref": fsdp_ref}
 
 
 def phase_train_data_cli(seed, dev, smi, workdir, root):
@@ -6153,10 +6204,870 @@ def phase_tiny_family_agreement(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# parallelism (phases 27-29): tensor-parallel serving and FSDP training
+# ---------------------------------------------------------------------------
+
+# The two-rank phases run two processes on the one card (gloo: NCCL
+# refuses two ranks on one device), whose collectives pass through host
+# memory. TP serving runs each family at its full depth and width. The
+# FSDP step keeps full width and is cut to FSDP_LAYERS layers for the
+# time limit, not for memory: every gathered layer crosses host memory
+# twice a step (forward and recompute) at gloo's rate on one card; the
+# phase's line prints both arithmetics (the memory a full-depth rank
+# would peak at, the seconds its gathers would add)
+TP = 2
+FSDP_LAYERS = 4
+# greedy tokens a TP query (the all-reduces of each decode step cross
+# host memory under gloo)
+TP_MAX_NEW = 8
+# A W4A8 TP rank sums exact integer products (K5 with unit scales, fp32
+# integers below 2^24), so its prefill logits and tokens must equal the
+# one process's bit for bit. A bf16 rank sums fp32 partials of its row
+# blocks where the one process runs one bf16 product of the whole row:
+# its prefill logits may differ by at most TP_BF16_LOGIT_ATOL (set from
+# the sound runs' readings), and its tokens must equal the one process's
+# up to a first difference that falls on a step whose one-process
+# top-two margin is below TP_MARGIN x that limit (a near tie: each of
+# the top two moves by at most the limit, taking a decode step's logits
+# to drift like the prefill's). The control, a rank run with layer 0's
+# two row-parallel sums left out (TP_CONTROL_CALLS), must exceed the
+# limit. Readings at 32 layers on an H100 80GB HBM3 at 700 W:
+# 0.0586-0.0625, the control 1.82.
+TP_BF16_LOGIT_ATOL = 0.125
+TP_MARGIN = 2.0
+TP_CONTROL_CALLS = (0, 1)
+# the serving runs: (family, W4A8 or bf16)
+TP_RUNS = {"llama_bf16": ("llama", False), "llama_w4a8": ("llama", True),
+           "mpt_w4a8": ("mpt", True)}
+# phase 28 repeats phase 26's first steps through the FSDP code
+FSDP_REF_STEPS = 2
+# Phase 29: FSDP_STEPS steps (update 0 runs at the warmup's lr 0, so
+# updates 1 and 2 move the parameters) against one process on the global
+# batch. Each rank runs its row at batch 1 where the one process runs
+# both at batch 2, so bf16 products of other shapes round differently:
+# the limits below are set from the sound runs' readings. The control,
+# one process on row 0 alone (a rank whose gradients are not summed over
+# the group), must fail them. Readings (H100 80GB HBM3, 700 W): loss
+# 6.2e-8 / 6.2e-8 / 4.4e-5, grad norm 3.1e-5 / 3.1e-5 / 5.3e-5, the
+# leaves 0.024 of the update; the control 1.5e-4 / 1.5e-4 / 6.1e-3,
+# 2.8e-2 / 2.8e-2 / 4.4e-2 and 0.69.
+FSDP_STEPS = 3
+FSDP_LOSS_RTOL = 2e-4
+FSDP_GRAD_NORM_RTOL = 1e-3
+# ||rank's parameters - one process's|| / ||one process's update||, over
+# every trainable leaf after the last step
+FSDP_UPDATE_RTOL = 0.1
+# the largest learning rate of the stage-3 groups: an Adam update moves
+# a parameter by at most about lr, so two runs' leaves part by at most
+# 3 x lr a nonzero-lr update (`check_params` in the CPU tests)
+FSDP_PEAK_LR = 2e-5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def tp_cfg(cfg, family):
+    return cfg if family == "llama" else family_cfg(cfg, family)
+
+
+def tp_params(fcfg, w4a8, seed, dev):
+    """A TP run's serving tree, seeded on the card: the LLM bf16 or W4A8
+    (as --load_4bit makes it; unfused, since --fuse_qkv is single-card),
+    tower, projector and seg head bf16."""
+    from video_llava_seg_torch.models import llama, projector, seg_head, vit
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    llm = (llama.init_quantized(fcfg.llm, g, dev, bf, bits=4,
+                                act_quant=True) if w4a8
+           else llama.init(fcfg.llm, g, dev, bf))
+    return {"llm": llm,
+            "vision_tower": perturb(vit.init(fcfg.vision, g, dev, bf), g),
+            "mm_projector": projector.init(fcfg.projector, g, dev, bf),
+            "seg_head": perturb(seg_head.init(fcfg.seg, fcfg.llm.hidden_size,
+                                              g, dev, bf), g)}
+
+
+def tp_serve(name, cfg, seed, root, out_dir, dev, mp, max_new=TP_MAX_NEW):
+    """One TP run through `run_inference` (`--model_parallel mp`): the
+    caption and the referral of the fixture's video. Returns for each
+    query its greedy tokens, the top-two margin of each step's logits and
+    the prefill's logits; the launches by kernel and C entry, seconds,
+    peak memory and (on the writing rank) the JSON."""
+    from video_llava_seg_torch.inference import main as serve
+    from video_llava_seg_torch.models import llama, llava
+
+    family, w4a8 = TP_RUNS[name]
+    fcfg = tp_cfg(cfg, family)
+    tok = SmokeTokenizer(fcfg.llm.vocab_size)
+    params = tp_params(fcfg, w4a8, seed, dev)
+    template = ("llava_llama_3" if family == "llama"
+                else FAMILY_TEMPLATES[family])
+    flags = ["-i", "unused", "-o", out_dir, "--device", str(dev),
+             "--conv_template", template]
+    if mp > 1:
+        flags += ["--model_parallel", str(mp), "--dist_backend", "gloo"]
+    flags += ["--max_new_tokens", str(max_new)]
+    tokens, margins, prefill = [], [], []
+    generate, select = llava.generate, llama.select_token
+
+    def recorded(*a, **k):
+        margins.append([])
+        out = generate(*a, **k)
+        tokens.append(out[0][0, :out[2]].tolist())
+        return out
+
+    def recorded_select(logits, *a, **k):
+        top = logits.float().topk(2, dim=-1).values
+        if not margins[-1]:
+            prefill.append(logits[0].float().cpu())
+        margins[-1].append(float((top[:, 0] - top[:, 1]).min()))
+        return select(logits, *a, **k)
+
+    llava.generate, llama.select_token = recorded, recorded_select
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    try:
+        serve.run_inference(serve.parse_args(flags),
+                            model=(params, fcfg, tok),
+                            fetcher=ArrayFetcher(root))
+    finally:
+        llava.generate, llama.select_token = generate, select
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = snapshot_launches()
+    path = os.path.join(out_dir, "000007.json")
+    pred = None
+    if os.path.exists(path):
+        with open(path) as fh:
+            pred = json.load(fh)
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens": tokens, "margins": margins, "prefill": prefill,
+            "counts": counts, "seconds": seconds,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "pred": pred}
+
+
+def tp_tokens_agree(tag, one, rank, exact):
+    """Holds a rank's serving run to the one process's on the same card.
+    W4A8 (`exact`): the prefill logits and every greedy token equal. bf16:
+    the prefill logits within TP_BF16_LOGIT_ATOL, and the tokens equal up
+    to a first difference that may only fall on a step whose one-process
+    top-two margin is below TP_MARGIN x TP_BF16_LOGIT_ATOL. Returns the
+    per-query (largest prefill-logit difference, tokens equal) and the
+    failures."""
+    held, bad = [], []
+    tie = TP_MARGIN * TP_BF16_LOGIT_ATOL
+    for q, (want, got) in enumerate(zip(one["tokens"], rank["tokens"])):
+        d = float((one["prefill"][q] - rank["prefill"][q]).abs().max())
+        k = 0
+        while k < min(len(want), len(got)) and want[k] == got[k]:
+            k += 1
+        held.append((d, k))
+        if exact:
+            if d != 0.0 or got != want:
+                bad.append(f"{tag} query {q}: W4A8 must be bit-equal: "
+                           f"prefill logits within {d:.3e}, tokens {got} "
+                           f"vs {want}")
+            continue
+        if not d <= TP_BF16_LOGIT_ATOL:
+            bad.append(f"{tag} query {q}: prefill logits within {d:.3e}, "
+                       f"limit {TP_BF16_LOGIT_ATOL}")
+        if got != want and not (k < len(one["margins"][q])
+                                and one["margins"][q][k] < tie):
+            bad.append(f"{tag} query {q}: tokens {got} part from the one "
+                       f"process's {want} at step {k}, not at a near tie "
+                       f"(margins {one['margins'][q]}, below {tie} allowed)")
+    return held, bad
+
+
+def tp_broken_sums(calls):
+    """A control for phase 27: the group sums of the listed row-parallel
+    denses left out (0: layer 0's wo at the first query's prefill, 1: its
+    w_down), each rank keeping its own partial. Returns the function that
+    puts the sums back."""
+    from video_llava_seg_torch.parallel import collectives
+    from video_llava_seg_torch.parallel import tensor_parallel as tpm
+
+    dense, seen = tpm.row_parallel_dense, [0]
+
+    def broken(p, x):
+        skip = seen[0] in calls
+        seen[0] += 1
+        if not skip:
+            return dense(p, x)
+        reduce = collectives.all_reduce
+        collectives.all_reduce = lambda t, *a, **k: t
+        try:
+            return dense(p, x)
+        finally:
+            collectives.all_reduce = reduce
+
+    tpm.row_parallel_dense = broken
+
+    def restore():
+        tpm.row_parallel_dense = dense
+    return restore
+
+
+def fsdp_two_rank_cfg(cfg):
+    return dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=FSDP_LAYERS))
+
+
+def fsdp_global_batch(fcfg, seed):
+    from video_llava_seg_torch.train.train import synthetic_batches
+
+    return next(synthetic_batches(fcfg, TP, seed=seed))
+
+
+def fsdp_rank_run(cfg, seed, dev, workdir):
+    """Phase 29 on one rank: the stage-3 QLoRA state sharded over the two
+    ranks (`--fsdp`), its row of the global batch. Steps 1 to
+    FSDP_STEPS - 1 through the trainer's loop (rank 0 writes the last
+    one's checkpoint, gathered), the last step on the same state in
+    memory; then a fresh state resumed by the loop from that checkpoint
+    to the last step. Returns every step's metrics, whether the resumed
+    last step (metrics and trainable leaves) equals the uninterrupted
+    one bit for bit, the peak memory and, on rank 0, the full trainable
+    leaves after the last step (on the host)."""
+    import itertools
+
+    from video_llava_seg_torch.config import MeshConfig, to_json
+    from video_llava_seg_torch.parallel.fsdp import DataParallel
+    from video_llava_seg_torch.parallel.mesh import create_mesh
+    from video_llava_seg_torch.train.optimizer import leaves_with_paths
+    from video_llava_seg_torch.train.train import init_params
+    from video_llava_seg_torch.train.train_step import (
+        batch_to_device,
+        create_train_state,
+        make_train_step,
+    )
+    from video_llava_seg_torch.train.trainer import RowGenerators, train_loop
+
+    fcfg = fsdp_two_rank_cfg(cfg)
+    tcfg = train_tcfg(seed=seed, mesh=MeshConfig(fsdp=True),
+                      per_device_batch_size=1, output_dir=workdir)
+    dp = DataParallel(create_mesh(tcfg.mesh), fsdp=True)
+    batch = batch_to_device(dp.rows(fsdp_global_batch(fcfg, seed), 1), dev,
+                            torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runs = []
+    for steps in (FSDP_STEPS - 1, FSDP_STEPS):
+        local = dp.shard(init_params(fcfg, tcfg, dev))
+        # one more layer's bytes at rest on this rank: its shards, its
+        # LoRA with Adam's m and v, and the layer input a checkpointed
+        # block keeps for the backward
+        layer_bytes = sum(
+            t.numel() * t.element_size()
+            * (3 if p.startswith("lora/") else 1)
+            for p, t in leaves_with_paths(local)
+            if p.startswith(("llm/layers/0/", "lora/llm/layers/0/")))
+        layer_bytes += batch["gather_idx"].shape[1] * fcfg.llm.hidden_size * 2
+        # the bytes one gather of a whole layer (and its LoRA) brings in
+        layer_gather = sum(
+            t.numel() * t.element_size() * dp.size
+            for p, t in leaves_with_paths(local)
+            if p.startswith(("llm/layers/0/", "lora/llm/layers/0/"))
+            and dp.dim(p) is not None)
+        state, tx = create_train_state(local, tcfg)
+        del local
+        step_fn = make_train_step(fcfg, tcfg, tx, dp=dp)
+        metrics = []
+
+        def rec(state, b, g, step_fn=step_fn, metrics=metrics):
+            state, m = step_fn(state, b, g)
+            metrics.append({k: float(v) for k, v in m.items()})
+            return state, m
+
+        reset_launches()
+        # the first pass ends at checkpoint-(FSDP_STEPS - 1); the second
+        # resumes from it
+        state = train_loop(state, rec, itertools.repeat(batch),
+                           dataclasses.replace(tcfg, num_train_steps=steps),
+                           to_json(fcfg), dp=dp)
+        counts = snapshot_launches()
+        if steps < FSDP_STEPS:      # the last step, uninterrupted
+            state, _ = rec(state, batch, RowGenerators(seed, steps,
+                                                       dp.rank))
+        full = dp.full_params(dict(zip(tx.paths, tx.params)))
+        runs.append({"metrics": metrics, "counts": counts,
+                     "trainable": {p: t.to("cpu", copy=True)
+                                   for p, t in full.items()}})
+        del state, tx, step_fn, full
+        torch.cuda.empty_cache()
+    sync()
+    straight, resumed = runs
+    same = all(torch.equal(straight["trainable"][p], t)
+               for p, t in resumed["trainable"].items())
+    return {"metrics": straight["metrics"],
+            "resumed_last": resumed["metrics"],
+            "resume_bitwise": same and resumed["metrics"][-1]
+            == straight["metrics"][-1],
+            "trainable": straight["trainable"] if dp.rank == 0 else None,
+            "counts": straight["counts"],
+            "layer_bytes": layer_bytes, "layer_gather_bytes": layer_gather,
+            "sharded_leaves": sum(dp.dim(p) is not None for p in dp.specs),
+            "leaves": len(dp.specs), "seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def time_collectives():
+    """Wrap the port's tensor collectives (the tensor-parallel sums and
+    gathers and the FSDP ones) to sum their seconds and bytes by op.
+    Each is bracketed by a device synchronize, so its seconds hold the
+    card's work queued before it as little as its own end: the rest of
+    a rank's time is compute and host. Returns the dict."""
+    from video_llava_seg_torch.parallel import collectives
+
+    acc = {}
+
+    def wrap(name):
+        fn = getattr(collectives, name)
+
+        def timed(t, *a, **k):
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+            out = fn(t, *a, **k)
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            s, b = acc.get(name, (0.0, 0))
+            acc[name] = (s + time.perf_counter() - t0,
+                         b + t.numel() * t.element_size())
+            return out
+        setattr(collectives, name, timed)
+
+    for name in ("all_reduce", "all_gather_dim", "reduce_scatter"):
+        wrap(name)
+    return acc
+
+
+def parallel_rank(rank, world, port, spec):
+    """One of the two ranks of phases 27 / 29: torchrun's environment, the
+    card shared (gloo); every TP serving run, the bf16 control with layer
+    0's sums left out (one token), then the FSDP steps; its results to
+    spec["dir"]/rank<r>.pt."""
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    collective_time = time_collectives()
+    dev = torch.device(spec["device"])
+    out = {"tp": {}}
+    try:
+        for name in TP_RUNS:
+            collective_time.clear()
+            # an output directory a rank: rank 0 alone writes the JSON
+            out["tp"][name] = tp_serve(name, spec["cfg"], spec["seed"],
+                                       spec["root"],
+                                       os.path.join(spec["dir"], "tp", name,
+                                                    f"rank{rank}"),
+                                       dev, world)
+            out["tp"][name]["collectives"] = dict(collective_time)
+        restore = tp_broken_sums(TP_CONTROL_CALLS)
+        try:
+            out["control"] = tp_serve(
+                "llama_bf16", spec["cfg"], spec["seed"], spec["root"],
+                os.path.join(spec["dir"], "control", f"rank{rank}"), dev,
+                world, max_new=1)
+        finally:
+            restore()
+        collective_time.clear()
+        out["fsdp"] = fsdp_rank_run(spec["cfg"], spec["seed"], dev,
+                                    os.path.join(spec["dir"], "fsdp"))
+        out["fsdp"]["collectives"] = dict(collective_time)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.save(out, os.path.join(spec["dir"], f"rank{rank}.pt"))
+
+
+def shard_kernel_checks(cfg, prefill_len, seed, dev, results):
+    """K2 and K5 at one rank's shard shapes at tp = 2 (phase 27): Llama-3-8B
+    (16 / 4 heads; wq / wk / wv / w_gate / w_up on their column blocks,
+    wo / w_down on their row blocks with unit scales and fp32 output, the
+    vocab-split lm_head) and MPT-7B (16 / 16 heads, rank 1's ALiBi slopes:
+    those of global heads 16-31; its MLP's up / down), each product at the
+    prefill rows and at one decode row, against the plain versions as
+    phase 2 holds them (K5 exact)."""
+    import torch.nn.functional as F
+
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.ops.attention import (
+        alibi_slopes,
+        attention,
+        attention_reference,
+    )
+    from video_llava_seg_torch.ops.int4 import unpack_int4, w4a8_matmul_plain
+
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    bf = torch.bfloat16
+    mpt = family_cfg(cfg, "mpt").llm
+    mpt_len = family_prompt_lens(family_cfg(cfg, "mpt"), "mpt",
+                                 SmokeTokenizer(mpt.vocab_size))[0]
+    for lc, s, fam in ((cfg.llm, prefill_len, "llama"), (mpt, mpt_len,
+                                                         "mpt")):
+        hq, hkv = lc.num_heads // TP, lc.num_kv_heads // TP
+        q = torch.randn(1, hq, s, lc.head_dim, generator=g, device=dev).to(bf)
+        k = torch.randn(1, hkv, s, lc.head_dim, generator=g,
+                        device=dev).to(bf)
+        v = torch.randn(1, hkv, s, lc.head_dim, generator=g,
+                        device=dev).to(bf)
+        slopes = (torch.from_numpy(alibi_slopes(lc.num_heads)[hq:]).to(dev)
+                  if lc.use_alibi else False)
+        causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        mask = None
+        if lc.use_alibi:
+            rel = (torch.arange(s, device=dev)[None]
+                   - torch.arange(s, device=dev)[:, None]).float()
+            mask = torch.where(causal, slopes[:, None, None] * rel,
+                               float("-inf"))[None].to(bf)
+        work = (2 * _nbytes(q, k, v, q),
+                4 * hq * lc.head_dim * s * (s + 1) // 2, PEAK_BF16)
+        entry = kernels.attention_entry(lc.head_dim, False, s, hkv,
+                                        bias=lc.use_alibi,
+                                        head_bias=lc.use_alibi)
+        if entry != SM90_ENTRY:
+            raise AssertionError(f"K2 tp{TP} {fam}: routed to {entry}")
+        _check("K2_tp2", f"{fam} rank shard q{list(q.shape)} "
+               f"kv{list(k.shape)} causal"
+               + (" ALiBi of heads 16-31" if lc.use_alibi else ""),
+               lambda: attention(q, k, v, causal=True, alibi=slopes),
+               lambda: attention_reference(q, k, v, causal=True,
+                                           alibi=slopes),
+               lambda: attention_reference(q.float(), k.float(), v.float(),
+                                           causal=True, alibi=slopes),
+               results, work,
+               run_library=lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, is_causal=mask is None,
+                   enable_gqa=True))
+        del q, k, v, mask, causal
+    shapes = {}
+    for lc, s in ((cfg.llm, prefill_len), (mpt, mpt_len)):
+        d, hd = lc.hidden_size, lc.head_dim
+        col = [(d, lc.num_heads * hd // TP), (d, lc.num_kv_heads * hd // TP),
+               (d, lc.intermediate_size // TP)]
+        row = [(lc.num_heads * hd // TP, d), (lc.intermediate_size // TP, d)]
+        for rows in (s, 1):
+            for i, o in col:
+                shapes[(rows, i, o, "column")] = None
+            for i, o in row:
+                shapes[(rows, i, o, "row")] = None
+        if not lc.tie_word_embeddings:
+            shapes[(1, d, lc.vocab_size // TP, "head")] = None
+    for rows, in_dim, out, kind in shapes:
+        packed = torch.randint(-128, 128, (in_dim // 2, out), generator=g,
+                               device=dev, dtype=torch.int8)
+        xq = torch.randint(-127, 128, (rows, in_dim), generator=g,
+                           device=dev, dtype=torch.int8)
+        if kind == "row":       # the integer products, scaled after the sum
+            w_scale = torch.ones(out, device=dev)
+            a_scale = torch.ones(rows, 1, device=dev)
+        else:
+            w_scale = torch.rand(out, generator=g, device=dev) * 1e-2 + 1e-4
+            a_scale = torch.rand(rows, 1, generator=g, device=dev) + 1e-3
+        dt = bf if kind == "column" else torch.float32
+        w_i8 = torch.cat(unpack_int4(packed)).t().contiguous().t()
+        xq_lib = (torch.cat([xq, xq.new_zeros(32, in_dim)])
+                  if rows < 17 else xq)
+        entry = kernels.w4a8_entry(rows, in_dim // 2, out)
+        want = kernels.W4A8_GEMV_ENTRY if rows <= 8 else "vls_w4a8_sm90"
+        if entry != want:
+            raise AssertionError(f"K5 tp{TP} [{rows}, {in_dim}] x [{in_dim}"
+                                 f", {out}]: routed to {entry}")
+        work = (_nbytes(xq, a_scale, packed, w_scale)
+                + rows * out * (4 if dt == torch.float32 else 2),
+                2 * rows * in_dim * out, PEAK_INT8)
+        _check("K5_tp2", f"{kind}-parallel [{rows}, {in_dim}] x [{in_dim}, "
+               f"{out}] -> {str(dt).split('.')[-1]} ({entry})",
+               lambda: kernels.w4a8_matmul(xq, a_scale, packed, w_scale, dt),
+               lambda: w4a8_matmul_plain(xq, a_scale, packed, w_scale, dt),
+               lambda: w4a8_matmul_plain(xq, a_scale, packed, w_scale, dt),
+               results, work,
+               run_library=lambda: torch._int_mm(xq_lib, w_i8))
+        del packed, xq, w_i8, xq_lib
+    torch.cuda.empty_cache()
+    sync()
+
+
+def fsdp_single_reference(cfg, seed, dev, rows=None):
+    """Phase 29's reference: the same stage-3 QLoRA tree through
+    FSDP_STEPS single-process steps on the global batch (2 rows) or, for
+    the control, on its rows `rows` alone. Returns the metrics and the
+    trainable leaves before the first step and after the last (on the
+    host)."""
+    from video_llava_seg_torch.train.train import init_params
+    from video_llava_seg_torch.train.train_step import (
+        batch_to_device,
+        create_train_state,
+        make_train_step,
+    )
+    from video_llava_seg_torch.train.trainer import RowGenerators
+
+    fcfg = fsdp_two_rank_cfg(cfg)
+    tcfg = train_tcfg(seed=seed)
+    state, tx = create_train_state(init_params(fcfg, tcfg, dev), tcfg)
+    step_fn = make_train_step(fcfg, tcfg, tx)
+    batch = fsdp_global_batch(fcfg, seed)
+    if rows is not None:
+        batch = {k: v[rows] for k, v in batch.items()}
+    batch = batch_to_device(batch, dev, torch.bfloat16)
+
+    def trainable():
+        return {p: t.detach().to("cpu", copy=True)
+                for p, t in zip(tx.paths, tx.params)}
+
+    start = trainable()
+    metrics = []
+    for step in range(FSDP_STEPS):
+        state, m = step_fn(state, batch, RowGenerators(seed, step))
+        metrics.append({k: float(v) for k, v in m.items()})
+    after = trainable()
+    del state, tx, step_fn, batch
+    torch.cuda.empty_cache()
+    sync()
+    return {"metrics": metrics, "start": start, "after": after}
+
+
+def update_gap(start, after, want):
+    """(||after - want|| / ||want - start||, max |after - want|) over every
+    trainable leaf: how far a run's parameters are from the reference's,
+    against the reference's own update."""
+    num = den = 0.0
+    worst = 0.0
+    for p, w in want.items():
+        d = after[p].double() - w.double()
+        num += float(d.square().sum())
+        den += float((w.double() - start[p].double()).square().sum())
+        worst = max(worst, float(d.abs().max()))
+    return math.sqrt(num / den), worst
+
+
+def tp_launch_line(tag, c):
+    from video_llava_seg_torch import kernels
+
+    return (f"{tag}: K2 {c['K2']} (attention_sm90.cu {c['sm90 entry']}, "
+            f"attention.cu {c['attention.cu entry']}), K5 {c['K5']} "
+            f"(w4a8_sm90.cu {c['vls_w4a8_sm90']}, w4a8_gemv_sm90.cu "
+            f"{c[kernels.W4A8_GEMV_ENTRY]}, w4a8.cu {c['vls_w4a8']}), K1 "
+            f"{c['K1']}, K3 {c['K3']}, K4 {c['K4']}")
+
+
+def collective_split(x):
+    """'X s: collectives Y s (by op), the rest Z s' of one rank's run."""
+    c = x.get("collectives", {})
+    total = sum(v[0] for v in c.values())
+    return (f"{x['seconds']:.3f} s: collectives {total:.3f} s ("
+            + ", ".join(f"{k} {v[0]:.3f} s {v[1] / 1e9:.2f} GB"
+                        for k, v in sorted(c.items()))
+            + f"), compute and host {x['seconds'] - total:.3f} s")
+
+
+def phase_parallel(cfg, prefill_len, seed, dev, smi, results):
+    """Phases 27 and 29. 27: K2 / K5 at the shard shapes
+    (`shard_kernel_checks`); then each TP run (Llama-3-8B bf16 and W4A8,
+    MPT-7B W4A8; 32 layers, full width; CLIP-L and the seg head whole on
+    every rank) served in this process and by two ranks through
+    `run_inference --model_parallel 2`: the rank's prefill logits and
+    greedy tokens against the one process's (`tp_tokens_agree`), the
+    bf16 control beyond the limit, the JSON written by rank 0 alone, each
+    rank's launches by C entry (K2 all on attention_sm90.cu, K5 on
+    w4a8_sm90.cu / w4a8_gemv_sm90.cu, none on attention.cu / w4a8.cu),
+    each rank's seconds split into collectives and the rest.
+    29: the stage-3 QLoRA step (FSDP_LAYERS layers, full width) on the
+    global batch of 2 rows in this process (and, the control, on row 0
+    alone), then by the two ranks under --fsdp (a row each) for
+    FSDP_STEPS steps and the last again resumed from the checkpoint
+    before it (`fsdp_rank_run`): every step's loss and grad norm, and the
+    trainable leaves after the last, within their limits of the one
+    process's, the control outside them, the resume bitwise, each
+    rank's peak memory. Returns (rank 0's W4A8 Llama TP counts,
+    summary)."""
+    from video_llava_seg_torch import kernels
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shard_kernel_checks(cfg, prefill_len, seed, dev, results)
+    t_checks = time.perf_counter() - t0
+    summary = {"fsdp_layers": FSDP_LAYERS,
+               "kernel_checks_seconds": t_checks, "tp": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as work:
+        root = os.path.join(work, "datasets")
+        write_vicas_fixture(root, seed)
+        old_env = os.environ.get("VIDEONET_DATASETS_DIR")
+        os.environ["VIDEONET_DATASETS_DIR"] = root
+        try:
+            one = {}
+            for name in TP_RUNS:
+                one[name] = tp_serve(name, cfg, seed, root,
+                                     os.path.join(work, "one", name), dev, 1)
+            t0 = time.perf_counter()
+            ref = fsdp_single_reference(cfg, seed, dev)
+            t_ref = time.perf_counter() - t0
+            control = fsdp_single_reference(cfg, seed, dev, slice(0, 1))
+            torch.cuda.empty_cache()
+            sync()
+            # both ranks on this process's card
+            spec = {"cfg": cfg, "seed": seed, "root": root, "dir": work,
+                    "device": (f"cuda:{torch.cuda.current_device()}"
+                               if dev.type == "cuda" else "cpu")}
+            t0 = time.perf_counter()
+            torch.multiprocessing.spawn(
+                parallel_rank, args=(TP, free_port(), spec), nprocs=TP,
+                join=True)
+            t_ranks = time.perf_counter() - t0
+            ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                                weights_only=False) for r in range(TP)]
+        finally:
+            if old_env is None:
+                os.environ.pop("VIDEONET_DATASETS_DIR", None)
+            else:
+                os.environ["VIDEONET_DATASETS_DIR"] = old_env
+    failures = []
+    log(f"[parallel] two ranks on the one card (gloo) ran the three TP "
+        f"serving runs, the control and the FSDP steps in {t_ranks:.1f} s "
+        f"(two processes sharing a card: no multi-GPU speed); {smi}")
+    for name in TP_RUNS:
+        o, rs = one[name], [r["tp"][name] for r in ranks]
+        family, w4a8 = TP_RUNS[name]
+        layers = tp_cfg(cfg, family).llm.num_layers
+        tag = f"[tp{TP} {name}]"
+        log(f"{tag} one process: {o['seconds']:.3f} s, peak "
+            f"{o['peak_gib']:.1f} GiB; " + "; ".join(
+                f"rank {r}: {collective_split(x)}, peak "
+                f"{x['peak_gib']:.1f} GiB" for r, x in enumerate(rs))
+            + f" ({layers} layers, full width, the family's full depth; "
+            "collectives timed between device synchronizes; "
+            f"{smi})")
+        log(tp_launch_line(f"{tag} one process launches", o["counts"]))
+        for r, x in enumerate(rs):
+            log(tp_launch_line(f"{tag} rank {r} launches", x["counts"]))
+        held = []
+        for r, x in enumerate(rs):
+            h, bad = tp_tokens_agree(f"{tag} rank {r}", o, x, w4a8)
+            held.append(h)
+            failures += bad
+        if rs[0]["pred"] is None or any(x["pred"] is not None
+                                        for x in rs[1:]):
+            failures.append(f"{tag}: rank 0 alone must write the JSON")
+        queries = len(o["tokens"])
+        for r, x in enumerate(rs):
+            c = x["counts"]
+            if (c["K2"] != layers * queries or c["attention.cu entry"]
+                    or c["sm90 entry"] < c["K2"]):
+                failures.append(f"{tag} rank {r}: K2 {c['K2']} (expected "
+                                f"{layers} x {queries}), attention.cu "
+                                f"{c['attention.cu entry']}")
+            if w4a8 and (not c["K5"] or c["vls_w4a8"] or c["vls_w4a8_sm90"]
+                         + c[kernels.W4A8_GEMV_ENTRY] != c["K5"]):
+                failures.append(f"{tag} rank {r}: K5 off the sm90 entries")
+            if c != rs[0]["counts"]:
+                failures.append(f"{tag}: the ranks launched unlike")
+        rule = ("W4A8: prefill logits and every token must be bit-equal"
+                if w4a8 else
+                f"bf16: prefill logits within {TP_BF16_LOGIT_ATOL}, tokens "
+                f"equal up to a margin below "
+                f"{TP_MARGIN * TP_BF16_LOGIT_ATOL}")
+        for r, h in enumerate(held):
+            log(f"{tag} rank {r}: against the one process's "
+                + "; ".join(f"query {q}: {k} of {len(o['tokens'][q])} "
+                            f"tokens equal, prefill logits within {d:.3e}, "
+                            f"one-process margins "
+                            + ", ".join(f"{m:.3f}" for m in o["margins"][q])
+                            for q, (d, k) in enumerate(h))
+                + f" ({rule}); rank 0 alone wrote the JSON")
+        summary["tp"][name] = {
+            "layers": layers, "tokens_held": held,
+            "one_process_s": o["seconds"],
+            "rank_s": [x["seconds"] for x in rs],
+            "rank_collectives": [x["collectives"] for x in rs],
+            "rank_peak_gib": [x["peak_gib"] for x in rs],
+            "launches_by_rank": [x["counts"] for x in rs]}
+    base = one["llama_bf16"]["prefill"][0]
+    d_control = [float((base - r["control"]["prefill"][0]).abs().max())
+                 for r in ranks]
+    log(f"[tp{TP} control] layer 0's two row-parallel sums left out (bf16, "
+        f"the caption's prefill): prefill logits within "
+        + ", ".join(f"{d:.3e}" for d in d_control)
+        + f" of the one process's on ranks 0 / 1; the limit "
+        f"{TP_BF16_LOGIT_ATOL} must reject it")
+    if not all(d > TP_BF16_LOGIT_ATOL for d in d_control):
+        failures.append(f"tp control: a run without layer 0's sums stays "
+                        f"within {TP_BF16_LOGIT_ATOL} ({d_control})")
+    summary["tp_control_prefill_logit_diff"] = d_control
+    f = [r["fsdp"] for r in ranks]
+    steps = []
+    for step, (want, got, ctl) in enumerate(zip(ref["metrics"],
+                                                f[0]["metrics"],
+                                                control["metrics"])):
+        rel = {k: abs(got[k] - want[k]) / abs(want[k])
+               for k in ("loss", "grad_norm")}
+        crel = {k: abs(ctl[k] - want[k]) / abs(want[k])
+                for k in ("loss", "grad_norm")}
+        steps.append({"rank": rel, "control": crel})
+        log(f"[fsdp 2 ranks] step {step + 1}: loss {got['loss']:.6f} vs "
+            f"{want['loss']:.6f} one process on the same 2 rows (rel "
+            f"{rel['loss']:.2e}, limit {FSDP_LOSS_RTOL:.0e}); grad_norm "
+            f"{got['grad_norm']:.5f} vs {want['grad_norm']:.5f} (rel "
+            f"{rel['grad_norm']:.2e}, limit {FSDP_GRAD_NORM_RTOL:.0e}); "
+            f"the control (row 0 alone): loss {ctl['loss']:.6f} (rel "
+            f"{crel['loss']:.2e}), grad_norm {ctl['grad_norm']:.5f} (rel "
+            f"{crel['grad_norm']:.2e})")
+        if not rel["loss"] <= FSDP_LOSS_RTOL:
+            failures.append(f"fsdp step {step + 1}: loss rel "
+                            f"{rel['loss']:.2e}")
+        if not rel["grad_norm"] <= FSDP_GRAD_NORM_RTOL:
+            failures.append(f"fsdp step {step + 1}: grad_norm rel "
+                            f"{rel['grad_norm']:.2e}")
+        if crel["loss"] <= FSDP_LOSS_RTOL and (crel["grad_norm"]
+                                               <= FSDP_GRAD_NORM_RTOL):
+            failures.append(f"fsdp control step {step + 1}: row 0 alone "
+                            "passes the loss and grad-norm limits")
+    gap, worst = update_gap(ref["start"], f[0]["trainable"], ref["after"])
+    cgap, cworst = update_gap(ref["start"], control["after"], ref["after"])
+    bound = 3 * FSDP_PEAK_LR * (FSDP_STEPS - 1)
+    log(f"[fsdp 2 ranks] trainable leaves ({len(ref['after'])}) after "
+        f"{FSDP_STEPS} steps ({FSDP_STEPS - 1} at a nonzero lr): "
+        f"||rank 0's - one process's|| = {gap:.3e} of the one process's "
+        f"update (limit {FSDP_UPDATE_RTOL}), largest difference "
+        f"{worst:.3e} (limit {bound:.1e}); the control (row 0 alone): "
+        f"{cgap:.3e} of the update, largest {cworst:.3e}")
+    if not (gap <= FSDP_UPDATE_RTOL and worst <= bound):
+        failures.append(f"fsdp: trainable leaves {gap:.3e} of the update, "
+                        f"largest difference {worst:.3e}")
+    if not cgap > FSDP_UPDATE_RTOL:
+        failures.append(f"fsdp control: row 0 alone is within "
+                        f"{FSDP_UPDATE_RTOL} of the update ({cgap:.3e})")
+    if not all(x["resume_bitwise"] for x in f):
+        failures.append("fsdp: the resumed run differs from the straight "
+                        "one")
+    full_layers = cfg.llm.num_layers
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    projected = [x["peak_gib"] + (full_layers - FSDP_LAYERS)
+                 * x["layer_bytes"] / 2**30 for x in f]
+    gathered = f[0]["collectives"].get("all_gather_dim", (0.0, 0))
+    rate = gathered[1] / max(gathered[0], 1e-9)
+    extra = (2 * (full_layers - FSDP_LAYERS) * f[0]["layer_gather_bytes"]
+             / max(rate, 1.0))
+    log(f"[fsdp 2 ranks] {FSDP_LAYERS} of {full_layers} LLM layers, full "
+        f"width (two processes on one card; cut for the time of gloo's "
+        f"gathers through host memory, not for memory: a layer adds "
+        f"{f[0]['layer_bytes'] / 2**20:.0f} MiB at rest a rank, so "
+        f"{full_layers} layers would peak near "
+        + " + ".join(f"{p:.1f}" for p in projected)
+        + f" GiB of the card's {card_gib:.0f}, but their gathers "
+        f"({f[0]['layer_gather_bytes'] / 1e9:.2f} GB a layer, twice a "
+        f"step) would add about {extra:.0f} s a step at this run's "
+        f"{rate / 1e9:.2f} GB/s, {(FSDP_STEPS + 1) * extra:.0f} s over the "
+        f"phase's {FSDP_STEPS + 1} steps); "
+        f"{f[0]['sharded_leaves']} of {f[0]['leaves']} leaves sharded; "
+        f"{FSDP_STEPS} steps, then step {FSDP_STEPS} again from rank 0's "
+        f"gathered checkpoint-{FSDP_STEPS - 1} in a fresh state: trainable "
+        f"leaves and step-{FSDP_STEPS} metrics bit-equal: "
+        f"{all(x['resume_bitwise'] for x in f)}; peak allocated by rank: "
+        + ", ".join(f"{x['peak_gib']:.1f} GiB" for x in f)
+        + f"; {f[0]['seconds']:.1f} s on the ranks, the one-process "
+        f"reference {t_ref:.1f} s; rank 0's collectives (s, GB): "
+        + ", ".join(f"{k} {v[0]:.1f} s {v[1] / 1e9:.2f} GB"
+                    for k, v in f[0]["collectives"].items()) + f"; {smi}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    summary["fsdp"] = {"metrics": f[0]["metrics"],
+                       "reference": ref["metrics"],
+                       "control": control["metrics"], "steps": steps,
+                       "update_gap": gap, "largest_difference": worst,
+                       "control_update_gap": cgap,
+                       "rank_peak_gib": [x["peak_gib"] for x in f],
+                       "projected_full_depth_gib": projected,
+                       "seconds": f[0]["seconds"],
+                       "collectives": f[0]["collectives"],
+                       "sharded_leaves": f[0]["sharded_leaves"]}
+    return ranks[0]["tp"]["llama_w4a8"]["counts"], summary
+
+
+def phase_fsdp_one_rank(seed, dev, params, ref):
+    """Phase 28: a one-rank NCCL group runs phase 26's first
+    FSDP_REF_STEPS steps through the --fsdp code (`DataParallel`, the
+    per-layer hook, the group's sums), from the same trainable leaves on
+    the same device batches: losses and parameters bit-equal to phase
+    26's. At dp 1 the JAX rule shards no leaf (its dp > 1 guard), so
+    this pins the plumbing, not the gathers (phase 29 runs those)."""
+    import torch.distributed as dist
+
+    from video_llava_seg_torch.config import MeshConfig
+    from video_llava_seg_torch.parallel.fsdp import DataParallel
+    from video_llava_seg_torch.parallel.mesh import create_mesh
+    from video_llava_seg_torch.train.optimizer import (
+        _map_with_paths,
+        leaves_with_paths,
+    )
+    from video_llava_seg_torch.train.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+    from video_llava_seg_torch.train.trainer import RowGenerators
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        dcfg = ref["cfg"]
+        tree = _map_with_paths(lambda p, t: ref["start"].get(p, t), params)
+        tcfg = train_tcfg(seed=seed, mesh=MeshConfig(fsdp=True))
+        dp = DataParallel(create_mesh(tcfg.mesh), fsdp=True)
+        state, tx = create_train_state(dp.shard(tree), tcfg)
+        step_fn = make_train_step(dcfg, tcfg, tx, dp=dp)
+        expect, why, bwd = train_step_expect(dcfg)
+        for step, batch in enumerate(ref["batches"]):
+            reset_launches()
+            state, m = step_fn(state, batch, RowGenerators(seed, step))
+            sync()
+            check_launches(f"fsdp one rank step {step + 1}",
+                           snapshot_launches(), expect, why, bwd=bwd)
+            got = {k: float(v) for k, v in m.items()}
+            if got != ref["metrics"][step]:
+                raise AssertionError(f"fsdp one rank step {step + 1}: "
+                                     f"metrics {got} vs phase 26's "
+                                     f"{ref['metrics'][step]}")
+        for p, t in leaves_with_paths(state.params):
+            if p in ref["after"] and not torch.equal(t, ref["after"][p]):
+                raise AssertionError(f"fsdp one rank: leaf {p} differs from "
+                                     "phase 26's")
+        log(f"[fsdp one rank] a one-rank NCCL group ran phase 26's first "
+            f"{FSDP_REF_STEPS} steps through the --fsdp code: losses, "
+            f"grad norms and all {len(ref['after'])} trainable leaves "
+            "bit-equal (loss "
+            + ", ".join(f"{x['loss']:.6f}" for x in ref["metrics"]) + ")")
+    finally:
+        dist.destroy_process_group()
+    del state, tx, step_fn
+    torch.cuda.empty_cache()
+    sync()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max_new_tokens", type=int, default=32)
+    ap.add_argument("--parallel_only", action="store_true",
+                    help="the build and phases 27 / 29 only, no result "
+                         "lines (for iterating on them)")
     args = ap.parse_args(argv)
 
     smi = phase_environment()
@@ -6188,6 +7099,11 @@ def main(argv=None):
         f"caption + referral batch to 2 x {batch_len}, the shorter row "
         f"left-padded by {pad}")
     dev = torch.device("cuda")
+    if args.parallel_only:
+        _, parallel = phase_parallel(cfg, prefill_len, args.seed, dev, smi,
+                                     {})
+        log(json.dumps({"parallel": parallel}, default=str))
+        return 0
     results = phase_kernel_checks(cfg, prefill_len, batch_len, pad,
                                   args.seed, dev)
     phase_w4a8_checks(cfg, 2 * batch_len, args.seed, dev, results)
@@ -6236,6 +7152,9 @@ def main(argv=None):
         data["seconds"] = time.perf_counter() - t0
         train["vicas_data_path"] = data
     log(f"[train-data] phase 26: {data['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    phase_fsdp_one_rank(args.seed, dev, qlora_params, data.pop("fsdp_ref"))
+    log(f"[fsdp one rank] phase 28: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         os.makedirs(os.path.join(work, "train"))
         train["agreement"], cli_params = phase_train_agreement(
@@ -6265,6 +7184,11 @@ def main(argv=None):
         log(f"[family {name}] phase {phase}: "
             f"{families[name]['seconds']:.1f} s")
     families["tiny_agreement"] = phase_tiny_family_agreement(args.seed)
+    t0 = time.perf_counter()
+    tp_counts, parallel = phase_parallel(cfg, prefill_len, args.seed, dev,
+                                         smi, results)
+    parallel["seconds"] = time.perf_counter() - t0
+    log(f"[parallel] phases 27 / 29: {parallel['seconds']:.1f} s")
 
     kernels_out = []
     main_paths = {"K5": quant_counts, "K7": hiera_counts,
@@ -6490,6 +7414,36 @@ def main(argv=None):
             "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
             "device_ms": sum(sh["device_ms"] for sh in r["shapes"]),
             "shapes": r["shapes"]})
+    # K2 and K5 at the shard shapes of tensor-parallel serving, counted on
+    # rank 0 of the W4A8 Llama run (each rank launches alike)
+    for name, base in (("K2_tp2", "K2"), ("K5_tp2", "K5")):
+        r = results[name]
+        source, csrc = SOURCES[base]
+        by = r["bound_by_ms"]
+        kernels_out.append({
+            "name": name, "route": "cuda", "source": source,
+            "csrc": [f"video_llava_seg_torch/csrc/{x}" for x in csrc],
+            "replaces": REPLACES[base], "launches": tp_counts[base],
+            "launches_by_path": {
+                f"tp{TP}_{run}_rank{rank}": c[base]
+                for run, v in parallel["tp"].items()
+                for rank, c in enumerate(v["launches_by_rank"])},
+            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+            "bound": BOUNDS[name] if BOUNDS[name] is not None else "exact",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if by["bytes"] >= by["operations"]
+                         else "operations"),
+            "library_ms": r["library_ms"], "shapes": r["shapes"]})
+    for v in parallel["tp"].values():
+        v["launches_by_rank"] = [{k: c[k] for k in ("K1", "K2", "K3", "K4",
+                                                    "K5", "sm90 entry",
+                                                    "attention.cu entry",
+                                                    "vls_w4a8_sm90",
+                                                    kernels.W4A8_GEMV_ENTRY,
+                                                    "vls_w4a8")}
+                                 for c in v["launches_by_rank"]]
+    log(json.dumps({"parallel": parallel}))
     for fam in FAMILY_TEMPLATES:
         del families[fam]["bf16_launches"]
     log(json.dumps({"llm_families": families}))

@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 scripts/profile_torch_slice.py [--w4a8 | --train] [--rounds 2]
-        [--max_new_tokens 32] [--out DIR]
+        [--max_new_tokens 32] [--out DIR] [--deterministic_ab N]
 
 Builds the full-width model with seeded random weights (as chip_smoke.py
 does) and serves `--rounds` rounds of (caption query, referral query):
@@ -23,6 +23,12 @@ fp32 CLIP-L tower, projector and SAM2.1-hiera-small seg head) and runs
 steady steps: per-stage seconds (vision, llm_forward, loss_text, seg,
 loss_mask, backward, optimizer), device time by kernel and per stage.
 
+With `--train --deterministic_ab N` it runs, after the rounds, N pairs
+of steps with `torch.backends.cudnn.deterministic` off and on in turn
+(the training CLI turns it on, so that a resumed run repeats an
+uninterrupted one bit for bit) and prints each setting's step seconds,
+instead of profiling.
+
 The first round pays one-time costs (cuBLAS/cuDNN heuristics, allocator
 growth, the optimizer's state); the later rounds are the steady state.
 """
@@ -33,6 +39,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -123,7 +130,14 @@ def main(argv=None):
                     help="the quantized batched path instead of bf16")
     ap.add_argument("--train", action="store_true",
                     help="the stage-3 QLoRA train step instead of serving")
+    ap.add_argument("--deterministic_ab", type=int, default=0,
+                    help="with --train: N pairs of steps with cuDNN's "
+                         "deterministic algorithms off and on, instead of "
+                         "the profile")
     args = ap.parse_args(argv)
+    if args.deterministic_ab and not args.train:
+        raise SystemExit("--deterministic_ab times the train step: add "
+                         "--train")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -166,6 +180,19 @@ def main(argv=None):
             # the timed calls only (a train round's batch generation and
             # host-to-device copy stay outside)
             round_s += total
+
+    if args.deterministic_ab:
+        times = {False: [], True: []}
+        for _ in range(args.deterministic_ab):
+            for det in (False, True):
+                torch.backends.cudnn.deterministic = det
+                times[det] += [total for _, total, _ in one_round()]
+        for det, ts in times.items():
+            print(f"cudnn.deterministic={det}: train step median "
+                  f"{statistics.median(ts):.4f} s over {len(ts)} steps ("
+                  + ", ".join(f"{t:.4f}" for t in ts) + f"); card {smi}",
+                  flush=True)
+        return 0
 
     from torch.profiler import ProfilerActivity, profile
 

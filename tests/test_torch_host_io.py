@@ -187,7 +187,40 @@ main.run_inference(types.SimpleNamespace(**{
     **vars(serve), "model_path": ckpt, "num_beams": 1, "load_4bit": False,
     "output_dir": os.path.join(out_dir, "served_data")}))
 with open(os.path.join(out_dir, "served_data", "000007.json")) as fh:
-    assert isinstance(json.load(fh)["pred_caption"], str)
+    caption = json.load(fh)["pred_caption"]
+assert isinstance(caption, str)
+
+# two ranks (torchrun's environment, gloo on the CPU), JAX blocked in each
+import socket, subprocess
+_RANK = ("import runpy, sys\n"
+         "for n in ('jax', 'jaxlib', 'transformers', 'tokenizers', 'regex'):"
+         "\n    sys.modules[n] = None\n"
+         "runpy.run_module(sys.argv.pop(1), run_name='__main__',"
+         " alter_sys=True)")
+def two_ranks(module, *argv):
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK, module, *argv],
+        env={**os.environ, "RANK": str(r), "LOCAL_RANK": str(r),
+             "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+             "MASTER_PORT": str(port)}) for r in range(2)]
+    assert [p.wait(timeout=300) for p in procs] == [0, 0]
+two_ranks("video_llava_seg_torch.inference.main", "-i", ckpt, "-o",
+          os.path.join(out_dir, "served_tp"), "--model_parallel", "2",
+          "--device", "cpu", "--dist_backend", "gloo", "--skip_seg",
+          "--max_new_tokens", "3")
+with open(os.path.join(out_dir, "served_tp", "000007.json")) as fh:
+    assert json.load(fh)["pred_caption"] == caption
+two_ranks("video_llava_seg_torch.train.train", "--stage", "stage3",
+          "--tiny", "--synthetic", "--bits", "8", "--lora_enable",
+          "--device", "cpu", "--dist_backend", "gloo", "--fsdp",
+          "--num_train_steps", "1", "--save_steps", "1",
+          "--gradient_accumulation_steps", "1", "--output_dir",
+          os.path.join(out_dir, "train_fsdp"))
+main.load_model(os.path.join(out_dir, "train_fsdp", "checkpoint-1"),
+                device="cpu")
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
     k in ("jax", "jaxlib", "transformers", "tokenizers", "regex")
     or k.startswith(("jax.", "jaxlib.", "video_llava_seg_tpu",
@@ -206,8 +239,10 @@ def test_port_serves_without_jax(vicas):
     predicts and the SAM2 video predictor tracks a point over three frames
     on the CPU; then the training CLI takes two steps from the ViCaS
     fixture through the port's tokenizer and `run_inference` serves their
-    checkpoint with the tokenizer `load_model` reads from it; all in an
-    interpreter where JAX, transformers, tokenizers and regex cannot be
+    checkpoint with the tokenizer `load_model` reads from it, and two
+    ranks serve it again with --model_parallel 2 (the same caption) and
+    then take an --fsdp step whose checkpoint `load_model` reads; all in
+    interpreters where JAX, transformers, tokenizers and regex cannot be
     imported, and afterwards none of them (nor video_llava_seg_tpu) is
     loaded."""
     from test_torch_tokenizer import write_llama3

@@ -130,12 +130,17 @@ def test_run_inference_matches_jax_cli(model, tmp_path, monkeypatch):
 def test_run_inference_refuses_out_of_slice_flags(flag, value, tmp_path):
     """The JAX CLI's two gates, beams with sampling and beams with
     --batch_queries, exit in both packages before anything loads;
-    --model_parallel stays refused (ROADMAP queue 1: parallelism)."""
+    --model_parallel (served by torchrun's ranks since the port's
+    `parallel/`, tests/test_torch_tp_serving.py) exits in one process
+    with how to launch it, and with --fuse_qkv as the JAX CLI's gate."""
     args = _args(str(tmp_path))
     setattr(args, flag, value)
     if flag == "model_parallel":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1: parallelism"):
+        args.device = "cpu"
+        with pytest.raises(SystemExit, match="needs 2 ranks"):
+            tmain.run_inference(args, model=None)
+        args.fuse_qkv = True
+        with pytest.raises(SystemExit, match="single-chip serving only"):
             tmain.run_inference(args, model=None)
         return
     if flag == "temperature":

@@ -196,9 +196,14 @@ def test_cli_refusals(tmp_path):
                   TrainConfig(bits=8, num_train_steps=1,
                               output_dir=str(tmp_path)),
                   synthetic=True, device="cpu")
-    for extra in (["--model_parallel", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallelism"):
-            cli.main(_argv(tmp_path, *extra))
+    # tensor-parallel training is the next slice's; --fsdp runs (here one
+    # process: a group of one, `tests/test_torch_parallel_train.py` runs two)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 5: tensor-parallel"):
+        cli.main(_argv(tmp_path, "--model_parallel", "2"))
+    state = cli.main(_argv(tmp_path / "fsdp", "--fsdp", "--num_train_steps",
+                           "1", "--gradient_accumulation_steps", "1"))
+    assert state.step == 1
     # the dataset path reads a local tokenizer directory; the family
     # preset's hub id is refused, nothing is fetched
     with pytest.raises(SystemExit, match="not a local directory"):

@@ -40,9 +40,19 @@ one when its `config.json` holds the package's config tree with the
 RADIO vision config (`VisionTowerConfig.radio()`: is_radio, one register
 token, final norm) and a projector of `mm_hidden_size` 1280.
 
-Refused with NotImplementedError: --model_parallel (ROADMAP queue 1:
-parallelism) and orbax checkpoints (the JAX package's format; the
-machine with the card has no JAX).
+Tensor-parallel serving over N cards, one process a card, the tower,
+projector and seg head replicated on every rank and the LLM split
+Megatron-style (`parallel/tensor_parallel.py`):
+
+    torchrun --nproc_per_node N -m video_llava_seg_torch.inference.main \
+        -i <checkpoint dir> -o <out dir> --model_parallel N [--load_4bit]
+
+Every rank chooses the same tokens; rank 0 alone prints and writes the
+JSONs. `--dist_backend gloo --device cuda:0` lets ranks share one card
+(NCCL refuses that). --fuse_qkv is refused with N > 1, as in the JAX CLI.
+
+Refused with NotImplementedError: orbax checkpoints (the JAX package's
+format; the machine with the card has no JAX).
 """
 
 from __future__ import annotations
@@ -364,10 +374,22 @@ def get_model_output_batched(params, cfg, tokenizer, frames_u8, queries,
     return outs
 
 
-def _refuse_out_of_slice(args):
-    if int(getattr(args, "model_parallel", 1) or 1) > 1:
-        raise NotImplementedError("ROADMAP queue 1: parallelism "
-                                  "(--model_parallel)")
+def model_parallel_setup(args, mp: int):
+    """Join the process group of `mp` ranks (torchrun's environment) and
+    return this rank's device and its mesh ('data' 1 x 'model' mp)."""
+    from video_llava_seg_torch.config import MeshConfig
+    from video_llava_seg_torch.parallel import collectives
+    from video_llava_seg_torch.parallel.mesh import create_mesh
+
+    device = getattr(args, "device", None) or "cuda"
+    backend = getattr(args, "dist_backend", None) or (
+        "gloo" if torch.device(device).type == "cpu" else "nccl")
+    dev = collectives.initialize_distributed(backend, device)
+    if collectives.world_size() != mp:
+        raise SystemExit(f"--model_parallel {mp} needs {mp} ranks (launch "
+                         f"with torchrun --nproc_per_node {mp}); this run "
+                         f"has {collectives.world_size()}")
+    return dev, create_mesh(MeshConfig(data_parallel=1, model_parallel=mp))
 
 
 def _absorb(pred, content, seg_meta, idx, text, logits, print_captions):
@@ -414,16 +436,19 @@ def run_inference(args, model=None, tokenizer=None, fetcher=None):
     if nb > 1 and bq > 1:
         raise SystemExit("--num_beams > 1 serves one prompt at a time; "
                          "drop --batch_queries")
-    _refuse_out_of_slice(args)
-    from video_llava_seg_torch.data import video_io
-    from video_llava_seg_torch.inference.video_fetcher import (
-        VideoAndFrameFetcher,
-    )
-
+    mp = int(getattr(args, "model_parallel", 1) or 1)
+    if mp > 1 and getattr(args, "fuse_qkv", False):
+        raise SystemExit("--fuse_qkv is single-chip serving only: the "
+                         "TP shard rules target the unfused wq/wk/wv "
+                         "names (parallel/mesh.py)")
+    mesh = None
+    if mp > 1:
+        device, mesh = model_parallel_setup(args, mp)
     if model is not None:
         params, cfg, loaded_tok = model
     else:
-        device = torch.device(getattr(args, "device", None) or "cuda")
+        if mesh is None:
+            device = torch.device(getattr(args, "device", None) or "cuda")
         params, cfg, loaded_tok = load_model(
             args.model_path,
             load_bits=8 if getattr(args, "load_8bit", False)
@@ -439,7 +464,36 @@ def run_inference(args, model=None, tokenizer=None, fetcher=None):
 
         params = dict(params)
         params["llm"] = fuse_qkv_gateup(params["llm"])
+    if mesh is None:
+        return _serve(args, params, cfg, tokenizer, fetcher)
+    from video_llava_seg_torch.parallel.mesh import shard_params
+    from video_llava_seg_torch.parallel.tensor_parallel import (
+        check_divisible,
+        tensor_parallel,
+    )
+
+    # the LLM split, the rest replicated (the JAX CLI's layout)
+    check_divisible(cfg.llm, mp)
+    params = dict(params)
+    params["llm"] = shard_params(params["llm"], mesh)
+    with tensor_parallel(mesh.groups["model"], mesh.coords["model"], mp):
+        return _serve(args, params, cfg, tokenizer, fetcher,
+                      main_rank=mesh.rank == 0)
+
+
+def _serve(args, params, cfg, tokenizer, fetcher, main_rank: bool = True):
+    """The loop over the videos of `run_inference`; only the main rank
+    prints and writes."""
+    from video_llava_seg_torch.data import video_io
+    from video_llava_seg_torch.inference.video_fetcher import (
+        VideoAndFrameFetcher,
+    )
+
+    nb = int(getattr(args, "num_beams", 1) or 1)
+    temp = float(getattr(args, "temperature", 0.0) or 0.0)
+    bq = max(1, int(getattr(args, "batch_queries", 1) or 1))
     device = _param_device_dtype(params)[0]
+    say = print if main_rank else (lambda *a, **k: None)
 
     fetcher = fetcher or VideoAndFrameFetcher(args)
     gt_dir = args.gt_dir or str(Paths.vicas_annotations_dir(
@@ -448,14 +502,14 @@ def run_inference(args, model=None, tokenizer=None, fetcher=None):
         args.model_path,
         f"inference/ViCaS/pred_{args.dataset_version}_{args.dataset_split}")
     os.makedirs(output_dir, exist_ok=True)
-    print(f"Output directory: {output_dir}")
+    say(f"Output directory: {output_dir}")
 
     gt_json_list = get_video_list(gt_dir, args.dataset_version,
                                   args.dataset_split, output_dir,
                                   args.overwrite, args.chunk_idx,
                                   args.num_chunks)
     if not gt_json_list:
-        print("No videos to process")
+        say("No videos to process")
         return
 
     eos_ids = []
@@ -523,7 +577,7 @@ def run_inference(args, model=None, tokenizer=None, fetcher=None):
                     **sample_kwargs)
                 for idx, (text, logits) in zip(group, outs):
                     _absorb(pred, content, seg_meta, idx, text, logits,
-                            args.print_captions)
+                            args.print_captions and main_rank)
         else:
             for idx in sub_indices:
                 qs, wants_seg = query_of(idx)
@@ -536,9 +590,10 @@ def run_inference(args, model=None, tokenizer=None, fetcher=None):
                     eos_token_ids=eos_ids, stop_sequences=stop_seqs,
                     **kwargs, **sample_kwargs)
                 _absorb(pred, content, seg_meta, idx, text, logits,
-                        args.print_captions)
-        with open(output_path, "w") as fh:
-            json.dump(pred, fh)
+                        args.print_captions and main_rank)
+        if main_rank:
+            with open(output_path, "w") as fh:
+                json.dump(pred, fh)
 
 
 def parse_args(argv=None):
@@ -567,7 +622,11 @@ def parse_args(argv=None):
     p.add_argument("--kv_cache_int8", action="store_true")
     p.add_argument("--batch_queries", type=int, default=1)
     p.add_argument("--device", default="cuda",
-                   help="torch device to serve on (cuda; cpu for tests)")
+                   help="torch device to serve on (cuda: under torchrun "
+                        "cuda:LOCAL_RANK; cpu for tests)")
+    p.add_argument("--dist_backend", default=None,
+                   help="process-group backend with --model_parallel > 1 "
+                        "(default nccl on the card, gloo on the CPU)")
     return p.parse_args(argv)
 
 

@@ -33,6 +33,14 @@ the same tokens; the kept set of a step is the JAX package's
 (`nucleus_filter`, pinned to `_select_token` by the CPU tests); and
 top_p -> 0 gives the greedy tokens.
 
+Tensor-parallel serving (`parallel/tensor_parallel.py`): inside its
+context each rank holds its shard of the tree (`parallel/mesh.
+shard_params`): its query / KV heads, its MLP columns, its vocabulary
+rows and columns. The blocks reshape to the local heads, cache only the
+local KV heads, take their global heads' ALiBi slopes, sum `wo` and
+`w_down` over the group, and the logits are gathered whole on every
+rank, so every decision below is the same on every rank.
+
 Out of the slice: training the Mistral / MPT families on the card (the
 flash backward takes neither the window nor ALiBi: `attention` raises
 NotImplementedError under autograd there). `stack_layers`, a TPU
@@ -41,6 +49,7 @@ compile-time workaround, is not ported.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -49,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from video_llava_seg_torch.ops import nn
 from video_llava_seg_torch.ops.attention import attention, attention_reference
 from video_llava_seg_torch.ops.rope import apply_rope_1d, rope_1d_cos_sin
+from video_llava_seg_torch.parallel import tensor_parallel as tp_mod
 from video_llava_seg_torch.timing import stage
 
 
@@ -185,6 +195,8 @@ def fuse_qkv_gateup(params):
 
 
 def embed(params, ids):
+    if tp_mod.current() is not None:
+        return tp_mod.embed(params["embed_tokens"]["embedding"], ids)
     return nn.embedding_lookup(params["embed_tokens"], ids)
 
 
@@ -192,7 +204,15 @@ def unembed(params, cfg, h):
     """fp32 logits [..., V] for the four head kinds of the JAX package.
     A tied head (MPT) is a plain product with the embedding table, in the
     hidden dtype (bf16 on the card) and then widened, as the JAX package
-    leaves it to XLA."""
+    leaves it to XLA. Under tensor parallelism each rank computes its
+    vocabulary columns and the logits are gathered."""
+    logits = _unembed_local(params, cfg, h)
+    if tp_mod.current() is not None:
+        logits = tp_mod.gather_logits(logits)
+    return logits
+
+
+def _unembed_local(params, cfg, h):
     if cfg.tie_word_embeddings:
         w = params["embed_tokens"]["embedding"].to(h.dtype).t()
         return torch.matmul(h, w).float()
@@ -233,7 +253,9 @@ class KVCache(NamedTuple):
 def init_kv_cache(cfg, batch: int, max_len: int, device,
                   dtype=torch.bfloat16,
                   quantized: Optional[bool] = None) -> KVCache:
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    # a tensor-parallel rank caches its own KV heads only
+    shape = (cfg.num_layers, batch, tp_mod.local_heads(cfg)[1], max_len,
+             cfg.head_dim)
     if quantized is None:
         quantized = cfg.kv_cache_int8
     if quantized:
@@ -281,9 +303,10 @@ def _attn_block(layer, cfg, x, cos, sin, *, cache: Optional[KVCache],
     queries at slots pos.. for the window and ALiBi; kv_start [B] masks
     each row's left-pad slots. cos / sin: None without RoPE (MPT)."""
     b, s, _ = x.shape
+    hq, hkv = tp_mod.local_heads(cfg)
     if "wqkv" in layer["attn"]:
-        q_dim = cfg.num_heads * cfg.head_dim
-        kv_dim = cfg.num_kv_heads * cfg.head_dim
+        q_dim = hq * cfg.head_dim
+        kv_dim = hkv * cfg.head_dim
         qkv = nn.dense(layer["attn"]["wqkv"], x)
         q = qkv[..., :q_dim]
         k = qkv[..., q_dim:q_dim + kv_dim]
@@ -292,15 +315,16 @@ def _attn_block(layer, cfg, x, cos, sin, *, cache: Optional[KVCache],
         q = nn.dense(layer["attn"]["wq"], x)
         k = nn.dense(layer["attn"]["wk"], x)
         v = nn.dense(layer["attn"]["wv"], x)
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    q = q.reshape(b, s, hq, cfg.head_dim).transpose(1, 2)
+    k = k.reshape(b, s, hkv, cfg.head_dim).transpose(1, 2)
+    v = v.reshape(b, s, hkv, cfg.head_dim).transpose(1, 2)
     if cfg.use_rope:
         q = apply_rope_1d(q, cos, sin)
         k = apply_rope_1d(k, cos, sin)
     if cache is not None:
         _store_kv(cache, li, pos, k, v)
-    fam = dict(window=cfg.sliding_window, alibi=cfg.use_alibi)
+    fam = dict(window=cfg.sliding_window,
+               alibi=cfg.use_alibi and tp_mod.alibi_slopes(cfg, x.device))
     if pos == 0:
         o = attention(q, k.to(q.dtype), v.to(q.dtype), causal=causal,
                       kv_mask=kv_mask, **fam)
@@ -324,13 +348,20 @@ def _attn_block(layer, cfg, x, cos, sin, *, cache: Optional[KVCache],
             o = attention_reference(q, ck.to(q.dtype), cv.to(q.dtype),
                                     kv_mask=dec_mask, **fam)
     o = o.transpose(1, 2).reshape(b, s, -1)
-    return nn.dense(layer["attn"]["wo"], o)
+    return _row_dense(layer["attn"]["wo"], o)
+
+
+def _row_dense(p, x):
+    """`wo` / `w_down`: summed over the tensor-parallel group, if any."""
+    if tp_mod.current() is not None:
+        return tp_mod.row_parallel_dense(p, x)
+    return nn.dense(p, x)
 
 
 def _mlp_block(layer, cfg, x):
     if cfg.mlp_type == "gelu":
-        return nn.dense(layer["mlp"]["w_down"],
-                        nn.gelu(nn.dense(layer["mlp"]["w_up"], x)))
+        return _row_dense(layer["mlp"]["w_down"],
+                          nn.gelu(nn.dense(layer["mlp"]["w_up"], x)))
     if "w_gateup" in layer["mlp"]:
         gu = nn.dense(layer["mlp"]["w_gateup"], x)
         half = gu.shape[-1] // 2
@@ -338,7 +369,8 @@ def _mlp_block(layer, cfg, x):
     else:
         g = nn.dense(layer["mlp"]["w_gate"], x)
         u = nn.dense(layer["mlp"]["w_up"], x)
-    return nn.dense(layer["mlp"]["w_down"], torch.nn.functional.silu(g) * u)
+    return _row_dense(layer["mlp"]["w_down"],
+                      torch.nn.functional.silu(g) * u)
 
 
 def _block(layer, cfg, x, cos, sin, cache: Optional[KVCache], li: int,
@@ -369,8 +401,13 @@ def _rope(cfg, position_ids):
     return rope_1d_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
 
 
+def _hooked_block(hook, index, layer, *args, **kw):
+    return _block(hook(index, layer), *args, **kw)
+
+
 def forward(params, cfg, inputs_embeds, position_ids, attn_mask=None,
-            remat: bool = False, return_logits: bool = True):
+            remat: bool = False, return_logits: bool = True,
+            layer_hook=None):
     """Full forward without a cache (training).
 
     inputs_embeds [B, S, D]; position_ids [B, S] or [S]; attn_mask:
@@ -379,16 +416,21 @@ def forward(params, cfg, inputs_embeds, position_ids, attn_mask=None,
     checkpointing: only block inputs are kept, the block recomputes in the
     backward). return_logits=False skips the unembed (the train step's
     chunked fused lm-head + CE never builds the [S, V] logits).
+    layer_hook: optional (layer index, layer) -> the layer the block runs
+    (FSDP's gather, `parallel/fsdp.py`), called inside the checkpointed
+    block, so a recomputed block calls it again.
     Returns (logits fp32 [B, S, V] or None, post-norm hidden [B, S, D])."""
     cos, sin = _rope(cfg, position_ids)
     x = inputs_embeds
     kw = dict(cache=None, li=0, pos=0, causal=True, kv_mask=attn_mask)
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
+        fn = (_block if layer_hook is None
+              else functools.partial(_hooked_block, layer_hook, li))
         if remat:
-            x = checkpoint(_block, layer, cfg, x, cos, sin,
+            x = checkpoint(fn, layer, cfg, x, cos, sin,
                            use_reentrant=False, **kw)
         else:
-            x = _block(layer, cfg, x, cos, sin, **kw)
+            x = fn(layer, cfg, x, cos, sin, **kw)
     x = _norm(params["norm"], cfg, x)
     if not return_logits:
         return None, x

@@ -180,11 +180,12 @@ def assemble_embeds(params, text_ids: torch.Tensor, gather_idx: torch.Tensor,
 
 def forward(params, cfg, video: torch.Tensor, plan: Dict,
             remat: bool = False, return_logits: bool = True,
-            timings: Optional[Dict[str, float]] = None):
+            timings: Optional[Dict[str, float]] = None, layer_hook=None):
     """Training forward on a spliced batch. video [B, T, H, W, 3]; plan:
     tensors of `build_splice_plan` on the video's device (text_ids,
     gather_idx, position_ids). remat: gradient checkpointing on the LLM
-    blocks. Returns (logits fp32 | None, post-norm hidden [B, L, D])."""
+    blocks; layer_hook: `llama.forward`'s (FSDP's per-layer gather).
+    Returns (logits fp32 | None, post-norm hidden [B, L, D])."""
     dev = video.device
     with stage(timings, "vision", dev):
         slow, fast = encode_video(params, cfg, video)
@@ -196,7 +197,8 @@ def forward(params, cfg, video: torch.Tensor, plan: Dict,
     with stage(timings, "llm_forward", dev):
         return llama.forward(params["llm"], cfg.llm, embeds,
                              plan["position_ids"], remat=remat,
-                             return_logits=return_logits)
+                             return_logits=return_logits,
+                             layer_hook=layer_hook)
 
 
 def embed_prompts(params, cfg, input_ids: np.ndarray, video: torch.Tensor,

@@ -91,6 +91,15 @@ def _alibi_slopes_on(num_heads: int, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(alibi_slopes(num_heads)).to(device)
 
 
+def _slopes_of(alibi, num_heads: int, device):
+    """The ALiBi slopes an `alibi` argument names: None for False, those
+    of `num_heads` heads for True, the tensor itself for a tensor (a
+    tensor-parallel rank's global heads)."""
+    if torch.is_tensor(alibi):
+        return alibi
+    return _alibi_slopes_on(num_heads, device) if alibi else None
+
+
 def alibi_key_bias(slopes: torch.Tensor, skv: int, kv_mask=None,
                    batch: int = 1) -> torch.Tensor:
     """The per-(batch, head, key) fp32 bias [B, H, Skv] that K2 adds to
@@ -109,7 +118,7 @@ def alibi_key_bias(slopes: torch.Tensor, skv: int, kv_mask=None,
 def attention_reference(q, k, v, *, causal: bool = False,
                         scale: Optional[float] = None,
                         kv_valid_len: Optional[int] = None, kv_mask=None,
-                        window: Optional[int] = None, alibi: bool = False,
+                        window: Optional[int] = None, alibi=False,
                         q_positions=None, k_scale=None, v_scale=None):
     """Plain softmax attention, scores and softmax in fp32.
 
@@ -118,7 +127,9 @@ def attention_reference(q, k, v, *, causal: bool = False,
     q_positions ([Sq] absolute key-space positions) overrides it. With
     rel = key slot - query slot: causal keeps rel <= 0, window (Mistral's
     sliding window) keeps rel > -window, and alibi (MPT) adds slope_h *
-    rel to head h's scores before any mask, as the JAX package does.
+    rel to head h's scores before any mask, as the JAX package does
+    (`alibi_slopes(Hq)`, or a tensor of q's heads' slopes: a
+    tensor-parallel rank's heads take their global heads' slopes).
 
     k_scale / v_scale: optional fp32 [B, Hkv, Skv] for an int8 K/V
     cache: the products read the int8 values as they are and the per-key
@@ -144,8 +155,8 @@ def attention_reference(q, k, v, *, causal: bool = False,
         qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     ki = torch.arange(skv, device=q.device)[None, :]
     rel = ki - qi
-    if alibi:
-        slopes = _alibi_slopes_on(hq, q.device)
+    slopes = _slopes_of(alibi, hq, q.device)
+    if slopes is not None:
         s = s + slopes[None, :, None, None] * rel[None, None].float()
     if causal:
         s = s.masked_fill(~(rel <= 0)[None, None], MASK_VALUE)
@@ -264,7 +275,7 @@ class _FlashAttention(torch.autograd.Function):
 def attention(q, k, v, *, causal: bool = False,
               scale: Optional[float] = None, backend: str = "auto",
               kv_mask=None, window: Optional[int] = None,
-              alibi: bool = False):
+              alibi=False):
     """Flash kernel on CUDA (K2 / K3, backward K6a / K6b), the plain twin
     on CPU.
 
@@ -287,14 +298,15 @@ def attention(q, k, v, *, causal: bool = False,
         scale = 1.0 / math.sqrt(q.shape[-1])
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    if window is not None or alibi:
+    slopes = _slopes_of(alibi, q.shape[1], q.device)
+    if window is not None or slopes is not None:
         if grad:
             raise NotImplementedError(
                 "ROADMAP queue 1: training the Mistral / MPT families (K6a "
                 "/ K6b with the window and the per-head bias)")
-        if alibi:
-            kv_bias = alibi_key_bias(_alibi_slopes_on(q.shape[1], q.device),
-                                     k.shape[2], kv_mask, batch=q.shape[0])
+        if slopes is not None:
+            kv_bias = alibi_key_bias(slopes, k.shape[2], kv_mask,
+                                     batch=q.shape[0])
         else:
             kv_bias = _pad_bias(kv_mask)
         kernels.LAUNCHES.add("K2")

@@ -116,6 +116,22 @@ def w4a8_matmul_plain(xq, a_scale, packed, w_scale, out_dtype):
     return (acc.float() * a_scale * w_scale).to(out_dtype)
 
 
+def w4a8_integer_product(xq: torch.Tensor, packed: torch.Tensor
+                         ) -> torch.Tensor:
+    """int32(xq @ unpack(packed)) as fp32 [rows, out]: K5 with unit scales
+    and fp32 output on the card (`w4a8_matmul_plain` on the CPU). Exact
+    while |sums| < 2^24; a row-parallel rank's partial products, which
+    are summed over the ranks and then scaled once
+    (`parallel/tensor_parallel.row_parallel_dense`)."""
+    ones_a = torch.ones((xq.shape[0], 1), device=xq.device)
+    ones_w = torch.ones((packed.shape[1],), device=xq.device)
+    if xq.device.type == "cpu":
+        return w4a8_matmul_plain(xq, ones_a, packed, ones_w, torch.float32)
+    kernels.LAUNCHES.add("K5")
+    return kernels.w4a8_matmul(xq.contiguous(), ones_a, packed, ones_w,
+                               torch.float32)
+
+
 def w4a8_dense(p, x: torch.Tensor) -> torch.Tensor:
     """nn.dense body for a 'kernel_q4a' param dict; x [..., in]. Bias, if
     any, is added in x.dtype after the product."""

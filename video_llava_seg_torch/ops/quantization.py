@@ -88,11 +88,14 @@ def quantize_tree(params, bits: int = 8, min_size: int = 1 << 16,
     return go(params)
 
 
-def quantize_activations_rowwise(x: torch.Tensor):
+def quantize_activations_rowwise(x: torch.Tensor, amax=None):
     """Dynamic symmetric per-row int8 quantization.
-    Returns (int8 [..., in], fp32 scale [..., 1]) with x ~ q * scale."""
+    Returns (int8 [..., in], fp32 scale [..., 1]) with x ~ q * scale.
+    amax: the rows' absmax where x is a slice of them (a row-parallel
+    rank's, `parallel/tensor_parallel.py`); default x's own."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = torch.where(amax == 0, torch.ones_like(amax),
                         amax / torch.full_like(amax, 127.0))
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)

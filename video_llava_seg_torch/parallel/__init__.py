@@ -1,0 +1,22 @@
+"""Multi-process layouts over `torch.distributed` (port of
+`video_llava_seg_tpu/parallel/`): the mesh and its parameter rules
+(`mesh.py`), the process-group helpers and tensor collectives
+(`collectives.py`), tensor-parallel serving of the LLM
+(`tensor_parallel.py`) and data-parallel / FSDP training (`fsdp.py`).
+"""
+
+from video_llava_seg_torch.parallel.collectives import (  # noqa: F401
+    all_gather_objects,
+    initialize_distributed,
+    is_main_process,
+    print_once,
+    process_index,
+    reduce_dict,
+    synchronize,
+)
+from video_llava_seg_torch.parallel.mesh import (  # noqa: F401
+    create_mesh,
+    gather_params,
+    param_specs,
+    shard_params,
+)

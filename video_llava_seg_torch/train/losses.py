@@ -56,12 +56,15 @@ def _chunk_nll(llm_params, llm_cfg, hc, yc, mc):
     return ((lse - gold) * mc).sum()
 
 
-def text_ce_loss_fused(llm_params, llm_cfg, hidden, labels, chunk: int = 512):
+def text_ce_loss_fused(llm_params, llm_cfg, hidden, labels, chunk: int = 512,
+                       count=None):
     """Chunked fused lm-head + CE, equal to `text_ce_loss(unembed(hidden),
     labels)` without the full fp32 [S, V] logits: each chunk of `chunk`
     tokens is unembedded under `torch.utils.checkpoint`, so one chunk's
     logits live forward and one backward (recomputed from the hidden
-    state). hidden [B, S, D] post-norm; labels [B, S]."""
+    state). hidden [B, S, D] post-norm; labels [B, S]. count: the valid
+    tokens to divide by (a data-parallel group's total; default these
+    rows')."""
     b, s, d = hidden.shape
     h = hidden[:, :-1].reshape(b * (s - 1), d)
     y = labels[:, 1:].reshape(b * (s - 1))
@@ -74,7 +77,8 @@ def text_ce_loss_fused(llm_params, llm_cfg, hidden, labels, chunk: int = 512):
         sl = slice(i, i + chunk)
         total = total + checkpoint(fn, h[sl], y_safe[sl], mf[sl],
                                    use_reentrant=False)
-    count = mf.sum()
+    if count is None:
+        count = mf.sum()
     return total / count.clamp(min=1.0), count.to(torch.int32)
 
 

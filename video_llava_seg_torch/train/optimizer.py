@@ -172,6 +172,9 @@ class Optimizer:
         self.updates = 0
         self.acc = ([torch.zeros_like(t) for t in self.params]
                     if self.k > 1 else None)
+        # the clip's norm; a data-parallel group sets its global one
+        # (`parallel/fsdp.DataParallel.grad_norm_fn`)
+        self.norm_fn = global_norm
 
     def zero_grad(self):
         for t in self.params:
@@ -196,7 +199,7 @@ class Optimizer:
             grads = [a.clone() for a in self.acc]
             for a in self.acc:
                 a.zero_()
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         if norm >= self.cfg.max_grad_norm:
             grads = [g / norm.to(g.dtype) * self.cfg.max_grad_norm
                      for g in grads]

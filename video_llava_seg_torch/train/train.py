@@ -15,9 +15,19 @@ memory, copies on a side CUDA stream). `--tokenizer` is a local
 directory read by the port's own tokenizer (`tokenizer.py`); a family
 preset's hub id is refused, nothing is downloaded. Decoding an mp4 / the
 GT JPEGs needs OpenCV / PIL on the host; `train()` and `main()` take
-other decoders as `readers`. Out of this port for now, and raising
-NotImplementedError with their ROADMAP queue 1 feature: `--model_parallel
-> 1` and `--fsdp` (parallelism).
+other decoders as `readers`.
+
+Data parallel and FSDP, under torchrun (one process a card):
+
+    torchrun --nproc_per_node N -m video_llava_seg_torch.train.train \
+        --stage stage3 --synthetic --bits 8 --lora_enable [--fsdp] ...
+
+The global batch is `per_device_batch_size` x N; each rank collates,
+prefetches and runs its own rows, and its gradients are summed over the
+ranks (`parallel/fsdp.py`); `--fsdp` shards the parameters and the Adam
+state at rest. `--dist_backend gloo --device cuda:0` lets ranks share
+one card (NCCL refuses that). `--model_parallel > 1` (tensor-parallel
+training) raises NotImplementedError (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import os.path as osp
 from typing import Dict, Iterator, Optional
 
@@ -249,25 +260,34 @@ def init_params(cfg, tcfg, device, restore_weights: Optional[str] = None):
     return params
 
 
-def data_batches(dataset, collator, tcfg) -> Iterator[Dict]:
+def data_batches(dataset, collator, tcfg, dp_size: int = 1,
+                 dp_rank: int = 0) -> Iterator[Dict]:
     """Collated batches for ever: length-grouped (modality mode) where the
     dataset gives `modality_lengths`, else a seeded permutation (the JAX
-    CLI's order; one replica)."""
+    CLI's order). The global batch is per_device_batch_size x dp_size
+    indices, the same on every rank; rank dp_rank collates its rows
+    [r b, (r + 1) b), padded to their own longest."""
     from video_llava_seg_torch.data.sampler import LengthGroupedSampler
 
-    bsz = tcfg.per_device_batch_size
+    b = tcfg.per_device_batch_size
+    bsz = b * dp_size
+
+    def mine(idx):
+        return collator([dataset[int(k)]
+                         for k in idx[dp_rank * b:(dp_rank + 1) * b]])
+
     lengths = getattr(dataset, "modality_lengths", None)
     if callable(lengths):
         lengths = lengths()
     if lengths is not None:
-        sampler = LengthGroupedSampler(bsz, 1, list(lengths),
+        sampler = LengthGroupedSampler(b, dp_size, list(lengths),
                                        seed=tcfg.seed, group_by_modality=True)
         while True:
             buf = []
             for k in sampler:
                 buf.append(k)
                 if len(buf) == bsz:
-                    yield collator([dataset[int(i)] for i in buf])
+                    yield mine(buf)
                     buf = []
     else:
         order = np.random.RandomState(tcfg.seed).permutation(len(dataset))
@@ -275,13 +295,14 @@ def data_batches(dataset, collator, tcfg) -> Iterator[Dict]:
         while True:
             idx = [order[(i + j) % len(dataset)] for j in range(bsz)]
             i += bsz
-            yield collator([dataset[int(k)] for k in idx])
+            yield mine(idx)
 
 
 def train(cfg, tcfg, data_args: Optional[DataConfig] = None,
           tokenizer=None, restore_weights: Optional[str] = None,
           synthetic: bool = False, device="cuda",
-          readers: Optional[Dict] = None):
+          readers: Optional[Dict] = None,
+          dist_backend: Optional[str] = None):
     """Build the state (`init_params`), the optimizer and the step, then
     run `trainer.train_loop`. Returns the final state.
 
@@ -296,18 +317,42 @@ def train(cfg, tcfg, data_args: Optional[DataConfig] = None,
     tokenized by `tokenizer` (`make_supervised_data_module`;
     `data_batches`), prefetched onto `device` two ahead. readers: the
     datasets' decoders (`read_clip`, `read_frame`) where OpenCV / PIL are
-    not to be used."""
-    if tcfg.mesh.model_parallel > 1 or tcfg.mesh.fsdp:
-        raise NotImplementedError("ROADMAP queue 1: parallelism "
-                                  "(--model_parallel, --fsdp)")
+    not to be used.
+
+    Under torchrun (WORLD_SIZE > 1, or a process group the caller
+    joined), or with tcfg.mesh.fsdp, the ranks form a data-parallel
+    group (`parallel/fsdp.DataParallel`, backend `dist_backend`: NCCL on
+    the card by default, gloo on the CPU); each rank runs its rows of the
+    global batch of per_device_batch_size x ranks."""
+    from video_llava_seg_torch.parallel import collectives
+
+    if tcfg.mesh.model_parallel > 1:
+        raise NotImplementedError(
+            "ROADMAP queue 1 item 5: tensor-parallel training "
+            "(--model_parallel > 1, the data x model mesh)")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: --device cuda but no CUDA device")
+    dp = None
+    if (tcfg.mesh.fsdp or collectives.is_initialized()
+            or int(os.environ.get("WORLD_SIZE", 1)) > 1):
+        from video_llava_seg_torch.parallel.fsdp import DataParallel
+        from video_llava_seg_torch.parallel.mesh import create_mesh
+
+        dev = collectives.initialize_distributed(
+            dist_backend or ("nccl" if dev.type == "cuda" else "gloo"), dev)
+        dp = DataParallel(create_mesh(tcfg.mesh), fsdp=tcfg.mesh.fsdp)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    if dev.type == "cuda":
+        # a resumed run repeats an uninterrupted one bit for bit only if
+        # the convolutions' backward runs deterministic algorithms
+        torch.backends.cudnn.deterministic = True
+    b = tcfg.per_device_batch_size
     if synthetic:
-        data_iter = synthetic_batches(cfg, tcfg.per_device_batch_size,
+        data_iter = synthetic_batches(cfg, b * (dp.size if dp else 1),
                                       seed=tcfg.seed)
-        prepare = lambda b: batch_to_device(b, dev, dtype)  # noqa: E731
+        prepare = lambda x: batch_to_device(  # noqa: E731
+            dp.rows(x, b) if dp else x, dev, dtype)
     else:
         from video_llava_seg_torch.data.collate import (
             make_supervised_data_module,
@@ -318,19 +363,24 @@ def train(cfg, tcfg, data_args: Optional[DataConfig] = None,
                                              **(readers or {}))
         data_iter = prefetch_to_device(
             data_batches(module["train_dataset"], module["data_collator"],
-                         tcfg), dev, size=2, dtype=dtype)
+                         tcfg, dp.size if dp else 1, dp.rank if dp else 0),
+            dev, size=2, dtype=dtype)
         prepare = None
     try:
         params = init_params(cfg, tcfg, dev, restore_weights)
+        if dp is not None:
+            params = dp.shard(params)
         state, tx = create_train_state(params, tcfg)
-        step_fn = make_train_step(cfg, tcfg, tx)
+        step_fn = make_train_step(cfg, tcfg, tx, dp=dp)
         state = train_loop(state, step_fn, data_iter, tcfg, to_json(cfg),
-                           prepare=prepare)
+                           prepare=prepare, dp=dp)
     finally:
         if not synthetic:
             data_iter.close()
     if tcfg.save_projector_only:
-        save_projector_only(tcfg.output_dir, state.params)
+        params = state.params if dp is None else dp.full_params(state.params)
+        if dp is None or dp.rank == 0:
+            save_projector_only(tcfg.output_dir, params)
     return state
 
 
@@ -454,7 +504,11 @@ def main(argv=None, readers: Optional[Dict] = None):
                     help="token budget override (reference: 6144 llama3, "
                          "5824 vicuna)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the run (cuda; cpu for tests)")
+                    help="torch device of the run (cuda: under torchrun "
+                         "cuda:LOCAL_RANK; cpu for tests)")
+    ap.add_argument("--dist_backend", default=None,
+                    help="process-group backend under torchrun (default "
+                         "nccl on the card, gloo on the CPU)")
     args = ap.parse_args(argv)
     cfg, tcfg, data_args = build_configs(args)
     tokenizer = None
@@ -476,7 +530,7 @@ def main(argv=None, readers: Optional[Dict] = None):
     return train(cfg, tcfg, data_args, tokenizer,
                  restore_weights=args.restore_weights,
                  synthetic=args.synthetic, device=args.device,
-                 readers=readers)
+                 readers=readers, dist_backend=args.dist_backend)
 
 
 if __name__ == "__main__":

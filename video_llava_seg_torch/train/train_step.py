@@ -7,6 +7,15 @@ port updates the parameters in place (`torch.optim`) and returns the
 state with its step advanced. A LoRA run merges the adapters into the
 base tree each step (`lora.merge`); the quantized base carries no
 gradient and stays bit-identical.
+
+Over a data-parallel group (`parallel/fsdp.DataParallel`) each rank
+runs its rows of the global batch: the counts that normalize the losses
+(the CE's valid tokens, the batch-global mask count) are summed over
+the group first, so each rank's loss is its share of the JAX step's
+global loss and the gradients sum. With FSDP the LLM's layers are
+gathered one at a time inside their blocks and the rest of the tree
+once a step. The matcher's point draws come from one generator a sample
+(`trainer.RowGenerators`), so a row draws the same on any rank.
 """
 
 from __future__ import annotations
@@ -64,9 +73,10 @@ def _pixel_mask(pad, img: int, device):
 
 
 def compute_loss(params, cfg, batch: Dict[str, torch.Tensor],
-                 generator: torch.Generator, remat: bool = False,
+                 generator, remat: bool = False,
                  dice_w=None, ce_w=None,
-                 timings: Optional[Dict[str, float]] = None):
+                 timings: Optional[Dict[str, float]] = None,
+                 dp=None, layer_hook=None):
     """Caption CE + optional mask loss for a spliced batch.
 
     batch keys: video [B, T, H, W, 3], text_ids, gather_idx,
@@ -75,14 +85,24 @@ def compute_loss(params, cfg, batch: Dict[str, torch.Tensor],
     seg_frame_valid [B, Ts], seg_padding [B, 4], seg_token_pos [B, N]
     (position of each [SEG]'s hidden state) and has_masks [B] (a
     caption-only sample takes the dummy path). generator: the point
-    sampling of the Hungarian matcher. Returns (loss, metrics)."""
+    sampling of the Hungarian matcher, one torch.Generator for the batch
+    or a callable giving row i's. dp: the data-parallel group
+    (`parallel/fsdp.DataParallel`): the loss is then this rank's share of
+    the global loss, the metrics the group's. layer_hook: the LLM's
+    per-layer gather (`llama.forward`). Returns (loss, metrics)."""
     dev = batch["video"].device
     _, hidden = llava.forward(params, cfg, batch["video"], batch,
                               remat=remat, return_logits=False,
-                              timings=timings)
+                              timings=timings, layer_hook=layer_hook)
     with stage(timings, "loss_text", dev):
+        num_global = None
+        if dp is not None:
+            num_global = dp.all_sum([(batch["labels"][:, 1:]
+                                      != losses.IGNORE_INDEX).sum()
+                                     .float()])[0]
         loss_text, num_tok = losses.text_ce_loss_fused(
-            params["llm"], cfg.llm, hidden, batch["labels"])
+            params["llm"], cfg.llm, hidden, batch["labels"],
+            count=num_global)
     metrics = {"loss_text": loss_text, "num_text_tokens": num_tok}
     total = loss_text
 
@@ -99,8 +119,12 @@ def compute_loss(params, cfg, batch: Dict[str, torch.Tensor],
             feats = feats.reshape(b, ts, *feats.shape[1:])
             high_res = [h.reshape(b, ts, *h.shape[1:]) for h in high_res]
             pos = batch["seg_token_pos"].clamp(min=0).long()
-            seg_tokens = torch.gather(
-                hidden, 1, pos[..., None].expand(-1, -1, hidden.shape[-1]))
+            # one-hot rows pick the [SEG] states: a product, whose backward
+            # adds the rows that pick one state (padded slots at 0, objects
+            # of one [SEG]) in a fixed order, where gather's backward adds
+            # them by atomics on the card, in an order of its own each run
+            pick = torch.nn.functional.one_hot(pos, hidden.shape[1])
+            seg_tokens = torch.matmul(pick.to(hidden.dtype), hidden)
             low = seg_head_mod.decode_masks_batched(
                 params["seg_head"], cfg.seg, sam2_cfg, feats, high_res,
                 seg_tokens)                      # [B, N, Q, Ts, s/4, s/4]
@@ -119,7 +143,8 @@ def compute_loss(params, cfg, batch: Dict[str, torch.Tensor],
                 if bool(batch["has_masks"][i]):
                     out = losses.mask_loss(
                         pred[i], batch["seg_masks"][i], valid_mask=valid[i],
-                        generator=generator, dummy=False,
+                        generator=(generator(i) if callable(generator)
+                                   else generator), dummy=False,
                         pixel_mask=_pixel_mask(batch["seg_padding"][i], img,
                                                dev),
                         dice_weight=dice_w, ce_weight=ce_w)
@@ -136,6 +161,8 @@ def compute_loss(params, cfg, batch: Dict[str, torch.Tensor],
             # batch-global normalisation: summed dice / BCE over the
             # batch's masks, divided once by their total count
             num_total = torch.stack(nmask).sum() if nmask else zero
+            if dp is not None:
+                num_total = dp.all_sum([num_total.detach()])[0]
             loss_dice = torch.stack(dsum).sum() / (num_total + 1e-8)
             loss_ce = torch.stack(csum).sum() / (num_total + 1e-8)
             dw = losses.DICE_WEIGHT if dice_w is None else dice_w
@@ -149,37 +176,56 @@ def compute_loss(params, cfg, batch: Dict[str, torch.Tensor],
             "num_object_tracks": torch.stack(ntr).sum() if ntr else zero,
         })
     metrics["loss"] = total
+    if dp is not None:
+        # the group's metrics: the losses' shares and the sums add up
+        keys = [k for k in metrics if k != "num_text_tokens"]
+        summed = dp.all_sum([metrics[k].detach().float() for k in keys])
+        metrics = {**dict(zip(keys, summed)),
+                   "num_text_tokens": num_global.to(torch.int32)}
     return total, metrics
 
 
 def make_train_step(cfg, tcfg, tx: Optimizer,
-                    timings: Optional[Dict[str, float]] = None):
+                    timings: Optional[Dict[str, float]] = None, dp=None):
     """step_fn(state, batch, generator) -> (state, metrics): LoRA merge,
     forward, backward, the trainable gradients' global norm, update,
     step + 1. Metrics are detached tensors. timings: optional dict that
-    collects per-stage seconds (synchronising at each stage)."""
+    collects per-stage seconds (synchronising at each stage). dp: the
+    data-parallel group (`parallel/fsdp.DataParallel`, its tree already
+    sharded): the gradients are summed over it and the norm is the
+    global one."""
+    norm_fn = global_norm if dp is None else dp.grad_norm_fn(tx.paths)
+    tx.norm_fn = norm_fn
 
     def loss_of(params, batch, generator):
-        p = params
-        if tcfg.lora_enable and "lora" in p:
+        p, hook = params, None
+        lora = p.get("lora") if tcfg.lora_enable else None
+        if dp is not None and dp.fsdp:
+            base = {k: v for k, v in p.items() if k != "lora"}
+            p = dp.gather_tree(base, skip=("llm/layers/",))
+            hook = dp.layer_hook(lora, tcfg.lora_alpha)
+        elif lora is not None:
             from video_llava_seg_torch.train import lora as lora_mod
 
             base = {k: v for k, v in p.items() if k != "lora"}
-            p = lora_mod.merge(base, p["lora"], tcfg.lora_alpha)
+            p = lora_mod.merge(base, lora, tcfg.lora_alpha)
         return compute_loss(p, cfg, batch, generator,
                             remat=tcfg.gradient_checkpointing,
                             dice_w=tcfg.mask_dice_weight,
-                            ce_w=tcfg.mask_ce_weight, timings=timings)
+                            ce_w=tcfg.mask_ce_weight, timings=timings,
+                            dp=dp, layer_hook=hook)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
-                generator: torch.Generator):
+                generator):
         dev = batch["video"].device
         tx.zero_grad()
         loss, metrics = loss_of(state.params, batch, generator)
         with stage(timings, "backward", dev):
             loss.backward()
         with stage(timings, "optimizer", dev):
-            metrics["grad_norm"] = global_norm(tx.grads())
+            if dp is not None:
+                dp.reduce_grads(tx.paths, tx.params)
+            metrics["grad_norm"] = norm_fn(tx.grads())
             tx.step()
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}

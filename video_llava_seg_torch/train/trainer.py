@@ -8,8 +8,13 @@
   `training_complete.flag`. The format is the port's own (orbax is a JAX
   format): `state.pt`, a `torch.save` of plain tensors, lists and
   numbers, loadable with `torch.load(weights_only=True)`.
-- Each step's randomness comes from a generator seeded by (seed, step),
-  so a resumed run draws at step k what an uninterrupted one draws.
+- Each step's randomness comes from generators seeded by (seed, step,
+  global row), one a sample (`RowGenerators`), so a resumed run draws
+  at step k what an uninterrupted one draws, and a row draws the same on
+  whichever data-parallel rank holds it.
+- Over a data-parallel group (`parallel/fsdp.DataParallel`) rank 0
+  writes the checkpoint a single process writes (FSDP shards gathered
+  first), and a resume cuts each rank's shards back out of it.
 - `MetricLogger` writes one jsonl line per logging step, weighting the
   mask metrics by `num_object_tracks`; `ETAEstimator` keeps a rolling
   step time.
@@ -25,7 +30,7 @@ import os.path as osp
 import shutil
 import time
 from collections import defaultdict, deque
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,6 +47,31 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     step)): a function of (seed, step) alone."""
     s = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(s) & ((1 << 63) - 1))
+
+
+class RowGenerators(NamedTuple):
+    """Row i's generator of step `step`: a function of (seed, step,
+    offset + i) alone, the global row index (the JAX step's key split
+    per sample)."""
+    seed: int
+    step: int
+    offset: int = 0
+
+    def __call__(self, i: int) -> torch.Generator:
+        s = np.random.SeedSequence([self.seed, self.step, self.offset + i]
+                                   ).generate_state(1, np.uint64)[0]
+        return torch.Generator().manual_seed(int(s) & ((1 << 63) - 1))
+
+
+def _main(dp) -> bool:
+    return dp is None or dp.rank == 0
+
+
+def _barrier(dp):
+    if dp is not None and dp.size > 1:
+        from video_llava_seg_torch.parallel.collectives import synchronize
+
+        synchronize()
 
 
 def cleanup_incomplete_checkpoints(output_dir: str) -> None:
@@ -77,13 +107,19 @@ def _to_cpu(tree):
 
 
 def save_checkpoint(output_dir: str, step: int, state, cfg_json: str,
-                    save_total_limit: int = 1) -> str:
+                    save_total_limit: int = 1, dp=None) -> str:
     """Write checkpoint-<step> (state.pt, config.json, then the flag) and
-    prune older checkpoints beyond the limit."""
+    prune older checkpoints beyond the limit. dp: every rank calls it,
+    rank 0 writes the gathered state."""
     path = osp.join(output_dir, f"checkpoint-{step}")
+    params, opt = state.params, state.opt_state.state_dict()
+    if dp is not None:
+        params, opt = dp.full_state(params, opt)
+    if not _main(dp):
+        _barrier(dp)
+        return path
     os.makedirs(path, exist_ok=True)
-    torch.save({"params": _to_cpu(state.params),
-                "opt_state": _to_cpu(state.opt_state.state_dict()),
+    torch.save({"params": _to_cpu(params), "opt_state": _to_cpu(opt),
                 "step": int(state.step)}, osp.join(path, STATE_FILE))
     with open(osp.join(path, "config.json"), "w") as fh:
         fh.write(cfg_json)
@@ -94,22 +130,27 @@ def save_checkpoint(output_dir: str, step: int, state, cfg_json: str,
                    key=lambda d: int(d.split("-")[-1]))
     for old in ckpts[:-save_total_limit]:
         shutil.rmtree(osp.join(output_dir, old), ignore_errors=True)
+    _barrier(dp)
     return path
 
 
-def restore_checkpoint(path: str, state):
+def restore_checkpoint(path: str, state, dp=None):
     """Copy a checkpoint's params into the state's tensors in place (the
-    optimizer keeps its references) and load the optimizer state."""
+    optimizer keeps its references) and load the optimizer state. dp:
+    each rank takes its shards of the full state."""
     saved = torch.load(osp.join(path, STATE_FILE), map_location="cpu",
                        weights_only=True)
+    params, opt = saved["params"], saved["opt_state"]
+    if dp is not None:
+        params, opt = dp.local_state(params, opt)
     dst = leaves_with_paths(state.params)
-    src = dict(leaves_with_paths(saved["params"]))
+    src = dict(leaves_with_paths(params))
     if set(src) != {p for p, _ in dst}:
         raise ValueError(f"{path}: the checkpoint holds another param tree")
     with torch.no_grad():
         for p, t in dst:
             t.copy_(src[p])
-    state.opt_state.load_state_dict(saved["opt_state"])
+    state.opt_state.load_state_dict(opt)
     return state._replace(step=int(saved["step"]))
 
 
@@ -171,7 +212,8 @@ class MetricLogger:
         for k, v in metrics.items():
             self.cache[k].append(_as_float(v))
 
-    def flush(self, step: int, extra: Optional[Dict] = None) -> Dict:
+    def flush(self, step: int, extra: Optional[Dict] = None,
+              quiet: bool = False) -> Dict:
         out: Dict[str, float] = {}
         weights = self.cache.pop("num_object_tracks", None)
         for k, vals in self.cache.items():
@@ -190,23 +232,29 @@ class MetricLogger:
         if self.log_path:
             with open(self.log_path, "a") as fh:
                 fh.write(json.dumps(out) + "\n")
-        print(" | ".join(f"{k}={v:.4g}" if isinstance(v, float)
-                         else f"{k}={v}" for k, v in out.items()))
+        if not quiet:
+            print(" | ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                             else f"{k}={v}" for k, v in out.items()))
         return out
 
 
 def train_loop(state, step_fn, data_iter: Iterable, tcfg, cfg_json: str,
-               prepare: Optional[Callable[[Dict], Dict]] = None):
+               prepare: Optional[Callable[[Dict], Dict]] = None, dp=None):
     """Resume -> steps -> periodic checkpoints -> final checkpoint and
     flag. prepare: maps each collated batch to the step's input (device
-    tensors)."""
-    cleanup_incomplete_checkpoints(tcfg.output_dir)
+    tensors). dp: the data-parallel group; each rank runs its rows (row
+    generators offset by its first global row), rank 0 logs and writes."""
+    if _main(dp):
+        cleanup_incomplete_checkpoints(tcfg.output_dir)
+    _barrier(dp)
     resume = latest_checkpoint(tcfg.output_dir)
     if resume is not None:
         print(f"Resuming from {resume}")
-        state = restore_checkpoint(resume, state)
+        state = restore_checkpoint(resume, state, dp)
     os.makedirs(tcfg.output_dir, exist_ok=True)
-    logger = MetricLogger(osp.join(tcfg.output_dir, "train_log.jsonl"), tcfg)
+    offset = 0 if dp is None else dp.rank * tcfg.per_device_batch_size
+    logger = MetricLogger(osp.join(tcfg.output_dir, "train_log.jsonl")
+                          if _main(dp) else None, tcfg)
     eta = ETAEstimator(tcfg.num_train_steps)
 
     prof = None
@@ -221,7 +269,7 @@ def train_loop(state, step_fn, data_iter: Iterable, tcfg, cfg_json: str,
         if prepare is not None:
             batch = prepare(batch)
         state, metrics = step_fn(state, batch,
-                                 step_generator(tcfg.seed, step))
+                                 RowGenerators(tcfg.seed, step, offset))
         if prof is not None and (step + 1 >= tcfg.profile_start
                                  + tcfg.profile_steps):
             if torch.cuda.is_available():
@@ -233,12 +281,15 @@ def train_loop(state, step_fn, data_iter: Iterable, tcfg, cfg_json: str,
             prof = None
         logger.update(metrics)
         if (step + 1) % tcfg.logging_steps == 0:
-            logger.flush(step + 1, extra=eta.tick(step + 1))
+            logger.flush(step + 1, extra=eta.tick(step + 1),
+                         quiet=not _main(dp))
         if (step + 1) % tcfg.save_steps == 0:
             save_checkpoint(tcfg.output_dir, step + 1, state, cfg_json,
-                            tcfg.save_total_limit)
+                            tcfg.save_total_limit, dp)
     save_checkpoint(tcfg.output_dir, tcfg.num_train_steps, state, cfg_json,
-                    tcfg.save_total_limit)
-    with open(osp.join(tcfg.output_dir, COMPLETE_FLAG), "w") as fh:
-        fh.write("complete")
+                    tcfg.save_total_limit, dp)
+    if _main(dp):
+        with open(osp.join(tcfg.output_dir, COMPLETE_FLAG), "w") as fh:
+            fh.write("complete")
+    _barrier(dp)
     return state
