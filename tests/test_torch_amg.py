@@ -41,6 +41,20 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 H, W = 40, 48
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """The port's side of these tests runs many small torch ops (the
+    connected components' sweeps, a resize a crop); where several test
+    processes share the cores, each op's pool of intra-op threads waits
+    on the others' and the file ran ~60x slower than alone (320 s for
+    the crop test in a six-worker run, 5 s alone). One thread runs them
+    alike under either load."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spiral(h, w):
     """A one-pixel-wide spiral with one-pixel walls: one component whose
     geodesic runs over half of the map."""

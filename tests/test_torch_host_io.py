@@ -221,6 +221,14 @@ two_ranks("video_llava_seg_torch.train.train", "--stage", "stage3",
           os.path.join(out_dir, "train_fsdp"))
 main.load_model(os.path.join(out_dir, "train_fsdp", "checkpoint-1"),
                 device="cpu")
+two_ranks("video_llava_seg_torch.train.train", "--stage", "stage3",
+          "--tiny", "--synthetic", "--bits", "8", "--lora_enable",
+          "--device", "cpu", "--dist_backend", "gloo",
+          "--model_parallel", "2", "--num_train_steps", "1",
+          "--save_steps", "1", "--gradient_accumulation_steps", "1",
+          "--output_dir", os.path.join(out_dir, "train_tp"))
+main.load_model(os.path.join(out_dir, "train_tp", "checkpoint-1"),
+                device="cpu")
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
     k in ("jax", "jaxlib", "transformers", "tokenizers", "regex")
     or k.startswith(("jax.", "jaxlib.", "video_llava_seg_tpu",
@@ -241,7 +249,8 @@ def test_port_serves_without_jax(vicas):
     fixture through the port's tokenizer and `run_inference` serves their
     checkpoint with the tokenizer `load_model` reads from it, and two
     ranks serve it again with --model_parallel 2 (the same caption) and
-    then take an --fsdp step whose checkpoint `load_model` reads; all in
+    then take an --fsdp step and a --model_parallel 2 step whose
+    checkpoints `load_model` reads; all in
     interpreters where JAX, transformers, tokenizers and regex cannot be
     imported, and afterwards none of them (nor video_llava_seg_tpu) is
     loaded."""

@@ -143,8 +143,85 @@ def test_fsdp_specs_are_the_rule_leaf_by_leaf():
     assert specs["layers/0/mlp/w_up/kernel"] == (None, "data")
     assert torch.equal(local["layers"][0]["mlp"]["w_up"]["kernel"],
                        w[:, 128:])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        tmesh.param_specs(tree, tmesh.mesh_layout(2, 2), fsdp=True)
+    # on a data x model mesh 'model' cuts first, then the rule's FSDP part
+    # takes the largest dim left whole: w_up's columns over 'model', its
+    # rows over 'data'
+    both = tmesh.param_specs(tree, tmesh.mesh_layout(2, 2), fsdp=True)
+    assert both["layers/0/mlp/w_up/kernel"] == ("data", "model")
+
+
+def _train_tree(qlora):
+    """The port's tiny stage-3 training tree (LLM, tower, projector, seg
+    head; an int8 base with LoRA adapters, or float)."""
+    from video_llava_seg_torch.models import llava
+    from video_llava_seg_torch.ops.quantization import quantize_tree as q
+    from video_llava_seg_torch.train import lora
+
+    cfg = dataclasses.replace(
+        tc.VideoLlavaConfig.tiny(), seg_token_idx=400,
+        seg=tc.SegHeadConfig(seg_backbone="sam2-test-tiny", image_size=64,
+                             max_seg_frames=1, max_objects=2))
+    p = llava.init(cfg, torch.Generator().manual_seed(0), "cpu",
+                   torch.float32)
+    if qlora:
+        p["llm"] = q(p["llm"], bits=8, min_size=0, train_mode=True)
+        p["lora"] = lora.init_lora(torch.Generator().manual_seed(1), p,
+                                   rank=4)
+    return p
+
+
+@pytest.mark.parametrize("dp,mp", [(4, 2), (2, 2), (1, 2)])
+@pytest.mark.parametrize("fsdp", [False, True])
+@pytest.mark.parametrize("qlora", [False, True])
+def test_training_layout_pins_the_vocab_split_head(dp, mp, fsdp, qlora):
+    """Training keeps serving's `lm_head` layout: its vocabulary columns
+    over 'model' (the rule would split the hidden dim), whatever the mesh
+    and --fsdp. Only the LLM and its adapters split over 'model' (the
+    tower's q_proj / k_proj / v_proj stay whole); a LoRA factor splits
+    with its dense (column-parallel `b` by columns, row-parallel `a` by
+    rows); with --fsdp a leaf may be split on both axes; every rank's
+    blocks gather back to the full tree."""
+    tree = _train_tree(qlora)
+    m = tmesh.mesh_layout(dp, mp)
+    specs = tmesh.param_specs(tree, m, fsdp=fsdp)
+    head = next(k for k in ("kernel", "kernel_q")
+                if k in tree["llm"]["lm_head"])
+    assert specs[f"llm/lm_head/{head}"][1] == "model"
+    assert specs[f"llm/lm_head/{head}"][0] == (
+        "data" if fsdp and dp > 1 else None)
+    assert specs["llm/embed_tokens/embedding"][0] == "model"
+    for path, spec in specs.items():
+        if not path.startswith(("llm/", "lora/llm/")):
+            assert "model" not in spec, path
+    if qlora:
+        lora = "lora/llm/layers/0"
+        assert specs[f"{lora}/attn/wq/kernel_q/b"][1] == "model"
+        assert "model" not in specs[f"{lora}/attn/wq/kernel_q/a"]
+        assert specs[f"{lora}/mlp/w_down/kernel_q/a"][0] == "model"
+        assert "model" not in specs[f"{lora}/mlp/w_down/kernel_q/b"]
+    assert any("data" in s and "model" in s
+               for s in specs.values()) == (fsdp and dp > 1)
+    flat = dict(_leaves(tree))
+    for rank in range(dp * mp):
+        rm = tmesh.mesh_layout(dp, mp, rank=rank)
+        local = dict(_leaves(tmesh.shard_params(tree, rm, fsdp, specs)))
+        for path, t in local.items():
+            spec = specs[path]
+            if not spec:
+                continue
+            want = flat[path]
+            for dim, ax in enumerate(spec):
+                if ax is not None:
+                    n = rm.shape[ax]
+                    size = want.shape[dim] // n
+                    want = want.narrow(dim, rm.coords[ax] * size, size)
+            assert torch.equal(t, want), (rank, path)
+
+
+def _leaves(tree):
+    from video_llava_seg_torch.train.optimizer import leaves_with_paths
+
+    return leaves_with_paths(tree)
 
 
 # --------------------------------------------------------------------------

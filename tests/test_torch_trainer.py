@@ -196,11 +196,14 @@ def test_cli_refusals(tmp_path):
                   TrainConfig(bits=8, num_train_steps=1,
                               output_dir=str(tmp_path)),
                   synthetic=True, device="cpu")
-    # tensor-parallel training is the next slice's; --fsdp runs (here one
-    # process: a group of one, `tests/test_torch_parallel_train.py` runs two)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 5: tensor-parallel"):
+    # --model_parallel needs as many ranks as it names and must divide the
+    # heads (`tests/test_torch_tp_train.py` runs it on gloo ranks); --fsdp
+    # runs (here one process: a group of one,
+    # `tests/test_torch_parallel_train.py` runs two)
+    with pytest.raises(ValueError, match="not divisible by model_parallel"):
         cli.main(_argv(tmp_path, "--model_parallel", "2"))
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        cli.main(_argv(tmp_path, "--model_parallel", "4"))
     state = cli.main(_argv(tmp_path / "fsdp", "--fsdp", "--num_train_steps",
                            "1", "--gradient_accumulation_steps", "1"))
     assert state.step == 1

@@ -110,13 +110,18 @@ def _local_batch(batch, rank, rows):
 
 def dp_train(rank, in_path, out_path):
     """Each case {cfg, tcfg, params, batches, fsdp, steps}: the full tree
-    sharded over the world's 'data' axis, `steps` train steps on this
-    rank's rows of each global batch (or of `rank_batches[rank]`), then
-    the gathered parameters. Rank 0 writes metrics and parameters.
-    A case with `resume_dir` runs the trainer's loop twice over it
-    instead: `steps` at once, and `steps - 1` then a resume to `steps`."""
+    sharded over the mesh of `tcfg.mesh` (the world's ranks as data x
+    model), `steps` train steps on the rows of each global batch that
+    this rank's data coordinate holds (or on `rank_batches[rank]`), then
+    the gathered parameters. Rank 0 writes metrics and parameters; every
+    rank's metrics go along (`all_metrics`), to show the model ranks of a
+    row agree. A case with `resume_dir` runs the trainer's loop twice
+    over it instead: `steps` at once, and `steps - 1` then a resume to
+    `steps`. A case with `no_partial_sum` leaves out the 'model' sum of
+    the partial LoRA gradients (the control)."""
     from video_llava_seg_torch.bridge import tree_map
     from video_llava_seg_torch.config import to_json
+    from video_llava_seg_torch.parallel import collectives
     from video_llava_seg_torch.parallel.fsdp import DataParallel
     from video_llava_seg_torch.parallel.mesh import create_mesh
     from video_llava_seg_torch.train import train_step as tts
@@ -127,6 +132,9 @@ def dp_train(rank, in_path, out_path):
     for name, c in cases.items():
         tcfg = c["tcfg"]
         dp = DataParallel(create_mesh(tcfg.mesh), fsdp=c["fsdp"])
+        if c.get("no_partial_sum"):
+            dp.sum_partial = lambda paths, params: None
+        row = dp.rank
 
         def fresh():
             state, tx = tts.create_train_state(dp.shard(
@@ -138,7 +146,7 @@ def dp_train(rank, in_path, out_path):
             import itertools
 
             batch = tts.batch_to_device(
-                _local_batch(c["batches"][0], rank, c["rows"]), "cpu",
+                _local_batch(c["batches"][0], row, c["rows"]), "cpu",
                 torch.float32)
             runs = {}
             for tag, stops in (("straight", [c["steps"]]),
@@ -159,14 +167,29 @@ def dp_train(rank, in_path, out_path):
         for i in range(c["steps"]):
             src = (c["rank_batches"][rank] if "rank_batches" in c
                    else _local_batch(c["batches"][i % len(c["batches"])],
-                                     rank, c["rows"]))
+                                     row, c["rows"]))
             batch = tts.batch_to_device(src, "cpu", torch.float32)
             state, m = step_fn(state, batch,
-                               trainer.RowGenerators(0, i, rank * c["rows"]))
+                               trainer.RowGenerators(0, i, row * c["rows"]))
             metrics.append({k: float(v) for k, v in m.items()})
         out[name] = {"metrics": metrics,
+                     "all_metrics": collectives.all_gather_objects(metrics),
                      "params": dp.full_params(state.params),
-                     "sharded": sum(dp.dim(p) is not None for p in dp.specs)}
+                     "sharded": sum(dp.dim(p) is not None for p in dp.specs),
+                     "model_split": sum(dp.model_dim(p) is not None
+                                        for p in dp.specs),
+                     "both": sum(dp.dim(p) is not None
+                                 and dp.model_dim(p) is not None
+                                 for p in dp.specs),
+                     "partial": dp.partial}
     if rank == 0:
         torch.save(out, out_path)
 
+
+
+def cli_train(rank, argv):
+    """The training CLI's `main(argv)` on every rank (the group is
+    joined already, as torchrun's ranks join it in `train`)."""
+    from video_llava_seg_torch.train import train as train_mod
+
+    train_mod.main(argv)

@@ -631,4 +631,7 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
+    from video_llava_seg_torch.parallel.collectives import shutdown
+
     run_inference(parse_args())
+    shutdown()

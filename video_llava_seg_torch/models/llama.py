@@ -33,13 +33,18 @@ the same tokens; the kept set of a step is the JAX package's
 (`nucleus_filter`, pinned to `_select_token` by the CPU tests); and
 top_p -> 0 gives the greedy tokens.
 
-Tensor-parallel serving (`parallel/tensor_parallel.py`): inside its
-context each rank holds its shard of the tree (`parallel/mesh.
-shard_params`): its query / KV heads, its MLP columns, its vocabulary
-rows and columns. The blocks reshape to the local heads, cache only the
-local KV heads, take their global heads' ALiBi slopes, sum `wo` and
-`w_down` over the group, and the logits are gathered whole on every
-rank, so every decision below is the same on every rank.
+Tensor parallelism (`parallel/tensor_parallel.py`): inside its context
+each rank holds its shard of the tree (`parallel/mesh.shard_params`):
+its query / KV heads, its MLP columns, its vocabulary rows and columns.
+The blocks reshape to the local heads, cache only the local KV heads,
+take their global heads' ALiBi slopes, pass the column-parallel denses'
+input through `column_input`, sum `wo` and `w_down` over the group, and
+the logits are gathered whole on every rank, so every decision below is
+the same on every rank. `forward` (training) runs the same blocks: RoPE
+and the key mask are the one device's (they index positions, not heads),
+and the flash kernels run at the local heads, forward and backward; a
+checkpointed block reruns its sums in the recompute, on every rank in
+the same order.
 
 Out of the slice: training the Mistral / MPT families on the card (the
 flash backward takes neither the window nor ALiBi: `attention` raises
@@ -206,10 +211,10 @@ def unembed(params, cfg, h):
     hidden dtype (bf16 on the card) and then widened, as the JAX package
     leaves it to XLA. Under tensor parallelism each rank computes its
     vocabulary columns and the logits are gathered."""
-    logits = _unembed_local(params, cfg, h)
-    if tp_mod.current() is not None:
-        logits = tp_mod.gather_logits(logits)
-    return logits
+    if tp_mod.current() is None:
+        return _unembed_local(params, cfg, h)
+    return tp_mod.gather_logits(_unembed_local(params, cfg,
+                                               tp_mod.column_input(h)))
 
 
 def _unembed_local(params, cfg, h):
@@ -304,6 +309,7 @@ def _attn_block(layer, cfg, x, cos, sin, *, cache: Optional[KVCache],
     each row's left-pad slots. cos / sin: None without RoPE (MPT)."""
     b, s, _ = x.shape
     hq, hkv = tp_mod.local_heads(cfg)
+    x = tp_mod.column_input(x)
     if "wqkv" in layer["attn"]:
         q_dim = hq * cfg.head_dim
         kv_dim = hkv * cfg.head_dim
@@ -359,6 +365,7 @@ def _row_dense(p, x):
 
 
 def _mlp_block(layer, cfg, x):
+    x = tp_mod.column_input(x)
     if cfg.mlp_type == "gelu":
         return _row_dense(layer["mlp"]["w_down"],
                           nn.gelu(nn.dense(layer["mlp"]["w_up"], x)))

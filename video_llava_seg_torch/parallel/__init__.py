@@ -1,8 +1,9 @@
 """Multi-process layouts over `torch.distributed` (port of
 `video_llava_seg_tpu/parallel/`): the mesh and its parameter rules
 (`mesh.py`), the process-group helpers and tensor collectives
-(`collectives.py`), tensor-parallel serving of the LLM
-(`tensor_parallel.py`) and data-parallel / FSDP training (`fsdp.py`).
+(`collectives.py`), tensor parallelism of the LLM for serving and
+training (`tensor_parallel.py`) and data-parallel / FSDP training on the
+data x model mesh (`fsdp.py`).
 """
 
 from video_llava_seg_torch.parallel.collectives import (  # noqa: F401

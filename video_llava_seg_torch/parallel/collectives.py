@@ -1,7 +1,10 @@
 """Process-group helpers (port of `video_llava_seg_tpu/parallel/
 collectives.py`): rank gating, a barrier, object gathers, a dict reduce
 for logging, the bring-up, and the tensor collectives the rest of
-`parallel/` runs on.
+`parallel/` runs on; among them, as autograd Functions over the 'model'
+group, the three a tensor-parallel LLM needs where GSPMD inserts them in
+the JAX package (`copy_to_model`, `reduce_from_model`,
+`gather_from_model`).
 
 A single process needs no process group: every helper then acts on the
 one process (`world_size() == 1`), as the JAX package's do at
@@ -54,6 +57,16 @@ def synchronize() -> None:
     """A barrier over every process; a no-op for one."""
     if world_size() > 1:
         dist.barrier()
+
+
+def shutdown() -> None:
+    """A barrier, then leave the process group (a CLI's last step): a
+    rank that exits with its gloo group alive can abort in the group's
+    teardown ("terminate called without an active exception") while its
+    peer still closes the connection."""
+    if is_initialized():
+        synchronize()
+        dist.destroy_process_group()
 
 
 def all_gather_objects(obj) -> List:
@@ -182,3 +195,67 @@ def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
     out = t.new_empty((size,) + tuple(t.shape[1:]))
     dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The collectives GSPMD inserts around a tensor-parallel dense, as autograd
+# Functions over the 'model' group (Megatron's f / g and the logits gather)
+# ---------------------------------------------------------------------------
+
+def _sum_fp32(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of t, added in fp32, in t's dtype (a new tensor)."""
+    out = t.to(torch.float32, copy=True)
+    all_reduce(out, "sum", group)
+    return out.to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, _sum_fp32(grad, ctx.group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t):
+        return _sum_fp32(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group, ctx.n = group, t.shape[-1]
+        return all_gather_dim(t, t.dim() - 1, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = process_index(ctx.group)
+        return None, grad.narrow(-1, r * ctx.n, ctx.n).contiguous()
+
+
+def copy_to_model(t: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; backward, the gradient summed over the group (the
+    input of a column-parallel dense: each rank's columns give a part of
+    its gradient)."""
+    return _CopyToModel.apply(group, t)
+
+
+def reduce_from_model(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of t (added in fp32) forward; identity backward (a
+    row-parallel dense's partial products, the vocabulary-split lookup)."""
+    return _ReduceFromModel.apply(group, t)
+
+
+def gather_from_model(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' last-dim blocks concatenated forward; backward, this
+    rank's block of the gradient (the vocabulary-split logits)."""
+    return _GatherFromModel.apply(group, t)

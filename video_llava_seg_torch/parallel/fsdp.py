@@ -1,6 +1,11 @@
-"""Data-parallel and FSDP training over the mesh's 'data' group.
+"""Data-parallel and FSDP training over the mesh's 'data' group, with
+or without tensor parallelism over its 'model' group.
 
-`DataParallel` is what the train step and the trainer ask of the group:
+`DataParallel` is what the train step and the trainer ask of the mesh.
+On a dp x mp mesh its 'data' group is the dp ranks of the rank's model
+column (rank = d * mp + m: the ranks with its m); the mp ranks of a data
+row hold the same rows and run the LLM split over their 'model' group
+(`parallel/tensor_parallel.py`, entered by `tensor_parallel()`):
 
 - the rank's rows of a global batch (`rows`), the batch being
   `per_device_batch_size x dp` as in the JAX CLI;
@@ -15,16 +20,28 @@
   (`layer_hook`, run again when a checkpointed block recomputes); the
   towers, projector, seg head, embedding and head gather whole, once a
   step (`gather_tree`);
-- `reduce_grads` sums the gradients of the leaves held whole (every
-  leaf without fsdp: one all-reduce a dtype over a flat bucket);
-- `grad_norm` sums the squares of the shards over the group, each
-  replicated leaf counted once;
+- `reduce_grads` sums the gradients of the leaves held whole over
+  'data' (every leaf without fsdp: one all-reduce a dtype over a flat
+  bucket), then the partial gradients over 'model' (`partial`);
+- `grad_norm` sums the squares of the shards over the axes that split
+  them, each replicated leaf counted once;
 - `full_state` / `local_state`: the checkpoint a single process writes
-  (rank 0 writes it) and its cut back into the shards.
+  (global rank 0 writes it) and its cut back into the shards.
+
+Partial gradients. `copy_to_model` sums over 'model' the gradient of
+every activation that enters a column-parallel dense, so a leaf held
+whole over 'model' (the towers, projector, seg head, norms) gets the
+same full gradient on every model rank and is not summed again. A whole
+leaf that meets a split one inside one dense gets only its rank's part:
+a column-parallel LoRA's `a` (x^T (dy_r b_r^T) over the rank's columns)
+and a row-parallel LoRA's `b` ((x_r a_r)^T dy over the rank's rows).
+Those, and only those, are summed over 'model'.
 
 Each rank's loss is its share of the global-batch loss (its sums over
-the global counts), so the gradient of the global loss is the sum of the
-ranks' gradients: the reductions sum, they do not average.
+the global counts of its data group), so the gradient of the global
+loss is the sum of the data ranks' gradients: the reductions sum, they
+do not average. The counts and metrics are summed over 'data' only: the
+model ranks of a row hold the same rows.
 """
 
 from __future__ import annotations
@@ -92,21 +109,51 @@ class DataParallel:
 
     def __init__(self, mesh: Mesh, fsdp: bool = False):
         self.mesh, self.fsdp = mesh, fsdp
-        self.axis = mesh.axis_names[0]
+        self.axis, self.model_axis = mesh.axis_names
         self.group = mesh.groups[self.axis]
         self.size = mesh.shape[self.axis]
         self.rank = mesh.coords[self.axis]
+        self.model_group = mesh.groups[self.model_axis]
+        self.model_size = mesh.shape[self.model_axis]
+        self.model_rank = mesh.coords[self.model_axis]
         self.specs: Dict[str, Spec] = {}
+        self.partial: Tuple[str, ...] = ()
+
+    @property
+    def main(self) -> bool:
+        """Global rank 0: the rank that logs and writes."""
+        return self.mesh.rank == 0
+
+    def tensor_parallel(self):
+        """The context the LLM runs in over this rank's 'model' group (no
+        group at mp 1)."""
+        from video_llava_seg_torch.parallel.tensor_parallel import (
+            tensor_parallel,
+        )
+        return tensor_parallel(self.model_group, self.model_rank,
+                               self.model_size)
 
     # -- layout --------------------------------------------------------
     def shard(self, params):
-        """This rank's tree of a full one (the same tree without fsdp)."""
+        """This rank's tree of a full one (the same tree on a 1 x 1 mesh
+        or at dp x 1 without fsdp)."""
         self.specs = param_specs(params, self.mesh, self.fsdp)
+        # an adapter's factor held whole beside a split one
+        self.partial = tuple(
+            p for p, spec in self.specs.items()
+            if p.startswith("lora/") and p[-2:] in ("/a", "/b")
+            and _dim(spec, self.model_axis) is None
+            and _dim(self.specs.get(p[:-1] + ("b" if p[-1] == "a" else "a"),
+                                    ()), self.model_axis) is not None)
         return shard_params(params, self.mesh, self.fsdp, self.specs)
 
     def dim(self, path: str) -> Optional[int]:
         spec = self.specs.get(path)
         return None if spec is None else _dim(spec, self.axis)
+
+    def model_dim(self, path: str) -> Optional[int]:
+        spec = self.specs.get(path)
+        return None if spec is None else _dim(spec, self.model_axis)
 
     def rows(self, batch: Dict[str, Any], n: int) -> Dict[str, Any]:
         """Rows [r n, (r + 1) n) of every array of a global batch."""
@@ -171,10 +218,14 @@ class DataParallel:
         return hook
 
     # -- backward ------------------------------------------------------
-    def all_sum(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each tensor summed over the group (one flat all-reduce a
-        dtype); the inputs are left as they are."""
-        if self.size == 1:
+    def all_sum(self, tensors: List[torch.Tensor], model: bool = False
+                ) -> List[torch.Tensor]:
+        """Each tensor summed over the 'data' group (over 'model' with
+        `model`; one flat all-reduce a dtype); the inputs are left as
+        they are."""
+        group, size = ((self.model_group, self.model_size) if model
+                       else (self.group, self.size))
+        if size == 1:
             return list(tensors)
         out: List[Optional[torch.Tensor]] = [None] * len(tensors)
         by_dtype: Dict[torch.dtype, List[int]] = {}
@@ -182,7 +233,7 @@ class DataParallel:
             by_dtype.setdefault(t.dtype, []).append(i)
         for idx in by_dtype.values():
             flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-            collectives.all_reduce(flat, "sum", self.group)
+            collectives.all_reduce(flat, "sum", group)
             off = 0
             for i in idx:
                 n = tensors[i].numel()
@@ -192,8 +243,10 @@ class DataParallel:
 
     @torch.no_grad()
     def reduce_grads(self, paths: List[str], params: List[torch.Tensor]):
-        """Sum the gradients of the trainable leaves held whole (a
-        gathered shard's gradient was summed by its reduce-scatter)."""
+        """Sum over 'data' the gradients of the trainable leaves held
+        whole there (a gathered shard's gradient was summed by its
+        reduce-scatter), then over 'model' the partial ones
+        (`sum_partial`)."""
         idx = [i for i, p in enumerate(paths) if self.dim(p) is None]
         for i in idx:
             if params[i].grad is None:
@@ -201,22 +254,37 @@ class DataParallel:
         summed = self.all_sum([params[i].grad for i in idx])
         for i, g in zip(idx, summed):
             params[i].grad = g
+        self.sum_partial(paths, params)
+
+    @torch.no_grad()
+    def sum_partial(self, paths: List[str], params: List[torch.Tensor]):
+        """Sum over 'model' the gradients of the leaves in `partial` (a
+        split dense's whole LoRA factor)."""
+        idx = [i for i, p in enumerate(paths) if p in self.partial]
+        summed = self.all_sum([params[i].grad for i in idx], model=True)
+        for i, g in zip(idx, summed):
+            params[i].grad = g
 
     def grad_norm_fn(self, paths: List[str]):
         """global_norm over the full gradients: the squares of each
-        shard summed over the group, each replicated leaf once, then added
-        in leaf order (at dp 1 exactly `optimizer.global_norm`)."""
-        sharded = [self.dim(p) is not None for p in paths]
+        shard summed over the axes that split it ('data', then 'model'),
+        each leaf replicated over an axis counted once, then added in
+        leaf order (on a 1 x 1 mesh exactly `optimizer.global_norm`)."""
+        axes = [(False, [i for i, p in enumerate(paths)
+                         if self.dim(p) is not None]),
+                (True, [i for i, p in enumerate(paths)
+                        if self.model_dim(p) is not None])]
 
         def norm(grads: List[torch.Tensor]) -> torch.Tensor:
             if not grads:
                 return torch.zeros(())
             sq = [g.float().square().sum() for g in grads]
-            if any(sharded) and self.size > 1:
-                idx = [i for i, s in enumerate(sharded) if s]
-                red = self.all_sum([torch.stack([sq[i] for i in idx])])[0]
-                for j, i in enumerate(idx):
-                    sq[i] = red[j]
+            for model, idx in axes:
+                if idx and (self.model_size if model else self.size) > 1:
+                    red = self.all_sum([torch.stack([sq[i] for i in idx])],
+                                       model=model)[0]
+                    for j, i in enumerate(idx):
+                        sq[i] = red[j]
             return torch.sqrt(torch.stack(sq).sum())
         return norm
 

@@ -15,21 +15,26 @@ turns it into each rank's own tree:
 - over 'data' (FSDP) every leaf on its own: the rule's dim is cut into
   `dp` blocks, the rank keeps its block (the packed int4 rows too: the
   gather restores the packed tensor as it was);
-- over 'model' (tensor-parallel serving) a dense dict at a time, since
-  its scales and bias follow its weight: a column-parallel weight (the
-  rule's last dim) takes its scale, bias and LoRA `b` columns with it; a
-  row-parallel one (dim -2: `wo`, `w_down`) keeps the whole per-column
-  scale and its bias (added once after the sum); its packed int4 rows
-  are unpacked, cut and packed again into the rank's own "halves" layout
-  (`ops/int4.py`: byte row i holds rows i and i + in/2, so a block of
-  packed rows is not a block of input rows).
+- over 'model' (tensor parallelism, serving and training) the LLM
+  only, a dense dict at a time, since its scales and bias follow its
+  weight: a column-parallel weight (the rule's last dim) takes its
+  scale, bias and LoRA `b` columns with it; a row-parallel one (dim -2:
+  `wo`, `w_down`) keeps the whole per-column scale and its bias (added
+  once after the sum) and its LoRA `a` is cut by rows; its packed int4
+  rows are unpacked, cut and packed again into the rank's own "halves"
+  layout (`ops/int4.py`: byte row i holds rows i and i + in/2, so a
+  block of packed rows is not a block of input rows). In a whole
+  model's tree the towers, projector and seg head stay whole;
+- on a data x model mesh both: the 'model' block first, then (with
+  fsdp) the rule's FSDP part over 'data' on the largest dim left whole.
 
 One layout differs from the rule: `lm_head`. The rule splits its dim 0,
 the hidden dim of the [in, out] kernel (its docstring says vocab). The
 port splits the vocabulary instead (column-parallel, then an all-gather
-of the logits): each rank's logits are then exactly the one-device
-columns, with no partial sums and no activation scale to agree on, and
-the gather moves half the bytes of a sum.
+of the logits), for serving and for training alike: each rank's logits
+are then exactly the one-device columns, with no partial sums and no
+activation scale to agree on, the gather moves half the bytes of a sum,
+and a gathered checkpoint is the one tree whatever the mesh.
 
 Not ported: `maybe_constrain`, `maybe_constrain_grad`, `with_sharding`
 and `named_sharding` (hints to the GSPMD partitioner and workarounds
@@ -146,19 +151,29 @@ def _partition_spec_for(path: str, shape: Sequence[int], mesh: Mesh,
             spec[0] = model_ax
 
     if fsdp:
-        dp = mesh.shape[data_ax]
-        size = 1
-        for s in shape:
-            size *= s
-        # conv kernels and other small >2-D tensors stay replicated
-        if dp > 1 and (ndim <= 2 or size >= (1 << 22)):
-            # shard the largest still-unsharded dim over data
-            order = sorted(range(ndim), key=lambda i: -shape[i])
-            for i in order:
-                if spec[i] is None and shape[i] % dp == 0 and shape[i] >= dp:
-                    spec[i] = data_ax
-                    break
+        return _with_data_axis(tuple(spec), shape, mesh)
     return tuple(spec)
+
+
+def _with_data_axis(spec: Spec, shape: Sequence[int], mesh: Mesh) -> Spec:
+    """The rule's FSDP part: the largest dim `spec` leaves unsplit that
+    'data' divides goes over 'data' (small >2-D tensors stay whole)."""
+    data_ax = mesh.axis_names[0]
+    dp = mesh.shape[data_ax]
+    ndim = len(shape)
+    out = list(spec)
+    size = 1
+    for s in shape:
+        size *= s
+    # conv kernels and other small >2-D tensors stay replicated
+    if dp > 1 and (ndim <= 2 or size >= (1 << 22)):
+        # shard the largest still-unsharded dim over data
+        order = sorted(range(ndim), key=lambda i: -shape[i])
+        for i in order:
+            if out[i] is None and shape[i] % dp == 0 and shape[i] >= dp:
+                out[i] = data_ax
+                break
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -169,16 +184,38 @@ _WEIGHT_KEYS = ("kernel", "kernel_q", "kernel_qa", "kernel_q4a")
 
 
 def _weight_key(d: dict) -> Optional[str]:
-    return next((k for k in _WEIGHT_KEYS if k in d), None)
+    # a dense dict's weight (in the `lora` subtree the key holds an adapter)
+    return next((k for k in _WEIGHT_KEYS
+                 if k in d and torch.is_tensor(d[k])), None)
 
 
-def model_specs(params, mesh: Mesh) -> Dict[str, Spec]:
+def _dense_split(path: str, in_dim: int, out_dim: int, mesh: Mesh
+                 ) -> Tuple[bool, bool]:
+    """(column-parallel, row-parallel) of the dense whose weight is at
+    `path`, by the rule."""
+    ax = mesh.axis_names[1]
+    spec = _partition_spec_for(path, (in_dim, out_dim), mesh, False)
+    return spec[-1] == ax, spec[-2] == ax
+
+
+def model_specs(params, mesh: Mesh, prefix: Tuple[str, ...] = ()
+                ) -> Dict[str, Spec]:
     """path -> spec over 'model' of every leaf (the rule's, a dense dict
-    at a time; `lm_head` vocab-split), for tensor-parallel serving."""
+    at a time; `lm_head` vocab-split). An adapter of the training tree's
+    `lora` subtree ({a, b} at its kernel's path) splits with its dense:
+    a column-parallel dense's `b` by columns, a row-parallel one's `a` by
+    rows; the other factor stays whole."""
     ax = mesh.axis_names[1]
     out: Dict[str, Spec] = {}
 
     def go(tree, path):
+        if isinstance(tree, dict) and set(tree) == {"a", "b"}:
+            p = "/".join(path)
+            col, row = _dense_split(p, tree["a"].shape[0],
+                                    tree["b"].shape[-1], mesh)
+            out[p + "/a"] = (ax, None) if row else (None, None)
+            out[p + "/b"] = (None, ax) if col else (None, None)
+            return
         if isinstance(tree, dict):
             wk = _weight_key(tree)
             if wk is not None:
@@ -212,27 +249,38 @@ def model_specs(params, mesh: Mesh) -> Dict[str, Spec]:
             p = "/".join(path)
             out[p] = _partition_spec_for(p, tuple(tree.shape), mesh, False)
 
-    go(params, ())
+    go(params, prefix)
     return out
 
 
 def param_specs(params, mesh: Mesh, fsdp: bool = False) -> Dict[str, Spec]:
-    """path -> spec of every leaf: the rule leaf by leaf over 'data'
-    (FSDP), `model_specs` over 'model'. A data x model mesh with both is
-    the next slice's (ROADMAP queue 1: tensor-parallel training)."""
-    dp, mp = (mesh.shape[a] for a in mesh.axis_names)
-    if mp > 1 and (dp > 1 or fsdp):
-        raise NotImplementedError(
-            "ROADMAP queue 1 item 5: tensor-parallel training on a data x "
-            "model mesh")
-    if mp > 1:
-        return model_specs(params, mesh)
+    """path -> spec of every leaf. Over 'model' `model_specs` cuts first;
+    then, with fsdp, the rule's FSDP part puts the largest dim left whole
+    that 'data' divides over 'data', so a leaf can be split on both axes.
+    Without a 'model' axis this is the rule leaf by leaf."""
+    mp = mesh.shape[mesh.axis_names[1]]
+    model: Dict[str, Spec] = {}
+    if mp > 1 and "llm" in params:
+        # a whole model's tree: the LLM and its adapters split, the
+        # towers, projector and seg head whole on every model rank
+        model = model_specs(params["llm"], mesh, ("llm",))
+        lora = (params.get("lora") or {}).get("llm")
+        if lora is not None:
+            model.update(model_specs(lora, mesh, ("lora", "llm")))
+    elif mp > 1:
+        model = model_specs(params, mesh)
     specs: Dict[str, Spec] = {}
 
     def f(path, leaf):
-        specs[path] = (_partition_spec_for(path, tuple(leaf.shape), mesh,
-                                           fsdp)
-                       if torch.is_tensor(leaf) and leaf.dim() else ())
+        if not (torch.is_tensor(leaf) and leaf.dim()):
+            specs[path] = ()
+        elif mp == 1:
+            specs[path] = _partition_spec_for(path, tuple(leaf.shape), mesh,
+                                              fsdp)
+        else:
+            spec = model.get(path, (None,) * leaf.dim())
+            specs[path] = (_with_data_axis(spec, tuple(leaf.shape), mesh)
+                           if fsdp else spec)
     _map_with_paths(f, params)
     return specs
 
@@ -246,15 +294,18 @@ def _halves_rows(packed: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     return pack_int4(torch.cat([low, high], 0)[lo:hi])
 
 
-def _split(path: str, t, mesh: Mesh, specs: Dict[str, Spec]):
-    """(dim, axis) that splits leaf `t` at `path`, or None (not a
-    tensor, a scalar such as Adam's count, or no axis). Optimizer state
-    keyed by its parameter's path follows the parameter's spec."""
+def _splits(path: str, t, mesh: Mesh, specs: Dict[str, Spec]
+            ) -> List[Tuple[int, str]]:
+    """The (dim, axis) pairs that split leaf `t` at `path`, 'model' first
+    (its cut is taken first, its gather last); none for a non-tensor, a
+    scalar such as Adam's count, or a leaf no axis splits. Optimizer
+    state keyed by its parameter's path follows the parameter's spec."""
     spec = specs.get(path)
     if not torch.is_tensor(t) or spec is None or len(spec) != t.dim():
-        return None
-    return next(((d, ax) for d, ax in enumerate(spec) if ax is not None),
-                None)
+        return []
+    order = {mesh.axis_names[1]: 0, mesh.axis_names[0]: 1}
+    return sorted(((d, ax) for d, ax in enumerate(spec) if ax is not None),
+                  key=lambda s: order[s[1]])
 
 
 def _int4_rows(path: str, dim: int, ax: str, mesh: Mesh) -> bool:
@@ -265,17 +316,20 @@ def _int4_rows(path: str, dim: int, ax: str, mesh: Mesh) -> bool:
 
 def local_leaf(path: str, t, mesh: Mesh, specs: Dict[str, Spec]):
     """This rank's block of a full leaf (a copy), or the leaf itself
-    where no axis splits it."""
-    split = _split(path, t, mesh, specs)
-    if split is None:
+    where no axis splits it: its 'model' block, then that block's 'data'
+    block."""
+    splits = _splits(path, t, mesh, specs)
+    if not splits:
         return t
-    dim, ax = split
-    n, r = mesh.shape[ax], mesh.coords[ax]
-    if _int4_rows(path, dim, ax, mesh):
-        full = 2 * t.shape[0]
-        return _halves_rows(t, r * full // n, (r + 1) * full // n)
-    size = t.shape[dim] // n
-    return t.narrow(dim, r * size, size).clone()
+    for dim, ax in splits:
+        n, r = mesh.shape[ax], mesh.coords[ax]
+        if _int4_rows(path, dim, ax, mesh):
+            full = 2 * t.shape[0]
+            t = _halves_rows(t, r * full // n, (r + 1) * full // n)
+        else:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, r * size, size)
+    return t.clone()
 
 
 def shard_params(params, mesh: Mesh, fsdp: bool = False,
@@ -289,29 +343,31 @@ def shard_params(params, mesh: Mesh, fsdp: bool = False,
 
 def gather_leaves(items: List[Tuple[str, Any]], mesh: Mesh,
                   specs: Dict[str, Spec]) -> List[Any]:
-    """(path, local value) pairs -> their full values, in order: one
-    all-gather for each split axis and dtype, the blocks laid end to end
-    (`collectives.all_gather_flat`); a row-parallel int4 kernel gathers
-    its unpacked rows and is packed again. Every rank of the split axes
+    """(path, local value) pairs -> their full values, in order: over
+    'data', then over 'model', one all-gather for each dtype, the blocks
+    laid end to end (`collectives.all_gather_flat`); a row-parallel int4
+    kernel gathers its unpacked rows and is packed again. Every rank
     calls it with the same paths."""
     from video_llava_seg_torch.ops.int4 import pack_int4, unpack_int4
 
     out = [v for _, v in items]
-    todo: Dict[Any, List[Tuple[int, torch.Tensor, int, bool]]] = {}
-    for i, (p, v) in enumerate(items):
-        split = _split(p, v, mesh, specs)
-        if split is None:
-            continue
-        dim, ax = split
-        rows = _int4_rows(p, dim, ax, mesh)
-        t = torch.cat(unpack_int4(v), 0) if rows else v
-        todo.setdefault((ax, t.dtype), []).append((i, t, dim, rows))
-    for (ax, _), entries in todo.items():
-        full = collectives.all_gather_flat([e[1] for e in entries],
-                                           [e[2] for e in entries],
-                                           mesh.groups[ax])
-        for (i, _, _, rows), f in zip(entries, full):
-            out[i] = pack_int4(f) if rows else f
+    for ax in mesh.axis_names:
+        todo: Dict[Any, List[Tuple[int, torch.Tensor, int, bool]]] = {}
+        for i, (p, _) in enumerate(items):
+            split = [s for s in _splits(p, out[i], mesh, specs)
+                     if s[1] == ax]
+            if not split:
+                continue
+            (dim, _), = split
+            rows = _int4_rows(p, dim, ax, mesh)
+            t = torch.cat(unpack_int4(out[i]), 0) if rows else out[i]
+            todo.setdefault(t.dtype, []).append((i, t, dim, rows))
+        for entries in todo.values():
+            full = collectives.all_gather_flat([e[1] for e in entries],
+                                               [e[2] for e in entries],
+                                               mesh.groups[ax])
+            for (i, _, _, rows), f in zip(entries, full):
+                out[i] = pack_int4(f) if rows else f
     return out
 
 

@@ -1,5 +1,5 @@
-"""Tensor-parallel serving of the LLM, Megatron-style, over the mesh's
-'model' group.
+"""Tensor parallelism of the LLM, Megatron-style, over the mesh's 'model'
+group: serving, and the training forward and backward.
 
 The rank's tree comes from `mesh.shard_params` (column-parallel wq / wk /
 wv / w_gate / w_up and the vocabulary-split lm_head; row-parallel wo /
@@ -11,7 +11,19 @@ w_down; the vocabulary-split embedding). `models/llama.py` asks
   global heads (`alibi_slopes`), never those of its local head count;
 - sums each row-parallel dense over the group (`row_parallel_dense`);
 - looks tokens up in its rows of the embedding (`embed`) and gathers
-  the logits of its vocabulary columns (`gather_logits`).
+  the logits of its vocabulary columns (`gather_logits`);
+- passes the input of its column-parallel denses (wq / wk / wv, w_gate /
+  w_up, the head) through `column_input`.
+
+The sums and gathers are the autograd Functions of `collectives`
+(`copy_to_model`, `reduce_from_model`, `gather_from_model`), so the
+training step runs the same code: a column-parallel input's gradient is
+summed over the group, a row-parallel output's and the lookup's pass
+through, and the logits' gradient is cut back to the rank's columns.
+LoRA on a split dense splits with it: a column-parallel dense's `a` is
+whole and its `b` cut by columns, a row-parallel dense's `a` cut by rows
+and its `b` whole (`mesh.model_specs`); the whole factor of each gets
+only its rank's part of its gradient (`fsdp.DataParallel.partial`).
 
 Every rank then holds the same logits, bit for bit (an all-gather
 copies), so greedy, beam and stop decisions agree without a broadcast,
@@ -32,6 +44,11 @@ Row-parallel sums, by kernel kind:
   device rounds its product once (in another summation order).
 - weight-only int8: fp32 partial products, as `nn.dense` computes the
   one-device product, summed in fp32 and rounded once.
+Under autograd (training) the float and weight-only int8 forms run their
+fp32 partial products as plain differentiable matmuls (the card's
+`out_dtype` product is serving's); the W8A8 / W4A8 sums raise there: the
+JAX package trains neither (their rounding of the activations has no
+gradient).
 """
 
 from __future__ import annotations
@@ -112,13 +129,20 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     local = torch.where(mine, ids - lo, torch.zeros_like(ids))
     # summed in fp32 (exact: one row and zeros), whatever the table's type
     out = table[local].float() * mine[..., None]
-    return collectives.all_reduce(out, "sum", tp.group).to(table.dtype)
+    return collectives.reduce_from_model(out, tp.group).to(table.dtype)
 
 
 def gather_logits(logits: torch.Tensor) -> torch.Tensor:
     """[..., V / tp] -> [..., V], the ranks' columns in rank order."""
+    return collectives.gather_from_model(logits, current().group)
+
+
+def column_input(x: torch.Tensor) -> torch.Tensor:
+    """x as the input of this rank's column-parallel denses: the same
+    tensor forward, its gradient summed over the group backward; x itself
+    on one device."""
     tp = current()
-    return collectives.all_gather_dim(logits, logits.dim() - 1, tp.group)
+    return x if tp is None else collectives.copy_to_model(x, tp.group)
 
 
 def _matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -146,7 +170,16 @@ def row_parallel_dense(p, x: torch.Tensor) -> torch.Tensor:
     tp = current()
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    lora = p.get("lora")
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, p.get("kernel"),
+                                  *(lora[k] for k in ("a", "b") if lora))
+        if t is not None)
     if "kernel_qa" in p or "kernel_q4a" in p:
+        if grad:
+            raise ValueError(
+                "row-parallel W8A8 / W4A8 denses are serving-only: under "
+                "autograd train a float or weight-only int8 (--bits 8) base")
         amax = collectives.all_reduce(
             x2.float().abs().amax(dim=-1, keepdim=True), "max", tp.group)
         xq, scale = quantize_activations_rowwise(x2, amax)
@@ -165,13 +198,14 @@ def row_parallel_dense(p, x: torch.Tensor) -> torch.Tensor:
             # the per-column scale commutes with the sum over the rows
             y = (torch.matmul(x2.float(), p["kernel_q"].float())
                  * p["kernel_scale"].float())
+        elif grad:
+            y = torch.matmul(x2.float(), p["kernel"].to(x.dtype).float())
         else:
             y = _matmul_fp32(x2, p["kernel"].to(x.dtype))
-        lora = p.get("lora")
         if lora is not None:
             y = y + torch.matmul(torch.matmul(x2, lora["a"].to(x.dtype)),
                                  lora["b"].to(x.dtype)).float() * lora["s"]
-        y = collectives.all_reduce(y, "sum", tp.group).to(x.dtype)
+        y = collectives.reduce_from_model(y, tp.group).to(x.dtype)
     y = y.reshape(*lead, -1)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)

@@ -62,9 +62,12 @@ def text_ce_loss_fused(llm_params, llm_cfg, hidden, labels, chunk: int = 512,
     labels)` without the full fp32 [S, V] logits: each chunk of `chunk`
     tokens is unembedded under `torch.utils.checkpoint`, so one chunk's
     logits live forward and one backward (recomputed from the hidden
-    state). hidden [B, S, D] post-norm; labels [B, S]. count: the valid
-    tokens to divide by (a data-parallel group's total; default these
-    rows')."""
+    state). A chunk without a valid label adds exactly zero to the loss
+    and to every gradient, so it is not unembedded (a caption's labels
+    cover the text after the ~5k visual tokens: one chunk or two; under
+    tensor parallelism each skipped chunk is a logits gather saved).
+    hidden [B, S, D] post-norm; labels [B, S]. count: the valid tokens to
+    divide by (a data-parallel group's total; default these rows')."""
     b, s, d = hidden.shape
     h = hidden[:, :-1].reshape(b * (s - 1), d)
     y = labels[:, 1:].reshape(b * (s - 1))
@@ -73,8 +76,13 @@ def text_ce_loss_fused(llm_params, llm_cfg, hidden, labels, chunk: int = 512,
     mf = valid.float()
     total = hidden.new_zeros((), dtype=torch.float32)
     fn = functools.partial(_chunk_nll, llm_params, llm_cfg)
-    for i in range(0, h.shape[0], chunk):
-        sl = slice(i, i + chunk)
+    n = h.shape[0]
+    pad = -n % chunk
+    live = torch.nn.functional.pad(valid, (0, pad)).view(-1, chunk).any(1)
+    # at least one chunk, so that a batch without a label still has a
+    # (zero) gradient path
+    for c in live.nonzero()[:, 0].tolist() or [0]:
+        sl = slice(c * chunk, (c + 1) * chunk)
         total = total + checkpoint(fn, h[sl], y_safe[sl], mf[sl],
                                    use_reentrant=False)
     if count is None:

@@ -26,8 +26,19 @@ The global batch is `per_device_batch_size` x N; each rank collates,
 prefetches and runs its own rows, and its gradients are summed over the
 ranks (`parallel/fsdp.py`); `--fsdp` shards the parameters and the Adam
 state at rest. `--dist_backend gloo --device cuda:0` lets ranks share
-one card (NCCL refuses that). `--model_parallel > 1` (tensor-parallel
-training) raises NotImplementedError (ROADMAP queue 1 item 5).
+one card (NCCL refuses that).
+
+Tensor-parallel training, on a data x model mesh of N = dp x mp ranks:
+
+    torchrun --nproc_per_node N -m video_llava_seg_torch.train.train \
+        --model_parallel MP [--fsdp] ...
+
+The mp ranks of a data row (rank = d * mp + m) run the same rows
+(`per_device_batch_size` x dp in the global batch) with the LLM split
+over them (`parallel/tensor_parallel.py`: local heads, MLP and vocabulary
+columns; LoRA split with its dense), the tower, projector and seg head
+whole; `--fsdp` cuts each leaf's 'model' block over 'data' as well. MP
+must divide the LLM's query and KV heads, MLP width and vocabulary.
 """
 
 from __future__ import annotations
@@ -320,21 +331,24 @@ def train(cfg, tcfg, data_args: Optional[DataConfig] = None,
     not to be used.
 
     Under torchrun (WORLD_SIZE > 1, or a process group the caller
-    joined), or with tcfg.mesh.fsdp, the ranks form a data-parallel
-    group (`parallel/fsdp.DataParallel`, backend `dist_backend`: NCCL on
-    the card by default, gloo on the CPU); each rank runs its rows of the
-    global batch of per_device_batch_size x ranks."""
+    joined), or with tcfg.mesh.fsdp or model_parallel > 1, the ranks
+    form a data x model mesh (`parallel/fsdp.DataParallel`, backend
+    `dist_backend`: NCCL on the card by default, gloo on the CPU); each
+    data row of tcfg.mesh.model_parallel ranks runs its rows of the
+    global batch of per_device_batch_size x (ranks / model_parallel)."""
     from video_llava_seg_torch.parallel import collectives
+    from video_llava_seg_torch.parallel.tensor_parallel import (
+        check_divisible,
+    )
 
-    if tcfg.mesh.model_parallel > 1:
-        raise NotImplementedError(
-            "ROADMAP queue 1 item 5: tensor-parallel training "
-            "(--model_parallel > 1, the data x model mesh)")
+    mp = tcfg.mesh.model_parallel
+    if mp > 1:
+        check_divisible(cfg.llm, mp)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: --device cuda but no CUDA device")
     dp = None
-    if (tcfg.mesh.fsdp or collectives.is_initialized()
+    if (tcfg.mesh.fsdp or mp > 1 or collectives.is_initialized()
             or int(os.environ.get("WORLD_SIZE", 1)) > 1):
         from video_llava_seg_torch.parallel.fsdp import DataParallel
         from video_llava_seg_torch.parallel.mesh import create_mesh
@@ -379,7 +393,7 @@ def train(cfg, tcfg, data_args: Optional[DataConfig] = None,
             data_iter.close()
     if tcfg.save_projector_only:
         params = state.params if dp is None else dp.full_params(state.params)
-        if dp is None or dp.rank == 0:
+        if dp is None or dp.main:
             save_projector_only(tcfg.output_dir, params)
     return state
 
@@ -534,4 +548,7 @@ def main(argv=None, readers: Optional[Dict] = None):
 
 
 if __name__ == "__main__":
+    from video_llava_seg_torch.parallel.collectives import shutdown
+
     main()
+    shutdown()

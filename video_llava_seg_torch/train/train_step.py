@@ -16,10 +16,17 @@ global loss and the gradients sum. With FSDP the LLM's layers are
 gathered one at a time inside their blocks and the rest of the tree
 once a step. The matcher's point draws come from one generator a sample
 (`trainer.RowGenerators`), so a row draws the same on any rank.
+
+On a data x model mesh the step runs, forward and backward, inside the
+rank's tensor-parallel context (`DataParallel.tensor_parallel`): the LLM
+at its shard (local heads, its MLP and vocabulary columns), the tower,
+projector and seg head whole. The model ranks of a row run the same rows
+and compute the same loss; the counts are summed over 'data' only.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -192,8 +199,9 @@ def make_train_step(cfg, tcfg, tx: Optimizer,
     step + 1. Metrics are detached tensors. timings: optional dict that
     collects per-stage seconds (synchronising at each stage). dp: the
     data-parallel group (`parallel/fsdp.DataParallel`, its tree already
-    sharded): the gradients are summed over it and the norm is the
-    global one."""
+    sharded; with a 'model' axis, tensor-parallel too): the gradients are
+    summed over 'data', the partial ones over 'model', and the norm is
+    the global one."""
     norm_fn = global_norm if dp is None else dp.grad_norm_fn(tx.paths)
     tx.norm_fn = norm_fn
 
@@ -219,9 +227,11 @@ def make_train_step(cfg, tcfg, tx: Optimizer,
                 generator):
         dev = batch["video"].device
         tx.zero_grad()
-        loss, metrics = loss_of(state.params, batch, generator)
-        with stage(timings, "backward", dev):
-            loss.backward()
+        # the backward too: a checkpointed LLM block recomputes inside it
+        with contextlib.nullcontext() if dp is None else dp.tensor_parallel():
+            loss, metrics = loss_of(state.params, batch, generator)
+            with stage(timings, "backward", dev):
+                loss.backward()
         with stage(timings, "optimizer", dev):
             if dp is not None:
                 dp.reduce_grads(tx.paths, tx.params)

@@ -12,9 +12,11 @@
   global row), one a sample (`RowGenerators`), so a resumed run draws
   at step k what an uninterrupted one draws, and a row draws the same on
   whichever data-parallel rank holds it.
-- Over a data-parallel group (`parallel/fsdp.DataParallel`) rank 0
-  writes the checkpoint a single process writes (FSDP shards gathered
-  first), and a resume cuts each rank's shards back out of it.
+- Over a data-parallel group (`parallel/fsdp.DataParallel`) global
+  rank 0 writes the checkpoint a single process writes (FSDP and
+  tensor-parallel shards gathered first), and a resume cuts each rank's
+  shards back out of it. The row generators follow the rank's data
+  coordinate, so the model ranks of a row draw alike.
 - `MetricLogger` writes one jsonl line per logging step, weighting the
   mask metrics by `num_object_tracks`; `ETAEstimator` keeps a rolling
   step time.
@@ -64,11 +66,11 @@ class RowGenerators(NamedTuple):
 
 
 def _main(dp) -> bool:
-    return dp is None or dp.rank == 0
+    return dp is None or dp.main
 
 
 def _barrier(dp):
-    if dp is not None and dp.size > 1:
+    if dp is not None:
         from video_llava_seg_torch.parallel.collectives import synchronize
 
         synchronize()
