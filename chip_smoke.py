@@ -388,7 +388,28 @@ families, 24-25, after 23; the training data path, 26, after 8.
      collectives and the rest. (The 2 x 2 --fsdp mesh runs in the CPU
      tests only: four ranks would share the one card.)
 
+ 31. ring-attention context parallelism (`parallel/ring_attention.py`):
+     K2 non-causal with the logsumexp and K6a / K6b non-causal from the
+     merged O and lse of two blocks at one rank's block (Llama-3-8B's 32
+     / 8 heads over the one-clip prefill's rows; `K2_cp2`, `K6a_cp2` /
+     `K6b_cp2` lines, timed beside SDPA's forward / backward), and the
+     merge of the diagonal and an earlier block against one pass over
+     both; then two ranks sharing the card (gloo) run `cp_forward` of
+     Llama-3-8B bf16 (32 layers, full width, seeded) over CP x that many
+     tokens: hidden and logits against this tree's one-process
+     `llama.forward` on rank 0 within RING_HIDDEN_RTOL / RING_LOGIT_ATOL,
+     the argmax equal on rows of a wide one-process margin, a control
+     (the merge without its rescale) beyond the limits; then at
+     RING_BWD_LAYERS layers the token cross-entropy's gradient of every
+     leaf (`reduce_grads`) against the one process's, both summing
+     controls beyond RING_GRAD_RTOL. Launches by C entry per rank: K2 32
+     x (rank + 1) forward, K6a = K6b = 4 x (rank + 1) backward, all on
+     attention_sm90.cu / attention_bwd_sm90.cu; each rank's seconds split
+     into collectives (the ring's shifts, the gather, the gradient sums)
+     and the rest.
+
     python3 chip_smoke.py --parallel_only    # the build, phases 27 / 29 / 30
+    python3 chip_smoke.py --ring_only        # the build, phase 31
 """
 
 from __future__ import annotations
@@ -556,7 +577,11 @@ BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
           "K2_tp2": 1e-2, "K5_tp2": None,
           # K2 with the logsumexp and K6a / K6b at a rank's shard of the
           # train step: K2, K6a, K6b
-          "K2_tp2_lse": 1e-2, "K6a_tp2": 2e-2, "K6b_tp2": 2e-2}
+          "K2_tp2_lse": 1e-2, "K6a_tp2": 2e-2, "K6b_tp2": 2e-2,
+          # the ring's forms at a rank's block (phase 31): K2 non-causal
+          # with the logsumexp; K6a / K6b non-causal from the merged O and
+          # lse of two blocks: K2, K6a, K6b
+          "K2_cp2": 1e-2, "K6a_cp2": 2e-2, "K6b_cp2": 2e-2}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -6574,10 +6599,11 @@ def fsdp_rank_run(cfg, seed, dev, workdir):
 
 def time_collectives():
     """Wrap the port's tensor collectives (the tensor-parallel sums and
-    gathers and the FSDP ones) to sum their seconds and bytes by op.
-    Each is bracketed by a device synchronize, so its seconds hold the
-    card's work queued before it as little as its own end: the rest of
-    a rank's time is compute and host. Returns the dict."""
+    gathers, the FSDP ones and the ring's shift) to sum their seconds and
+    bytes (of the tensors sent) by op. Each is bracketed by a device
+    synchronize, so its seconds hold the card's work queued before it as
+    little as its own end: the rest of a rank's time is compute and
+    host. Returns the dict."""
     from video_llava_seg_torch.parallel import collectives
 
     acc = {}
@@ -6586,19 +6612,22 @@ def time_collectives():
         fn = getattr(collectives, name)
 
         def timed(t, *a, **k):
-            if t.is_cuda:
-                torch.cuda.synchronize(t.device)
+            ts = t if isinstance(t, list) else [t]
+            cuda = any(x.is_cuda for x in ts)
+            if cuda:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(t, *a, **k)
-            if t.is_cuda:
-                torch.cuda.synchronize(t.device)
+            if cuda:
+                torch.cuda.synchronize()
             s, b = acc.get(name, (0.0, 0))
             acc[name] = (s + time.perf_counter() - t0,
-                         b + t.numel() * t.element_size())
+                         b + sum(x.numel() * x.element_size() for x in ts))
             return out
         setattr(collectives, name, timed)
 
-    for name in ("all_reduce", "all_gather_dim", "reduce_scatter"):
+    for name in ("all_reduce", "all_gather_dim", "reduce_scatter",
+                 "ring_shift"):
         wrap(name)
     return acc
 
@@ -7456,13 +7485,451 @@ def phase_tp_train(cfg, seq_len, seed, dev, smi, results, tp_train):
     return straight[0]["counts"], summary
 
 
+# ---------------------------------------------------------------------------
+# ring-attention context parallelism (phase 31)
+# ---------------------------------------------------------------------------
+
+# Two ranks share the card (gloo), each holding one contiguous block of a
+# sequence of CP x the one-clip prefill's tokens, so each rank's ring block
+# is the prefill's shape. The forward runs Llama-3-8B at full depth and
+# width; the backward is cut to RING_BWD_LAYERS layers for the time of
+# gloo's gradient sums through host memory (as phase 30), not for memory.
+CP = 2
+RING_BWD_LAYERS = 4
+# cp_forward against the one process's llama.forward on the same bf16
+# tree and sequence: the largest |logit| difference and the largest
+# |hidden| difference over the largest |hidden|. The ring rounds each
+# block's output to bf16 and merges the blocks in fp32 where one process
+# rounds one pass over all keys, and its denses run at half the rows
+# (another cuBLAS tiling): differences that 32 random layers grow. The
+# CPU tests hold the same forward in fp32 to 2e-4 / 3e-4. First reading
+# (H100 80GB HBM3, 700 W): logits 0.1055, hidden 3.07e-2, the control
+# (`broken_merge`) 3.97 / 0.704; the limits keep ~2.4x over the reading.
+RING_LOGIT_ATOL = 0.25
+RING_HIDDEN_RTOL = 0.075
+# the 4-layer backward against the one process: the loss's relative
+# difference and each leaf's ||g - g_one|| / ||g_one||. First reading:
+# loss 3.1e-6, leaves 1.36e-2 (median 1.19e-2; bf16 gradients summed in
+# another order), the controls 0.731 (nothing summed) / 1.000 (lm_head
+# summed too)
+RING_LOSS_RTOL = 3e-5
+RING_GRAD_RTOL = 0.035
+
+
+def broken_merge(o, lse, o_b, lse_b):
+    """The control of phase 31: the ring's merge without the rescale of
+    either side (the blocks' outputs added as they are)."""
+    if o is None:
+        return o_b.float(), lse_b
+    return o + o_b.float(), torch.logaddexp(lse, lse_b)
+
+
+def ring_kernel_checks(cfg, block, seed, dev, results):
+    """The ring's new K2 / K6 call forms at a rank's block of phase 31
+    (Llama-3-8B's 32 query / 8 KV heads over `block` rows: the one-clip
+    prefill's), against their plain versions: K2 non-causal with the
+    logsumexp (`K2_cp2`: an earlier rank's block); the merge of the
+    diagonal (causal) and that block against one pass over both; then
+    K6a / K6b non-causal from the merged (global) O and lse (`K6a_cp2` /
+    `K6b_cp2`: the backward of that block), each timed beside SDPA."""
+    import torch.nn.functional as F
+
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.ops.attention import (
+        attention_reference,
+        flash_backward_plain,
+        flash_forward_plain,
+    )
+    from video_llava_seg_torch.parallel import ring_attention as ra
+
+    lc = cfg.llm
+    hq, hkv, d = lc.num_heads, lc.num_kv_heads, lc.head_dim
+    if kernels.attention_entry(d, False, block, hkv) != SM90_ENTRY:
+        raise AssertionError(f"K2 cp{CP}: routed off {SM90_ENTRY}")
+    if kernels.attention_bwd_entry(d, block, hkv) != K6_SM90_PAIR:
+        raise AssertionError(f"K6 cp{CP}: routed off {K6_SM90_PAIR}")
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    q, do = randn(1, hq, block, d), randn(1, hq, block, d)
+    k0, v0 = randn(1, hkv, block, d), randn(1, hkv, block, d)  # own block
+    k, v = randn(1, hkv, block, d), randn(1, hkv, block, d)    # rank 0's
+    scale = 1.0 / math.sqrt(d)
+    shape = (f"cp{CP} rank block q{list(q.shape)} kv{list(k.shape)} "
+             "non-causal")
+    pairs = hq * block * block
+    prod = 2 * pairs * d
+    qb, kb, lse_b = _nbytes(q), _nbytes(k), 4 * hq * block
+    out_b, lse = kernels.attention(q, k, v, scale=scale, causal=False,
+                                   with_lse=True)
+    _, want_lse = flash_forward_plain(q.float(), k.float(), v.float(), None,
+                                      causal=False, scale=scale)
+    sync()
+    lse_err = (lse - want_lse).abs().max().item()
+    log(f"[flash] K2_cp2 {shape}: lse max abs err {lse_err:.3e} (bound "
+        f"{LSE_BOUND:.0e}; natural log, as flash_forward_plain's)")
+    if not math.isfinite(lse_err) or lse_err > LSE_BOUND:
+        raise AssertionError(f"K2_cp2: lse off by {lse_err:.3e}")
+    del want_lse
+    _check("K2_cp2", f"{shape}, with lse",
+           lambda: kernels.attention(q, k, v, scale=scale, causal=False,
+                                     with_lse=True)[0],
+           lambda: flash_forward_plain(q, k, v, None, causal=False,
+                                       scale=scale),
+           lambda: flash_forward_plain(q.float(), k.float(), v.float(),
+                                       None, causal=False, scale=scale)[0],
+           results, (2 * qb + 2 * kb + lse_b, 2 * prod, PEAK_BF16),
+           run_library=lambda: F.scaled_dot_product_attention(
+               q, k, v, enable_gqa=True))
+    # the rank's two blocks merged by their lse (the ring's `_merge`)
+    # against one pass of the fp32 reference over both: this rank's rows
+    # see all of rank 0's keys and their own causally
+    out_0, lse_0 = kernels.attention(q, k0, v0, scale=scale, causal=True,
+                                     with_lse=True)
+    o, lse_g = ra._merge(*ra._merge(None, None, out_0, lse_0), out_b, lse)
+    out = o.to(bf)
+    want = attention_reference(q.float(), torch.cat([k, k0], 2).float(),
+                               torch.cat([v, v0], 2).float(), causal=True)
+    sync()
+    merge_err = _rel_err(out, want)
+    log(f"[flash] cp{CP} merge of the diagonal (causal) and rank 0's block "
+        f"(non-causal) by their lse against one fp32 pass over both: rel "
+        f"err {merge_err:.3e} (bound {BOUNDS['K2_cp2']:.0e})")
+    if not merge_err <= BOUNDS["K2_cp2"]:
+        raise AssertionError(f"cp{CP} merge: rel err {merge_err:.3e}")
+    del want, o, out_0, lse_0
+    torch.cuda.empty_cache()
+    kw = dict(scale=scale, causal=False, kv_bias=None)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), do)
+
+    lib_bwd = max(cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd), 0.0)
+    lse_g = lse_g.contiguous()
+    ref = flash_backward_plain(q.float(), k.float(), v.float(), None,
+                               out.float(), lse_g, do.float(), causal=False,
+                               scale=scale)
+    pair_checks(f"{shape}, global O and lse", d, q, k, v, out, do, lse_g,
+                kw, None, ref,
+                lambda: flash_backward_plain(q, k, v, None, out, lse_g, do,
+                                             causal=False, scale=scale),
+                results, qb, kb, lse_b, prod, names=("K6a_cp2", "K6b_cp2"))
+    for name in ("K6a_cp2", "K6b_cp2"):
+        results[name]["library_ms"] = lib_bwd
+        results[name]["shapes"][-1]["library_ms"] = lib_bwd
+    log(f"[flash] K6_cp2 SDPA backward (fwd+bwd - fwd) {shape}: "
+        f"{lib_bwd:.4f} ms; K6a_cp2 {results['K6a_cp2']['ms']:.4f} ms + "
+        f"K6b_cp2 {results['K6b_cp2']['ms']:.4f} ms (bounds "
+        f"{results['K6a_cp2']['bound_ms']:.4f} / "
+        f"{results['K6b_cp2']['bound_ms']:.4f} ms); K2_cp2 "
+        f"{results['K2_cp2']['ms']:.4f} ms (bound "
+        f"{results['K2_cp2']['bound_ms']:.4f} ms), SDPA forward "
+        f"{results['K2_cp2']['library_ms']:.4f} ms")
+    del q, k, v, k0, v0, do, out, out_b, lse, lse_g, ref, qr, kr, vr
+    torch.cuda.empty_cache()
+    sync()
+
+
+def ring_launches(c):
+    """A run's launches by kernel and C entry, as phase 31 reads them."""
+    return {k: c[k] for k in ("K2", "K6a", "K6b", "sm90 entry",
+                              "attention.cu entry", *K6_SM90_PAIR,
+                              *K6_CUDA_C_PAIR)}
+
+
+def ring_compare(got_logits, got_hidden, logits, hidden):
+    """(largest |logit| difference, largest |hidden| difference over the
+    largest |hidden|) of a rank's cp_forward against the one process's."""
+    d_logit = float((got_logits - logits).abs().max())
+    d_hidden = float((got_hidden.float() - hidden.float()).abs().max()
+                     / hidden.float().abs().max())
+    return d_logit, d_hidden
+
+
+def ring_rank(rank, world, port, spec):
+    """One of the two ranks of phase 31: a gloo group on the shared card.
+    Forward: Llama-3-8B bf16 at full depth from the seed; rank 0 first
+    runs the one process's `llama.forward` on the tree and sequence; then
+    `cp_forward` over the CP x block tokens (the launches and collectives
+    of exactly that run) and the control with `broken_merge`, rank 0
+    comparing both. Backward: a RING_BWD_LAYERS-layer tree, the token
+    cross-entropy of the whole sequence through `cp_forward`, every
+    leaf's gradient made whole by `reduce_grads` (the controls: lm_head
+    summed too, nothing summed); rank 0 runs the one process's loss and
+    gradients. Writes its results to spec["dir"]/ring<r>.pt."""
+    from video_llava_seg_torch.models import llama
+    from video_llava_seg_torch.parallel import collectives
+    from video_llava_seg_torch.parallel import ring_attention as ra
+    from video_llava_seg_torch.train.optimizer import leaves_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    collective_time = time_collectives()
+    dev = collectives.initialize_distributed(
+        "gloo", spec["device"], init_method=f"tcp://localhost:{port}",
+        world_size=world, rank=rank)
+    out = {}
+    try:
+        group = ra.create_seq_mesh().groups[ra.SEQ_AXIS]
+        lc, s = spec["cfg"].llm, spec["seq_len"]
+        bf = torch.bfloat16
+        g = torch.Generator(device=dev).manual_seed(spec["seed"] + 9)
+        torch.cuda.reset_peak_memory_stats()
+        params = llama.init(lc, g, dev, bf)
+        ids = torch.randint(0, lc.vocab_size, (1, s), generator=g,
+                            device=dev)
+        pos = torch.arange(s, device=dev)
+        with torch.no_grad():
+            embeds = llama.embed(params, ids)
+            ref = None
+            if rank == 0:
+                sync()
+                t0 = time.perf_counter()
+                ref = llama.forward(params, lc, embeds, pos)
+                sync()
+                out["one_process_s"] = time.perf_counter() - t0
+            collectives.synchronize()
+            reset_launches()
+            collective_time.clear()
+            sync()
+            t0 = time.perf_counter()
+            logits, hidden = ra.cp_forward(params, lc, embeds, pos, group)
+            sync()
+            out["forward_s"] = time.perf_counter() - t0
+            out["forward_launches"] = ring_launches(snapshot_launches())
+            out["forward_collectives"] = dict(collective_time)
+            if rank == 0:
+                out["forward_diff"] = ring_compare(logits, hidden, *ref)
+                top = ref[0][0].topk(2, dim=-1).values
+                out["margins"] = (top[:, 0] - top[:, 1]).cpu()
+                out["argmax_same"] = (logits[0].argmax(-1)
+                                      == ref[0][0].argmax(-1)).cpu()
+            del logits, hidden
+            kept, ra._merge = ra._merge, broken_merge
+            try:
+                logits, hidden = ra.cp_forward(params, lc, embeds, pos,
+                                               group)
+            finally:
+                ra._merge = kept
+            if rank == 0:
+                out["control_diff"] = ring_compare(logits, hidden, *ref)
+            del logits, hidden, ref, params, embeds
+        torch.cuda.empty_cache()
+        out["forward_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+        # the backward at RING_BWD_LAYERS layers
+        lc4 = dataclasses.replace(lc, num_layers=RING_BWD_LAYERS)
+        g = torch.Generator(device=dev).manual_seed(spec["seed"] + 10)
+        params = llama.init(lc4, g, dev, bf)
+        tgt = torch.randint(0, lc.vocab_size, (1, s), generator=g,
+                            device=dev)
+        with torch.no_grad():
+            embeds = llama.embed(params, ids)
+        leaves = [(p, t) for p, t in leaves_with_paths(params)
+                  if not p.startswith("embed_tokens/")]
+        for _, t in leaves:
+            t.requires_grad_(True)
+
+        def loss_and_grads(fn):
+            logits = fn()
+            loss = torch.nn.functional.cross_entropy(
+                logits.view(-1, logits.shape[-1]), tgt.view(-1))
+            grads = torch.autograd.grad(loss, [t for _, t in leaves])
+            return float(loss.detach()), dict(zip((p for p, _ in leaves),
+                                                  grads))
+
+        collectives.synchronize()
+        reset_launches()
+        collective_time.clear()
+        sync()
+        t0 = time.perf_counter()
+        loss, raw = loss_and_grads(lambda: ra.cp_forward(
+            params, lc4, embeds, pos, group)[0])
+        sync()
+        out["backward_launches"] = ring_launches(snapshot_launches())
+        grads = ra.reduce_grads(raw, group)
+        sync()
+        out["backward_s"] = time.perf_counter() - t0
+        out["backward_collectives"] = dict(collective_time)
+        # the control that sums every leaf: the leaves the ring leaves
+        # partial are summed already, so sum the others too
+        whole = {p: t for p, t in raw.items()
+                 if not p.startswith(ra.PARTIAL_PREFIXES)}
+        kept, ra.PARTIAL_PREFIXES = ra.PARTIAL_PREFIXES, ("",)
+        try:
+            sum_all = {**grads, **ra.reduce_grads(whole, group)}
+        finally:
+            ra.PARTIAL_PREFIXES = kept
+        if rank == 0:
+            t0 = time.perf_counter()
+            loss_one, one = loss_and_grads(lambda: llama.forward(
+                params, lc4, embeds, pos)[0])
+            sync()
+            out["backward_one_process_s"] = time.perf_counter() - t0
+
+            def rel(gs):
+                return {p: float((gs[p].float() - w.float()).norm()
+                                 / w.float().norm().clamp_min(1e-30))
+                        for p, w in one.items()}
+
+            out["loss"] = (loss, loss_one)
+            out["grad_rel"] = rel(grads)
+            out["sum_none_rel"] = rel(raw)
+            out["sum_all_rel"] = rel(sum_all)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params, raw, grads, sum_all, whole
+        torch.cuda.empty_cache()
+    finally:
+        collectives.shutdown()
+    torch.save(out, os.path.join(spec["dir"], f"ring{rank}.pt"))
+
+
+def phase_ring(cfg, block, seed, dev, smi, results):
+    """Phase 31: `ring_kernel_checks`, then the two ranks of `ring_rank`
+    over CP x block tokens: the forward's hidden state and logits against
+    the one process's within RING_HIDDEN_RTOL / RING_LOGIT_ATOL (the
+    broken merge beyond them), the argmax equal on every row whose
+    one-process top-two margin exceeds 2 x RING_LOGIT_ATOL (each of the
+    top two may move by the limit); the backward's loss and leaves within
+    RING_LOSS_RTOL / RING_GRAD_RTOL (both controls beyond); each rank's
+    launches by C entry. Returns the summary."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ring_kernel_checks(cfg, block, seed, dev, results)
+    t_checks = time.perf_counter() - t0
+    s = CP * block
+    held = torch.cuda.memory_allocated() / 2**30   # no tree in this process
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as work:
+        spec = {"cfg": cfg, "seed": seed, "dir": work, "seq_len": s,
+                "device": f"cuda:{torch.cuda.current_device()}"}
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(ring_rank, args=(CP, free_port(), spec),
+                                    nprocs=CP, join=True)
+        t_ranks = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"ring{r}.pt"),
+                            weights_only=False) for r in range(CP)]
+    r0 = ranks[0]
+    failures = []
+    layers = cfg.llm.num_layers
+    tag = f"[cp{CP}]"
+    for r, x in enumerate(ranks):
+        for what, c, n in (("forward", x["forward_launches"], layers),
+                           ("backward", x["backward_launches"],
+                            RING_BWD_LAYERS)):
+            # each layer: the diagonal block and one a rank before it
+            want = n * (r + 1)
+            k6 = want if what == "backward" else 0
+            log(f"{tag} rank {r} {what} ({n} layers) launches: K2 {c['K2']} "
+                f"(attention_sm90.cu {c['sm90 entry']}, attention.cu "
+                f"{c['attention.cu entry']}), K6a {c['K6a']} / K6b "
+                f"{c['K6b']} (attention_bwd_sm90.cu "
+                f"{c[K6_SM90_PAIR[0]]} + {c[K6_SM90_PAIR[1]]}, "
+                f"attention_bwd.cu {c[K6_CUDA_C_PAIR[0]]} + "
+                f"{c[K6_CUDA_C_PAIR[1]]}); expected K2 {want}, K6a = K6b "
+                f"= {k6}")
+            if (c["K2"] != want or c["sm90 entry"] != want
+                    or c["attention.cu entry"] or c["K6a"] != k6
+                    or c["K6b"] != k6 or c[K6_SM90_PAIR[0]] != k6
+                    or c[K6_SM90_PAIR[1]] != k6 or c[K6_CUDA_C_PAIR[0]]
+                    or c[K6_CUDA_C_PAIR[1]]):
+                failures.append(f"cp{CP} rank {r} {what}: launches {c}")
+        log(f"{tag} rank {r}: forward "
+            + collective_split({"seconds": x["forward_s"],
+                                "collectives": x["forward_collectives"]})
+            + "; backward and gradient sums "
+            + collective_split({"seconds": x["backward_s"],
+                                "collectives": x["backward_collectives"]})
+            + f"; peak {x['forward_peak_gib']:.1f} GiB forward, "
+            f"{x['peak_gib']:.1f} GiB in all; {smi}")
+    d_logit, d_hidden = r0["forward_diff"]
+    c_logit, c_hidden = r0["control_diff"]
+    limit = RING_LOGIT_ATOL
+    wide = r0["margins"] > 2 * limit
+    agree = (int(r0["argmax_same"][wide].sum()), int(wide.sum()))
+    log(f"{tag} cp_forward of Llama-3-8B bf16 ({layers} layers, full width) "
+        f"over {s} tokens ({CP} x {block}) against the one process's "
+        f"llama.forward ({r0['one_process_s']:.3f} s): logits within "
+        f"{d_logit:.4e} (limit {limit}), hidden within {d_hidden:.4e} of "
+        f"its largest (limit {RING_HIDDEN_RTOL}); the control (the merge "
+        f"without its rescale): logits {c_logit:.4e}, hidden "
+        f"{c_hidden:.4e}; argmax equal on "
+        f"{int(r0['argmax_same'].sum())} of {s} rows, on {agree[0]} of "
+        f"the {agree[1]} rows whose one-process top-two margin exceeds "
+        f"{2 * limit}; one-process margins: median "
+        f"{float(r0['margins'].median()):.4f}, max "
+        f"{float(r0['margins'].max()):.4f}")
+    if not (d_logit <= limit and d_hidden <= RING_HIDDEN_RTOL):
+        failures.append(f"cp{CP} forward: logits {d_logit:.3e}, hidden "
+                        f"{d_hidden:.3e}")
+    if c_logit <= limit and c_hidden <= RING_HIDDEN_RTOL:
+        failures.append(f"cp{CP} control within the limits")
+    if agree[0] != agree[1]:
+        failures.append(f"cp{CP}: argmax differs on {agree[1] - agree[0]} "
+                        "wide-margin rows")
+    loss, loss_one = r0["loss"]
+    loss_rel = abs(loss - loss_one) / abs(loss_one)
+    worst = max(r0["grad_rel"].items(), key=lambda kv: kv[1])
+    none_worst = max(r0["sum_none_rel"].items(), key=lambda kv: kv[1])
+    all_worst = max(r0["sum_all_rel"].items(), key=lambda kv: kv[1])
+    log(f"{tag} backward ({RING_BWD_LAYERS} layers, {s} tokens): loss "
+        f"{loss:.6f} vs {loss_one:.6f} one process (rel {loss_rel:.3e}, "
+        f"limit {RING_LOSS_RTOL}); {len(r0['grad_rel'])} leaves, worst "
+        f"||g - g_one|| / ||g_one|| {worst[1]:.3e} ({worst[0]}; limit "
+        f"{RING_GRAD_RTOL}), median "
+        f"{statistics.median(r0['grad_rel'].values()):.3e}; controls: "
+        f"nothing summed {none_worst[1]:.3e} ({none_worst[0]}), every leaf "
+        f"summed {all_worst[1]:.3e} ({all_worst[0]}); the one process's "
+        f"step {r0['backward_one_process_s']:.3f} s")
+    if not (loss_rel <= RING_LOSS_RTOL and worst[1] <= RING_GRAD_RTOL):
+        failures.append(f"cp{CP} backward: loss {loss_rel:.3e}, leaf "
+                        f"{worst[0]} {worst[1]:.3e}")
+    for name, w in (("nothing summed", none_worst),
+                    ("every leaf summed", all_worst)):
+        if w[1] <= RING_GRAD_RTOL:
+            failures.append(f"cp{CP} control ({name}) within "
+                            f"{RING_GRAD_RTOL}")
+    log(f"{tag} phase 31: kernel checks {t_checks:.1f} s, the ranks "
+        f"{t_ranks:.1f} s (two processes sharing the card: no multi-GPU "
+        f"speed; this process held {held:.2f} GiB while they ran)")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"tokens": s, "block": block, "layers": layers,
+            "backward_layers": RING_BWD_LAYERS,
+            "logit_diff": d_logit, "hidden_rel_diff": d_hidden,
+            "control_logit_diff": c_logit,
+            "control_hidden_rel_diff": c_hidden,
+            "argmax_wide_margin": agree, "loss": r0["loss"],
+            "grad_rel_worst": worst, "sum_none_worst": none_worst,
+            "sum_all_worst": all_worst,
+            "launches_by_rank": [{"forward": x["forward_launches"],
+                                  "backward": x["backward_launches"]}
+                                 for x in ranks],
+            "rank_seconds": [{"forward": x["forward_s"],
+                              "backward": x["backward_s"]} for x in ranks],
+            "rank_collectives": [{"forward": x["forward_collectives"],
+                                  "backward": x["backward_collectives"]}
+                                 for x in ranks],
+            "rank_peak_gib": [x["peak_gib"] for x in ranks],
+            "one_process_s": r0["one_process_s"],
+            "kernel_checks_s": t_checks, "ranks_s": t_ranks}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max_new_tokens", type=int, default=32)
     ap.add_argument("--parallel_only", action="store_true",
-                    help="the build and phases 27 / 29 only, no result "
-                         "lines (for iterating on them)")
+                    help="the build and phases 27 / 29 / 30 only, no "
+                         "result lines (for iterating on them)")
+    ap.add_argument("--ring_only", action="store_true",
+                    help="the build and phase 31 only, no result lines")
     args = ap.parse_args(argv)
 
     smi = phase_environment()
@@ -7494,6 +7961,10 @@ def main(argv=None):
         f"caption + referral batch to 2 x {batch_len}, the shorter row "
         f"left-padded by {pad}")
     dev = torch.device("cuda")
+    if args.ring_only:
+        ring = phase_ring(cfg, prefill_len, args.seed, dev, smi, {})
+        log(json.dumps({"ring": ring}, default=str))
+        return 0
     if args.parallel_only:
         _, parallel, tp_train_in = phase_parallel(cfg, prefill_len,
                                                   args.seed, dev, smi, {})
@@ -7594,6 +8065,10 @@ def main(argv=None):
     parallel["tp_train"]["seconds"] = time.perf_counter() - t0
     log(f"[tp{TP} train] phase 30's kernel checks and verdicts: "
         f"{parallel['tp_train']['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    ring = phase_ring(cfg, prefill_len, args.seed, dev, smi, results)
+    ring["seconds"] = time.perf_counter() - t0
+    log(f"[cp{CP}] phase 31: {ring['seconds']:.1f} s")
 
     kernels_out = []
     main_paths = {"K5": quant_counts, "K7": hiera_counts,
@@ -7861,6 +8336,30 @@ def main(argv=None):
             "bound_by": ("bytes" if by["bytes"] >= by["operations"]
                          else "operations"),
             "library_ms": r["library_ms"], "shapes": r["shapes"]})
+    # the ring's K2 / K6 forms at a rank's block, counted on rank 1 of
+    # phase 31 (the rank that runs the non-causal form: its 32-layer
+    # forward, its 4-layer backward)
+    for name, base, run in (("K2_cp2", "K2", "forward"),
+                            ("K6a_cp2", "K6a", "backward"),
+                            ("K6b_cp2", "K6b", "backward")):
+        r = results[name]
+        source, csrc = SOURCES[base]
+        by = r["bound_by_ms"]
+        kernels_out.append({
+            "name": name, "route": "cuda", "source": source,
+            "csrc": [f"video_llava_seg_torch/csrc/{x}" for x in csrc],
+            "replaces": REPLACES[base],
+            "launches": ring["launches_by_rank"][CP - 1][run][base],
+            "launches_by_path": {
+                f"cp{CP}_{w}_rank{rank}": c[w][base]
+                for rank, c in enumerate(ring["launches_by_rank"])
+                for w in ("forward", "backward")},
+            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+            "bound": BOUNDS[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if by["bytes"] >= by["operations"]
+                         else "operations"),
+            "library_ms": r["library_ms"], "shapes": r["shapes"]})
     for v in parallel["tp"].values():
         v["launches_by_rank"] = [{k: c[k] for k in ("K1", "K2", "K3", "K4",
                                                     "K5", "sm90 entry",
@@ -7870,6 +8369,7 @@ def main(argv=None):
                                                     "vls_w4a8")}
                                  for c in v["launches_by_rank"]]
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"ring": ring}))
     for fam in FAMILY_TEMPLATES:
         del families[fam]["bf16_launches"]
     log(json.dumps({"llm_families": families}))

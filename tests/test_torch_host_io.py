@@ -154,6 +154,15 @@ gt_dir = str(Paths.vicas_annotations_dir("v1.0"))
 scores = [vieval.evaluate_dirs(d, gt_dir) for d in (out_dir, serve.output_dir)]
 assert [s["num_referrals"] for s in scores] == [1, 1], scores
 assert 0.0 <= scores[0]["mean_iou"] <= 1.0 and scores[1]["mean_iou"] == 0.0
+from video_llava_seg_torch.inference import visualization
+written = []
+visualization.main(["-i", out_dir, "--gt_dir", gt_dir, "-o",
+                    os.path.join(out_dir, "viz")],
+                   writer=lambda path, img: written.append(
+                       (os.path.basename(path), img.shape)))
+assert [n for n, _ in written] == [f"{t:05d}.jpg" for t in range(4)], written
+assert os.path.exists(os.path.join(out_dir, "viz", "000007", "referral_0",
+                                   "language.txt"))
 from video_llava_seg_torch.models.sam2.build import (
     build_sam2_image_predictor,
 )
@@ -229,6 +238,9 @@ two_ranks("video_llava_seg_torch.train.train", "--stage", "stage3",
           "--output_dir", os.path.join(out_dir, "train_tp"))
 main.load_model(os.path.join(out_dir, "train_tp", "checkpoint-1"),
                 device="cpu")
+import torch_parallel_ranks as ranks
+ranks.join(ranks.spawn(ranks.cp_without_jax, 2, out_dir))
+assert os.path.exists(os.path.join(out_dir, "cp_ok"))
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
     k in ("jax", "jaxlib", "transformers", "tokenizers", "regex")
     or k.startswith(("jax.", "jaxlib.", "video_llava_seg_tpu",
@@ -250,7 +262,9 @@ def test_port_serves_without_jax(vicas):
     checkpoint with the tokenizer `load_model` reads from it, and two
     ranks serve it again with --model_parallel 2 (the same caption) and
     then take an --fsdp step and a --model_parallel 2 step whose
-    checkpoints `load_model` reads; all in
+    checkpoints `load_model` reads; two ranks run the ring's
+    `cp_forward` against one process and `visualization.main` draws the
+    first output's overlays; all in
     interpreters where JAX, transformers, tokenizers and regex cannot be
     imported, and afterwards none of them (nor video_llava_seg_tpu) is
     loaded."""

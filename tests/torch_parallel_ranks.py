@@ -193,3 +193,102 @@ def cli_train(rank, argv):
     from video_llava_seg_torch.train import train as train_mod
 
     train_mod.main(argv)
+
+
+# --------------------------------------------------------------------------
+# ring-attention context parallelism
+# --------------------------------------------------------------------------
+
+def _seq_slice(t, dim, rank, world):
+    size = t.shape[dim] // world
+    return t.narrow(dim, rank * size, size)
+
+
+def ring_cp(rank, in_path, out_path):
+    """Cases {"attn": {name: (q, k, v, causal, w)}, "cp": {name: {cfg,
+    params, embeds, pos, tgt, logits}}} over the world as one 'seq'
+    group. attn: the rank's slice of q / k / v through
+    `ring_attention_local` and the gradients of sum(out * w), gathered
+    whole. cp: `cp_forward`'s logits and hidden and, with `tgt`, the
+    gradient of the token cross-entropy of every float leaf made whole by
+    `reduce_grads`, and the two controls (every leaf summed, none).
+    Rank 0 writes the results; every rank's hidden goes along."""
+    from video_llava_seg_torch.parallel import collectives
+    from video_llava_seg_torch.parallel import ring_attention as ra
+    from video_llava_seg_torch.train.optimizer import leaves_with_paths
+
+    cases = torch.load(in_path, weights_only=False)
+    world = collectives.world_size()
+    group = ra.create_seq_mesh().groups[ra.SEQ_AXIS]
+    out = {"attn": {}, "cp": {}}
+    for name, (q, k, v, causal, w) in cases["attn"].items():
+        qs, ks, vs = (_seq_slice(t, 2, rank, world).clone()
+                      .requires_grad_(True) for t in (q, k, v))
+        o = ra.ring_attention_local(qs, ks, vs, group=group, causal=causal)
+        grads = torch.autograd.grad(
+            (o * _seq_slice(w, 2, rank, world)).sum(), (qs, ks, vs))
+        out["attn"][name] = [collectives.all_gather_dim(t.detach(), 2, group)
+                             for t in (o, *grads)]
+    for name, c in cases["cp"].items():
+        params = c["params"]
+        leaves = [(p, t.requires_grad_(c.get("tgt") is not None))
+                  for p, t in leaves_with_paths(params)]
+        logits, hidden = ra.cp_forward(params, c["cfg"], c["embeds"],
+                                       c["pos"], group,
+                                       return_logits=c["logits"])
+        r = {"logits": logits, "hidden": hidden.detach(),
+             "all_hidden": collectives.all_gather_objects(hidden.detach())}
+        if c.get("tgt") is not None:
+            lp = torch.log_softmax(logits.float(), -1)
+            loss = -lp.gather(-1, c["tgt"][..., None]).mean()
+            got = torch.autograd.grad(loss, [t for _, t in leaves],
+                                      allow_unused=True)
+            grads = {p: (torch.zeros_like(t) if g is None else g)
+                     for (p, t), g in zip(leaves, got)}
+            r["loss"] = float(loss)
+            r["grads"] = ra.reduce_grads(grads, group)
+            ra.PARTIAL_PREFIXES, kept = ("",), ra.PARTIAL_PREFIXES
+            try:
+                r["sum_all"] = ra.reduce_grads(grads, group)
+            finally:
+                ra.PARTIAL_PREFIXES = kept
+            r["sum_none"] = grads
+            r["logits"] = logits.detach()
+        out["cp"][name] = r
+    if rank == 0:
+        torch.save(out, out_path)
+
+
+_BLOCKED = ("jax", "jaxlib", "transformers", "tokenizers", "regex")
+
+
+def cp_without_jax(rank, out_dir):
+    """With JAX blocked in this rank: the tiny Llama's `cp_forward` over
+    the world's ranks against the one process's `llama.forward`; rank 0
+    writes out_dir/cp_ok once both agree and neither JAX nor the JAX
+    package was loaded."""
+    import sys
+
+    for name in _BLOCKED:
+        sys.modules[name] = None      # importing these fails from here on
+    from video_llava_seg_torch.config import LlamaConfig
+    from video_llava_seg_torch.models import llama
+    from video_llava_seg_torch.parallel import ring_attention as ra
+
+    cfg = LlamaConfig.tiny(vocab_size=64)
+    params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu",
+                        torch.float32)
+    embeds = torch.randn(1, 16, cfg.hidden_size,
+                         generator=torch.Generator().manual_seed(1))
+    group = ra.create_seq_mesh().groups[ra.SEQ_AXIS]
+    logits, hidden = ra.cp_forward(params, cfg, embeds, torch.arange(16),
+                                   group)
+    want_logits, want_hidden = llama.forward(params, cfg, embeds,
+                                             torch.arange(16))
+    torch.testing.assert_close(hidden, want_hidden, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(logits, want_logits, atol=1e-5, rtol=1e-5)
+    loaded = [k for k, v in sys.modules.items() if v is not None
+              and k.startswith(("jax", "video_llava_seg_tpu"))]
+    assert not loaded, loaded
+    if rank == 0:
+        open(os.path.join(out_dir, "cp_ok"), "w").close()

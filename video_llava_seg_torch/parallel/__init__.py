@@ -2,8 +2,9 @@
 `video_llava_seg_tpu/parallel/`): the mesh and its parameter rules
 (`mesh.py`), the process-group helpers and tensor collectives
 (`collectives.py`), tensor parallelism of the LLM for serving and
-training (`tensor_parallel.py`) and data-parallel / FSDP training on the
-data x model mesh (`fsdp.py`).
+training (`tensor_parallel.py`), data-parallel / FSDP training on the
+data x model mesh (`fsdp.py`) and ring-attention context parallelism
+over a 'seq' group (`ring_attention.py`).
 """
 
 from video_llava_seg_torch.parallel.collectives import (  # noqa: F401
@@ -20,4 +21,9 @@ from video_llava_seg_torch.parallel.mesh import (  # noqa: F401
     gather_params,
     param_specs,
     shard_params,
+)
+from video_llava_seg_torch.parallel.ring_attention import (  # noqa: F401
+    cp_forward,
+    create_seq_mesh,
+    ring_attention_local,
 )

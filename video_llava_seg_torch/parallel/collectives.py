@@ -18,7 +18,10 @@ NCCL refuses) is driven through the ops it has on CUDA tensors too:
 `reduce_scatter` is an all-reduce followed by the rank's block: the same
 sum at each rank, and the same bits, since every rank adds the same
 partials in the same order. (The NCCL forms, `all_gather_into_tensor`
-and `reduce_scatter_tensor`, need a card a rank.)
+and `reduce_scatter_tensor`, need a card a rank.) `ring_shift` (the ring
+attention's K / V rotation) is one `batch_isend_irecv` under NCCL; gloo's
+send / recv read and write the tensors' memory as host memory, so under
+gloo each hop of a CUDA tensor is staged through a host copy.
 """
 
 from __future__ import annotations
@@ -195,6 +198,31 @@ def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
     out = t.new_empty((size,) + tuple(t.shape[1:]))
     dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
     return out
+
+
+def ring_shift(tensors: List[torch.Tensor], group=None
+               ) -> List[torch.Tensor]:
+    """Send each tensor to the group's next rank (rank + 1) and return
+    what the previous rank (rank - 1) sent, in order: new tensors of the
+    same shapes, dtypes and devices. One rank returns the tensors."""
+    n = world_size(group)
+    if n == 1:
+        return list(tensors)
+    r = process_index(group)
+    nxt, prv = ((r + 1) % n, (r - 1) % n)
+    if group is not None:
+        nxt = dist.get_global_rank(group, nxt)
+        prv = dist.get_global_rank(group, prv)
+    host = _gloo(group)
+    sends = [(t.to("cpu") if host else t).contiguous() for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = ([dist.P2POp(dist.isend, t, nxt, group, tag=i)
+            for i, t in enumerate(sends)]
+           + [dist.P2POp(dist.irecv, t, prv, group, tag=i)
+              for i, t in enumerate(recvs)])
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return [t.to(src.device) for t, src in zip(recvs, tensors)]
 
 
 # ---------------------------------------------------------------------------
