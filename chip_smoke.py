@@ -2,6 +2,7 @@
 """Drive the PyTorch port's ViCaS serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--max_new_tokens N] [--parallel_only]
+                          [--ring_only] [--family_train_only]
 
 Phases, each printed on its own line(s); any failure raises and the
 script exits non-zero without printing a result:
@@ -408,8 +409,33 @@ families, 24-25, after 23; the training data path, 26, after 8.
      into collectives (the ring's shifts, the gather, the gradient sums)
      and the rest.
 
+ 32. training the Mistral-7B and MPT-7B families: K2 with its logsumexp
+     and K6a / K6b (attention_bwd_sm90.cu's window and per-head bias
+     forms) at the train step's length: Mistral's window 4096 (GQA 32 /
+     8; the phase asserts that it cuts >= 1000 rows), MPT's ALiBi as the
+     per-head key bias (MHA 32), and MPT at a tp = 2 rank's 16 heads with
+     rank 1's global slopes (`K6a_window` / `K6b_window`, `K6a_alibi` /
+     `K6b_alibi`, `K6a_alibi_tp2` / `K6b_alibi_tp2` lines: 10 launches
+     back to back and by device time, beside the same kernels without
+     the window / bias on the causal forward's output, the plain
+     backward, SDPA's backward with the boolean band mask / the bf16
+     ALiBi mask, and the bound); broken controls (the window dropped
+     from the backward only; the bias read with head stride 0) beyond
+     the tolerance; windows 1, 100 and past the sequence (bit-equal to
+     the causal form) at a small shape. Then three full-width stage-3
+     QLoRA steps of each family as phase 8 runs Llama-3-8B (launches by
+     C entry: K2 64 on attention_sm90.cu, K6a / K6b 32 + 32 on
+     attention_bwd_sm90.cu and 2 on attention_short_bwd_sm90.cu, 0 on
+     attention_bwd.cu; finite losses, grad norm > 0, the int8 base
+     bit-identical, LoRA b moving from step 2; seconds, stages and peak
+     memory beside phase 8's), and one tiny stage-3 step of each family
+     at head dim 128 on the card (bf16 kernels) against the CPU (fp32
+     plain) within TRAIN_AGREE_BOUNDS, with a control (window / slopes
+     left out of the card's backward) beyond them.
+
     python3 chip_smoke.py --parallel_only    # the build, phases 27 / 29 / 30
     python3 chip_smoke.py --ring_only        # the build, phase 31
+    python3 chip_smoke.py --family_train_only  # the build, phase 32
 """
 
 from __future__ import annotations
@@ -581,7 +607,13 @@ BOUNDS = {"K1": 2e-2, "K2": 1e-2, "K3": 1e-2, "K4": 2e-2, "K5": None,
           # the ring's forms at a rank's block (phase 31): K2 non-causal
           # with the logsumexp; K6a / K6b non-causal from the merged O and
           # lse of two blocks: K2, K6a, K6b
-          "K2_cp2": 1e-2, "K6a_cp2": 2e-2, "K6b_cp2": 2e-2}
+          "K2_cp2": 1e-2, "K6a_cp2": 2e-2, "K6b_cp2": 2e-2,
+          # K6a / K6b with Mistral's window (fewer keys a row, the same
+          # roundings) and with MPT's ALiBi (the per-head key bias;
+          # bias - lse formed first), at 32 heads and at a tp = 2 rank's
+          # 16 (phase 32): K6a, K6b
+          "K6a_window": 2e-2, "K6b_window": 2e-2, "K6a_alibi": 2e-2,
+          "K6b_alibi": 2e-2, "K6a_alibi_tp2": 2e-2, "K6b_alibi_tp2": 2e-2}
 # |kernel lse - plain lse| (natural-log units), plain in fp32 on the same
 # bf16 inputs: both sum exp() in fp32 over the same scores, the kernel
 # with __expf and another order. Measured on an H100 (700 W): 1.9e-6 at
@@ -789,7 +821,10 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
                 "pool_sm90.cu": ("maxpool2x2_sm90_kernel",),
                 "w8a8_rows_sm90.cu": ("quant_rows_sm90_kernel",)}
 # the instances of a templated kernel: attention_sm90.cu's <head dim,
-# bias>: D 64 / 80 / 96 / 128 / 256, the bias at 128; gemm_bf16_sm90.cu's
+# bias>: D 64 / 80 / 96 / 128 / 256, the bias at 128;
+# attention_bwd_sm90.cu's <bias kind, window> for each of its two kernels:
+# no bias, per key, per head (ALiBi), each with and without the sliding
+# window; gemm_bf16_sm90.cu's
 # <activation>: none, quick_gelu, erf-GELU; attention_short_bwd_sm90.cu's
 # <key tile, bias>: 8 / 16 / 32 / 64 keys, with and without a bias;
 # window_attention_sm90.cu's <head dim, key tile, q pool>: head dims 56 /
@@ -798,7 +833,8 @@ SM90_KERNELS = {"attention_sm90.cu": ("flash_fwd_sm90",),
 # fp32 out; layernorm_sm90.cu's <vectors a lane>: 1-5;
 # w8a8_rows_sm90.cu's <vectors a lane, LayerNorm, fp32 gamma>: 1-5 with a
 # LayerNorm (bf16 and fp32 gamma), 4, 5, 16, 20 without
-SM90_INSTANCES = {"attention_sm90.cu": 6, "gemm_bf16_sm90.cu": 3,
+SM90_INSTANCES = {"attention_sm90.cu": 6, "attention_bwd_sm90.cu": 12,
+                  "gemm_bf16_sm90.cu": 3,
                   "attention_short_bwd_sm90.cu": 8,
                   "window_attention_sm90.cu": 12, "w4a8_gemv_sm90.cu": 16,
                   "layernorm_sm90.cu": 5, "w8a8_rows_sm90.cu": 8}
@@ -4318,11 +4354,14 @@ def phase_flash_bwd_checks(cfg, seq_len, seed, dev, results):
 
 def pair_checks(shape, d, q, k, v, out, do, lse, kw, kv_mask, ref,
                 plain_bwd, results, qb, kb, lse_b, prod,
-                names=("K6a", "K6b")):
+                names=("K6a", "K6b"), previous=None, bias_b=0, train=1,
+                device_time=False):
     """K6a (dQ) and K6b (dK, dV) of a two-kernel pair against the plain
     backward, timed (recorded under `names`); where attention_bwd_sm90.cu
     serves the head dim, attention_bwd.cu, which it replaced, timed
-    beside it."""
+    beside it, or `previous` = (dQ call, dK / dV call, its name) instead.
+    bias_b: the bias's bytes, read by each kernel; train / device_time
+    as `_check`'s."""
     from video_llava_seg_torch import kernels
 
     _, delta = kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)
@@ -4336,7 +4375,10 @@ def pair_checks(shape, d, q, k, v, out, do, lse, kw, kv_mask, ref,
     # where attention_bwd_sm90.cu serves the head dim, time
     # attention_bwd.cu, which it replaced, at the same shape
     prev_dq = prev_dkv = None
-    if kernels.attention_bwd_entry(d, k.shape[2], k.shape[1]) \
+    prev_name = "attention_bwd.cu"
+    if previous is not None:
+        prev_dq, prev_dkv, prev_name = previous
+    elif kernels.attention_bwd_entry(d, k.shape[2], k.shape[1]) \
             != K6_CUDA_C_PAIR:
         def prev_dq():
             return kernels._attention_bwd_dq(
@@ -4350,16 +4392,18 @@ def pair_checks(shape, d, q, k, v, out, do, lse, kw, kv_mask, ref,
     _check(names[0], f"{shape}: dQ",
            lambda: kernels.attention_bwd_dq(q, k, v, out, do, lse, **kw)[0],
            plain_bwd, lambda: ref[0], results,
-           (4 * qb + 2 * kb + 2 * lse_b, 3 * prod, PEAK_BF16),
-           run_previous=prev_dq, previous="attention_bwd.cu")
+           (4 * qb + 2 * kb + 2 * lse_b + bias_b, 3 * prod, PEAK_BF16),
+           run_previous=prev_dq, previous=prev_name, train=train,
+           device_time=device_time)
     _check(names[1], f"{shape}: dK, dV",
            lambda: torch.cat(kernels.attention_bwd_dkv(
                q, k, v, do, lse, delta, **kw), dim=1),
            plain_bwd, lambda: torch.cat(ref[1:], dim=1), results,
-           (2 * qb + 4 * kb + 2 * lse_b, 4 * prod, PEAK_BF16),
+           (2 * qb + 4 * kb + 2 * lse_b + bias_b, 4 * prod, PEAK_BF16),
            time_kernel=lambda: kernels.attention_bwd_dkv(
                q, k, v, do, lse, delta, **kw),
-           run_previous=prev_dkv, previous="attention_bwd.cu")
+           run_previous=prev_dkv, previous=prev_name, train=train,
+           device_time=device_time)
 
 
 def _rel_err(got, want):
@@ -4575,8 +4619,10 @@ def train_step_expect(cfg):
     return expect, why, bwd
 
 
-def phase_train_slice(cfg, seed, dev, steps: int = 3):
-    """Three full-width stage-3 QLoRA train steps; returns (counts of the
+def phase_train_slice(cfg, seed, dev, steps: int = 3, llm="Llama-3-8B",
+                      tag="train"):
+    """Three full-width stage-3 QLoRA train steps of `cfg` (its LLM named
+    `llm` in the log, its lines tagged `tag`); returns (counts of the
     last step, summary, the trained params: int8 base, fp32 LoRA and
     masters, for phase 23 to serve)."""
     from video_llava_seg_torch.train.optimizer import leaves_with_paths
@@ -4601,7 +4647,7 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
     frozen_b = _bytes_of([t for _, t in leaves]) - train_b
     base = {p: t.clone() for p, t in leaves if p.startswith("llm/")}
     lora_b = params["lora"]["llm"]["layers"][0]["attn"]["wq"]["kernel_q"]["b"]
-    log(f"[train] init: Llama-3-8B int8 base (bf16 scales, embedding, "
+    log(f"[{tag}] init: {llm} int8 base (bf16 scales, embedding, "
         f"norms) + fp32 LoRA r={tcfg.lora_rank} + fp32 tower, projector, "
         f"seg head in {time.perf_counter() - t0:.1f} s; trainable "
         f"{train_b / 1e9:.3f} GB in {len(tx.params)} leaves, frozen "
@@ -4627,12 +4673,12 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
         m = {k: float(v) for k, v in metrics.items()}
         rows.append({"seconds": seconds[-1], "stages": dict(timings), **m})
         stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
-        log(f"[train] step {step + 1}: {seconds[-1]:.3f} s ({stages} s); "
+        log(f"[{tag}] step {step + 1}: {seconds[-1]:.3f} s ({stages} s); "
             f"loss {m['loss']:.4f} (text {m['loss_text']:.4f}, mask "
             f"{m['loss_mask']:.4f}), grad_norm {m['grad_norm']:.4f}, "
             f"{int(m['num_text_tokens'])} text tokens over "
             f"{batch['gather_idx'].shape[1]}")
-        check_launches(f"train step {step + 1}", counts, expect, why,
+        check_launches(f"{tag} step {step + 1}", counts, expect, why,
                        bwd=bwd)
         for k in ("loss", "loss_mask"):
             if not math.isfinite(m[k]):
@@ -4649,7 +4695,7 @@ def phase_train_slice(cfg, seed, dev, steps: int = 3):
                 raise AssertionError(f"train step {step + 1}: frozen base "
                                      f"leaf {p} changed")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[train] {steps} steps: steady {statistics.mean(seconds[1:]):.3f} "
+    log(f"[{tag}] {steps} steps: steady {statistics.mean(seconds[1:]):.3f} "
         f"s/step (steps 2..{steps}), first {seconds[0]:.3f} s; peak "
         f"allocated {peak:.1f} GiB; LoRA b unchanged after step 1 (lr 0), "
         "changed after step 2; int8 base bit-identical after every step")
@@ -5150,18 +5196,19 @@ TRAIN_AGREE_BOUNDS = {"loss": 1e-3, "loss_mask": 1e-2, "grad_norm": 2e-2,
                       "lora_grads": 2e-1}
 
 
-def phase_train_agreement(seed, workdir):
-    """One tiny stage-3 QLoRA step on the card and on the CPU, same
-    weights and batch; then the training CLI on the card, its output in
-    `workdir` (phase 23 serves its checkpoint-4). Returns (the agreement
-    summary, the CLI's final params on the CPU)."""
-    import os
-
+def tiny_step_card_vs_cpu(cfg, seed, need=("K1", "K3", "K4", "K6a", "K6b"),
+                          card_bwd=None):
+    """One tiny stage-3 QLoRA step of `cfg` on the CPU (fp32, the plain
+    versions) and on the card (bf16, the kernels: each of `need` must
+    launch), same weights and batch: the relative errors of the loss, the
+    mask loss and grad_norm, and max |dLoRA difference| over max |CPU
+    dLoRA|. card_bwd: stands in for `kernels.attention_bwd` on the card
+    (a broken control)."""
     from video_llava_seg_torch import kernels
     from video_llava_seg_torch.bridge import tree_map
     from video_llava_seg_torch.models import llava
     from video_llava_seg_torch.ops.quantization import quantize_tree
-    from video_llava_seg_torch.train import lora, train as train_cli
+    from video_llava_seg_torch.train import lora
     from video_llava_seg_torch.train.optimizer import (
         global_norm,
         leaves_with_paths,
@@ -5173,7 +5220,6 @@ def phase_train_agreement(seed, workdir):
     )
     from video_llava_seg_torch.train.trainer import step_generator
 
-    cfg = _tiny_train_cfg()
     g = torch.Generator().manual_seed(seed)
     params = llava.init(cfg, g, "cpu", torch.float32)
     params["llm"] = quantize_tree(params["llm"], bits=8, min_size=0,
@@ -5192,24 +5238,45 @@ def phase_train_agreement(seed, workdir):
         merged = lora.merge({k: v for k, v in p.items() if k != "lora"},
                             p["lora"], 16.0)
         before = kernels.LAUNCHES.snapshot()
-        loss, m = compute_loss(merged, cfg, batch_to_device(batch, dev, dt),
-                               step_generator(seed, 0), remat=True)
-        loss.backward()
+        real_bwd = kernels.attention_bwd
+        if dev == "cuda" and card_bwd is not None:
+            kernels.attention_bwd = card_bwd
+        try:
+            loss, m = compute_loss(merged, cfg,
+                                   batch_to_device(batch, dev, dt),
+                                   step_generator(seed, 0), remat=True)
+            loss.backward()
+        finally:
+            kernels.attention_bwd = real_bwd
         grads = [t.grad.float().cpu() for _, t in
                  leaves_with_paths(p["lora"])]
         out[dev] = (float(loss.detach()), float(m["loss_mask"].detach()),
                     float(global_norm(grads)), torch.cat(
                         [x.flatten() for x in grads]))
         after = kernels.LAUNCHES.snapshot()
-        if dev == "cuda" and not all(after[n] > before[n]
-                                     for n in ("K1", "K3", "K4", "K6a",
-                                               "K6b")):
-            raise AssertionError("tiny train step: a kernel did not launch")
+        missing = [n for n in need if after[n] <= before[n]]
+        if dev == "cuda" and missing:
+            raise AssertionError(f"tiny train step: {missing} did not "
+                                 f"launch ({before} -> {after})")
     rel = {k: abs(out["cuda"][i] - out["cpu"][i]) / max(abs(out["cpu"][i]),
                                                           1e-6)
            for i, k in enumerate(("loss", "loss_mask", "grad_norm"))}
     dg = out["cuda"][3] - out["cpu"][3]
     rel["lora_grads"] = float(dg.abs().max() / out["cpu"][3].abs().max())
+    return rel
+
+
+def phase_train_agreement(seed, workdir):
+    """One tiny stage-3 QLoRA step on the card and on the CPU, same
+    weights and batch; then the training CLI on the card, its output in
+    `workdir` (phase 23 serves its checkpoint-4). Returns (the agreement
+    summary, the CLI's final params on the CPU)."""
+    import os
+
+    from video_llava_seg_torch.bridge import tree_map
+    from video_llava_seg_torch.train import train as train_cli
+
+    rel = tiny_step_card_vs_cpu(_tiny_train_cfg(), seed)
     log("[train-agree] tiny stage-3 QLoRA step, card bf16 kernels vs CPU "
         "fp32 plain: " + ", ".join(
             f"{k} rel {v:.3e} (bound {TRAIN_AGREE_BOUNDS[k]:.0e})"
@@ -7921,6 +7988,309 @@ def phase_ring(cfg, block, seed, dev, smi, results):
             "kernel_checks_s": t_checks, "ranks_s": t_ranks}
 
 
+# ---------------------------------------------------------------------------
+# training the Mistral / MPT families (phase 32)
+# ---------------------------------------------------------------------------
+
+# |kernel lse - plain lse| of ALiBi's key form: its natural-unit scores
+# reach slope_h * j ~ 4.3e3 at the train step's 5,132 keys, where an fp32
+# step is 4.9e-4 (tests/test_torch_flash_sm90_mask.py's ALIBI_LSE_BOUND)
+ALIBI_LSE_BOUND = 1e-3
+# the windows of phase 32's edge cases at a small shape, besides one past
+# the sequence (the causal form, bit for bit)
+FAMILY_BWD_EDGES = (1, 100)
+FAMILY_BWD_EDGE_SHAPE = (8, 2, 700)  # q heads, kv heads, tokens
+
+
+def family_bwd_cases(cfg):
+    """(name suffix, q heads, kv heads, window, ALiBi slopes or None, what)
+    of phase 32's kernel checks: Mistral-7B's window, MPT-7B's ALiBi, and
+    MPT-7B at a tp = 2 rank's 16 heads with rank 1's global slopes."""
+    from video_llava_seg_torch.ops.attention import alibi_slopes
+
+    mis, mpt = family_cfg(cfg, "mistral").llm, family_cfg(cfg, "mpt").llm
+    slopes = torch.from_numpy(alibi_slopes(mpt.num_heads))
+    hs = mpt.num_heads // TP
+    return [("window", mis.num_heads, mis.num_kv_heads, mis.sliding_window,
+             None, f"window {mis.sliding_window}"),
+            ("alibi", mpt.num_heads, mpt.num_kv_heads, 0, slopes,
+             "ALiBi (per-head key bias)"),
+            ("alibi_tp2", hs, mpt.num_kv_heads // TP, 0, slopes[hs:],
+             f"ALiBi, tp{TP} rank 1's slopes (global heads {hs}-"
+             f"{2 * hs - 1})")]
+
+
+def _bwd_rel(got, want):
+    """The largest of dQ's, dK's and dV's errors, each over its largest
+    element or 1 % of the largest of the three, whichever is larger: at
+    window 1 a row's p is 1 on its own key alone, and dQ / dK are sums
+    that cancel to rounding noise."""
+    top = max(w.float().abs().max().item() for w in want)
+    return max((a.float() - w.float()).abs().max().item()
+               / max(w.float().abs().max().item(), 1e-2 * top, 1e-6)
+               for a, w in zip(got, want))
+
+
+def phase_family_bwd_checks(cfg, seq_len, seed, dev, results):
+    """K2 with its logsumexp and K6a / K6b with the window and with ALiBi's
+    per-head key bias at the train step's length (`family_bwd_cases`),
+    against flash_forward_plain / flash_backward_plain in fp32 on the same
+    bf16 inputs; timed (10 launches back to back and by device time)
+    beside the same kernels without the window / bias on the causal
+    forward's output and lse, the plain backward and SDPA's backward (fwd
+    + bwd - fwd) with the boolean band mask / the bf16 ALiBi mask. Broken
+    controls must exceed the tolerance; windows 1, 100 and past the
+    sequence at a small shape."""
+    import torch.nn.functional as F
+
+    from video_llava_seg_torch import kernels
+    from video_llava_seg_torch.ops.attention import (
+        alibi_key_bias,
+        flash_backward_plain,
+        flash_forward_plain,
+    )
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    s, d = seq_len, cfg.llm.head_dim
+    scale = 1.0 / math.sqrt(d)
+    i = torch.arange(s, device=dev)
+    rel = i[None, :] - i[:, None]
+    for suffix, hq, hkv, window, slopes, what in family_bwd_cases(cfg):
+        if window:
+            log(f"[family-train] the window ({window}) cuts keys on "
+                f"{s - window} of the {s} query rows")
+            if s - window < 1000:
+                raise AssertionError(f"the train step's {s} tokens do not "
+                                     f"exceed the window by 1000 rows")
+        q, do = randn(1, hq, s, d), randn(1, hq, s, d)
+        k, v = randn(1, hkv, s, d), randn(1, hkv, s, d)
+        bias = (None if slopes is None
+                else alibi_key_bias(slopes.to(dev), s))
+        route = kernels.attention_bwd_entry(d, s, hkv, window,
+                                            head_bias=bias is not None)
+        if route != K6_SM90_PAIR:
+            raise AssertionError(f"K6 {suffix}: routed to {route}")
+        kw = dict(scale=scale, causal=True, kv_bias=bias, window=window)
+        pw = dict(causal=True, scale=scale, window=window or None)
+        shape = (f"q{list(q.shape)} kv{list(k.shape)} causal, {what}")
+        pairs = hq * window_keys(s, window or s)
+        prod = 2 * pairs * d
+        qb, kb, lse_b = _nbytes(q), _nbytes(k), 4 * hq * s
+        bias_b = 0 if bias is None else _nbytes(bias)
+
+        out, lse = kernels.attention(q, k, v, with_lse=True, **kw)
+        want_o, want_lse = flash_forward_plain(q.float(), k.float(),
+                                               v.float(), bias, **pw)
+        sync()
+        lse_err = (lse - want_lse).abs().max().item()
+        o_rel = _rel_err(out, want_o)
+        lse_bound = LSE_BOUND if bias is None else ALIBI_LSE_BOUND
+        log(f"[family-train] K2 {shape}, with lse: rel err {o_rel:.3e} "
+            f"(bound {BOUNDS['K2']:.0e}), lse max abs err {lse_err:.3e} "
+            f"(bound {lse_bound:.0e})")
+        if not (o_rel <= BOUNDS["K2"] and lse_err <= lse_bound):
+            raise AssertionError(f"K2 {suffix}: the forward with lse is off")
+        del want_o, want_lse
+        ref = flash_backward_plain(q.float(), k.float(), v.float(), bias,
+                                   out.float(), lse, do.float(), **pw)
+        # broken controls: the window dropped from the backward only; the
+        # bias read with head stride 0 (every head takes head 0's row)
+        controls = []
+        if window:
+            controls.append(("the window dropped from the backward",
+                             dict(kw, window=0)))
+        if bias is not None:
+            controls.append(("the bias read with head stride 0",
+                             dict(kw, kv_bias=bias[:, 0].contiguous())))
+        for tag, ckw in controls:
+            err = _bwd_rel(kernels.attention_bwd(q, k, v, out, do, lse,
+                                                 **ckw), ref)
+            log(f"[family-train] control K6 {suffix}, {tag}: rel err "
+                f"{err:.3e} (must exceed {BOUNDS['K6a']:.0e}; a non-finite "
+                "gradient does)")
+            if math.isfinite(err) and err <= BOUNDS["K6a"]:
+                raise AssertionError(f"K6 {suffix}: the control ({tag}) "
+                                     "passed the tolerance")
+        # the same kernels without the window / bias, from the causal
+        # forward on the same inputs
+        out_c, lse_c = kernels.attention(q, k, v, scale=scale, causal=True,
+                                         with_lse=True)
+        ckw = dict(scale=scale, causal=True, kv_bias=None)
+        _, delta_c = kernels.attention_bwd_dq(q, k, v, out_c, do, lse_c,
+                                              **ckw)
+        previous = (lambda: kernels.attention_bwd_dq(q, k, v, out_c, do,
+                                                     lse_c, **ckw),
+                    lambda: kernels.attention_bwd_dkv(q, k, v, do, lse_c,
+                                                      delta_c, **ckw),
+                    "K6 causal (no window / bias)")
+        names = (f"K6a_{suffix}", f"K6b_{suffix}")
+        pair_checks(shape, d, q, k, v, out, do, lse, kw, None, ref,
+                    lambda: flash_backward_plain(q, k, v, bias, out, lse,
+                                                 do, **pw),
+                    results, qb, kb, lse_b, prod, names=names,
+                    previous=previous, bias_b=bias_b, train=10,
+                    device_time=True)
+        del ref
+        # SDPA with the equivalent mask: the boolean band, or the bf16
+        # float mask slope_h * (j - i) with -inf past the diagonal
+        ok = rel <= 0
+        if window:
+            ok = ok & (rel > -window)
+            mask = ok[None, None]
+        else:
+            mask = torch.where(ok, slopes.to(dev)[:, None, None]
+                               * rel.float(), -math.inf)[None].to(bf)
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                qr, kr, vr, attn_mask=mask, enable_gqa=hkv != hq)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), do)
+
+        lib_bwd = max(cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd), 0.0)
+        for name in names:
+            results[name]["library_ms"] = lib_bwd
+            results[name]["shapes"][-1]["library_ms"] = lib_bwd
+        log(f"[family-train] {names[0]} / {names[1]} {shape}: "
+            f"{results[names[0]]['ms']:.4f} / {results[names[1]]['ms']:.4f}"
+            f" ms (bounds {results[names[0]]['bound_ms']:.4f} / "
+            f"{results[names[1]]['bound_ms']:.4f} ms), SDPA backward (fwd "
+            f"+ bwd - fwd, {'boolean band' if window else 'bf16 ALiBi'} "
+            f"mask) {lib_bwd:.4f} ms")
+        del q, k, v, do, out, lse, out_c, lse_c, delta_c, qr, kr, vr, mask
+        del previous, bias
+        torch.cuda.empty_cache()
+    # the window's edges at a small shape: one key, a short band, and past
+    # the sequence (bit-equal to the causal form, whose tiles it walks)
+    hq, hkv, n = FAMILY_BWD_EDGE_SHAPE
+    q, do = randn(1, hq, n, d), randn(1, hq, n, d)
+    k, v = randn(1, hkv, n, d), randn(1, hkv, n, d)
+    causal = None
+    for window in FAMILY_BWD_EDGES + (n + 7, 0):
+        kw = dict(scale=scale, causal=True, kv_bias=None, window=window)
+        out, lse = kernels.attention(q, k, v, with_lse=True, **kw)
+        got = kernels.attention_bwd(q, k, v, out, do, lse, **kw)
+        ref = flash_backward_plain(q.float(), k.float(), v.float(), None,
+                                   out.float(), lse, do.float(), causal=True,
+                                   scale=scale, window=window or None)
+        sync()
+        err = _bwd_rel(got, ref)
+        log(f"[family-train] K6 window {window or 'none'} q{list(q.shape)} "
+            f"kv{list(k.shape)} causal: rel err {err:.3e} (bound "
+            f"{BOUNDS['K6a']:.0e})")
+        if not err <= BOUNDS["K6a"]:
+            raise AssertionError(f"K6 window {window}: rel err {err:.3e}")
+        if window > n:
+            causal = got
+        elif window == 0:
+            same = all(torch.equal(a, b) for a, b in zip(causal, got))
+            log(f"[family-train] K6 window {n + 7} (past the sequence) "
+                f"bit-equal to the causal form: {same}")
+            if not same:
+                raise AssertionError("K6 with a window past the sequence "
+                                     "differs from the causal form")
+    del q, k, v, do, out, lse, got, ref, causal
+    torch.cuda.empty_cache()
+    sync()
+
+
+def tiny_family_train_cfg(name):
+    """The tiny stage-3 config of phase 9 with its LLM the tiny family
+    decoder of head dim 128 (`tiny_family_cfg`), the projector widened to
+    it."""
+    cfg = _tiny_train_cfg()
+    lc = tiny_family_cfg(name)
+    return dataclasses.replace(cfg, llm=lc, projector=dataclasses.replace(
+        cfg.projector, hidden_size=lc.hidden_size))
+
+
+def broken_family_bwd(real):
+    """`kernels.attention_bwd` with the window and the per-head bias left
+    out (the control of phase 32's tiny agreement)."""
+    def bwd(*args, kv_bias=None, window=0, **kw):
+        if kv_bias is not None and kv_bias.dim() == 3:
+            kv_bias = None
+        return real(*args, kv_bias=kv_bias, window=0, **kw)
+    return bwd
+
+
+def phase_family_train(cfg, seed, dev, smi, results, llama=None):
+    """Phase 32: `phase_family_bwd_checks`, then three full-width stage-3
+    QLoRA steps of Mistral-7B and of MPT-7B (`phase_train_slice`, printed
+    beside phase 8's Llama-3-8B where it ran: `llama`), then one tiny
+    stage-3 step of each family on the card against the CPU, with its
+    control. Returns (the launches of each family's last step, the
+    summary)."""
+    from video_llava_seg_torch import kernels
+
+    t0 = time.perf_counter()
+    seq_len = train_seq_len(cfg)
+    log(f"[family-train] the synthetic train batch splices to {seq_len} "
+        "tokens")
+    phase_family_bwd_checks(cfg, seq_len, seed, dev, results)
+    t1 = time.perf_counter()
+    counts, out = {}, {"card": smi, "kernel_checks_seconds": t1 - t0}
+    for name, llm in (("mistral", "Mistral-7B"), ("mpt", "MPT-7B")):
+        fcfg = family_cfg(cfg, name)
+        counts[name], out[name], params = phase_train_slice(
+            fcfg, seed, dev, llm=llm, tag=f"{name} train")
+        del params
+        torch.cuda.empty_cache()
+    for name in ("llama", "mistral", "mpt"):
+        r = llama if name == "llama" else out[name]
+        if r is None:
+            log("[family-train] Llama-3-8B: phase 8 did not run")
+            continue
+        st = r["steps"][-1]["stages"]
+        log(f"[family-train] {name}: steady {r['steady_seconds']:.3f} s a "
+            f"step, peak {r['peak_gib']:.1f} GiB; last step's stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+    t2 = time.perf_counter()
+    agree = {}
+    for name in ("mistral", "mpt"):
+        tcfg = tiny_family_train_cfg(name)
+        # the tiny LLM's attention takes K2 (the window / ALiBi form) and
+        # K6a / K6b on attention_bwd_sm90.cu; the mask decoder runs its
+        # plain twin below 256 queries (64-px seg frames), so no K3 here
+        # (phase 9's K3 launches are its tiny Llama's, 60 keys)
+        need = ("K1", "K2", "K4", "K6a", "K6b")
+        rel = tiny_step_card_vs_cpu(tcfg, seed, need=need)
+        bad = tiny_step_card_vs_cpu(
+            tcfg, seed, need=need,
+            card_bwd=broken_family_bwd(kernels.attention_bwd))
+        what = (f"window {tcfg.llm.sliding_window}"
+                if tcfg.llm.sliding_window else "ALiBi")
+        log(f"[family-train] tiny {name} ({what}, head dim "
+            f"{tcfg.llm.head_dim}) stage-3 QLoRA step, card bf16 kernels vs "
+            "CPU fp32 plain: " + ", ".join(
+                f"{k} rel {v:.3e} (bound {TRAIN_AGREE_BOUNDS[k]:.0e}; "
+                f"control {bad[k]:.3e})" for k, v in rel.items()))
+        if not all(math.isfinite(v) and v <= TRAIN_AGREE_BOUNDS[k]
+                   for k, v in rel.items()):
+            raise AssertionError(f"tiny {name} train step: card and CPU "
+                                 "disagree")
+        if not bad["lora_grads"] > TRAIN_AGREE_BOUNDS["lora_grads"]:
+            raise AssertionError(f"tiny {name} train step: the control "
+                                 "(window / slopes left out of the "
+                                 "backward) passed")
+        agree[name] = {"rel": rel, "control": bad}
+    out["tiny_agreement"] = agree
+    out["seconds"] = {"kernel_checks": t1 - t0, "train_steps": t2 - t1,
+                      "tiny_agreement": time.perf_counter() - t2}
+    log(f"[family-train] phase 32: kernel checks {t1 - t0:.1f} s, train "
+        f"steps {t2 - t1:.1f} s, tiny agreement "
+        f"{time.perf_counter() - t2:.1f} s")
+    sync()
+    return counts, out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7930,6 +8300,8 @@ def main(argv=None):
                          "result lines (for iterating on them)")
     ap.add_argument("--ring_only", action="store_true",
                     help="the build and phase 31 only, no result lines")
+    ap.add_argument("--family_train_only", action="store_true",
+                    help="the build and phase 32 only, no result lines")
     args = ap.parse_args(argv)
 
     smi = phase_environment()
@@ -7964,6 +8336,10 @@ def main(argv=None):
     if args.ring_only:
         ring = phase_ring(cfg, prefill_len, args.seed, dev, smi, {})
         log(json.dumps({"ring": ring}, default=str))
+        return 0
+    if args.family_train_only:
+        _, fam_train = phase_family_train(cfg, args.seed, dev, smi, {})
+        log(json.dumps({"family_train": fam_train}, default=str))
         return 0
     if args.parallel_only:
         _, parallel, tp_train_in = phase_parallel(cfg, prefill_len,
@@ -8069,6 +8445,9 @@ def main(argv=None):
     ring = phase_ring(cfg, prefill_len, args.seed, dev, smi, results)
     ring["seconds"] = time.perf_counter() - t0
     log(f"[cp{CP}] phase 31: {ring['seconds']:.1f} s")
+    fam_train_counts, fam_train = phase_family_train(cfg, args.seed, dev,
+                                                     smi, results,
+                                                     llama=train)
 
     kernels_out = []
     main_paths = {"K5": quant_counts, "K7": hiera_counts,
@@ -8360,6 +8739,40 @@ def main(argv=None):
             "bound_by": ("bytes" if by["bytes"] >= by["operations"]
                          else "operations"),
             "library_ms": r["library_ms"], "shapes": r["shapes"]})
+    # K6a / K6b's window and ALiBi forms, counted by C entry on each
+    # family's train step of phase 32 (32 + 32 a step on
+    # attention_bwd_sm90.cu); the tp = 2 shard's ALiBi form runs the MPT
+    # step's instance (no tp = 2 family training path yet)
+    for name, base, fam in (("K6a_window", "K6a", "mistral"),
+                            ("K6b_window", "K6b", "mistral"),
+                            ("K6a_alibi", "K6a", "mpt"),
+                            ("K6b_alibi", "K6b", "mpt"),
+                            ("K6a_alibi_tp2", "K6a", "mpt"),
+                            ("K6b_alibi_tp2", "K6b", "mpt")):
+        r = results[name]
+        source, csrc = SOURCES[base]
+        by = r["bound_by_ms"]
+        entry = K6_SM90_PAIR[base == "K6b"]
+        c = fam_train_counts[fam]
+        kernels_out.append({
+            "name": name, "route": "cuda", "source": source,
+            "csrc": [f"video_llava_seg_torch/csrc/{x}" for x in csrc],
+            "replaces": REPLACES[base], "launches": c[entry],
+            "launches_by_path": {f"{fam}_train_step": {
+                e: c[e] for e in K6_SM90_PAIR + K6_CUDA_C_PAIR
+                + (K6_SHORT_ENTRY,)}},
+            **({"launched_on": "the MPT-7B train step's instance at 32 "
+                "heads; no tp = 2 family training path runs yet"}
+               if name.endswith("tp2") else {}),
+            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+            "bound": BOUNDS[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if by["bytes"] >= by["operations"]
+                         else "operations"),
+            "library_ms": r["library_ms"],
+            "previous_ms": sum(sh["previous_ms"] for sh in r["shapes"]),
+            "device_ms": sum(sh["device_ms"] for sh in r["shapes"]),
+            "shapes": r["shapes"]})
     for v in parallel["tp"].values():
         v["launches_by_rank"] = [{k: c[k] for k in ("K1", "K2", "K3", "K4",
                                                     "K5", "sm90 entry",
@@ -8385,6 +8798,7 @@ def main(argv=None):
     log(json.dumps({"sam2_video_slice": {**video,
                                          "tiny_agreement": video_tiny}}))
     log(json.dumps({"train_slice": train}))
+    log(json.dumps({"family_train": fam_train}, default=str))
     log(json.dumps({"serving_surface": {"beams": beams,
                                         "sampling": sampling,
                                         "train_serve_score": served}}))

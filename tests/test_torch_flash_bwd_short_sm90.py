@@ -258,12 +258,13 @@ def test_mask_decoder_backward_reaches_the_new_entry(monkeypatch):
                       torch.device("cpu"), torch.float32)
     seen = []
 
-    def fwd(q, k, v, *, scale, causal, kv_bias, two_pass, with_lse):
-        assert two_pass and with_lse and kv_bias is None
+    def fwd(q, k, v, *, scale, causal, kv_bias, two_pass, with_lse, window):
+        assert two_pass and with_lse and kv_bias is None and window == 0
         return tatt.flash_forward_plain(q, k, v, None, causal=causal,
                                         scale=scale)
 
-    def bwd(q, k, v, out, dout, lse, *, scale, causal, kv_bias):
+    def bwd(q, k, v, out, dout, lse, *, scale, causal, kv_bias, window):
+        assert window == 0
         seen.append(kernels.attention_bwd_entry(q.shape[-1], k.shape[2],
                                                 k.shape[1]))
         # the maps of the same views in bf16, as the train step has them

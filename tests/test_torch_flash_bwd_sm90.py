@@ -21,15 +21,24 @@ from video_llava_seg_tpu.ops import attention as jatt
 @pytest.mark.parametrize("d", kernels.ATTENTION_HEAD_DIMS)
 def test_attention_bwd_entry_route(d):
     """Head dim 128 (the LLM, 5,132 keys) goes to attention_bwd_sm90.cu's
-    pair; head dim 16 over the mask decoder's 7 keys to the one-pass
+    pair, with Mistral's window (4096) or MPT's per-head bias too; head
+    dim 16 over the mask decoder's 7 keys to the one-pass
     attention_short_bwd_sm90.cu; every other head dim, and head dim 16
-    over more than 64 keys, stays on attention_bwd.cu's pair."""
+    over more than 64 keys, stays on attention_bwd.cu's pair, and refuses
+    the window and the per-head bias."""
     pair = ("vls_attention_bwd_dq", "vls_attention_bwd_dkv")
-    want = (("vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90") if d == 128
+    sm90 = ("vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90")
+    want = (sm90 if d == 128
             else ("vls_attention_short_bwd_sm90",) if d == 16 else pair)
     skv = 5132 if d == 128 else 7
     assert kernels.attention_bwd_entry(d, skv, 8) == want
     assert all(name in kernels._SIGNATURES for name in want)
+    for kw in (dict(window=4096), dict(head_bias=True)):
+        if d == 128:
+            assert kernels.attention_bwd_entry(d, 5132, 8, **kw) == sm90
+        else:
+            with pytest.raises(ValueError, match="head dim 128"):
+                kernels.attention_bwd_entry(d, skv, 8, **kw)
     if d != 128:
         assert kernels.attention_bwd_entry(d, 65, 8) == pair
 

@@ -9,7 +9,8 @@ prompts of 14-20 tokens).
   both (`flash_forward_plain` with the window, and with ALiBi as the
   per-head key bias `alibi_key_bias`), fp32, within ATT_ATOL.
 - The route: every prefill shape of both families at full width takes
-  attention_sm90.cu (`kernels.attention_entry`), and what no kernel takes
+  attention_sm90.cu (`kernels.attention_entry`), the backward of both
+  forms attention_bwd_sm90.cu at head dim 128, and what no kernel takes
   raises.
 - The LLM: param trees (JAX init -> `bridge.from_jax`), `forward` logits
   within LOGIT_ATOL, prefill + decode against `forward` and the JAX
@@ -249,9 +250,14 @@ def test_window_and_head_bias_refusals():
         for kw in (dict(window=4096), dict(head_bias=True, bias=True)):
             with pytest.raises(ValueError, match="head dim 128"):
                 kernels.attention_entry(d, False, 5196, 8, **kw)
+    # the backward: attention_bwd_sm90.cu's pair at head dim 128 (both
+    # families train there), a refusal at every other head dim
     for kw in (dict(window=4096), dict(head_bias=True)):
-        with pytest.raises(ValueError, match="backward"):
-            kernels.attention_bwd_entry(128, 5196, 8, **kw)
+        assert kernels.attention_bwd_entry(128, 5196, 8, **kw) == (
+            "vls_flash_bwd_dq_sm90", "vls_flash_bwd_dkv_sm90")
+        for d in (16, 64, 80, 96, 256):
+            with pytest.raises(ValueError, match="head dim 128"):
+                kernels.attention_bwd_entry(d, 5196, 8, **kw)
     q = torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16)
     # forced onto a C entry that has no window: refused before any launch

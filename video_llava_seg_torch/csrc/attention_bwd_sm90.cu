@@ -4,7 +4,7 @@
 //
 // The gradients of attention_sm90.cu's forward,
 //
-//   o[b, h, i] = softmax_j(scale * q[b,h,i] . k[b,h//g,j] + bias[b,j]) v[b,h//g,j]
+//   o[b, h, i] = softmax_j(scale * q[b,h,i] . k[b,h//g,j] + bias[b,h,j]) v[b,h//g,j]
 //
 // from its output O, its logsumexp lse (natural-log units) and dO:
 //
@@ -19,7 +19,12 @@
 // The conventions of attention_bwd.cu, which keeps the other head dims:
 // bf16 in and out, fp32 state; GQA (kv head = q head // group); causal
 // masking with the diagonal at the sequence ends (key j visible to query
-// i iff j <= i + Skv - Sq); an optional fp32 per-key bias [B, Skv]; Q, K,
+// i iff j <= i + Skv - Sq); an optional fp32 bias read through a batch
+// and a head stride: per key [B, Skv] with head stride 0 (the left-pad
+// mask), or per q head and key [B, Hq, Skv] (MPT's ALiBi as slope_h * j,
+// the pad mask folded in, as the forward reads it); an optional sliding
+// window (Mistral): key j visible to query i only if j > i + Skv - Sq -
+// window, as in the forward. Q, K,
 // V and dO read through (batch, head, sequence) strides with a contiguous
 // last dim, so fused-qkv column slices and the head-merge view of dO need
 // no copy; dQ written into a [B, Sq, Hq, D] buffer and dK / dV into
@@ -28,8 +33,9 @@
 // a query row sees no other key (then its p is 1, as in attention_bwd.cu).
 //
 // Replaces video_llava_seg_tpu/ops/attention.py::_bwd_dq_kernel (K6a)
-// and ::_bwd_dkv_kernel (K6b) at head dim 128: the Llama-3-8B layers of
-// the train step.
+// and ::_bwd_dkv_kernel (K6b) at head dim 128: the Llama-3-8B, Mistral-7B
+// and MPT-7B layers of the train step (the JAX package differentiates its
+// XLA reference for the window and ALiBi).
 //
 // Bound on the card: at the train step's causal S = 5,132 with 32 q
 // heads, K6a's three products (S, dP, dQ) and K6b's four (S^T, dP^T, dV,
@@ -80,13 +86,28 @@
 //   past Sq get lse = +inf, so their p is exactly 0.
 // - The longest blocks start first: K6a's last query tiles and K6b's
 //   first key tiles walk the most tiles under a causal mask.
+// - The window bounds both walks: K6a starts at the tile of the lowest
+//   key its block's first row sees, q0 + Skv - Sq - window + 1; K6b stops
+//   after the q tile of the last row that sees the block's last key,
+//   i < k0 + 63 + window - (Skv - Sq). Only tiles that cross the band's
+//   lower edge are masked, so at Mistral's 4096 over the train step's
+//   5.1k tokens the work is sum_i min(i + 1, 4096) pairs. Rows and keys
+//   outside the band get exactly 0. The window is a template argument
+//   (as is the kind of bias), so the causal instances without one are
+//   compiled as before.
 //
 // The mask value. The exponent stays in natural units with a bias, as in
 // the forward: (scale * q.k + bias - lse) * log2(e), so a left-pad row's
 // lse of -0.7 * FLT_MAX cancels the biased scores it saw and p = 1, as
 // attention_bwd.cu gives it. Folding log2(e) in first would overflow
 // -0.7 * FLT_MAX to -inf and give -inf - -inf = NaN. Without a bias, lse
-// is finite and log2(e) folds into the scale.
+// is finite and log2(e) folds into the scale. ALiBi's bias slope_h * j
+// and the lse of its key form both reach ~0.84 x 5.1k = 4.3e3 at MPT's
+// train step, where an fp32 ulp is 4.9e-4: the per-head form takes their
+// difference first (exact where the two are close, Sterbenz) and adds the
+// scaled score to it, so p keeps the error of the lse alone. The per-key
+// form keeps its order, (scale * q.k + bias) - lse, whose mask value
+// cancels a left-pad row's lse exactly.
 //
 // Later work: a persistent grid, overlapping one tile's products with the
 // next tile's exponentials (both kernels wait for every product of a tile
@@ -142,6 +163,8 @@ constexpr size_t DKV_SMEM = KB_BAR_OFF + N_BARS * 8 + 1024;  // 162 KB
 // arrives, consumer 1 waits) and dS^T written (both wait); 0 is
 // __syncthreads
 constexpr int BAR_P = 1, BAR_DS = 3;
+// the kinds of bias, a template argument of both kernels
+constexpr int NO_BIAS = 0, KEY_BIAS = 1, HEAD_BIAS = 2;
 
 struct Params {
   const __nv_bfloat16* o;     // K6a: O and dO for delta
@@ -157,10 +180,11 @@ struct Params {
   long long dq_sb, dq_sh, dq_ss;
   long long dk_sb, dk_sh, dk_ss;
   long long dv_sb, dv_sh, dv_ss;
-  long long bias_sb;
+  long long bias_sb, bias_sh;  // head stride: 0 per key, Skv per head
   int batch, hq, hkv, sq, skv;
   float scale;
   int causal;
+  int window;  // > 0 in the WINDOW instances
 };
 
 // rows [row0, row0 + R) of one (head, batch row) -> shared, as R / 64 x 2
@@ -275,13 +299,14 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* g, long long ss,
 }
 
 // K6a: delta and dQ for 128 query rows of one (batch, q head)
-template <bool HAS_BIAS>
+template <int BIAS, bool WINDOW>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_do,
                       const Params p) {
+  constexpr bool HAS_BIAS = BIAS != NO_BIAS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -306,7 +331,9 @@ __global__ void __launch_bounds__(NT, 1)
   const int off = p.skv - p.sq;  // causal diagonal offset
   int kv_end = p.skv;
   if (p.causal) kv_end = min(kv_end, q0 + BM + off);
-  const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+  // under the window: the tile of the lowest key the block's first row sees
+  const int t0 = WINDOW ? max(0, q0 + off - p.window + 1) / BN : 0;
+  const int n_tiles = kv_end > 0 ? max(0, (kv_end + BN - 1) / BN - t0) : 0;
 
   if (tid == 0) init_barriers(bars, 1);
   __syncthreads();
@@ -324,8 +351,8 @@ __global__ void __launch_bounds__(NT, 1)
         // the first pass over the ring finds every stage free
         mbar_wait(empty(s), ph ^ 1);
         mbar_expect_tx(full(s), 2 * WALK_BYTES);
-        load_tile<BN>(k_s(s), &tm_k, full(s), t * BN, hk, b);
-        load_tile<BN>(v_s(s), &tm_v, full(s), t * BN, hk, b);
+        load_tile<BN>(k_s(s), &tm_k, full(s), (t0 + t) * BN, hk, b);
+        load_tile<BN>(v_s(s), &tm_v, full(s), (t0 + t) * BN, hk, b);
       }
     }
   } else {
@@ -367,7 +394,8 @@ __global__ void __launch_bounds__(NT, 1)
       lo0 *= LOG2E;
       lo1 *= LOG2E;
     }
-    const float* bias = HAS_BIAS ? p.bias + b * p.bias_sb : nullptr;
+    const float* bias =
+        HAS_BIAS ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
 
     float dq[64];
 #pragma unroll
@@ -377,10 +405,12 @@ __global__ void __launch_bounds__(NT, 1)
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % STAGES;
       const uint32_t ph = (t / STAGES) & 1;
-      const int j0 = t * BN;
+      const int j0 = (t0 + t) * BN;
       mbar_wait(full(s), ph);
-      // some row of this warpgroup sees a key of the tile
-      if (qw0 < p.sq && (!p.causal || j0 <= qw0 + 63 + off)) {
+      // some row of this warpgroup sees a key of the tile (under the
+      // window: its first row sees the tile's last key)
+      if (qw0 < p.sq && (!p.causal || j0 <= qw0 + 63 + off) &&
+          (!WINDOW || j0 + BN - 1 > qw0 + off - p.window)) {
         float sacc[32], dpacc[32];
         // S = Q K^T, then dP = dO V^T: 8 k-steps of 16 columns each
         wg_fence();
@@ -412,21 +442,28 @@ __global__ void __launch_bounds__(NT, 1)
         wg_wait<1>();
         pin(sacc);
 
-        // P = exp(s - lse), masked only on tiles that cross the key end or
-        // this warpgroup's causal diagonal. Column 8i + e of this thread's
-        // pairs is key j0 + cq + 8i + e.
+        // P = exp(s - lse), masked only on tiles that cross the key end,
+        // this warpgroup's causal diagonal or the window's lower bound of
+        // its last row. Column 8i + e of this thread's pairs is key j0 +
+        // cq + 8i + e, visible under the window from column w0 (w1).
         const bool edge = j0 + BN > p.skv ||
-                          (p.causal && j0 + BN - 1 > qw0 + off);
+                          (p.causal && j0 + BN - 1 > qw0 + off) ||
+                          (WINDOW && j0 <= qw0 + 63 + off - p.window);
         const int lim = p.skv - j0 - cq;
         const int big = 1 << 30;
         const int d0 = p.causal ? qi0 + off - j0 - cq : big;
         const int d1 = p.causal ? qi1 + off - j0 - cq : big;
+        const int w0 = WINDOW ? qi0 + off - p.window + 1 - j0 - cq : -big;
+        const int w1 = w0 + 8;
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float x0 = sacc[4 * i + e], x1 = sacc[4 * i + 2 + e];
-            if constexpr (HAS_BIAS) {
+            if constexpr (BIAS == HEAD_BIAS) {
+              x0 = fmaf(x0, sc, bv[2 * i + e] - lo0) * LOG2E;
+              x1 = fmaf(x1, sc, bv[2 * i + e] - lo1) * LOG2E;
+            } else if constexpr (BIAS == KEY_BIAS) {
               x0 = (fmaf(x0, sc, bv[2 * i + e]) - lo0) * LOG2E;
               x1 = (fmaf(x1, sc, bv[2 * i + e]) - lo1) * LOG2E;
             } else {
@@ -435,8 +472,8 @@ __global__ void __launch_bounds__(NT, 1)
             }
             if (edge) {
               const int c = 8 * i + e;
-              if (c >= lim || c > d0) x0 = -INFINITY;
-              if (c >= lim || c > d1) x1 = -INFINITY;
+              if (c >= lim || c > d0 || (WINDOW && c < w0)) x0 = -INFINITY;
+              if (c >= lim || c > d1 || (WINDOW && c < w1)) x1 = -INFINITY;
             }
             sacc[4 * i + e] = ex2(x0);
             sacc[4 * i + 2 + e] = ex2(x1);
@@ -479,13 +516,14 @@ __global__ void __launch_bounds__(NT, 1)
 // group's q heads and every query tile that sees them. Consumer 0 forms
 // S^T and P^T, consumer 1 dP^T and dS^T; each accumulates its 64-column
 // half of dK and dV.
-template <bool HAS_BIAS>
+template <int BIAS, bool WINDOW>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_do,
                        const Params p) {
+  constexpr bool HAS_BIAS = BIAS != NO_BIAS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -519,8 +557,15 @@ __global__ void __launch_bounds__(NT, 1)
     const int lo = k0 - off - (BN - 1);
     t_first = lo > 0 ? (lo + BN - 1) / BN : 0;
   }
-  const int n_qt = (p.sq + BN - 1) / BN;
-  const int per_head = max(n_qt - t_first, 0);
+  int t_end = (p.sq + BN - 1) / BN;
+  if constexpr (WINDOW) {
+    // rows [0, hi) see a key of the block under the window (the last key
+    // k0 + 63 is visible to rows i < k0 + 63 + window - off); every later
+    // q tile sees none
+    const int hi = k0 + BN - 1 + p.window - off;
+    t_end = min(t_end, hi > 0 ? (hi + BN - 1) / BN : 0);
+  }
+  const int per_head = max(t_end - t_first, 0);
   // the walk: tile it is query tile t_first + it % per_head of q head
   // hk * group + it / per_head
   const int n_tiles = group * per_head;
@@ -579,8 +624,9 @@ __global__ void __launch_bounds__(NT, 1)
     const int cq = 2 * (lane % 4);
     const int kj0 = k0 + r0, kj1 = kj0 + 8;
     const float sc = HAS_BIAS ? p.scale : p.scale * LOG2E;
+    // the bias of keys kj0, kj1: once per key, or per q head of the walk
     float b0 = 0.f, b1 = 0.f;
-    if constexpr (HAS_BIAS) {
+    if constexpr (BIAS == KEY_BIAS) {
       const float* bias = p.bias + b * p.bias_sb;
       if (kj0 < p.skv) b0 = bias[kj0];
       if (kj1 < p.skv) b1 = bias[kj1];
@@ -608,6 +654,14 @@ __global__ void __launch_bounds__(NT, 1)
       float* p32 = reinterpret_cast<float*>(gbase + KB_P32_OFF +
                                             par * P32_BYTES) + ltid;
       const float* sl = stats(s);
+      if constexpr (BIAS == HEAD_BIAS) {
+        if (cw == 0) {
+          const float* bias = p.bias + b * p.bias_sb +
+                              (hk * group + it / per_head) * p.bias_sh;
+          b0 = kj0 < p.skv ? __ldg(bias + kj0) : 0.f;
+          b1 = kj1 < p.skv ? __ldg(bias + kj1) : 0.f;
+        }
+      }
       mbar_wait(full(s), ph);
 
       // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T. Both run the
@@ -626,10 +680,13 @@ __global__ void __launch_bounds__(NT, 1)
       pin(acc);
       if (cw == 0) {
         // P^T = exp(s - lse): column 8i + e of this thread's pairs is
-        // query q0 + cq + 8i + e, visible to key kj iff it is >= kj - off;
-        // only tiles that cross the diagonal are masked
-        const bool edge = p.causal && k0 + 63 > q0 + off;
+        // query q0 + cq + 8i + e, visible to key kj iff it is >= kj - off
+        // and, under the window, < kj - off + window; only tiles that
+        // cross the diagonal or the band's lower edge are masked
+        const bool edge = (p.causal && k0 + 63 > q0 + off) ||
+                          (WINDOW && k0 <= q0 + 63 + off - p.window);
         const int d0 = kj0 - off - q0 - cq, d1 = kj1 - off - q0 - cq;
+        const int w0 = WINDOW ? d0 + p.window : 0, w1 = w0 + 8;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * i + cq);
@@ -637,7 +694,10 @@ __global__ void __launch_bounds__(NT, 1)
           for (int e = 0; e < 2; ++e) {
             const float lse = e ? l2.y : l2.x;
             float x0 = acc[4 * i + e], x1 = acc[4 * i + 2 + e];
-            if constexpr (HAS_BIAS) {
+            if constexpr (BIAS == HEAD_BIAS) {
+              x0 = fmaf(x0, sc, b0 - lse) * LOG2E;
+              x1 = fmaf(x1, sc, b1 - lse) * LOG2E;
+            } else if constexpr (BIAS == KEY_BIAS) {
               x0 = (fmaf(x0, sc, b0) - lse) * LOG2E;
               x1 = (fmaf(x1, sc, b1) - lse) * LOG2E;
             } else {
@@ -646,8 +706,13 @@ __global__ void __launch_bounds__(NT, 1)
             }
             if (edge) {
               const int c = 8 * i + e;
-              if (c < d0) x0 = -INFINITY;
-              if (c < d1) x1 = -INFINITY;
+              // without a window only causal tiles cross an edge
+              if ((WINDOW ? p.causal && c < d0 : c < d0) ||
+                  (WINDOW && c >= w0))
+                x0 = -INFINITY;
+              if ((WINDOW ? p.causal && c < d1 : c < d1) ||
+                  (WINDOW && c >= w1))
+                x1 = -INFINITY;
             }
             acc[4 * i + e] = ex2(x0);
             acc[4 * i + 2 + e] = ex2(x1);
@@ -746,35 +811,69 @@ int launch(Kern kern, size_t smem, long long blocks,
   return (int)cudaGetLastError();
 }
 
+// the bias and window fields of p from an entry's arguments; the kind of
+// bias (a template argument), or -1 for arguments the kernels refuse
+int bias_and_window(const void* bias, long long bias_sb, long long bias_sh,
+                    int window, Params& p) {
+  if (window < 0 || bias_sb < 0 || bias_sh < 0 || (bias_sh && !bias))
+    return -1;
+  p.bias = (const float*)bias;
+  p.bias_sb = bias_sb;
+  p.bias_sh = bias_sh;
+  p.window = window;
+  return !bias ? NO_BIAS : bias_sh ? HEAD_BIAS : KEY_BIAS;
+}
+
+template <int BIAS>
+int launch_dq(long long blocks, const CUtensorMap (&m)[4], const Params& p,
+              void* stream) {
+  return launch(p.window > 0 ? flash_bwd_dq_sm90<BIAS, true>
+                             : flash_bwd_dq_sm90<BIAS, false>,
+                DQ_SMEM, blocks, m, p, stream);
+}
+
+template <int BIAS>
+int launch_dkv(long long blocks, const CUtensorMap (&m)[4], const Params& p,
+               void* stream) {
+  return launch(p.window > 0 ? flash_bwd_dkv_sm90<BIAS, true>
+                             : flash_bwd_dkv_sm90<BIAS, false>,
+                DKV_SMEM, blocks, m, p, stream);
+}
+
 }  // namespace
 
 // K6a: delta (written to `delta`, which the K6b entry then reads) and dQ.
-// geom: 4 x 11 int64 (q, k, v, dO), each dims[4], byte strides[3], box[4]
+// geom: 4 x 11 int64 (q, k, v, dO), each dims[4], byte strides[3], box[4].
+// bias_sb / bias_sh: the bias's batch and head strides in elements
+// (bias_sh 0: one bias a key for every head; Skv: ALiBi's [B, Hq, Skv]).
+// window: 0 for none.
 extern "C" int vls_flash_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* bias, const void* lse, void* delta,
     void* dq, const long long* geom, long long o_sb, long long o_sh,
     long long o_ss, long long dq_sb, long long dq_sh, long long dq_ss,
-    long long bias_sb, float scale, int causal, void* stream) {
+    long long bias_sb, long long bias_sh, float scale, int causal,
+    int window, void* stream) {
   CUtensorMap maps[4];
   Params p = {};
+  const int kind = bias_and_window(bias, bias_sb, bias_sh, window, p);
+  if (kind < 0) return (int)cudaErrorInvalidValue;
   const int e = prepare(q, k, v, dout, geom, maps, p);
   if (e != 0) return e;
   p.o = (const __nv_bfloat16*)o;
   p.dout = (const __nv_bfloat16*)dout;
-  p.bias = (const float*)bias;
   p.lse = (const float*)lse;
   p.delta = (float*)delta;
   p.dq = (__nv_bfloat16*)dq;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_ss = dq_ss;
-  p.bias_sb = bias_sb;
   p.scale = scale;
   p.causal = causal;
   const long long blocks =
       (long long)((p.sq + BM - 1) / BM) * p.hq * p.batch;
-  return launch(bias ? flash_bwd_dq_sm90<true> : flash_bwd_dq_sm90<false>,
-                DQ_SMEM, blocks, maps, p, stream);
+  if (kind == HEAD_BIAS) return launch_dq<HEAD_BIAS>(blocks, maps, p, stream);
+  if (kind == KEY_BIAS) return launch_dq<KEY_BIAS>(blocks, maps, p, stream);
+  return launch_dq<NO_BIAS>(blocks, maps, p, stream);
 }
 
 // K6b: dK and dV, from the delta the K6a entry wrote
@@ -783,23 +882,26 @@ extern "C" int vls_flash_bwd_dkv_sm90(
     const void* bias, const void* lse, const void* delta, void* dk,
     void* dv, const long long* geom, long long dk_sb, long long dk_sh,
     long long dk_ss, long long dv_sb, long long dv_sh, long long dv_ss,
-    long long bias_sb, float scale, int causal, void* stream) {
+    long long bias_sb, long long bias_sh, float scale, int causal,
+    int window, void* stream) {
   CUtensorMap maps[4];
   Params p = {};
+  const int kind = bias_and_window(bias, bias_sb, bias_sh, window, p);
+  if (kind < 0) return (int)cudaErrorInvalidValue;
   const int e = prepare(q, k, v, dout, geom, maps, p);
   if (e != 0) return e;
-  p.bias = (const float*)bias;
   p.lse = (const float*)lse;
   p.delta = (float*)delta;
   p.dk = (__nv_bfloat16*)dk;
   p.dv = (__nv_bfloat16*)dv;
   p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_ss = dk_ss;
   p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_ss = dv_ss;
-  p.bias_sb = bias_sb;
   p.scale = scale;
   p.causal = causal;
   const long long blocks =
       (long long)((p.skv + BN - 1) / BN) * p.hkv * p.batch;
-  return launch(bias ? flash_bwd_dkv_sm90<true> : flash_bwd_dkv_sm90<false>,
-                DKV_SMEM, blocks, maps, p, stream);
+  if (kind == HEAD_BIAS)
+    return launch_dkv<HEAD_BIAS>(blocks, maps, p, stream);
+  if (kind == KEY_BIAS) return launch_dkv<KEY_BIAS>(blocks, maps, p, stream);
+  return launch_dkv<NO_BIAS>(blocks, maps, p, stream);
 }

@@ -77,8 +77,8 @@ _SIGNATURES = {
     "vls_attention_short_sm90": [_P] * 7 + [_L] * 4 + [_I, _I, _F, _P],
     "vls_attention_bwd_dq": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
     "vls_attention_bwd_dkv": [_P] * 9 + [_L] * 19 + [_I] * 6 + [_F, _I, _P],
-    "vls_flash_bwd_dq_sm90": [_P] * 10 + [_L] * 7 + [_F, _I, _P],
-    "vls_flash_bwd_dkv_sm90": [_P] * 10 + [_L] * 7 + [_F, _I, _P],
+    "vls_flash_bwd_dq_sm90": [_P] * 10 + [_L] * 8 + [_F, _I, _I, _P],
+    "vls_flash_bwd_dkv_sm90": [_P] * 10 + [_L] * 8 + [_F, _I, _I, _P],
     "vls_attention_short_bwd_sm90": [_P] * 12 + [_L] * 10
                                     + [_I, _I, _F, _P],
     "vls_maxpool2x2_bf16": [_P, _P, _L, _I, _I, _I, _P],
@@ -971,18 +971,21 @@ def _bwd_pair(d: int):
 def attention_bwd_entry(d: int, skv: int, hkv: int, window: int = 0,
                         head_bias: bool = False):
     """The C entries that serve `attention_bwd` at head dim d over skv
-    keys and hkv kv heads, in launch order (a sliding window or a per-head
-    bias: a ValueError, no backward kernel takes them): the one-pass
-    kernel of
+    keys and hkv kv heads, in launch order: the one-pass kernel of
     csrc/attention_short_bwd_sm90.cu wherever the forward took
     attention_short_sm90.cu (head dim 16, skv <= 64, a batch row's K/V
     within the resident slot: the SAM2 mask decoder's image->token
     attention); the TMA + wgmma pair of csrc/attention_bwd_sm90.cu (dQ,
-    then dK/dV) at head dim 128 (the LLM's); csrc/attention_bwd.cu's pair
-    for every other call."""
+    then dK/dV) at head dim 128 (the LLM's), the only pair that takes a
+    sliding window (`window` > 0, Mistral) or a per-head bias
+    (`head_bias`, MPT's ALiBi): either at another head dim is a
+    ValueError; csrc/attention_bwd.cu's pair for every other call."""
     if window or head_bias:
-        raise ValueError("attention_bwd: no backward kernel takes a sliding "
-                         "window or a per-head bias (ROADMAP queue 1)")
+        if d != FLASH_SM90_HEAD_DIM:
+            raise ValueError("attention_bwd: a sliding window or a per-head "
+                             f"bias only at head dim {FLASH_SM90_HEAD_DIM} "
+                             f"(attention_bwd_sm90.cu), not {d}")
+        return _bwd_pair(d)
     if attention_entry(d, True, skv, hkv) == "vls_attention_short_sm90":
         return (SHORT_BWD_SM90_ENTRY,)
     return _bwd_pair(d)
@@ -1070,20 +1073,25 @@ def _short_bwd_geometry(q_shape, q_stride, k_shape, k_stride, v_stride,
 
 
 def attention_bwd(q, k, v, out, dout, lse, *, scale: float, causal: bool,
-                  kv_bias: Optional[torch.Tensor] = None):
+                  kv_bias: Optional[torch.Tensor] = None, window: int = 0):
     """K6a + K6b: (dq, dk, dv) of `attention` from its output and
     logsumexp. q/k/v/out/dout: [B, H, S, D] bf16 views (out and dout are
     copied once if their strides do not fit); lse fp32 [B, Hq, Sq]
-    contiguous; kv_bias fp32 [B, Skv] or None (it gets no gradient).
+    contiguous; kv_bias fp32 [B, Skv] per key, [B, Hq, Skv] per head and
+    key (ALiBi in the forward's key form, which its lse belongs to), or
+    None (it gets no gradient); window > 0: the forward's sliding window.
     Returns dq as a [B, Hq, Sq, D] view of a contiguous [B, Sq, Hq, D]
     buffer and dk, dv as [B, Hkv, Skv, D] views of [B, Skv, Hkv, D]
-    buffers. The shapes choose the kernels (`attention_bwd_entry`): one
-    launch of attention_short_bwd_sm90.cu (and its summing launch), or
-    the dQ kernel then the dK/dV kernel of a pair."""
+    buffers. The shapes and these options choose the kernels
+    (`attention_bwd_entry`): one launch of attention_short_bwd_sm90.cu
+    (and its summing launch), or the dQ kernel then the dK/dV kernel of a
+    pair."""
     bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
-    route = attention_bwd_entry(d, skv, hkv)
+    route = attention_bwd_entry(
+        d, skv, hkv, window,
+        head_bias=kv_bias is not None and kv_bias.dim() == 3)
     if route != (SHORT_BWD_SM90_ENTRY,):
-        kw = dict(scale=scale, causal=causal, kv_bias=kv_bias)
+        kw = dict(scale=scale, causal=causal, kv_bias=kv_bias, window=window)
         dq, delta = _attention_bwd_dq(route[0], q, k, v, out, dout, lse, **kw)
         dk, dv = _attention_bwd_dkv(route[1], q, k, v, dout, lse, delta, **kw)
         return dq, dk, dv
@@ -1136,7 +1144,7 @@ def _strides3(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _bwd_common(q, k, v, dout, lse, kv_bias):
+def _bwd_common(entry, q, k, v, dout, lse, kv_bias, window):
     bsz, hq, hkv, sq, skv, d = _check_qkv(q, k, v)
     qs, ks, vs = (_strides_bhs(q, "q"), _strides_bhs(k, "k"),
                   _strides_bhs(v, "v"))
@@ -1146,30 +1154,37 @@ def _bwd_common(q, k, v, dout, lse, kv_bias):
     _require(lse, "lse", dtype=torch.float32)
     if tuple(lse.shape) != (bsz, hq, sq):
         raise ValueError("attention_bwd: lse must be [B, Hq, Sq]")
-    bias_sb = _bias_stride(kv_bias, bsz, skv)
-    return (bsz, hq, hkv, sq, skv, d), (qs, ks, vs), dout, ds_, bias_sb
+    if window < 0:
+        raise ValueError(f"attention_bwd: window must be >= 0, got {window}")
+    bias_s = _bias_strides(kv_bias, bsz, hq, skv)
+    if (window or bias_s[1]) and entry not in _bwd_pair(FLASH_SM90_HEAD_DIM):
+        raise ValueError(f"attention_bwd: {entry} takes neither a sliding "
+                         "window nor a per-head bias")
+    return (bsz, hq, hkv, sq, skv, d), (qs, ks, vs), dout, ds_, bias_s
 
 
 def attention_bwd_dq(q, k, v, out, dout, lse, *, scale: float,
-                     causal: bool, kv_bias: Optional[torch.Tensor] = None):
+                     causal: bool, kv_bias: Optional[torch.Tensor] = None,
+                     window: int = 0):
     """K6a of a pair: dQ of `attention` from its output and logsumexp,
     and the per-row delta = rowsum(dO * O) fp32 [B, Hq, Sq] that
     `attention_bwd_dkv` reads. q/k/v/out/dout: [B, H, S, D] bf16 views
     (out and dout are copied once if their strides do not fit); lse fp32
-    [B, Hq, Sq] contiguous. Returns (dq as a [B, Hq, Sq, D] view of a
-    contiguous [B, Sq, Hq, D] buffer, delta). The head dim chooses the
-    pair's kernel: attention_bwd_sm90.cu at 128, attention_bwd.cu at every
-    other (also where `attention_bwd` takes the one-pass kernel)."""
+    [B, Hq, Sq] contiguous; kv_bias and window as `attention_bwd`.
+    Returns (dq as a [B, Hq, Sq, D] view of a contiguous [B, Sq, Hq, D]
+    buffer, delta). The head dim chooses the pair's kernel:
+    attention_bwd_sm90.cu at 128, attention_bwd.cu at every other (also
+    where `attention_bwd` takes the one-pass kernel)."""
     return _attention_bwd_dq(_bwd_pair(q.shape[-1])[0], q, k, v, out, dout,
                              lse, scale=scale, causal=causal,
-                             kv_bias=kv_bias)
+                             kv_bias=kv_bias, window=window)
 
 
 def _attention_bwd_dq(entry, q, k, v, out, dout, lse, *, scale, causal,
-                      kv_bias):
+                      kv_bias, window=0):
     """`attention_bwd_dq` through the C entry `entry`."""
-    shape, qkv_s, dout, ds_, bias_sb = _bwd_common(q, k, v, dout, lse,
-                                                   kv_bias)
+    shape, qkv_s, dout, ds_, bias_s = _bwd_common(entry, q, k, v, dout, lse,
+                                                  kv_bias, window)
     bsz, hq, hkv, sq, skv, d = shape
     out, os_ = _bhs_operand(out, "out")
     if out.shape != q.shape:
@@ -1184,12 +1199,12 @@ def _attention_bwd_dq(entry, q, k, v, out, dout, lse, *, scale, causal,
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout),
             _ptr(kv_bias), _ptr(lse), _ptr(delta), _ptr(dq),
             ctypes.cast(geom, ctypes.c_void_p), *os_, *_strides3(dq),
-            bias_sb, float(scale), int(causal), _stream())
+            *bias_s, float(scale), int(causal), int(window), _stream())
     else:
         code = lib.vls_attention_bwd_dq(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(kv_bias),
             _ptr(lse), _ptr(delta), _ptr(dq), *qkv_s[0], *qkv_s[1],
-            *qkv_s[2], *os_, *ds_, *_strides3(dq), bias_sb, bsz, hq, hkv,
+            *qkv_s[2], *os_, *ds_, *_strides3(dq), bias_s[0], bsz, hq, hkv,
             sq, skv, d, float(scale), int(causal), _stream())
     _check_code("attention_bwd_dq", code)
     ATTENTION_BWD_LAUNCHES.add(entry)
@@ -1197,22 +1212,24 @@ def _attention_bwd_dq(entry, q, k, v, out, dout, lse, *, scale, causal,
 
 
 def attention_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
-                      causal: bool, kv_bias: Optional[torch.Tensor] = None):
+                      causal: bool, kv_bias: Optional[torch.Tensor] = None,
+                      window: int = 0):
     """K6b of a pair: dK and dV of `attention`, summed over each kv
     head's group of q heads in the kernel. delta: from
-    `attention_bwd_dq`. Returns (dk, dv), each a [B, Hkv, Skv, D] view of
-    a contiguous [B, Skv, Hkv, D] buffer. The head dim chooses the pair's
-    kernel, as in `attention_bwd_dq`."""
+    `attention_bwd_dq`; kv_bias and window as `attention_bwd`. Returns
+    (dk, dv), each a [B, Hkv, Skv, D] view of a contiguous [B, Skv, Hkv,
+    D] buffer. The head dim chooses the pair's kernel, as in
+    `attention_bwd_dq`."""
     return _attention_bwd_dkv(_bwd_pair(q.shape[-1])[1], q, k, v, dout, lse,
                               delta, scale=scale, causal=causal,
-                              kv_bias=kv_bias)
+                              kv_bias=kv_bias, window=window)
 
 
 def _attention_bwd_dkv(entry, q, k, v, dout, lse, delta, *, scale, causal,
-                       kv_bias):
+                       kv_bias, window=0):
     """`attention_bwd_dkv` through the C entry `entry`."""
-    shape, qkv_s, dout, ds_, bias_sb = _bwd_common(q, k, v, dout, lse,
-                                                   kv_bias)
+    shape, qkv_s, dout, ds_, bias_s = _bwd_common(entry, q, k, v, dout, lse,
+                                                  kv_bias, window)
     bsz, hq, hkv, sq, skv, d = shape
     _require(delta, "delta", dtype=torch.float32)
     if tuple(delta.shape) != (bsz, hq, sq):
@@ -1227,12 +1244,13 @@ def _attention_bwd_dkv(entry, q, k, v, dout, lse, delta, *, scale, causal,
             _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(kv_bias), _ptr(lse),
             _ptr(delta), _ptr(dk), _ptr(dv),
             ctypes.cast(geom, ctypes.c_void_p), *_strides3(dk),
-            *_strides3(dv), bias_sb, float(scale), int(causal), _stream())
+            *_strides3(dv), *bias_s, float(scale), int(causal), int(window),
+            _stream())
     else:
         code = lib.vls_attention_bwd_dkv(
             _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(kv_bias), _ptr(lse),
             _ptr(delta), _ptr(dk), _ptr(dv), *qkv_s[0], *qkv_s[1],
-            *qkv_s[2], *ds_, *_strides3(dk), *_strides3(dv), bias_sb, bsz,
+            *qkv_s[2], *ds_, *_strides3(dk), *_strides3(dv), bias_s[0], bsz,
             hq, hkv, sq, skv, d, float(scale), int(causal), _stream())
     _check_code("attention_bwd_dkv", code)
     ATTENTION_BWD_LAUNCHES.add(entry)

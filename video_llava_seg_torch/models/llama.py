@@ -46,10 +46,12 @@ and the flash kernels run at the local heads, forward and backward; a
 checkpointed block reruns its sums in the recompute, on every rank in
 the same order.
 
-Out of the slice: training the Mistral / MPT families on the card (the
-flash backward takes neither the window nor ALiBi: `attention` raises
-NotImplementedError under autograd there). `stack_layers`, a TPU
-compile-time workaround, is not ported.
+Both families train on the card at head dim 128 (their 7B presets'):
+`forward` under autograd sends the window, or ALiBi as the per-head key
+bias, through `ops.attention._FlashAttention`, whose backward (K6a / K6b
+on attention_bwd_sm90.cu) reads the same window and bias; under tensor
+parallelism a rank's global slopes take the same path. `stack_layers`,
+a TPU compile-time workaround, is not ported.
 """
 
 from __future__ import annotations

@@ -38,8 +38,11 @@ pair elsewhere (`kernels.attention_bwd_entry`; each call counts one K6a
 and one K6b). The per-key bias gets no gradient (it
 is a mask). Under `torch.utils.checkpoint` the
 forward runs, and counts, a second time during the backward. A window or
-ALiBi under autograd on the card raises NotImplementedError: the
-backward kernels take neither (ROADMAP queue 1).
+ALiBi under autograd on the card takes the same Function at head dim 128
+(both families train there): K2 with the window, or with ALiBi as the
+per-head key bias, and its logsumexp of that key form; the backward
+reads the same window and bias, so p = exp(scale q.k + slope_h j -
+lse_i) is the reference's softmax. Other head dims raise a ValueError.
 
 `flash_forward_plain` / `flash_backward_plain` are the plain versions of
 the forward with its logsumexp and of the two backward kernels, with the
@@ -221,18 +224,21 @@ def flash_forward_plain(q, k, v, kv_bias=None, causal: bool = False,
 
 def flash_backward_plain(q, k, v, kv_bias, out, lse, dout,
                          causal: bool = False,
-                         scale: Optional[float] = None):
+                         scale: Optional[float] = None,
+                         window: Optional[int] = None):
     """Plain version of K6a + K6b: (dq, dk, dv) from the forward's output
     and logsumexp. delta = rowsum(dO * O); p = exp(s - lse); dV = p^T dO
     (p rounded to dO's dtype); dS = p (dO V^T - delta) scale, rounded to
     q's dtype; dQ = dS K; dK = dS^T Q; dK and dV summed over each kv
-    head's group of q heads. fp32 sums throughout."""
+    head's group of q heads. fp32 sums throughout. kv_bias and window as
+    `flash_forward_plain`: the lse must be that forward's, of the same
+    bias and window (for ALiBi, of its key form)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    s = _masked_scores(q, k, kv_bias, causal, scale)
+    s = _masked_scores(q, k, kv_bias, causal, scale, window)
     p = torch.exp(s - lse.float()[..., None])            # [B, Hq, Sq, Skv]
     do = dout.float()
     delta = (do * out.float()).sum(-1, keepdim=True)
@@ -250,26 +256,30 @@ def flash_backward_plain(q, k, v, kv_bias, out, lse, dout,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K2 / K3 forward with the logsumexp saved; K6a + K6b backward."""
+    """K2 / K3 forward with the logsumexp saved; K6a + K6b backward.
+    kv_bias: the per-key pad bias [B, Skv] or ALiBi's per-head key bias
+    [B, Hq, Skv] (`alibi_key_bias`), saved as given: the backward reads
+    the bias whose logsumexp the forward wrote. window: 0 for none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_bias, causal, scale, single):
-        kernels.LAUNCHES.add("K3" if single else "K2")
+    def forward(ctx, q, k, v, kv_bias, causal, scale, single, window=0):
         out, lse = kernels.attention(q, k, v, scale=scale, causal=causal,
                                      kv_bias=kv_bias, two_pass=single,
-                                     with_lse=True)
+                                     with_lse=True, window=window)
+        kernels.LAUNCHES.add("K3" if single else "K2")
         ctx.save_for_backward(q, k, v, kv_bias, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_bias, out, lse = ctx.saved_tensors
-        kw = dict(scale=ctx.scale, causal=ctx.causal, kv_bias=kv_bias)
+        kw = dict(scale=ctx.scale, causal=ctx.causal, kv_bias=kv_bias,
+                  window=ctx.window)
         kernels.LAUNCHES.add("K6a")
         kernels.LAUNCHES.add("K6b")
         dq, dk, dv = kernels.attention_bwd(q, k, v, out, dout, lse, **kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def attention(q, k, v, *, causal: bool = False,
@@ -282,8 +292,11 @@ def attention(q, k, v, *, causal: bool = False,
     backend='plain' always runs the twin (the JAX package's
     backend='xla', chosen by callers for short query sets). window /
     alibi: Mistral's sliding window, MPT's ALiBi (`attention_reference`'s
-    semantics); on CUDA they take K2 on attention_sm90.cu at head dim 128
-    over any number of keys and raise elsewhere, and under autograd."""
+    semantics; alibi a tensor: a tensor-parallel rank's slopes); on CUDA
+    they take K2 on attention_sm90.cu at head dim 128 over any number of
+    keys, and under autograd `_FlashAttention` with K6a / K6b on
+    attention_bwd_sm90.cu, so both families train on the card there;
+    other head dims raise a ValueError."""
     if window is not None and window < 1:
         raise ValueError(f"attention: window must be >= 1, got {window}")
     if backend == "plain" or q.device.type == "cpu":
@@ -300,18 +313,20 @@ def attention(q, k, v, *, causal: bool = False,
                                         or v.requires_grad)
     slopes = _slopes_of(alibi, q.shape[1], q.device)
     if window is not None or slopes is not None:
-        if grad:
-            raise NotImplementedError(
-                "ROADMAP queue 1: training the Mistral / MPT families (K6a "
-                "/ K6b with the window and the per-head bias)")
         if slopes is not None:
             kv_bias = alibi_key_bias(slopes, k.shape[2], kv_mask,
                                      batch=q.shape[0])
         else:
             kv_bias = _pad_bias(kv_mask)
+        if grad:
+            # K2 refuses either form off head dim 128 (a ValueError), so
+            # nothing is counted there
+            return _FlashAttention.apply(q, k, v, kv_bias, causal,
+                                         float(scale), False, window or 0)
+        out = kernels.attention(q, k, v, scale=scale, causal=causal,
+                                kv_bias=kv_bias, window=window or 0)
         kernels.LAUNCHES.add("K2")
-        return kernels.attention(q, k, v, scale=scale, causal=causal,
-                                 kv_bias=kv_bias, window=window or 0)
+        return out
     kv_bias = _pad_bias(kv_mask)
     single = k.shape[2] <= SINGLE_BLOCK_MAX_KV
     if grad:
